@@ -1,0 +1,159 @@
+"""The whole-model step: dynamics + physics + the in-step dense ML
+correction (port of ``fv3net_tpu/runtime/fused.py``).
+
+PyTorch runs eagerly, so a "fused" step here is a plain Python function
+under ``torch.no_grad``; the chunk's step loop and the radiation cache
+are Python.  ``impl`` selects the vertical-remap application (None: the
+CUDA kernel on CUDA tensors, the plain version on CPU tensors).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from fv3net_torch.dycore.core import (
+    DycoreConfig,
+    GridArrays,
+    dynamics_step,
+    validate_acoustic_cfl,
+)
+from fv3net_torch.dycore.state import (
+    DycoreState,
+    temperature_from_theta_v,
+    theta_v_from_temperature,
+)
+from fv3net_torch.fit import packer
+from fv3net_torch.ops import thermo
+from fv3net_torch.physics import radiation_gray
+from fv3net_torch.physics.driver import PhysicsConfig, physics_step
+
+
+def aquaplanet_sst(lat: torch.Tensor) -> torch.Tensor:
+    """Zonally symmetric SST profile (QOBS-like), from the reference's
+    ``runtime/loop.py``."""
+    return 300.15 - 30.0 * torch.sin(lat) ** 2
+
+
+def ml_correction_fn(model) -> Tuple[Callable, object]:
+    """From a :class:`~fv3net_torch.fit.dense.DenseModel`, build
+    ``apply(params, state, pmid, dt) -> state`` adding its dQ1/dQ2
+    tendencies with the MSE-conserving non-negative humidity limiter.
+    Returns ``(apply, params)`` where ``params`` is the model itself."""
+
+    def apply(params, state: DycoreState, pmid, dt: float) -> DycoreState:
+        q = state.tracers["sphum"]
+        T = temperature_from_theta_v(state.pt, pmid, q)
+        cols = {
+            "air_temperature": packer.stack_columns(T),
+            "specific_humidity": packer.stack_columns(q),
+        }
+        X, _ = packer.pack(cols, params.input_variables)
+        out = packer.unpack(params.apply_packed(X), params.output_info)
+        grid_shape = (T.shape[0], T.shape[2], T.shape[3])
+        dQ1 = packer.unstack_columns(out["dQ1"], grid_shape)
+        dQ2 = packer.unstack_columns(out["dQ2"], grid_shape)
+        dQ2, dQ1 = thermo.non_negative_sphum_mse_conserving(
+            q, dQ2, dt, q1=dQ1
+        )
+        T = T + dt * dQ1
+        q = q + dt * dQ2
+        tracers = dict(state.tracers)
+        tracers["sphum"] = q
+        return dataclasses.replace(
+            state, pt=theta_v_from_temperature(T, pmid, q), tracers=tracers
+        )
+
+    return apply, model
+
+
+def _check_radiation(phys_cfg: PhysicsConfig):
+    if phys_cfg.radiation_scheme != "gray":
+        raise NotImplementedError(
+            f"radiation_scheme={phys_cfg.radiation_scheme!r} is not ported "
+            "to fv3net_torch yet (gray only)"
+        )
+
+
+def _ml_step(ml_apply, ml_params, s: DycoreState, dyn_cfg: DycoreConfig):
+    delp_c = s.delp.movedim(1, -1)
+    pmid = thermo.pressure_at_midpoint_log(
+        delp_c, toa_pressure=dyn_cfg.ptop
+    ).movedim(-1, 1)
+    return ml_apply(ml_params, s, pmid, dyn_cfg.dt)
+
+
+def build_fused_step(
+    g: GridArrays,
+    ak: torch.Tensor,
+    bk: torch.Tensor,
+    dyn_cfg: DycoreConfig,
+    phys_cfg: PhysicsConfig,
+    ml_apply: Optional[Callable] = None,
+    impl: str = None,
+):
+    """Returns step(state, ml_params, t_surface, cos_zenith) -> state."""
+    validate_acoustic_cfl(g, dyn_cfg)
+    _check_radiation(phys_cfg)
+
+    @torch.no_grad()
+    def step(state: DycoreState, ml_params, t_surface, cos_zenith):
+        state = dynamics_step(state, g, ak, bk, dyn_cfg, impl=impl)
+        state, _ = physics_step(
+            state, t_surface, cos_zenith, g.lat, dyn_cfg.dt, phys_cfg
+        )
+        if ml_apply is not None:
+            state = _ml_step(ml_apply, ml_params, state, dyn_cfg)
+        return state
+
+    return step
+
+
+def build_fused_multi_step(
+    g: GridArrays,
+    ak: torch.Tensor,
+    bk: torch.Tensor,
+    dyn_cfg: DycoreConfig,
+    phys_cfg: PhysicsConfig,
+    ml_apply: Optional[Callable] = None,
+    n_steps: int = 8,
+    radiation_interval: int = 1,
+    impl: str = None,
+):
+    """``n_steps`` model steps, computing radiation only every
+    ``radiation_interval`` steps (always at step 0) and reusing the
+    stored heating rates and fluxes in between.
+
+    Returns fn(state, ml_params, t_surface, cos_zenith) -> state.
+    """
+    validate_acoustic_cfl(g, dyn_cfg)
+    _check_radiation(phys_cfg)
+
+    def radiation(s: DycoreState, t_surface, cos_zenith):
+        delp = s.delp.movedim(1, -1)
+        q = s.tracers["sphum"].movedim(1, -1)
+        pmid = thermo.pressure_at_midpoint_log(
+            delp, toa_pressure=dyn_cfg.ptop
+        )
+        T = temperature_from_theta_v(s.pt.movedim(1, -1), pmid, q)
+        return radiation_gray.gray_radiation(
+            T, delp, t_surface, cos_zenith, g.lat, phys_cfg.radiation
+        )
+
+    @torch.no_grad()
+    def multi(state: DycoreState, ml_params, t_surface, cos_zenith):
+        cache = None
+        for i in range(n_steps):
+            state = dynamics_step(state, g, ak, bk, dyn_cfg, impl=impl)
+            if i % radiation_interval == 0:
+                cache = radiation(state, t_surface, cos_zenith)
+            state, _ = physics_step(
+                state, t_surface, cos_zenith, g.lat, dyn_cfg.dt, phys_cfg,
+                radiation_fn=lambda *_a, cached=cache, **_k: cached,
+            )
+            if ml_apply is not None:
+                state = _ml_step(ml_apply, ml_params, state, dyn_cfg)
+        return state
+
+    return multi
