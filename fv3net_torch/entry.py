@@ -1,4 +1,4 @@
-"""Entry point of the port: the flagship C48 hybrid chunk with gray
+"""Entry point of the port: the flagship C48 hybrid chunk with RRTMG
 radiation (counterpart of ``__graft_entry__._flagship``).
 
     step, (state, ml_params, sst, cosz) = flagship(device="cuda")
@@ -60,24 +60,20 @@ def flagship_dense_model(npz: int, dtype=torch.float32, device=None,
     )
 
 
-def flagship(npx: int = 48, npz: int = 32, radiation: str = "gray",
+def flagship(npx: int = 48, npz: int = 32, radiation: str = "rrtmg",
              chunk: int = 8, radiation_interval: int = 4,
              dtype=torch.float32, device="cuda", seed: int = 0,
              impl: str = None):
     """The flagship hybrid configuration: PPM dynamics, GFS-style column
-    physics with gray radiation every ``radiation_interval`` steps, and
-    the in-step dense ML correction.
+    physics with RRTMG LW+SW (or ``radiation="gray"``) every
+    ``radiation_interval`` steps, and the in-step dense ML correction.
 
     ``chunk=None`` returns a single step; ``chunk=N`` the N-step chunk.
     Returns ``(step, (state, ml_params, sst, cosz))``.  ``impl`` selects
-    the vertical-remap application (None: the CUDA kernel on a CUDA
-    device).  ``radiation="rrtmg"`` raises until RRTMG is ported.
+    the kernels' versions, the vertical remap and the k-table selections
+    (None: the CUDA kernels on a CUDA device).  RRTMG computes in
+    ``dtype``.
     """
-    if radiation != "gray":
-        raise NotImplementedError(
-            f"radiation={radiation!r} is not ported to fv3net_torch yet "
-            "(gray only)"
-        )
     grid = make_grid(npx)
     g = GridArrays.from_grid(grid, dtype=dtype, device=device)
     state, ak, bk = init_state(grid, npz, dtype=dtype, device=device)

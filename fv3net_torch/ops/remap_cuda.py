@@ -4,12 +4,9 @@ The kernel replaces the TPU kernel ``fv3net_tpu/ops/pallas_remap.py::
 _kernel``; its plain PyTorch version is
 :func:`fv3net_torch.ops.remap.remap_apply_plain`.
 
-Build: at first use, ``nvcc`` compiles the source for ``sm_90a`` into a
-shared library with a plain C interface under ``fv3net_torch/_build/``
-(listed in ``.gitignore``), named by a hash of the source and flags, and
-``ctypes`` loads it.  Nothing is built when this module is imported.
-There is no fallback: a missing compiler, a failed build or a failed
-launch raises.
+Build: :func:`fv3net_torch.ops.cuda_build.build` compiles the source at
+first use (nothing is built when this module is imported).  There is no
+fallback: a missing compiler, a failed build or a failed launch raises.
 
 ``LAUNCHES`` counts the kernel launches of this process; a run resets it
 to 0 and reads it to show that its remaps went through the kernel.
@@ -17,74 +14,22 @@ to 0 and reads it to show that its remaps went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "remap_apply.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from fv3net_torch.ops import cuda_build
+from fv3net_torch.ops.cuda_build import check_tensor
+
+SOURCE = "remap_apply.cu"
 KM_MAX = 128  # largest KMAX bucket compiled into the kernel
 
 LAUNCHES = 0
 
 
-@dataclasses.dataclass(frozen=True)
-class BuildInfo:
-    """What :func:`build` did: the library path, the seconds the compile
-    took (0.0 when a library of the same hash was already there) and the
-    compiler's output (``-Xptxas -v``: registers, local memory, spills)."""
-
-    path: Path
-    seconds: float
-    log: str
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError(
-        "nvcc not found (neither on PATH nor at /usr/local/cuda/bin); the "
-        "remap kernel is built from fv3net_torch/csrc on the machine with "
-        "the card"
-    )
-
-
-@functools.lru_cache(maxsize=None)
-def build() -> BuildInfo:
-    """Compile the kernel library if needed; returns its :class:`BuildInfo`."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    path = BUILD_DIR / f"libremap_apply_{digest[:16]}.so"
-    if path.exists():
-        return BuildInfo(path, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    return BuildInfo(path, seconds, proc.stdout + proc.stderr)
+def build() -> cuda_build.BuildInfo:
+    """Compile the kernel library if needed; returns its build info."""
+    return cuda_build.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,20 +50,7 @@ _ENTRY = {torch.float32: "fv3_remap_apply_f32",
 
 
 def _check(name: str, x: torch.Tensor, shape, dtype, device):
-    if not x.is_cuda:
-        raise ValueError(f"remap kernel: {name} must be a CUDA tensor, "
-                         f"got device {x.device}")
-    if x.device != device:
-        raise ValueError(f"remap kernel: {name} is on {x.device}, "
-                         f"expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"remap kernel: {name} has dtype {x.dtype}, "
-                        f"expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"remap kernel: {name} has shape "
-                         f"{tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"remap kernel: {name} must be contiguous")
+    check_tensor("remap", name, x, shape, dtype, device)
 
 
 def remap_apply_cuda(search, q1, al, ar, a6) -> torch.Tensor:

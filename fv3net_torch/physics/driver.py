@@ -5,7 +5,8 @@ Operates on the dycore state ([6, nz, ny, nx]); internally moves z last
 so every scheme is batched over all 6*ny*nx columns.  Diagnostics keep
 the reference's names (PRATEsfc, LHTFLsfc, ...).
 
-Ported: gray radiation or a ``radiation_fn`` override, stratospheric
+Ported: gray radiation or a ``radiation_fn`` override (the RRTMG band
+solvers reach the step that way, built by ``runtime/fused.py``), stratospheric
 eddy damping, Monin-Obukhov or bulk surface, K-profile or ramp PBL,
 Betts-Miller or mass-flux deep convection with the shallow mass-flux
 stage, Zhao-Carr microphysics.  GFDL microphysics, the emulator hooks,
@@ -48,7 +49,9 @@ class PhysicsConfig:
     unported scheme raises in :func:`physics_step`."""
 
     ptop: float = 300.0
-    # "gray" (computed here) or "rrtmg" (not ported yet)
+    # "gray" (computed here) or "rrtmg" (the band solvers of
+    # physics/radiation/rrtmg, handed in as ``radiation_fn`` by
+    # runtime/fused.py)
     radiation_scheme: str = "gray"
     radiation: rad.GrayRadiationParams = rad.GrayRadiationParams()
     surface: sfc.SurfaceParams = sfc.SurfaceParams()
@@ -67,6 +70,9 @@ class PhysicsConfig:
     # stratospheric eddy damping toward the per-level global mean
     strat_eddy_damp_days: float = 1.0
     strat_eddy_damp_pa: float = 25000.0
+    # bulk TOA calibration of the synthetic k-tables: the rrtmg solar
+    # constant is 1368.22 * solcon_scale
+    solcon_scale: float = 0.973
 
 
 def _zlast(x):
@@ -112,7 +118,10 @@ def physics_step(
     if "o3mr" in state.tracers:
         raise _not_ported("ozone photochemistry (physics/ozone.py)")
     if radiation_fn is None and cfg.radiation_scheme != "gray":
-        raise _not_ported(f"radiation_scheme={cfg.radiation_scheme!r}")
+        raise ValueError(
+            f"radiation_scheme={cfg.radiation_scheme!r} needs a radiation_fn "
+            "(runtime/fused.py builds it)"
+        )
 
     dtype = state.pt.dtype
     t_surface = t_surface.to(dtype)

@@ -98,6 +98,19 @@ def gscond(T, q, qc, p, dt: float,
     return T, q, qc
 
 
+def sundqvist_cloud_fraction(
+    T, q, qc, p, params: MicrophysicsParams = MicrophysicsParams()
+):
+    """Cloud fraction consistent with the gscond closure:
+    ``b = 1 - sqrt((1-rh)/(1-u00))`` for rh > u00 (Sundqvist et al.
+    1989), zero where there is no condensate (the radiation's cloud
+    optics read it)."""
+    qsat = saturation_specific_humidity(T, p)
+    rh = (q / qsat.clamp(min=1e-12)).clamp(0.0, 1.0)
+    arg = ((1.0 - rh) / max(1.0 - params.u00, 1e-6)).clamp(0.0, 1.0)
+    return torch.where(qc > 1e-8, 1.0 - torch.sqrt(arg), 0.0)
+
+
 def precpd(
     T, q, qc, p, delp, dt: float,
     params: MicrophysicsParams = MicrophysicsParams(),

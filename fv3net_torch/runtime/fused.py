@@ -3,15 +3,18 @@ correction (port of ``fv3net_tpu/runtime/fused.py``).
 
 PyTorch runs eagerly, so a "fused" step here is a plain Python function
 under ``torch.no_grad``; the chunk's step loop and the radiation cache
-are Python.  ``impl`` selects the vertical-remap application (None: the
-CUDA kernel on CUDA tensors, the plain version on CPU tensors).
+are Python.  ``impl`` selects the kernels' versions -- the vertical-remap
+application and the RRTMG k-table selections (None: the CUDA kernels on
+CUDA tensors, the plain versions on CPU tensors).
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from fv3net_torch.dycore.core import (
     DycoreConfig,
@@ -68,12 +71,55 @@ def ml_correction_fn(model) -> Tuple[Callable, object]:
     return apply, model
 
 
-def _check_radiation(phys_cfg: PhysicsConfig):
-    if phys_cfg.radiation_scheme != "gray":
+def _build_radiation_fn(phys_cfg: PhysicsConfig, device, dtype,
+                        impl: str = None) -> Optional[Callable]:
+    """The band-solver closure handed to physics_step: the RRTMG driver
+    for scheme "rrtmg", None for "gray" (which physics_step computes).
+
+    The driver computes in ``dtype``, the state's (the reference's
+    driver computes in float32 whatever the state's dtype), at solar
+    constant 1368.22 * ``solcon_scale``."""
+    if phys_cfg.radiation_scheme == "gray":
+        return None
+    if phys_cfg.radiation_scheme != "rrtmg":
         raise NotImplementedError(
             f"radiation_scheme={phys_cfg.radiation_scheme!r} is not ported "
-            "to fv3net_torch yet (gray only)"
+            "to fv3net_torch yet (gray and rrtmg are)"
         )
+    from fv3net_torch.physics.radiation.rrtmg.driver import (
+        RRTMGConfig,
+        RRTMGDriver,
+    )
+
+    driver = RRTMGDriver(
+        RRTMGConfig(solcon=1368.22 * phys_cfg.solcon_scale),
+        dtype=dtype, device=device, impl=impl,
+    )
+    epoch = datetime.datetime(2016, 7, 1)  # isol=0: the date seeds o3 only
+
+    def radiation_fn(T, delp, q, qc, t_surface, cos_zenith, lat):
+        out = driver(epoch, {
+            "air_temperature": T,
+            "pressure_thickness_of_atmospheric_layer": delp,
+            "specific_humidity": q,
+            "cloud_water_mixing_ratio": qc,
+            "surface_temperature": t_surface,
+            "latitude": lat,
+            "longitude": torch.zeros_like(lat),
+        }, cosz=cos_zenith)
+        sfx = "_python"
+        return out["tendency_of_air_temperature_due_to_radiation"], {
+            "ULWRFtoa": out["total_sky_upward_longwave_flux_at_top_of_"
+                            "atmosphere" + sfx],
+            "USWRFtoa": out["total_sky_upward_shortwave_flux_at_top_of_"
+                            "atmosphere" + sfx],
+            "DSWRFsfc": out["total_sky_downward_shortwave_flux_at_surface"
+                            + sfx],
+            "DLWRFsfc": out["total_sky_downward_longwave_flux_at_surface"
+                            + sfx],
+        }
+
+    return radiation_fn
 
 
 def _ml_step(ml_apply, ml_params, s: DycoreState, dyn_cfg: DycoreConfig):
@@ -95,13 +141,15 @@ def build_fused_step(
 ):
     """Returns step(state, ml_params, t_surface, cos_zenith) -> state."""
     validate_acoustic_cfl(g, dyn_cfg)
-    _check_radiation(phys_cfg)
+    radiation_fn = _build_radiation_fn(phys_cfg, g.lat.device, g.lat.dtype,
+                                       impl)
 
     @torch.no_grad()
     def step(state: DycoreState, ml_params, t_surface, cos_zenith):
         state = dynamics_step(state, g, ak, bk, dyn_cfg, impl=impl)
         state, _ = physics_step(
-            state, t_surface, cos_zenith, g.lat, dyn_cfg.dt, phys_cfg
+            state, t_surface, cos_zenith, g.lat, dyn_cfg.dt, phys_cfg,
+            radiation_fn=radiation_fn,
         )
         if ml_apply is not None:
             state = _ml_step(ml_apply, ml_params, state, dyn_cfg)
@@ -123,12 +171,16 @@ def build_fused_multi_step(
 ):
     """``n_steps`` model steps, computing radiation only every
     ``radiation_interval`` steps (always at step 0) and reusing the
-    stored heating rates and fluxes in between.
+    stored heating rates and fluxes in between (for rrtmg the heating
+    plus the four flux diagnostics ULWRFtoa, USWRFtoa, DSWRFsfc,
+    DLWRFsfc).  Each step's parts run under the profiler ranges
+    "dynamics", "radiation", "physics" and "ml".
 
     Returns fn(state, ml_params, t_surface, cos_zenith) -> state.
     """
     validate_acoustic_cfl(g, dyn_cfg)
-    _check_radiation(phys_cfg)
+    band_radiation = _build_radiation_fn(phys_cfg, g.lat.device,
+                                         g.lat.dtype, impl)
 
     def radiation(s: DycoreState, t_surface, cos_zenith):
         delp = s.delp.movedim(1, -1)
@@ -137,23 +189,31 @@ def build_fused_multi_step(
             delp, toa_pressure=dyn_cfg.ptop
         )
         T = temperature_from_theta_v(s.pt.movedim(1, -1), pmid, q)
-        return radiation_gray.gray_radiation(
-            T, delp, t_surface, cos_zenith, g.lat, phys_cfg.radiation
-        )
+        if band_radiation is None:
+            return radiation_gray.gray_radiation(
+                T, delp, t_surface, cos_zenith, g.lat, phys_cfg.radiation
+            )
+        qc = s.tracers["cloud_water"].movedim(1, -1)
+        return band_radiation(T, delp, q, qc, t_surface, cos_zenith, g.lat)
 
     @torch.no_grad()
     def multi(state: DycoreState, ml_params, t_surface, cos_zenith):
         cache = None
         for i in range(n_steps):
-            state = dynamics_step(state, g, ak, bk, dyn_cfg, impl=impl)
+            with record_function("dynamics"):
+                state = dynamics_step(state, g, ak, bk, dyn_cfg, impl=impl)
             if i % radiation_interval == 0:
-                cache = radiation(state, t_surface, cos_zenith)
-            state, _ = physics_step(
-                state, t_surface, cos_zenith, g.lat, dyn_cfg.dt, phys_cfg,
-                radiation_fn=lambda *_a, cached=cache, **_k: cached,
-            )
+                with record_function("radiation"):
+                    cache = radiation(state, t_surface, cos_zenith)
+            with record_function("physics"):
+                state, _ = physics_step(
+                    state, t_surface, cos_zenith, g.lat, dyn_cfg.dt,
+                    phys_cfg,
+                    radiation_fn=lambda *_a, cached=cache, **_k: cached,
+                )
             if ml_apply is not None:
-                state = _ml_step(ml_apply, ml_params, state, dyn_cfg)
+                with record_function("ml"):
+                    state = _ml_step(ml_apply, ml_params, state, dyn_cfg)
         return state
 
     return multi

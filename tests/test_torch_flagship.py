@@ -1,7 +1,7 @@
 """The port's flagship slice held against the reference: the dense model
 carried over by ``params_from_jax``, a 2-step gray chunk with the ML
-correction (C12, npz=16, f64), the port's entry point, and the rule that
-the port never loads jax."""
+correction (C12, npz=16, f64), a 2-step RRTMG chunk (C8, npz=16, f64),
+the port's entry point, and the rule that the port never loads jax."""
 import functools
 import subprocess
 import sys
@@ -139,15 +139,88 @@ def test_entry_flagship_runs_on_cpu(chunk):
     assert abs(m1 - m0) <= 1e-12 * m0
 
 
-def test_entry_rejects_unported_radiation():
-    with pytest.raises(NotImplementedError):
-        entry.flagship(npx=4, npz=8, radiation="rrtmg", device="cpu")
+def test_rrtmg_chunk_matches_reference(monkeypatch):
+    """A 2-step chunk with RRTMG at every step (radiation_interval=1) and
+    the dense correction, C8, npz=16, float64 throughout: both drivers
+    compute in float64 (the port's in the state's dtype, the reference's
+    by its ``dtype`` argument) and the port samples the reference's McICA
+    draws."""
+    from test_torch_rrtmg import jax_mcica_draws
+
+    from fv3net_tpu.dycore.core import DycoreConfig as JDycoreConfig
+    from fv3net_tpu.dycore.core import GridArrays as JGridArrays
+    from fv3net_tpu.grid.geometry import make_grid as jmake_grid
+    from fv3net_tpu.physics import PhysicsConfig as JPhysicsConfig
+    from fv3net_tpu.physics.radiation.rrtmg import driver as jdrv
+    from fv3net_tpu.runtime import fused as jfused
+
+    from fv3net_torch.physics.radiation.rrtmg import driver as tdrv
+
+    npx = 8
+    st, grid, ak, bk = make_state_numpy(npx, NPZ, seed=3, moist=True)
+    st["tracers"]["cloud_water"] *= 10.0  # clouds in most columns
+    sst = 300.15 - 30.0 * np.sin(grid.lat) ** 2
+    cosz = np.cos(grid.lat) * np.cos(grid.lon)
+    model = _jax_model()
+
+    monkeypatch.setattr(jdrv, "RRTMGDriver", functools.partial(
+        jdrv.RRTMGDriver, dtype=jnp.float64))
+    jg = JGridArrays.from_grid(jmake_grid(npx), dtype=jnp.float64)
+    j_apply, j_params = jfused.ml_correction_fn(model)
+    j_step = jfused.build_fused_multi_step(
+        jg, jnp.asarray(ak), jnp.asarray(bk),
+        JDycoreConfig(**vars(entry.FLAGSHIP_DYCORE)),
+        JPhysicsConfig(radiation_scheme="rrtmg"), j_apply, n_steps=2,
+        radiation_interval=1,
+    )
+    want = j_step(jax_state(st, jnp.float64), j_params, jnp.asarray(sst),
+                  jnp.asarray(cosz))
+
+    monkeypatch.setattr(tdrv.RRTMGDriver, "draw_mcica",
+                        jax_mcica_draws(torch.float64))
+    g = GridArrays.from_grid(grid, dtype=torch.float64)
+    t_apply, t_params = fused.ml_correction_fn(params_from_jax(model))
+    t_step = fused.build_fused_multi_step(
+        g, torch.tensor(ak), torch.tensor(bk), entry.FLAGSHIP_DYCORE,
+        PhysicsConfig(radiation_scheme="rrtmg"), t_apply, n_steps=2,
+        radiation_interval=1,
+    )
+    got = t_step(state_from_numpy(st), t_params, torch.tensor(sst),
+                 torch.tensor(cosz))
+    assert_states_close(got, want, CHUNK_RTOL)
+
+
+@pytest.mark.parametrize("radiation", ["rrtmg", "gray"])
+def test_entry_flagship_radiation_runs_on_cpu(radiation):
+    """``flagship(radiation=...)`` as a 2-step float64 chunk on the CPU:
+    finite fields, conserved air mass, and no kernel launch."""
+    from fv3net_torch.ops import ktable_cuda
+
+    step, (state, ml_params, sst, cosz) = entry.flagship(
+        npx=4, npz=8, radiation=radiation, chunk=2, dtype=torch.float64,
+        device="cpu",
+    )
+    launches = (remap_cuda.LAUNCHES, ktable_cuda.SELECT_LAUNCHES,
+                ktable_cuda.SPEC_LAUNCHES)
+    out = step(state, ml_params, sst, cosz)
+    assert launches == (remap_cuda.LAUNCHES, ktable_cuda.SELECT_LAUNCHES,
+                        ktable_cuda.SPEC_LAUNCHES)
+    for x in [out.delp, out.pt, out.wind, *out.tracers.values()]:
+        assert torch.isfinite(x).all()
+    g = GridArrays.from_grid(entry.make_grid(4), torch.float64)
+    m0, m1 = _air_mass(state, g), _air_mass(out, g)
+    assert abs(m1 - m0) <= 1e-12 * m0
+    assert not torch.equal(out.pt, state.pt)
 
 
 def test_port_imports_neither_jax_nor_reference():
     code = (
         "import pkgutil, sys, fv3net_torch\n"
         "import fv3net_torch.entry\n"
+        "import fv3net_torch.ops.ktable, fv3net_torch.ops.ktable_cuda\n"
+        "import fv3net_torch.physics.radiation.rrtmg.driver\n"
+        "import fv3net_torch.physics.radiation.rrtmg.lw\n"
+        "import fv3net_torch.physics.radiation.rrtmg.sw\n"
         "for m in pkgutil.walk_packages(fv3net_torch.__path__, 'fv3net_torch.'):\n"
         "    __import__(m.name)\n"
         "bad = sorted(k for k in sys.modules\n"

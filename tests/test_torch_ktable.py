@@ -1,0 +1,249 @@
+"""fv3net_torch's k-table selections (K4 ``weighted_select_dot``, K3
+``spec_band_dot``) held against fv3net_tpu's on shared numpy inputs, and
+the CUDA kernels against their plain versions on the card.
+
+The JAX side runs on the CPU: its Pallas kernels in interpret mode and
+its one-hot XLA form.  On a machine without jax (the card's), only the
+card tests run:
+``python -m pytest --noconftest tests/test_torch_ktable.py -m gpu``.
+"""
+import numpy as np
+import pytest
+import torch
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_enable_x64", True)
+except ImportError:  # the card's machine has no jax
+    jax = jnp = None
+
+from fv3net_torch.ops import ktable, ktable_cuda
+
+TORCH = {"float64": torch.float64, "float32": torch.float32}
+# the plain versions sum the same products in another order than the
+# one-hot matmuls (f32: the reference's own bound, tests/test_pallas_ktable)
+RTOL = {"float32": 2e-6, "float64": 1e-12}
+
+# (rows, G, K, N): the shapes of tests/test_pallas_ktable.py
+K4_SHAPES = [(630, 16, 12, 1000), (70, 12, 4, 512), (1180, 10, 8, 777),
+             (10, 140, 2, 300)]
+# (nbase, id bound, nspa, ng, paths, kw, st): one LW lower band (band 3)
+# and one SW upper band (band 17, ids below the 3 hPa top's 96 rows)
+K3_SHAPES = {"lw_lower": (70, 70, 9, 16, 2, 2, 3),
+             "sw_upper": (236, 96, 5, 12, 1, 4, 2)}
+
+
+def _need_jax():
+    if jax is None:
+        pytest.skip("needs jax (the reference package)")
+
+
+def _k4_inputs(rows, G, K, N, seed=None):
+    """tab [rows, G] and K (ids, w) terms; the first term's weight is None
+    (weight 1), as at the reference's unweighted sites."""
+    rng = np.random.default_rng(rows + G + K if seed is None else seed)
+    tab = rng.standard_normal((rows, G))
+    terms = [(rng.integers(0, rows, N).astype(np.int32),
+              None if k == 0 else rng.random(N)) for k in range(K)]
+    return tab, terms
+
+
+def _k3_inputs(nbase, id_hi, nspa, ng, paths, kw, st, N=700, seed=5):
+    rng = np.random.default_rng(seed)
+    tab = rng.random((nbase, nspa * ng))
+    w_paths = [[(rng.integers(0, id_hi, N).astype(np.int32), rng.random(N))
+                for _ in range(kw)] for _ in range(paths)]
+    s_paths = [[(rng.integers(0, nspa, N).astype(np.int32),
+                 rng.random(N) * 1e3) for _ in range(st)]
+               for _ in range(paths)]
+    return tab, w_paths, s_paths
+
+
+def _t(x, dtype, device="cpu"):
+    if x is None:
+        return None
+    if np.issubdtype(np.asarray(x).dtype, np.integer):
+        return torch.tensor(x, device=device)
+    return torch.tensor(x, dtype=dtype, device=device)
+
+
+def _j(x, dtype):
+    if x is None:
+        return None
+    if np.issubdtype(np.asarray(x).dtype, np.integer):
+        return jnp.asarray(x, jnp.int32)
+    return jnp.asarray(x, dtype)
+
+
+def _close(got, want, rtol):
+    err = np.abs(got - want).max()
+    assert err <= rtol * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_weighted_select_plain_matches_reference(shape, dtype):
+    """The plain K4 (gathers) against the reference's one-hot XLA form and
+    its Pallas kernel in interpret mode."""
+    _need_jax()
+    from fv3net_tpu.ops import pallas_ktable as jk
+
+    tab, terms = _k4_inputs(*shape)
+    got = ktable.weighted_select_dot_plain(
+        [(_t(i, None), _t(w, TORCH[dtype])) for i, w in terms],
+        _t(tab, TORCH[dtype]),
+    ).numpy()
+    jterms = [(_j(i, dtype), _j(w, dtype)) for i, w in terms]
+    jtab = _j(tab, dtype)
+    for want in (jk.weighted_select_dot_xla(jterms, jtab),
+                 jk.weighted_select_dot(jterms, jtab, interpret=True)):
+        _close(got, np.asarray(want), RTOL[dtype])
+    # the dispatcher takes the plain version for CPU tensors
+    disp = ktable.weighted_select_dot(
+        [(_t(i, None), _t(w, TORCH[dtype])) for i, w in terms],
+        _t(tab, TORCH[dtype]),
+    )
+    np.testing.assert_array_equal(disp.numpy(), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", sorted(K3_SHAPES))
+def test_spec_band_plain_matches_reference(case, dtype):
+    """The plain K3 (base-row gathers, then the species stencil) against
+    the reference's Pallas kernel in interpret mode."""
+    _need_jax()
+    from fv3net_tpu.ops import pallas_ktable as jk
+
+    nspa = K3_SHAPES[case][2]
+    tab, w_paths, s_paths = _k3_inputs(*K3_SHAPES[case])
+    tdt = TORCH[dtype]
+
+    def port_paths(paths):
+        return [[(_t(i, None), _t(w, tdt)) for i, w in p] for p in paths]
+
+    def jax_paths(paths):
+        return [[(_j(i, dtype), _j(w, dtype)) for i, w in p] for p in paths]
+
+    got = ktable.spec_band_dot_plain(port_paths(w_paths),
+                                     port_paths(s_paths), _t(tab, tdt),
+                                     nspa).numpy()
+    want = jk.spec_band_dot(jax_paths(w_paths), jax_paths(s_paths),
+                            _j(tab, dtype), nspa, interpret=True)
+    _close(got, np.asarray(want), RTOL[dtype])
+    disp = ktable.spec_band_dot(port_paths(w_paths), port_paths(s_paths),
+                                _t(tab, tdt), nspa)
+    np.testing.assert_array_equal(disp.numpy(), got)
+
+
+def test_plain_versions_clamp_ids_and_keep_leading_shape():
+    """Out-of-range ids read the edge rows (the kernels clamp the same
+    way); leading shapes carry through."""
+    rng = np.random.default_rng(0)
+    tab = torch.tensor(rng.random((7, 3)))
+    ids = torch.tensor([[-2, 0], [6, 9]])
+    w = torch.tensor([[1.0, 2.0], [3.0, 4.0]])
+    out = ktable.weighted_select_dot_plain([(ids, w)], tab)
+    assert out.shape == (2, 2, 3)
+    want = w[..., None] * tab[torch.tensor([[0, 0], [6, 6]])]
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    flat = torch.tensor(rng.random((4, 2 * 3)))
+    one = torch.ones(2, 2, dtype=torch.float64)
+    out = ktable.spec_band_dot_plain([[(ids, one)]], [[(ids, one)]], flat, 2)
+    want = flat.reshape(4, 2, 3)[ids.clamp(0, 3), ids.clamp(0, 1)]
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The wrappers take CUDA tensors only; asking for the kernel on CPU
+    tensors raises instead of falling back."""
+    tab, terms = _k4_inputs(10, 4, 2, 8)
+    tterms = [(_t(i, None), _t(w, torch.float64)) for i, w in terms]
+    with pytest.raises(ValueError, match="CUDA"):
+        ktable.weighted_select_dot(tterms, _t(tab, torch.float64),
+                                   impl="cuda")
+    tab, w_paths, s_paths = _k3_inputs(*K3_SHAPES["sw_upper"], N=8)
+    paths = [[[(_t(i, None), _t(w, torch.float64)) for i, w in p]
+              for p in ps] for ps in (w_paths, s_paths)]
+    with pytest.raises(ValueError, match="CUDA"):
+        ktable.spec_band_dot(*paths, _t(tab, torch.float64), 5, impl="cuda")
+    with pytest.raises(ValueError, match="impl"):
+        ktable.spec_band_dot(*paths, _t(tab, torch.float64), 5, impl="tpu")
+
+
+# ---------------------------------------------------------------- the card
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_weighted_select_kernel_matches_plain_on_card(dtype):
+    """K4 on the card against the plain version on the same CUDA inputs,
+    at the reference test's shapes and at a C48 selfref_all call."""
+    dev = _cuda()
+    tdt = TORCH[dtype]
+    for shape in K4_SHAPES + [(10, 140, 2, 13824 * 32)]:
+        tab, terms = _k4_inputs(*shape)
+        tterms = [(_t(i, None, dev), _t(w, tdt, dev)) for i, w in terms]
+        before = ktable_cuda.SELECT_LAUNCHES
+        got = ktable.weighted_select_dot(tterms, _t(tab, tdt, dev))
+        torch.cuda.synchronize()
+        assert ktable_cuda.SELECT_LAUNCHES == before + 1
+        want = ktable.weighted_select_dot(tterms, _t(tab, tdt, dev),
+                                          impl="torch")
+        err = (got - want).abs().max().item()
+        assert err <= RTOL[dtype] * want.abs().max().item(), (shape, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_spec_band_kernel_matches_plain_on_card(dtype):
+    """K3 on the card against the plain version, at both band shapes."""
+    dev = _cuda()
+    tdt = TORCH[dtype]
+    for case, shape in sorted(K3_SHAPES.items()):
+        tab, w_paths, s_paths = _k3_inputs(*shape, N=13824 * 32)
+        paths = [[[(_t(i, None, dev), _t(w, tdt, dev)) for i, w in p]
+                  for p in ps] for ps in (w_paths, s_paths)]
+        before = ktable_cuda.SPEC_LAUNCHES
+        got = ktable.spec_band_dot(*paths, _t(tab, tdt, dev), shape[2])
+        torch.cuda.synchronize()
+        assert ktable_cuda.SPEC_LAUNCHES == before + 1
+        want = ktable.spec_band_dot(*paths, _t(tab, tdt, dev), shape[2],
+                                    impl="torch")
+        err = (got - want).abs().max().item()
+        assert err <= RTOL[dtype] * want.abs().max().item(), (case, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_kernels_clamp_ids_and_check_ranges_on_card(dtype):
+    """Out-of-range ids read the edge rows, as in the plain versions; with
+    ``CHECK_RANGES`` on, the wrappers refuse them instead."""
+    dev = _cuda()
+    tdt = TORCH[dtype]
+    tab = torch.arange(30.0, dtype=tdt, device=dev).reshape(10, 3)
+    ids = torch.tensor([[-3, 0, 9, 12]], dtype=torch.int32, device=dev)
+    w = torch.ones(1, 4, dtype=tdt, device=dev)
+    got = ktable_cuda.weighted_select_dot_cuda(ids, w, tab)
+    torch.testing.assert_close(got, tab[torch.tensor([0, 0, 9, 9])],
+                               rtol=0, atol=0)
+    flat = tab.reshape(5, 6)  # nbase 5, nspa 2, ng 3
+    sids = torch.tensor([[5, -1, 1, 0]], dtype=torch.int32, device=dev)
+    got = ktable_cuda.spec_band_dot_cuda(ids, w, sids, w, flat, 1, 2)
+    want = flat.reshape(5, 2, 3)[torch.tensor([0, 0, 4, 4]),
+                                 torch.tensor([1, 0, 1, 0])]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    ktable_cuda.CHECK_RANGES = True
+    try:
+        with pytest.raises(IndexError):
+            ktable_cuda.weighted_select_dot_cuda(ids, w, tab)
+        with pytest.raises(IndexError):
+            ktable_cuda.spec_band_dot_cuda(ids.clamp(0, 4), w, sids, w,
+                                           flat, 1, 2)
+    finally:
+        ktable_cuda.CHECK_RANGES = False

@@ -209,7 +209,6 @@ def test_unported_physics_options_raise():
     args = (state_from_numpy(st), _t(sst), _t(cosz), _t(lat), 900.0)
     for cfg, kw in [
         (PhysicsConfig(microphysics_scheme="gfdl"), {}),
-        (PhysicsConfig(radiation_scheme="rrtmg"), {}),
         (PhysicsConfig(stratospheric_h2o=True), {}),
         (PhysicsConfig(), dict(sgh=_t(np.ones_like(sst)))),
         (PhysicsConfig(), dict(microphysics_emulator=lambda s: s)),
@@ -219,3 +218,6 @@ def test_unported_physics_options_raise():
     o3 = dict(st, tracers={**st["tracers"], "o3mr": st["tracers"]["sphum"]})
     with pytest.raises(NotImplementedError):
         physics_step(state_from_numpy(o3), *args[1:])
+    # rrtmg reaches the step only as a radiation_fn (runtime/fused.py)
+    with pytest.raises(ValueError, match="radiation_fn"):
+        physics_step(*args, PhysicsConfig(radiation_scheme="rrtmg"))
