@@ -7,9 +7,10 @@ Phases (any failure exits nonzero, and no result line is printed):
 
 1. device: a CUDA card is required (there is no CPU path); prints the
    card's name and power limit and the torch / CUDA versions;
-2. build: compiles the port's two CUDA sources for sm_90a from this
-   checkout, one ``nvcc`` each, both at once: ``remap_apply.cu`` (K1) and
-   ``ktable.cu`` (K4 and K3), with nvcc's register and spill lines;
+2. build: compiles the port's four CUDA sources for sm_90a from this
+   checkout, one ``nvcc`` each, all at once: ``remap_apply.cu`` (K1),
+   ``ktable.cu`` (K4 and K3), ``taumol_lw.cu`` (K2) and ``wavg.cu`` (K5),
+   with nvcc's register and spill lines;
 3. K1 against its plain PyTorch version on the card at the flagship's
    shapes (C48, npz=32, F = 1, 2, 3 fields; float32 and float64), with
    times (median of CUDA-event timings);
@@ -17,16 +18,24 @@ Phases (any failure exits nonzero, and no result line is printed):
    float32 on cuda:0 -- one warm-up and one timed 8-step chunk, with its
    K1 launch count;
 5. RRTMG main path: ``entry.flagship()`` (RRTMG LW+SW every 4th step,
-   dense ML 2x128, 8-step chunks, float32) -- one warm-up chunk and 3
-   timed chunks: ms per chunk, SYPD, finite fields, air-mass drift and
-   the exact launch counts of K1, K4 and K3 per chunk; then one chunk
-   under ``torch.profiler`` with its device time split by the step's
-   ranges (dynamics, radiation, physics, ml);
-6. one RRTMG radiation call alone on the chunk's final state: its time,
-   OLR and the SW fluxes (the down-flux at the top from the driver
-   itself) inside physical ranges, and the same call with the plain
-   versions (heating and fluxes within stated bounds), beside two
-   controls (the plain call in float64, and with bfloat16 tables);
+   dense ML 2x128, 8-step chunks, float32) and the same chunk with the
+   LW gas optics through K2 (``entry.flagship(lw_taumol="mega")``),
+   their chunks taken in turns -- one warm-up chunk each, then 5 timed
+   chunks of each: ms per chunk, SYPD, finite
+   fields, air-mass drift and the exact launch counts per chunk (K1, K4
+   and K3; on the second route fewer K4 and K3 and 2 K2); then one chunk
+   of each under ``torch.profiler`` with its device time split by the
+   step's ranges (dynamics, radiation, physics, ml);
+6. one RRTMG radiation call alone on the first route's state after its
+   4th chunk: its time on both routes, OLR and the SW fluxes (the
+   down-flux at the top from ``RRTMGDriver`` itself) inside physical
+   ranges; then, on the states after its 3rd and its 4th chunk, the same
+   float32 call on both routes against the plain versions beside two
+   controls (the plain call in float64, and with bfloat16 tables): every
+   heating rate and flux parts by at most twice what float32 itself errs
+   there, the bfloat16 control by at least 3 times what the kernels do,
+   and on the last state within absolute bounds; one LW call alone on
+   each route;
 7. K4 and K3 against their plain versions on every call that radiation
    call made, then, on four of its calls (K4 on ``selfref_all`` and
    ``mtab_lo1``, K3 on an LW lower and an SW upper band), float32 and
@@ -35,8 +44,26 @@ Phases (any failure exits nonzero, and no result line is printed):
    never used by the port), with the bytes each call must move;
 8. the same state through one step with the kernels and with the plain
    versions: the float32 dynamics step and the float64 gray step within
-   1e-5, the float64 RRTMG step (radiation in float64) within 1e-10 of
-   each field's scale (the float32 RRTMG step is logged only).
+   1e-5, the float64 RRTMG step (radiation in float64) on both routes
+   within 1e-10 of each field's scale (the float32 RRTMG step is logged
+   only);
+9. K2 against its plain version on the arguments of that radiation call
+   (N = 442,368 points): float32 within 2e-6 of each output's scale,
+   float64 within 1e-12 (and each value within the same, relative to
+   itself), NaN at the same points, with the times of K2,
+   of the plain version and of the K3/K4 route beside the bound;
+10. K5 against its plain version on the pipeline's two calls (x
+    [6, 79, 384, 384] with a weight plane per tile [6, 1, 384, 384], and
+    [6, 384, 384] with [6, 384, 384]; random weights), at
+    [474, 384, 384] with [384, 384] weights, factor 8, and at
+    [6, 12, 12], factor 2, with the times of K5, of the plain version and
+    of ``avg_pool2d(x * w) / avg_pool2d(w)`` (the library-call yardstick,
+    never used by the port);
+11. the coarsening pipeline: a seeded C384 diagnostics zarr (a
+    [time, tile, y, x] and a [time, tile, z=79, y, x] variable) through
+    ``coarsen_diagnostics(..., 8)`` on the card: shapes, one K5 launch
+    per variable and time, every value against the plain block average,
+    area-weighted global means kept.
 
 The line before the last two is the ``kernels`` JSON line; then the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -57,7 +84,16 @@ NPX, NPZ = 48, 32  # the flagship's C48 cube and levels
 DT = 900.0  # s, the flagship's dynamics interval
 CHUNK = 8  # steps per chunk
 GRAY_TIMED_CHUNKS = 1  # after one warm-up chunk
-RRTMG_TIMED_CHUNKS = 3
+# the RRTMG chunks of both routes, in turns (each route's first is its
+# warm-up, then 5 timed chunks: with 2 or 3 the host's spread from chunk
+# to chunk hid the routes' difference)
+RRTMG_SCHEDULE = ("ktable", "mega", "ktable", "mega", "mega", "ktable",
+                  "ktable", "mega", "ktable", "mega", "mega", "ktable")
+# phase 6 compares the float32 radiation call, kernels against plain, on
+# the ktable route's states after these chunks (warm-up included); the
+# rest of the phase (times, recorded kernel calls, the absolute bounds
+# below) is on the last
+RADIATION_STATES_AFTER = (3, 4)
 REMAPS_PER_STEP = 3  # winds, tracers, total energy (dycore/core.py)
 RADIATION_CALLS_PER_CHUNK = CHUNK // 4  # every 4th step, from step 0
 # K3 (spec_band_dot) per radiation call: one per species-interpolated
@@ -77,20 +113,48 @@ SPEC_PER_CALL = (9 + 3) + (8 + 3)
 #     that interpolate the solar source) + cldprop_sw's liquid and ice
 #     optics 2.
 SELECT_PER_CALL = 30 + 14
+# on the "mega" route K2 takes the whole of taumol_lw: its 27 K4 and 12
+# K3 calls go, one K2 launch comes
+MEGA_SELECT_PER_CALL = SELECT_PER_CALL - 27
+MEGA_SPEC_PER_CALL = SPEC_PER_CALL - 12
 F32_RTOL = 1e-5  # float32: summation order of the prefix and band sums
 F64_RTOL = 1e-12
 KTABLE_RTOL = {"float32": 2e-6, "float64": 1e-13}  # summation order only
 RRTMG_STEP_RTOL = 1e-10  # float64 RRTMG step, kernels against plain
-# float32 radiation call, kernels against plain: set from the readings
-# on an H100 (max 1.348e-2 K/day of SW heating, in the top layer, and
-# 1.025e-2 W/m2 of surface SW down-flux), with headroom for another
-# build.  Phase 6 logs two controls beside them: plain float32 against
-# plain float64 read larger in every quantity there (7.4e-2 K/day,
-# 6.8e-2 W/m2), so the kernels part by less than float32 itself errs;
-# plain with bfloat16 tables exceeds both bounds in heating and in the
-# LW fluxes, so the gate catches a table-precision fault
+# K2 against its plain version, of each output's scale: it sums a point's
+# terms in an order of its own
+TAUMOL_RTOL = {"float32": 2e-6, "float64": 1e-12}
+# and value by value: every term of a tau is positive, so the other order
+# costs a few ulps of each value; a fault in one minor gas hides below
+# 1e-12 of an output's scale but not below this
+TAUMOL_VALUE_RTOL = {"float32": 2e-6, "float64": 1e-12}
+WAVG_RTOL = 2e-6  # K5, float32 sums in another order (per value)
+C384, NZ_DIAG, COARSEN_FACTOR = 384, 79, 8  # the diagnostics workload
+PIPELINE_TIMES = 2  # time indices of the pipeline phase's store
+PIPELINE_MEAN_RTOL = 1e-6
+# float32 radiation call, kernels against plain.  Two absolute bounds,
+# set from the readings on an H100 on the state after the ktable route's
+# 4th chunk (max 1.348e-2 K/day of SW heating, in the top layer, and
+# 1.025e-2 W/m2 of surface SW down-flux) and held on that state only: on
+# the state one chunk earlier the SW heating parts by 6.5e-2 K/day while
+# float32 itself errs by 1.9e-1 there.
 RAD_F32_HEATING_K_DAY = 2e-2
 RAD_F32_FLUX_W_M2 = 2e-2
+# And two bounds relative to the same call's controls, held on every
+# state of RADIATION_STATES_AFTER and in every quantity.  The controls
+# use the plain versions and the same McICA draws: the call in float64
+# (what float32 roundoff itself moves) and with every selection table
+# rounded to bfloat16 (a precision fault the gate must catch).
+#   Two float32 results that each err from the float64 one by e part by
+# at most 2 e (RAD_F32_CONTROL_FACTOR; the control below
+# RAD_F32_ULPS float32 ulps of the quantity's largest value counts as
+# that many ulps).
+#   The bfloat16-table control must part from plain by at least
+# RAD_F32_FAULT_RATIO times what the kernels do, or the comparison could
+# not tell a sound kernel from that fault.
+RAD_F32_CONTROL_FACTOR = 2.0
+RAD_F32_ULPS = 4
+RAD_F32_FAULT_RATIO = 3.0
 RANGES = ("dynamics", "radiation", "physics", "ml")  # runtime/fused.py
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 # H100 SXM peak rates outside the tensor cores (NVIDIA's data sheet)
@@ -162,12 +226,13 @@ def bound(n_bytes, flops, dtype_name):
 
 
 def build_kernels():
-    """Both CUDA sources, one nvcc each, started together."""
-    from fv3net_torch.ops import ktable_cuda, remap_cuda
+    """The four CUDA sources, one nvcc each, started together."""
+    from fv3net_torch.ops import coarsen_cuda, ktable_cuda, remap_cuda
+    from fv3net_torch.physics.radiation.rrtmg import taumol_cuda
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        futures = {m.SOURCE: pool.submit(m.build)
-                   for m in (remap_cuda, ktable_cuda)}
+    modules = (remap_cuda, ktable_cuda, taumol_cuda, coarsen_cuda)
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
+        futures = {m.SOURCE: pool.submit(m.build) for m in modules}
         for source, fut in futures.items():
             info = fut.result()
             log(f"  built {info.path.name} from {source} in "
@@ -277,59 +342,89 @@ def fields(state):
     return out
 
 
+KERNELS = ("remap_apply", "weighted_select_dot", "spec_band_dot",
+           "taumol_lw", "weighted_block_average")
+
+
 def reset_counts():
-    from fv3net_torch.ops import ktable_cuda, remap_cuda
+    from fv3net_torch.ops import coarsen_cuda, ktable_cuda, remap_cuda
+    from fv3net_torch.physics.radiation.rrtmg import taumol_cuda
 
     remap_cuda.LAUNCHES = 0
     ktable_cuda.SELECT_LAUNCHES = 0
     ktable_cuda.SPEC_LAUNCHES = 0
+    taumol_cuda.TAUMOL_LAUNCHES = 0
+    coarsen_cuda.WAVG_LAUNCHES = 0
 
 
 def read_counts():
-    from fv3net_torch.ops import ktable_cuda, remap_cuda
+    from fv3net_torch.ops import coarsen_cuda, ktable_cuda, remap_cuda
+    from fv3net_torch.physics.radiation.rrtmg import taumol_cuda
 
     return {"remap_apply": remap_cuda.LAUNCHES,
             "weighted_select_dot": ktable_cuda.SELECT_LAUNCHES,
-            "spec_band_dot": ktable_cuda.SPEC_LAUNCHES}
+            "spec_band_dot": ktable_cuda.SPEC_LAUNCHES,
+            "taumol_lw": taumol_cuda.TAUMOL_LAUNCHES,
+            "weighted_block_average": coarsen_cuda.WAVG_LAUNCHES}
 
 
-def drive_chunks(label, step, state, args, area, timed, per_chunk):
-    """One warm-up and ``timed`` chunks from counts reset to 0; gates the
-    counts after each chunk against ``per_chunk``.  Returns (final state,
-    counts, median ms per chunk)."""
-    import torch
+def launches(**counts):
+    """Expected launch counts: 0 for every kernel not named."""
+    return {name: counts.get(name, 0) for name in KERNELS}
 
-    reset_counts()
-    wall = []
-    for i in range(1 + timed):
-        m0 = air_mass(state, area)
+
+class Path:
+    """One driven configuration: its step, its evolving state, the
+    launches one chunk must make, and what its chunks counted and took."""
+
+    def __init__(self, label, step, state, args, area, per_chunk):
+        self.label, self.step, self.state = label, step, state
+        self.args, self.area, self.per_chunk = args, area, per_chunk
+        self.counts = launches()
+        self.wall = []  # seconds of the chunks after the first (warm-up)
+        self.chunks = 0
+
+    def chunk(self):
+        """One chunk from counts set to 0; gates the counts read after it
+        against ``per_chunk``, the fields and the air-mass drift."""
+        import torch
+
+        m0 = air_mass(self.state, self.area)
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state = step(state, *args)
+        self.state = self.step(self.state, *self.args)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = read_counts()
-        want = {k: v * (i + 1) for k, v in per_chunk.items()}
-        check(counts == want, f"{label} chunk {i}: launches {counts}, "
-              f"expected {want}")
-        for name, x in fields(state).items():
+        i, label = self.chunks, self.label
+        check(counts == self.per_chunk, f"{label} chunk {i}: launches "
+              f"{counts}, expected {self.per_chunk}")
+        for name, x in fields(self.state).items():
             check(torch.isfinite(x).all().item(),
                   f"{label} chunk {i}: non-finite {name}")
-        drift = abs(air_mass(state, area) - m0) / m0
+        drift = abs(air_mass(self.state, self.area) - m0) / m0
         check(drift <= 1e-5, f"{label} chunk {i}: air-mass drift "
               f"{drift:.3e} > 1e-5")
         log(f"  {label} chunk {i} ({'warm-up' if i == 0 else 'timed'}): "
-            f"{dt * 1e3:.1f} ms, air-mass drift {drift:.3e}, launches so "
-            f"far {counts}")
+            f"{dt * 1e3:.1f} ms, air-mass drift {drift:.3e}, launches "
+            f"{counts}")
+        self.counts = {k: v + counts[k] for k, v in self.counts.items()}
         if i:
-            wall.append(dt)
-    counts = read_counts()
-    ms = statistics.median(wall) * 1e3
-    sypd = (CHUNK * DT / (ms / 1e3)) / 365.0
-    log(f"  {label} main path: {ms:.1f} ms per {CHUNK}-step chunk (median "
-        f"of {timed}), {sypd:.3f} SYPD; launches in {1 + timed} chunks "
-        f"{counts}")
-    return state, counts, ms
+            self.wall.append(dt)
+        self.chunks += 1
+
+    def summary(self):
+        """Logs and returns the median ms per timed chunk."""
+        ms = statistics.median(self.wall) * 1e3
+        sypd = (CHUNK * DT / (ms / 1e3)) / 365.0
+        log(f"  {self.label} main path: {ms:.1f} ms per {CHUNK}-step chunk "
+            f"(median of {len(self.wall)}), {sypd:.3f} SYPD; launches in "
+            f"{self.chunks} chunks {self.counts}")
+        for name, n in self.per_chunk.items():
+            check(not n or self.counts[name] > 0,
+                  f"{self.label} path: {name} never launched")
+        return ms
 
 
 def phase_gray(device):
@@ -339,38 +434,64 @@ def phase_gray(device):
     step, (state, ml_params, sst, cosz) = entry.flagship(
         npx=NPX, npz=NPZ, radiation="gray", chunk=CHUNK, device=device)
     area = torch.tensor(entry.make_grid(NPX).area, device=device)
-    per_chunk = {"remap_apply": CHUNK * REMAPS_PER_STEP,
-                 "weighted_select_dot": 0, "spec_band_dot": 0}
-    _, counts, _ = drive_chunks("gray", step, state, (ml_params, sst, cosz),
-                                area, GRAY_TIMED_CHUNKS, per_chunk)
-    check(counts["remap_apply"] > 0, "gray path: K1 never launched")
+    path = Path("gray", step, state, (ml_params, sst, cosz), area,
+                launches(remap_apply=CHUNK * REMAPS_PER_STEP))
+    for _ in range(1 + GRAY_TIMED_CHUNKS):
+        path.chunk()
+    path.summary()
 
 
-def phase_rrtmg(device):
-    """The RRTMG main path; returns (counts, final state, its inputs)."""
+def rrtmg_path(device, lw_taumol):
+    """The RRTMG flagship chunk on one route of the LW gas optics."""
     import torch
     from fv3net_torch import entry
 
+    label = "rrtmg" if lw_taumol == "ktable" else f"rrtmg-{lw_taumol}"
     t0 = time.perf_counter()
     step, (state, ml_params, sst, cosz) = entry.flagship(
-        npx=NPX, npz=NPZ, chunk=CHUNK, device=device)
+        npx=NPX, npz=NPZ, chunk=CHUNK, device=device, lw_taumol=lw_taumol)
     area = torch.tensor(entry.make_grid(NPX).area, device=device)
-    log(f"  built the RRTMG flagship chunk in {time.perf_counter() - t0:.2f}"
-        " s")
+    log(f"  built the {label} flagship chunk in "
+        f"{time.perf_counter() - t0:.2f} s")
     calls = RADIATION_CALLS_PER_CHUNK
-    per_chunk = {"remap_apply": CHUNK * REMAPS_PER_STEP,
-                 "weighted_select_dot": calls * SELECT_PER_CALL,
-                 "spec_band_dot": calls * SPEC_PER_CALL}
-    state, counts, _ = drive_chunks("rrtmg", step, state,
-                                    (ml_params, sst, cosz), area,
-                                    RRTMG_TIMED_CHUNKS, per_chunk)
-    for name, n in counts.items():
-        check(n > 0, f"rrtmg path: {name} never launched")
-    profile_chunk(step, state, ml_params, sst, cosz)
-    return counts, state, (sst, cosz)
+    mega = lw_taumol == "mega"
+    per_chunk = launches(
+        remap_apply=CHUNK * REMAPS_PER_STEP,
+        weighted_select_dot=calls * (MEGA_SELECT_PER_CALL if mega
+                                     else SELECT_PER_CALL),
+        spec_band_dot=calls * (MEGA_SPEC_PER_CALL if mega
+                               else SPEC_PER_CALL),
+        taumol_lw=calls * mega,
+    )
+    return Path(label, step, state, (ml_params, sst, cosz), area, per_chunk)
 
 
-def profile_chunk(step, state, ml_params, sst, cosz):
+def phase_rrtmg(device):
+    """The RRTMG main path on both routes of the LW gas optics, their
+    chunks taken in turns so that both meet the same host; then one
+    profiled chunk of each.  Returns the two paths by route and the
+    states that phase 6 runs its radiation call on, by the ktable
+    route's chunks before them."""
+    paths = {route: rrtmg_path(device, route)
+             for route in ("ktable", "mega")}
+    radiation_states = {}
+    for route in RRTMG_SCHEDULE:
+        paths[route].chunk()
+        if route == "ktable" and paths[route].chunks in RADIATION_STATES_AFTER:
+            radiation_states[paths[route].chunks] = paths[route].state
+    check(len(radiation_states) == len(RADIATION_STATES_AFTER),
+          "the schedule has too few ktable chunks for "
+          f"{RADIATION_STATES_AFTER}")
+    ms = {route: path.summary() for route, path in paths.items()}
+    log(f"  RRTMG chunk: {ms['ktable']:.1f} ms on the ktable route, "
+        f"{ms['mega']:.1f} ms on the mega route (chunks in the order "
+        f"{', '.join(RRTMG_SCHEDULE)}; the first of each is its warm-up)")
+    for path in paths.values():
+        profile_chunk(path.label, path.step, path.state, *path.args)
+    return paths, radiation_states
+
+
+def profile_chunk(label, step, state, ml_params, sst, cosz):
     """One chunk under torch.profiler: the device's busy share of the
     wall time, the device time of each of the step's ranges and the
     device time by op."""
@@ -397,7 +518,7 @@ def profile_chunk(step, state, ml_params, sst, cosz):
               and e.key not in RANGES]
     device_us = sum(getattr(e, self_key) for e in device)
     n_kernels = sum(e.count for e in device)
-    log(f"  profile (one rrtmg chunk, profiler on): wall "
+    log(f"  profile (one {label} chunk, profiler on): wall "
         f"{wall_us / 1e3:.1f} ms, device busy {device_us / 1e3:.1f} ms "
         f"({100 * device_us / wall_us:.1f}%), {n_kernels} device "
         f"activities")
@@ -417,7 +538,7 @@ def profile_chunk(step, state, ml_params, sst, cosz):
             f"of device busy), device span {span_us / 1e3:.1f} ms")
     for e in device:
         for kname in ("remap_apply_kernel", "weighted_select_kernel",
-                      "spec_band_kernel"):
+                      "spec_band_kernel", "taumol_lw_kernel"):
             if kname in e.key:
                 log(f"  kernel {kname}: {e.count} launches, "
                     f"{getattr(e, self_key) / 1e3:.3f} ms")
@@ -503,14 +624,108 @@ class BFloat16Tables:
          self.mod.spec_band_dot_plain) = self.orig
 
 
-def phase_radiation(device, state, sst, cosz):
-    """One RRTMG call alone; returns the recorded K4/K3 calls."""
+class Capture:
+    """Wraps ``module.name`` to keep the arguments of its first call."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.args, self.kwargs = None, None
+
+    def __enter__(self):
+        def wrapped(*args, **kwargs):
+            if self.args is None:
+                self.args, self.kwargs = args, kwargs
+            return self.orig(*args, **kwargs)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def radiation_differences(out, delp, where, absolute):
+    """Logs, per heating rate and flux of one float32 radiation call, how
+    far the kernels (both routes) and the two controls part from the
+    plain versions; returns the failed gates: the bounds relative to the
+    controls and, where ``absolute``, the absolute bounds."""
+    import torch
+    from fv3net_torch.physics.radiation.rrtmg import params as P
+
+    def dmax(a, b):
+        return (a.double() - b.double()).abs().max().item()
+
+    eps = torch.finfo(torch.float32).eps
+    heat_keys = {"heating": "tendency_of_air_temperature_due_to_radiation",
+                 "LW heating": "total_sky_longwave_heating_rate_python",
+                 "SW heating": "total_sky_shortwave_heating_rate_python"}
+    quantities = [(label, key, 86400.0, "K/day", RAD_F32_HEATING_K_DAY)
+                  for label, key in heat_keys.items()]
+    quantities += [(key[:-len("_python")], key, 1.0, "W/m2",
+                    RAD_F32_FLUX_W_M2)
+                   for key in sorted(out["plain"]) if "_flux_" in key]
+    bad = []
+    for label, key, unit_scale, unit, limit in quantities:
+        d = {name: unit_scale * dmax(out[name][key], out["plain"][key])
+             for name in ("kernels", "mega", "float64", "bfloat16 tables")}
+        routes = unit_scale * dmax(out["mega"][key], out["kernels"][key])
+        scale = unit_scale * out["plain"][key].abs().max().item()
+        allowed = RAD_F32_CONTROL_FACTOR * max(d["float64"],
+                                               RAD_F32_ULPS * eps * scale)
+        worst = max(d["kernels"], d["mega"])
+        ratio = d["bfloat16 tables"] / worst if worst else math.inf
+        log(f"  float32 {label}: kernels against plain {d['kernels']:.3e} "
+            f"{unit}, mega route against plain {d['mega']:.3e} (allowed "
+            f"{allowed:.3e}" + (f", bound {limit}" if absolute else "")
+            + f"), mega against ktable route {routes:.3e}; controls, plain "
+            f"float32 against float64 {d['float64']:.3e}, against bfloat16 "
+            f"tables {d['bfloat16 tables']:.3e} "
+            f"({ratio:.3g} times the kernels' reading)")
+        for name in ("kernels", "mega"):
+            if not d[name] <= allowed:
+                bad.append(f"{where}: {name} {label} {d[name]} {unit} > "
+                           f"{allowed} from the float64 control")
+            if absolute and not d[name] <= limit:
+                bad.append(f"{where}: {name} {label} {d[name]} {unit} > "
+                           f"{limit}")
+        if not d["bfloat16 tables"] >= RAD_F32_FAULT_RATIO * worst:
+            bad.append(f"{where}: {label}: the bfloat16-table control "
+                       f"{d['bfloat16 tables']} {unit} is less than "
+                       f"{RAD_F32_FAULT_RATIO} times the kernels' {worst}")
+
+    # where the heating parts most: the layer's flux-divergence
+    # difference (heating = HEATFAC * dF / dp[mb]) in float32 ulps of the
+    # column's largest flux at the top
+    dh = (out["kernels"][heat_keys["heating"]]
+          - out["plain"][heat_keys["heating"]]).abs()
+    at = divmod(int(dh.argmax()), NPZ)
+    dp_mb = delp.reshape(-1, NPZ)[at].item() / 100.0
+    d_flux = dh.reshape(-1, NPZ)[at].item() * dp_mb / P.HEATFAC
+    f_top = max(out["plain"][k + "_python"].reshape(-1)[at[0]].item() for k in (
+        "total_sky_downward_shortwave_flux_at_top_of_atmosphere",
+        "total_sky_upward_longwave_flux_at_top_of_atmosphere"))
+    ulp = eps * f_top
+    log(f"  largest heating difference at column {at[0]}, level {at[1]} of "
+        f"{NPZ} (0 = top), dp {dp_mb:.4f} mb: a flux-divergence difference "
+        f"of {d_flux:.3e} W/m2, {d_flux / ulp:.1f} float32 ulps of the "
+        f"column's {f_top:.2f} W/m2 at the top")
+    return bad
+
+
+def phase_radiation(device, states, sst, cosz):
+    """One RRTMG call alone on both routes of the LW gas optics, on the
+    last of ``states`` (by chunks before them); the float32 call against
+    its plain version and controls on each of them.  Returns the
+    recorded K4/K3 calls, the arguments of the K2 call and the float64
+    LW tables."""
     import datetime
 
     import torch
     from fv3net_torch.grid.geometry import make_grid
     from fv3net_torch.physics import PhysicsConfig
-    from fv3net_torch.physics.radiation.rrtmg import params as P
+    from fv3net_torch.physics.radiation.rrtmg import lw as rlw
+    from fv3net_torch.physics.radiation.rrtmg import taumol_cuda
     from fv3net_torch.physics.radiation.rrtmg.driver import (
         RRTMGConfig,
         RRTMGDriver,
@@ -521,20 +736,32 @@ def phase_radiation(device, state, sst, cosz):
                        device=device)
     cfg = PhysicsConfig(radiation_scheme="rrtmg")
     rad = fused._build_radiation_fn(cfg, device, torch.float32)
+    rad_mega = fused._build_radiation_fn(cfg, device, torch.float32,
+                                         lw_taumol="mega")
     rad_plain = fused._build_radiation_fn(cfg, device, torch.float32,
                                           impl="torch")
-    args = radiation_inputs(state, sst, cosz, lat)
+    args = radiation_inputs(states[RADIATION_STATES_AFTER[-1]], sst, cosz,
+                            lat)
 
     reset_counts()
     with Recorder() as rec:
         heating, diags = rad(*args)
     torch.cuda.synchronize()
     counts = read_counts()
-    check(counts == {"remap_apply": 0,
-                     "weighted_select_dot": SELECT_PER_CALL,
-                     "spec_band_dot": SPEC_PER_CALL},
+    check(counts == launches(weighted_select_dot=SELECT_PER_CALL,
+                             spec_band_dot=SPEC_PER_CALL),
           f"one radiation call: launches {counts}")
     check(torch.isfinite(heating).all().item(), "non-finite heating")
+    reset_counts()
+    with Capture(taumol_cuda, "taumol_lw_cuda") as k2_call:
+        heating_mega, _ = rad_mega(*args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == launches(weighted_select_dot=MEGA_SELECT_PER_CALL,
+                             spec_band_dot=MEGA_SPEC_PER_CALL, taumol_lw=1),
+          f"one radiation call on the mega route: launches {counts}")
+    check(torch.isfinite(heating_mega).all().item(),
+          "non-finite heating on the mega route")
     ranges = {"ULWRFtoa": (100.0, 400.0), "USWRFtoa": (0.0, 1400.0),
               "DSWRFsfc": (0.0, 1400.0), "DLWRFsfc": (50.0, 500.0)}
     for name, (lo, hi) in ranges.items():
@@ -549,19 +776,19 @@ def phase_radiation(device, state, sst, cosz):
     check(k_day < 1000.0, f"radiative heating {k_day} K/day")
 
     ms = interleaved_ms({"kernels": lambda: rad(*args),
+                         "mega": lambda: rad_mega(*args),
                          "plain": lambda: rad_plain(*args)}, 3, warmup=1)
     log(f"  one RRTMG call (C48, npz=32, float32): {ms['kernels']:.1f} ms "
-        f"with the kernels, {ms['plain']:.1f} ms with the plain versions "
-        "(median of 3, lower of two)")
+        f"with the kernels on the ktable route, {ms['mega']:.1f} ms on the "
+        f"mega route, {ms['plain']:.1f} ms with the plain versions (median "
+        "of 3, lower of two)")
 
     # the same columns through the driver with the kernels, with the
-    # plain versions, and two controls, both with the plain versions and
-    # the same McICA draws: in float64 (what float32 roundoff itself
-    # moves) and with every selection reading its table rounded to
-    # bfloat16 (a precision fault the gate must catch)
+    # plain versions, and the two controls (see RAD_F32_CONTROL_FACTOR)
     rcfg = RRTMGConfig(solcon=1368.22 * cfg.solcon_scale)
     drivers = {
         "kernels": RRTMGDriver(rcfg, device=device),
+        "mega": RRTMGDriver(rcfg, device=device, lw_taumol="mega"),
         "plain": RRTMGDriver(rcfg, device=device, impl="torch"),
         "float64": RRTMGDriver(rcfg, dtype=torch.float64, device=device,
                                impl="torch"),
@@ -569,20 +796,43 @@ def phase_radiation(device, state, sst, cosz):
     draws = drivers["kernels"].draw_mcica
     drivers["float64"].draw_mcica = lambda fold, ncol, nz: tuple(
         x.double() for x in draws(fold, ncol, nz))
-    T, delp, q, qc = args[:4]
-    inputs = {
-        "air_temperature": T,
-        "pressure_thickness_of_atmospheric_layer": delp,
-        "specific_humidity": q,
-        "cloud_water_mixing_ratio": qc,
-        "surface_temperature": sst,
-        "latitude": lat,
-        "longitude": torch.zeros_like(lat),
-    }
     when = datetime.datetime(2016, 7, 1)
-    out = {name: d(when, inputs, cosz=cosz) for name, d in drivers.items()}
-    with BFloat16Tables():
-        out["bfloat16 tables"] = drivers["plain"](when, inputs, cosz=cosz)
+
+    def outputs(state):
+        T, delp, q, qc = radiation_inputs(state, sst, cosz, lat)[:4]
+        inputs = {
+            "air_temperature": T,
+            "pressure_thickness_of_atmospheric_layer": delp,
+            "specific_humidity": q,
+            "cloud_water_mixing_ratio": qc,
+            "surface_temperature": sst,
+            "latitude": lat,
+            "longitude": torch.zeros_like(lat),
+        }
+        out = {name: d(when, inputs, cosz=cosz)
+               for name, d in drivers.items()}
+        with BFloat16Tables():
+            out["bfloat16 tables"] = drivers["plain"](when, inputs,
+                                                      cosz=cosz)
+        return out, delp
+
+    bad = []
+    for after in RADIATION_STATES_AFTER:
+        last = after == RADIATION_STATES_AFTER[-1]
+        log(f"  the state after {after} chunks of the ktable route:")
+        with Capture(rlw, "lwrad") as lw_call:
+            out, delp = outputs(states[after])
+        bad += radiation_differences(out, delp, f"after {after} chunks",
+                                     absolute=last)
+    # ``out`` and ``lw_call`` are now those of the last state
+    lw_kwargs = {k: v for k, v in lw_call.kwargs.items() if k != "taumol"}
+    ms = interleaved_ms(
+        {route: (lambda route=route: rlw.lwrad(*lw_call.args, **lw_kwargs,
+                                               taumol=route))
+         for route in ("ktable", "mega")}, 5, warmup=1)
+    log(f"  one LW call (lwrad, C48, npz=32, float32): {ms['ktable']:.1f} ms"
+        f" on the ktable route, {ms['mega']:.1f} ms on the mega route "
+        "(median of 5, lower of two)")
 
     # the SW down-flux at the top, which the chunk's cache does not keep:
     # 0 at night and at most the solar constant times cosz by day
@@ -596,47 +846,8 @@ def phase_radiation(device, state, sst, cosz):
     check(bool((toa[~day] == 0).all()), "SW down at the top is not 0 at night")
     check(bool((toa[day] > 0).all() and (toa <= top * (1 + 1e-5)).all()),
           "SW down at the top outside (0, solar constant * cosz]")
-
-    def dmax(a, b):
-        return (a.double() - b.double()).abs().max().item()
-
-    heat_keys = {"heating": "tendency_of_air_temperature_due_to_radiation",
-                 "LW heating": "total_sky_longwave_heating_rate_python",
-                 "SW heating": "total_sky_shortwave_heating_rate_python"}
-    quantities = [(label, key, 86400.0, "K/day", RAD_F32_HEATING_K_DAY)
-                  for label, key in heat_keys.items()]
-    quantities += [(key[:-len("_python")], key, 1.0, "W/m2",
-                    RAD_F32_FLUX_W_M2)
-                   for key in sorted(out["plain"]) if "_flux_" in key]
-    bad = []
-    for label, key, unit_scale, unit, limit in quantities:
-        d = {name: unit_scale * dmax(out[name][key], out["plain"][key])
-             for name in ("kernels", "float64", "bfloat16 tables")}
-        log(f"  float32 {label}: kernels against plain {d['kernels']:.3e} "
-            f"{unit} (bound {limit}); controls, plain float32 against "
-            f"float64 {d['float64']:.3e}, against bfloat16 tables "
-            f"{d['bfloat16 tables']:.3e}")
-        if not d["kernels"] <= limit:
-            bad.append(f"{label} {d['kernels']} {unit}")
-
-    # where the heating parts most: the layer's flux-divergence
-    # difference (heating = HEATFAC * dF / dp[mb]) in float32 ulps of the
-    # column's largest flux at the top
-    dh = (out["kernels"][heat_keys["heating"]]
-          - out["plain"][heat_keys["heating"]]).abs()
-    at = divmod(int(dh.argmax()), NPZ)
-    dp_mb = delp.reshape(-1, NPZ)[at].item() / 100.0
-    d_flux = dh.reshape(-1, NPZ)[at].item() * dp_mb / P.HEATFAC
-    f_top = max(out["plain"][k + "_python"].reshape(-1)[at[0]].item() for k in (
-        "total_sky_downward_shortwave_flux_at_top_of_atmosphere",
-        "total_sky_upward_longwave_flux_at_top_of_atmosphere"))
-    ulp = torch.finfo(torch.float32).eps * f_top
-    log(f"  largest heating difference at column {at[0]}, level {at[1]} of "
-        f"{NPZ} (0 = top), dp {dp_mb:.4f} mb: a flux-divergence difference "
-        f"of {d_flux:.3e} W/m2, {d_flux / ulp:.1f} float32 ulps of the "
-        f"column's {f_top:.2f} W/m2 at the top")
     check(not bad, f"kernels and plain versions part: {bad}")
-    return rec
+    return rec, k2_call.args, drivers["float64"].Tlw
 
 
 def max_diff(got, want, label):
@@ -828,8 +1039,8 @@ def phase_step_vs_plain(device, state):
 
     Gated: the float32 dynamics step (the part of the step that calls K1)
     and the float64 gray step within 1e-5 of each field's scale, the
-    float64 RRTMG step (radiation in float64) within 1e-10.  The float32
-    RRTMG step is logged only: its column physics (near-surface humidity,
+    float64 RRTMG step (radiation in float64) within 1e-10 on both
+    routes of the LW gas optics.  The float32 RRTMG step is logged only: its column physics (near-surface humidity,
     convection triggers) amplifies roundoff-level differences (see
     PERF.md).
     """
@@ -851,40 +1062,281 @@ def phase_step_vs_plain(device, state):
         "float32 dynamics step", F32_RTOL,
     )
 
-    cases = (("gray", torch.float64, F32_RTOL),
-             ("rrtmg", torch.float32, None),
-             ("rrtmg", torch.float64, RRTMG_STEP_RTOL))
-    for radiation, dtype, rtol in cases:
+    cases = (("gray", torch.float64, F32_RTOL, "ktable"),
+             ("rrtmg", torch.float32, None, "ktable"),
+             ("rrtmg", torch.float64, RRTMG_STEP_RTOL, "ktable"),
+             ("rrtmg", torch.float64, RRTMG_STEP_RTOL, "mega"))
+    plain_out = {}  # the plain step does not depend on the route
+    for radiation, dtype, rtol, lw_taumol in cases:
         s = DycoreState(
             delp=state.delp.to(dtype), pt=state.pt.to(dtype),
             wind=state.wind.to(dtype),
             tracers={k: v.to(dtype) for k, v in state.tracers.items()},
             phis=state.phis.to(dtype),
         )
-        out = {}
         name = str(dtype).replace("torch.", "")
-        for impl in ("cuda", "torch"):
+        label = f"{name} {radiation} step"
+        if lw_taumol != "ktable":
+            label += f" ({lw_taumol} route)"
+
+        def run(impl):
             reset_counts()
             step, (_, mlp, sst, cosz) = entry.flagship(
                 npx=NPX, npz=NPZ, radiation=radiation, chunk=None,
-                device=device, dtype=dtype, impl=impl,
+                device=device, dtype=dtype, impl=impl, lw_taumol=lw_taumol,
             )
-            out[impl] = step(s, mlp, sst, cosz)
+            out = step(s, mlp, sst, cosz)
             torch.cuda.synchronize()
-            counts = read_counts()
-            if impl == "torch":
-                check(not any(counts.values()), f"plain {name} {radiation} "
-                      f"step launched kernels: {counts}")
-            else:
-                rrtmg = radiation == "rrtmg"
-                want = {"remap_apply": REMAPS_PER_STEP,
-                        "weighted_select_dot": SELECT_PER_CALL * rrtmg,
-                        "spec_band_dot": SPEC_PER_CALL * rrtmg}
-                check(counts == want, f"{name} {radiation} step: launches "
-                      f"{counts}, expected {want}")
-        bad += _diffs(out["cuda"], out["torch"], f"{name} {radiation} step",
-                      rtol)
+            return out, read_counts()
+
+        if (radiation, dtype) not in plain_out:
+            plain_out[radiation, dtype], counts = run("torch")
+            check(not any(counts.values()),
+                  f"plain {label} launched kernels: {counts}")
+        out, counts = run("cuda")
+        rrtmg = radiation == "rrtmg"
+        mega = lw_taumol == "mega"
+        want = launches(
+            remap_apply=REMAPS_PER_STEP,
+            weighted_select_dot=rrtmg * (MEGA_SELECT_PER_CALL if mega
+                                         else SELECT_PER_CALL),
+            spec_band_dot=rrtmg * (MEGA_SPEC_PER_CALL if mega
+                                   else SPEC_PER_CALL),
+            taumol_lw=int(mega),
+        )
+        check(counts == want, f"{label}: launches {counts}, expected {want}")
+        bad += _diffs(out, plain_out[radiation, dtype], label, rtol)
     check(not bad, f"kernel and plain paths part: {bad}")
+
+
+def phase_taumol(k2_args, tables64, reps=10):
+    """K2 against its plain version on the arguments of one radiation
+    call of the main path, float32 and float64; returns its kernel-line
+    numbers (float32)."""
+    import torch
+    from fv3net_torch.physics.radiation.rrtmg import lw as rlw
+    from fv3net_torch.physics.radiation.rrtmg import taumol_cuda
+
+    def to64(x):
+        if isinstance(x, dict):
+            return {k: to64(v) for k, v in x.items()}
+        return x.double() if x.is_floating_point() else x
+
+    line = {}
+    for dname in ("float32", "float64"):
+        args = k2_args if dname == "float32" else (
+            tuple(to64(x) for x in k2_args[:6]) + (tables64,))
+        before = read_counts()["taumol_lw"]
+        got = taumol_cuda.taumol_lw_cuda(*args)
+        torch.cuda.synchronize()
+        check(read_counts()["taumol_lw"] == before + 1,
+              "taumol_lw did not launch")
+        want = rlw.taumol_lw_plain(*args)
+        errs = {}
+        for name, g, w in zip(("fracs", "tautot"), got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"K2 {dname} {name}: shape or dtype differs")
+            err, scale = max_diff(g, w, f"K2 {dname} {name}")
+            errs[name] = (err, scale)
+            check(err <= TAUMOL_RTOL[dname] * scale,
+                  f"K2 {dname} {name}: max|kernel-plain| {err} > "
+                  f"{TAUMOL_RTOL[dname]} * {scale}")
+            rel = torch.where(w != 0, (g - w).abs() / w.abs(),
+                              (g != 0).to(w.dtype)).nan_to_num().max().item()
+            errs[name] += (rel,)
+            check(rel <= TAUMOL_VALUE_RTOL[dname],
+                  f"K2 {dname} {name}: max relative |kernel-plain| of a "
+                  f"value {rel} > {TAUMOL_VALUE_RTOL[dname]}")
+        n_bad = int((~torch.isfinite(want[1])).sum())
+        flat, meta, _ = taumol_cuda.pack_tables(args[6])
+        fp, ip = taumol_cuda.pack_points(*args[:6])
+        N = fp.shape[1]
+        lead = tuple(got[0].shape[:-1])
+
+        def packed():  # the launch alone, on planes packed beforehand
+            return taumol_cuda.taumol_lw_packed(fp, ip, flat, meta, lead)
+
+        ms = interleaved_ms({
+            "plain": lambda: rlw.taumol_lw_plain(*args),
+            "kernel": lambda: taumol_cuda.taumol_lw_cuda(*args),
+            "launch": packed,
+            "ktable": lambda: rlw.taumol_lw(*args),
+        }, reps)
+        check(all(torch.equal(a.nan_to_num(), b.nan_to_num())
+                  for a, b in zip(packed(), got)),
+              "K2 gave two answers on the same planes")
+        # the point planes and the tables read once, both outputs written
+        # once; ~2,000 flops per point
+        moved = nbytes(fp, ip, flat, meta, *got)
+        bound_ms, by = bound(moved, 2000 * N, dname)
+        log(f"  K2 {dname}: N={N} points, fracs max|diff| "
+            f"{errs['fracs'][0]:.3e} (scale {errs['fracs'][1]:.3e}), tautot "
+            f"max|diff| {errs['tautot'][0]:.3e} (scale "
+            f"{errs['tautot'][1]:.3e}), rtol {TAUMOL_RTOL[dname]}, value by "
+            f"value within {errs['tautot'][2]:.3e} relative (bound "
+            f"{TAUMOL_VALUE_RTOL[dname]}), "
+            f"{n_bad} non-finite values (at the same points); wrapper "
+            f"{ms['kernel']:.3f} ms (packing the points and the launch), "
+            f"the launch alone {ms['launch']:.3f} ms, plain "
+            f"{ms['plain']:.3f} ms, the K3/K4 route {ms['ktable']:.3f} ms "
+            f"(median of {reps}, lower of two); {moved} bytes moved "
+            f"({nbytes(fp, ip)} in the point planes, {nbytes(flat, meta)} "
+            f"in the tables, {nbytes(*got)} out), bound {bound_ms:.4f} ms "
+            f"({by})")
+        if dname == "float32":
+            line = {"max_abs_err": max(e[0] for e in errs.values()),
+                    "ms": ms["kernel"], "plain_ms": ms["plain"],
+                    "bound_ms": bound_ms, "bound_by": by,
+                    "library_ms": None}
+    return line
+
+
+def phase_wavg(device, reps=20):
+    """K5 against its plain version and the pooling form of the library;
+    returns its kernel-line numbers (float32, the pipeline's
+    [tile, z, y, x] call)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from fv3net_torch.ops import coarsen
+
+    rng = np.random.RandomState(0)
+    line = {}
+    # the two calls the pipeline makes per time index (a weight plane per
+    # tile: shared by the levels of a [tile, z, y, x] variable, one each
+    # for a [tile, y, x] variable), then one plane for every batch, then a
+    # shape off any tile size.  The weights are random, not cell areas:
+    # the cube's six tiles have like areas, and a kernel that read another
+    # tile's plane would pass with them
+    cases = (((6, NZ_DIAG, C384, C384), (6, 1, C384, C384), COARSEN_FACTOR),
+             ((6, C384, C384), (6, C384, C384), COARSEN_FACTOR),
+             ((6 * NZ_DIAG, C384, C384), (C384, C384), COARSEN_FACTOR),
+             ((6, 12, 12), (6, 12, 12), 2))
+    for shape, w_shape, factor in cases:
+        x = torch.tensor(rng.rand(*shape), dtype=torch.float32, device=device)
+        w = torch.tensor(rng.rand(*w_shape), dtype=torch.float32,
+                         device=device)
+        before = read_counts()["weighted_block_average"]
+        got = coarsen.weighted_block_average(x, w, factor)
+        torch.cuda.synchronize()
+        check(read_counts()["weighted_block_average"] == before + 1,
+              "weighted_block_average did not launch")
+        want = coarsen.weighted_block_average_plain(x, w, factor)
+        check(got.shape == want.shape and torch.isfinite(got).all().item(),
+              f"K5 {shape}: wrong shape or non-finite output")
+        err = (got - want).abs().max().item()
+        rel = ((got - want).abs() / want.abs()).max().item()
+        check(rel <= WAVG_RTOL, f"K5 {shape} factor {factor}: max relative "
+              f"|kernel-plain| {rel} > {WAVG_RTOL}")
+
+        def library():  # the pooling form: means of x*w over means of w
+            planes = (1, -1) + x.shape[-2:]  # avg_pool2d takes [N, C, y, x]
+            return (F.avg_pool2d((x * w).reshape(planes), factor)
+                    / F.avg_pool2d(w.expand(x.shape).reshape(planes), factor)
+                    ).reshape(got.shape)
+
+        lib_rel = ((library() - want).abs() / want.abs()).max().item()
+        ms = interleaved_ms({
+            "plain": lambda: coarsen.weighted_block_average_plain(x, w,
+                                                                  factor),
+            "kernel": lambda: coarsen.weighted_block_average(x, w, factor),
+            "library": library,
+        }, reps)
+        moved = nbytes(x, w, got)
+        bound_ms, by = bound(moved, 3 * x.numel(), "float32")
+        log(f"  K5 x {shape}, w {w_shape}, factor {factor}: max relative "
+            f"|diff| {rel:.3e} (rtol {WAVG_RTOL}), max|diff| {err:.3e}; "
+            f"avg_pool2d form max relative |diff| {lib_rel:.3e}; kernel "
+            f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, avg_pool2d "
+            f"form {ms['library']:.4f} ms (median of {reps}, lower of two); "
+            f"{moved} bytes moved, bound {bound_ms:.4f} ms ({by}), "
+            f"{moved / ms['kernel'] / 1e6:.1f} GB/s")
+        if shape == cases[0][0]:
+            line = {"max_abs_err": err, "ms": ms["kernel"],
+                    "plain_ms": ms["plain"], "bound_ms": bound_ms,
+                    "bound_by": by, "library_ms": ms["library"]}
+    return line
+
+
+def phase_pipeline(device):
+    """The C384 -> C48 diagnostics pipeline on the card, from a seeded
+    store in a temporary directory; returns the K5 launches it made."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from fv3net_torch.core import zarrio
+    from fv3net_torch.core.dataset import Dataset
+    from fv3net_torch.core.quantity import Quantity
+    from fv3net_torch.grid.geometry import make_grid
+    from fv3net_torch.ops import coarsen
+    from fv3net_torch.pipelines.coarsen_diagnostics import coarsen_diagnostics
+
+    rng = np.random.default_rng(0)
+    nt, n, nc = PIPELINE_TIMES, C384, C384 // COARSEN_FACTOR
+    t0 = time.perf_counter()
+    ds = Dataset({
+        "PRATEsfc": Quantity(
+            rng.random((nt, 6, n, n), dtype=np.float32) * 1e-4,
+            ("time", "tile", "y", "x"), units="kg/m2/s"),
+        "air_temperature": Quantity(
+            250.0 + 40.0 * rng.random((nt, 6, NZ_DIAG, n, n),
+                                      dtype=np.float32),
+            ("time", "tile", "z", "y", "x"), units="K"),
+    })
+    want_shapes = {"PRATEsfc": (nt, 6, nc, nc),
+                   "air_temperature": (nt, 6, NZ_DIAG, nc, nc)}
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "c384.zarr"), os.path.join(tmp, "c48.zarr")
+        zarrio.to_zarr(ds, src, chunks={"time": 1})
+        t_write = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        coarsen_diagnostics(src, dst, COARSEN_FACTOR, device=device)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = read_counts()
+        out = zarrio.open_zarr(dst)
+    check(counts == launches(weighted_block_average=len(ds) * nt),
+          f"pipeline: launches {counts}, expected one K5 launch per "
+          f"variable and time ({len(ds) * nt})")
+    check(sorted(out) == sorted(ds), f"pipeline wrote {sorted(out)}")
+    area = torch.tensor(make_grid(n).area, dtype=torch.float64, device=device)
+    area_c = coarsen.block_sum(area, COARSEN_FACTOR)
+    for name, shape in want_shapes.items():
+        q = out[name]
+        check(q.shape == shape and q.dims == ds[name].dims
+              and q.values.dtype == np.float32,
+              f"pipeline {name}: shape {q.shape} dims {q.dims}")
+        check(bool(np.isfinite(q.values).all()), f"pipeline {name}: "
+              "non-finite values")
+        fine = torch.tensor(ds[name].values, device=device)
+        coarse = torch.tensor(q.values, device=device)
+        wf = area if fine.ndim == 4 else area[:, None]
+        want = coarsen.weighted_block_average_plain(fine, wf.float(),
+                                                    COARSEN_FACTOR)
+        rel = ((coarse - want).abs() / want.abs()).max().item()
+        check(rel <= WAVG_RTOL, f"pipeline {name}: max relative |output - "
+              f"plain block average| {rel} > {WAVG_RTOL}")
+        log(f"  pipeline {name}: every value within {rel:.3e} relative of "
+            f"the plain block average (rtol {WAVG_RTOL})")
+        del want
+        fine, coarse = fine.double(), coarse.double()
+        wc = area_c if fine.ndim == 4 else area_c[:, None]
+        lead = tuple(range(1, fine.ndim))
+        mean_f = (fine * wf).sum(lead) / wf.expand(fine.shape[1:]).sum()
+        mean_c = (coarse * wc).sum(lead) / wc.expand(coarse.shape[1:]).sum()
+        rel = ((mean_c - mean_f).abs() / mean_f.abs()).max().item()
+        log(f"  pipeline {name}: {tuple(ds[name].shape)} -> {q.shape}, "
+            f"area-weighted global mean kept to {rel:.3e} relative (bound "
+            f"{PIPELINE_MEAN_RTOL})")
+        check(rel <= PIPELINE_MEAN_RTOL, f"pipeline {name}: global mean "
+              f"moved by {rel} relative")
+    log(f"  pipeline: C{n} -> C{nc}, {nt} time indices, {len(ds)} "
+        f"variables: store written in {t_write:.1f} s, coarsen_diagnostics "
+        f"{t_run:.2f} s ({t_run / nt:.2f} s per time index, reading and "
+        f"writing the stores included), launches {counts}")
+    return counts
 
 
 def main():
@@ -916,19 +1368,38 @@ def main():
     log("phase 4: gray main path")
     phase_gray(device)
 
-    log("phase 5: RRTMG main path")
-    counts, state, (sst, cosz) = phase_rrtmg(device)
+    log("phase 5: RRTMG main path, LW gas optics through K4/K3 and "
+        "through K2")
+    paths, states = phase_rrtmg(device)
+    state = states[RADIATION_STATES_AFTER[-1]]
+    counts, counts_mega = paths["ktable"].counts, paths["mega"].counts
+    _, sst, cosz = paths["ktable"].args
+    del paths
 
     log("phase 6: one RRTMG radiation call")
-    rec = phase_radiation(device, state, sst, cosz)
+    rec, k2_args, tables64 = phase_radiation(device, states, sst, cosz)
 
     log("phase 7: k-table kernels K4 and K3 against their plain versions")
     ktable_lines = phase_ktable(rec)
-    del rec
+    del rec, states
 
     log("phase 8: one step, kernels against plain")
     phase_step_vs_plain(device, state)
 
+    log("phase 9: LW gas-optics kernel K2 against its plain version")
+    taumol_line = phase_taumol(k2_args, tables64)
+    del k2_args, tables64
+
+    log("phase 10: block-average kernel K5 against its plain version")
+    wavg_line = phase_wavg(device)
+
+    log("phase 11: C384 -> C48 coarsening pipeline")
+    counts_pipeline = phase_pipeline(device)
+
+    # each kernel's launches come from the run of the path it lies on
+    counts = dict(counts, taumol_lw=counts_mega["taumol_lw"],
+                  weighted_block_average=counts_pipeline[
+                      "weighted_block_average"])
     common = {
         "remap_apply": {"source": "fv3net_torch/csrc/remap_apply.cu",
                         "replaces": "fv3net_tpu/ops/pallas_remap.py:58",
@@ -941,6 +1412,15 @@ def main():
             "source": "fv3net_torch/csrc/ktable.cu",
             "replaces": "fv3net_tpu/ops/pallas_ktable.py:97",
             **ktable_lines["spec_band_dot"]},
+        "taumol_lw": {
+            "source": "fv3net_torch/csrc/taumol_lw.cu",
+            "replaces": "fv3net_tpu/physics/radiation/rrtmg/"
+                        "pallas_taumol.py:73",
+            **taumol_line},
+        "weighted_block_average": {
+            "source": "fv3net_torch/csrc/wavg.cu",
+            "replaces": "fv3net_tpu/ops/pallas_kernels.py:25",
+            **wavg_line},
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": v["source"],
@@ -951,6 +1431,8 @@ def main():
         for name, v in common.items()
     ]}
     for k in line["kernels"]:
+        check(k["launches"] > 0, f"{k['name']} was launched no time on its "
+              "path")
         for value in k.values():
             check(not isinstance(value, float) or math.isfinite(value),
                   "non-finite number in the kernel line")

@@ -52,18 +52,19 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def build(source_name: str) -> BuildInfo:
-    """Compile ``csrc/<source_name>`` if needed; returns its
-    :class:`BuildInfo`."""
+def build(source_name: str, extra_flags: tuple = ()) -> BuildInfo:
+    """Compile ``csrc/<source_name>`` if needed, with ``extra_flags`` after
+    the common ones; returns its :class:`BuildInfo`."""
     source = CSRC / source_name
     src = source.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     path = BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
     if path.exists():
         return BuildInfo(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

@@ -80,12 +80,18 @@ class RRTMGDriver:
     refuses state tensors that lie on another device.
 
     ``impl`` picks the k-table selections' version (None: the CUDA
-    kernels on a CUDA device, the plain versions on the CPU)."""
+    kernels on a CUDA device, the plain versions on the CPU);
+    ``lw_taumol`` the route of the LW gas optics ("ktable": the k-table
+    selections, "mega": the one-launch kernel K2, see ``lw.lwrad``)."""
 
     def __init__(self, config: RRTMGConfig = RRTMGConfig(),
                  lw_tables: Optional[Dict] = None,
                  sw_tables: Optional[Dict] = None,
-                 dtype=torch.float32, device="cuda", impl: str = None):
+                 dtype=torch.float32, device="cuda", impl: str = None,
+                 lw_taumol: str = "ktable"):
+        if lw_taumol not in ("ktable", "mega"):
+            raise ValueError(
+                f"lw_taumol must be 'ktable' or 'mega'; got {lw_taumol!r}")
         if not config.fast_exp:
             raise NotImplementedError(
                 "RRTMGConfig.fast_exp=False (the lookup-table "
@@ -102,6 +108,7 @@ class RRTMGDriver:
         # to the device of a tensor placed there
         self.device = torch.empty(0, device=device).device
         self.impl = impl
+        self.lw_taumol = lw_taumol
         min_p = (config.min_pressure_mb if config.min_pressure_mb is not None
                  else TOA_PRESSURE / 100.0)
         nbase_hi = rlw.nbase_hi_for(min_p)
@@ -284,7 +291,7 @@ class RRTMGDriver:
         lw_out = rlw.lwrad(
             plyr, plvl, T, tlvl, q, o3, gasvmr, clouds, aer_lw, sfemis, tsfc,
             delp, rand_lw, self.Tlw, iovrlw=cfg.iovr, fast_exp=cfg.fast_exp,
-            impl=self.impl,
+            impl=self.impl, taumol=self.lw_taumol,
         )
 
         # broadband dir/dif albedo -> (nir-bm, nir-df, vis-bm, vis-df)

@@ -14,6 +14,10 @@ of each band through ``spec_band_dot`` (K3), every other fetch through
 ``weighted_select_dot`` (K4).  ``impl`` picks their version (None: the
 CUDA kernels on CUDA tensors, the plain versions on CPU tensors).
 
+``lwrad(taumol="mega")`` takes the whole of the gas optics through one
+kernel instead (K2, :mod:`.taumol_cuda`), whose plain version is
+:func:`taumol_lw_plain`.
+
 The transfer evaluates each layer's transmittances and sources for all
 layers at once and runs the two recurrences as Python loops over L.
 Only the direct-exponential transmittances are ported (``fast_exp``);
@@ -28,6 +32,7 @@ import torch
 
 from fv3net_torch.ops import ktable
 from fv3net_torch.physics.radiation.rrtmg import params as P
+from fv3net_torch.physics.radiation.rrtmg import taumol_cuda
 
 _STPFAC = 296.0 / 1013.0
 
@@ -759,6 +764,25 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
     return fracs, tautot
 
 
+def taumol_lw_plain(c, colamt, coldry, colbrd, wx, tauaer, T):
+    """The plain PyTorch version of K2: :func:`taumol_lw` with every
+    selection as a plain gather."""
+    return taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl="torch")
+
+
+def taumol_lw_mega(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
+    """:func:`taumol_lw` as one kernel launch: K2 on CUDA tensors (it
+    launches or raises), :func:`taumol_lw_plain` on CPU tensors; ``impl``
+    "cuda" or "torch" forces one."""
+    if impl not in (None, "cuda", "torch"):
+        raise ValueError(f"taumol impl must be None, 'cuda' or 'torch'; got "
+                         f"{impl!r}")
+    if impl == "cuda" or (impl is None and coldry.is_cuda):
+        return taumol_cuda.taumol_lw_cuda(c, colamt, coldry, colbrd, wx,
+                                          tauaer, T)
+    return taumol_lw_plain(c, colamt, coldry, colbrd, wx, tauaer, T)
+
+
 # ------------------------------------------------------------------ clouds
 def mcica_walk(rand, cldf, ngpt: int, iovr: int = 1):
     """McICA subcolumn masks [C, L, ngpt] (int8 {0, 1}) from uniforms
@@ -927,12 +951,18 @@ def rtrnmc_lw(semiss, delp, cldfmc, taucld, tautot, pklay, pklev, fracs,
 def lwrad(plyr, plvl, tlyr, tlvl, qlyr, olyr, gasvmr, clouds, aerosols,
           sfemis, sfgtmp, delpin, rand2d, T, iovrlw: int = 1,
           ilwrgas: int = 1, ilwcliq: int = 1, fast_exp: bool = True,
-          impl=None) -> Dict[str, torch.Tensor]:
+          impl=None, taumol: str = "ktable") -> Dict[str, torch.Tensor]:
     """Batched LW driver (reference radlw_main.py:1459-2268 semantics).
 
     Inputs [C, L] layer / [C, L+1] level, k=0 at the surface; gasvmr
     [C, L, 10], clouds [C, L, 9], aerosols [C, L, nbands, 3], rand2d
-    [C, ngptlw*nlay].  T: prep_lw_tables output.  Pressures in mb."""
+    [C, ngptlw*nlay].  T: prep_lw_tables output.  Pressures in mb.
+
+    ``taumol`` routes the gas optics: "ktable" through the k-table
+    selections (12 K3 and 27 K4 calls), "mega" through the one-launch
+    kernel K2 (:func:`taumol_lw_mega`)."""
+    if taumol not in ("ktable", "mega"):
+        raise ValueError(f"taumol must be 'ktable' or 'mega'; got {taumol!r}")
     if not fast_exp:
         raise NotImplementedError(
             "lwrad(fast_exp=False) (the lookup-table transmittances) is "
@@ -995,8 +1025,9 @@ def lwrad(plyr, plvl, tlyr, tlvl, qlyr, olyr, gasvmr, clouds, aerosols,
         *[clouds[..., i] for i in range(9)], rand2d, T, iovrlw=iovrlw,
         ilwcliq=ilwcliq, impl=impl,
     )
-    fracs, tautot = taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T,
-                              impl)
+    gas_optics = taumol_lw_mega if taumol == "mega" else taumol_lw
+    fracs, tautot = gas_optics(c, colamt, coldry, colbrd, wx, tauaer, T,
+                               impl)
     totuflux, totdflux, htr, totuclfl, totdclfl, htrcl = rtrnmc_lw(
         semiss, delpin, cldfmc, taucld, tautot, c["pklay"], c["pklev"],
         fracs, secdif, fast_exp=fast_exp,

@@ -72,13 +72,15 @@ def ml_correction_fn(model) -> Tuple[Callable, object]:
 
 
 def _build_radiation_fn(phys_cfg: PhysicsConfig, device, dtype,
-                        impl: str = None) -> Optional[Callable]:
+                        impl: str = None,
+                        lw_taumol: str = "ktable") -> Optional[Callable]:
     """The band-solver closure handed to physics_step: the RRTMG driver
     for scheme "rrtmg", None for "gray" (which physics_step computes).
 
     The driver computes in ``dtype``, the state's (the reference's
     driver computes in float32 whatever the state's dtype), at solar
-    constant 1368.22 * ``solcon_scale``."""
+    constant 1368.22 * ``solcon_scale``.  ``lw_taumol`` is its route
+    of the LW gas optics."""
     if phys_cfg.radiation_scheme == "gray":
         return None
     if phys_cfg.radiation_scheme != "rrtmg":
@@ -93,7 +95,7 @@ def _build_radiation_fn(phys_cfg: PhysicsConfig, device, dtype,
 
     driver = RRTMGDriver(
         RRTMGConfig(solcon=1368.22 * phys_cfg.solcon_scale),
-        dtype=dtype, device=device, impl=impl,
+        dtype=dtype, device=device, impl=impl, lw_taumol=lw_taumol,
     )
     epoch = datetime.datetime(2016, 7, 1)  # isol=0: the date seeds o3 only
 
@@ -138,11 +140,12 @@ def build_fused_step(
     phys_cfg: PhysicsConfig,
     ml_apply: Optional[Callable] = None,
     impl: str = None,
+    lw_taumol: str = "ktable",
 ):
     """Returns step(state, ml_params, t_surface, cos_zenith) -> state."""
     validate_acoustic_cfl(g, dyn_cfg)
     radiation_fn = _build_radiation_fn(phys_cfg, g.lat.device, g.lat.dtype,
-                                       impl)
+                                       impl, lw_taumol)
 
     @torch.no_grad()
     def step(state: DycoreState, ml_params, t_surface, cos_zenith):
@@ -168,19 +171,21 @@ def build_fused_multi_step(
     n_steps: int = 8,
     radiation_interval: int = 1,
     impl: str = None,
+    lw_taumol: str = "ktable",
 ):
     """``n_steps`` model steps, computing radiation only every
     ``radiation_interval`` steps (always at step 0) and reusing the
     stored heating rates and fluxes in between (for rrtmg the heating
     plus the four flux diagnostics ULWRFtoa, USWRFtoa, DSWRFsfc,
-    DLWRFsfc).  Each step's parts run under the profiler ranges
+    DLWRFsfc).  ``lw_taumol`` routes RRTMG's LW gas optics ("ktable" or
+    "mega").  Each step's parts run under the profiler ranges
     "dynamics", "radiation", "physics" and "ml".
 
     Returns fn(state, ml_params, t_surface, cos_zenith) -> state.
     """
     validate_acoustic_cfl(g, dyn_cfg)
     band_radiation = _build_radiation_fn(phys_cfg, g.lat.device,
-                                         g.lat.dtype, impl)
+                                         g.lat.dtype, impl, lw_taumol)
 
     def radiation(s: DycoreState, t_surface, cos_zenith):
         delp = s.delp.movedim(1, -1)

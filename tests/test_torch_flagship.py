@@ -226,6 +226,10 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'fv3net_tpu'))\n"
         "assert not bad, bad\n"
+        "for name in ('core.zarrio', 'ops.coarsen', 'ops.coarsen_cuda',\n"
+        "             'pipelines.coarsen_diagnostics',\n"
+        "             'physics.radiation.rrtmg.taumol_cuda'):\n"
+        "    assert 'fv3net_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
