@@ -11,9 +11,10 @@ Phases (any failure exits nonzero, and no result line is printed):
    checkout, one ``nvcc`` each, all at once: ``remap_apply.cu`` (K1),
    ``ktable.cu`` (K4 and K3), ``taumol_lw.cu`` (K2) and ``wavg.cu`` (K5),
    with nvcc's register and spill lines;
-3. K1 against its plain PyTorch version on the card at the flagship's
-   shapes (C48, npz=32, F = 1, 2, 3 fields; float32 and float64), with
-   times (median of CUDA-event timings);
+3. K1 against its plain PyTorch version on the card on the dycore
+   step's three calls (C48, npz=32, F = 3, 2, 1 fields on one search;
+   float32 and float64), with times, their sum per step beside the sum of
+   their bounds, and one call at km=79;
 4. gray main path: ``entry.flagship(radiation="gray")`` -- C48, npz=32,
    float32 on cuda:0 -- one warm-up and one timed 8-step chunk, with its
    K1 launch count;
@@ -37,7 +38,8 @@ Phases (any failure exits nonzero, and no result line is printed):
    and on the last state within absolute bounds; one LW call alone on
    each route;
 7. K4 and K3 against their plain versions on every call that radiation
-   call made, then, on four of its calls (K4 on ``selfref_all`` and
+   call made, all of each kernel's calls timed together beside the sum of
+   their bounds, then, on four of its calls (K4 on ``selfref_all`` and
    ``mtab_lo1``, K3 on an LW lower and an SW upper band), float32 and
    float64 times of the kernel, the plain version and
    ``torch.nn.functional.embedding_bag`` (the library-call yardstick,
@@ -65,10 +67,29 @@ Phases (any failure exits nonzero, and no result line is printed):
     per variable and time, every value against the plain block average,
     area-weighted global means kept.
 
+Kernel times are device times (CUDA events around calls queued behind a
+sleep kernel, so that the device runs them back to back, or the
+profiler's sum of a call's device activities where the call waits on the
+device; the host's work between launches is in neither).
+
+    python3 chip_smoke.py --kernel-times [--tree DIR]
+
+instead builds K1 and K4 of DIR's ``fv3net_torch`` (default: the one
+beside this script) and times them on one yardstick, device time beside
+the CUDA events of one call with the wrapper's host work in, so that two
+trees (a change and its parent) compare call by call; see
+:func:`kernel_times`.
+
 The line before the last two is the ``kernels`` JSON line; then the
 card's ``nvidia-smi`` name and power limit; the last line is
-``{"ok": true, "device": {...}}``.  The script imports nothing of jax or
-of ``fv3net_tpu``.
+``{"ok": true, "device": {...}}``.  In the ``kernels`` line, ``ms``,
+``plain_ms`` and ``library_ms`` are device times of one call at the main
+path's largest shape, ``bound_ms`` its bound; ``path_ms`` is the device
+time of all of the kernel's calls in one pass of its path (K1: a dycore
+step's three calls; K4, K3: one radiation call's; K2: its one call on the
+mega route; K5: the pipeline's two calls of a time index) and
+``path_bound_ms`` the sum of their bounds.  The script imports nothing of
+jax or of ``fv3net_tpu``.
 """
 import concurrent.futures
 import json
@@ -95,6 +116,7 @@ RRTMG_SCHEDULE = ("ktable", "mega", "ktable", "mega", "mega", "ktable",
 # below) is on the last
 RADIATION_STATES_AFTER = (3, 4)
 REMAPS_PER_STEP = 3  # winds, tracers, total energy (dycore/core.py)
+KM_DEEP = 79  # a K1 case of more than 32 levels (the diagnostics' 79)
 RADIATION_CALLS_PER_CHUNK = CHUNK // 4  # every 4th step, from step 0
 # K3 (spec_band_dot) per radiation call: one per species-interpolated
 # band, LW 9 lower + 3 upper (lw.py taumol_lw), SW 8 lower + 3 upper
@@ -118,6 +140,9 @@ SELECT_PER_CALL = 30 + 14
 MEGA_SELECT_PER_CALL = SELECT_PER_CALL - 27
 MEGA_SPEC_PER_CALL = SPEC_PER_CALL - 12
 F32_RTOL = 1e-5  # float32: summation order of the prefix and band sums
+# K1 in float32 may part from plain by this times what the float32 plain
+# version itself errs from the exact application (see remap_case)
+K1_F32_CONTROL_FACTOR = 2.0
 F64_RTOL = 1e-12
 KTABLE_RTOL = {"float32": 2e-6, "float64": 1e-13}  # summation order only
 RRTMG_STEP_RTOL = 1e-10  # float64 RRTMG step, kernels against plain
@@ -157,6 +182,7 @@ RAD_F32_ULPS = 4
 RAD_F32_FAULT_RATIO = 3.0
 RANGES = ("dynamics", "radiation", "physics", "ml")  # runtime/fused.py
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
+SLEEP_CYCLES_PER_S = 2e9  # torch.cuda._sleep cycles per second, at most
 # H100 SXM peak rates outside the tensor cores (NVIDIA's data sheet)
 PEAK_FLOP_PER_S = {"float32": 67e12, "float64": 34e12}
 
@@ -213,6 +239,71 @@ def interleaved_ms(fns, reps, warmup=3):
     return {n: min(v) for n, v in out.items()}
 
 
+def _profiled_us(fn, reps):
+    """Microseconds of device activity (kernels, copies) that ``reps``
+    calls of ``fn`` launch, summed by ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(events[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    return sum(getattr(e, key) for e in events
+               if getattr(e, key) > 0 and e.self_cpu_time_total == 0)
+
+
+def device_ms(fns, reps, warmup=3):
+    """Device milliseconds per call of each named function, timed twice in
+    turns (a, b, ..., b, a), the lower of the two; the host's work between
+    the launches (a wrapper's checks, the ctypes call) is not in it.
+
+    CUDA events around ``reps`` calls that the host queued while a sleep
+    kernel held the device, so that the device ran them back to back.  A
+    function that waits on the device itself (a copy from pageable host
+    memory in a plain version) cannot be queued ahead: its time is the sum
+    of its device activities under ``torch.profiler`` instead.  (A
+    profiler session that launches nothing but ctypes-bound kernels may
+    record none of them, so the kernels are timed by the first way.)"""
+    import torch
+
+    names = list(fns)
+    for n in names:
+        for _ in range(warmup):
+            fns[n]()
+    out = {n: [] for n in names}
+    for n in names + names[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fns[n]()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(4 * SLEEP_CYCLES_PER_S * host_s) + 1000)
+        start.record()
+        for _ in range(reps):
+            fns[n]()
+        end.record()
+        ahead = not start.query()  # the sleep outlasted the queuing
+        end.synchronize()
+        if not ahead:
+            log(f"  ({n} waits on the device: its device time from the "
+                "profiler)")
+        ms = (start.elapsed_time(end) if ahead
+              else _profiled_us(fns[n], reps) / 1e3) / reps
+        check(ms > 0, f"timing {n}: no device time recorded")
+        out[n].append(ms)
+    return {n: min(v) for n, v in out.items()}
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -242,8 +333,8 @@ def build_kernels():
                     log(f"  nvcc: {line.strip()}")
 
 
-def flagship_edges(device, dtype, seed=0):
-    """pe1 / pe2 [6, 48, 48, 33]: the C48, npz=32 hybrid coordinate over a
+def flagship_edges(device, dtype, seed=0, npz=NPZ):
+    """pe1 / pe2 [6, 48, 48, npz+1]: the C48 hybrid coordinate over a
     varying surface pressure (pe2) and a Lagrangian perturbation of its
     interior edges by 0.3 layer thicknesses times a normal draw clipped to
     +-2.5, which keeps them inside the column (pe1)."""
@@ -254,12 +345,12 @@ def flagship_edges(device, dtype, seed=0):
 
     rng = np.random.RandomState(seed)
     grid = make_grid(NPX)
-    ak, bk = hybrid_coordinate(NPZ)
+    ak, bk = hybrid_coordinate(npz)
     ps = 1.0e5 + 1500.0 * np.cos(2 * grid.lat) * np.sin(grid.lon)
     pe2 = ak + bk * ps[..., None]
     pe1 = pe2.copy()
     pe1[..., 1:-1] += (
-        0.3 * np.diff(pe2, axis=-1)[..., :-1] * np.clip(rng.randn(*ps.shape, NPZ - 1), -2.5, 2.5)
+        0.3 * np.diff(pe2, axis=-1)[..., :-1] * np.clip(rng.randn(*ps.shape, npz - 1), -2.5, 2.5)
     )
     pe1.sort(-1)
 
@@ -269,62 +360,148 @@ def flagship_edges(device, dtype, seed=0):
     return t(pe1), t(pe2), rng
 
 
-def phase_remap_kernel(device, reps=30):
-    """K1 against its plain version; returns its kernel-line numbers."""
+def _to64(x):
+    """``x`` with every floating tensor in it (dicts and lists walked) in
+    float64."""
+    import torch
+
+    if isinstance(x, dict):
+        return {k: _to64(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to64(v) for v in x)
+    if torch.is_tensor(x) and x.is_floating_point():
+        return x.double()
+    return x
+
+
+def remap_inputs(device, dtype, F, npz=NPZ):
+    """K1's arguments for F fields over the C48 columns at npz levels:
+    (search, q, al, ar, a6)."""
+    import torch
+    from fv3net_torch.ops import remap as rm
+
+    pe1, pe2, rng = flagship_edges(device, dtype, npz=npz)
+    search = rm.banded_search(pe1, pe2, window=2)
+    q = torch.tensor(250.0 + 30.0 * rng.rand(F, 6, NPX, NPX, npz),
+                     dtype=dtype, device=device)
+    al, ar, a6 = rm.cs_profile(q, search["dp1"], 1, 9)
+    return search, q, al, ar, a6
+
+
+def remap_readings(args, got):
+    """K1's output ``got`` on ``args`` against the plain version in the
+    same dtype and, for float32, against the plain version in float64 on
+    the same (float32) arguments, the exact application: returns
+    ``(scale, |kernel - plain|, |kernel - exact|, |plain - exact|)``, the
+    last two None in float64."""
+    import torch
+    from fv3net_torch.ops import remap as rm
+
+    want = rm.remap_apply_plain(*args)
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if got.dtype != torch.float32:
+        return scale, err, None, None
+    exact = rm.remap_apply_plain(*_to64(args))
+    return (scale, err, (got.double() - exact).abs().max().item(),
+            (want.double() - exact).abs().max().item())
+
+
+def remap_case(device, dtype, F, npz=NPZ, reps=0):
+    """K1 against its plain version on F fields over the C48 columns at
+    npz levels: checks the difference and the column mass, logs them (with
+    device times when ``reps``); returns (max |diff|, times, bytes moved,
+    output values).
+
+    Float32 is held to F32_RTOL of the output's scale, against plain and
+    against the exact (float64) application of the same arguments.  Both
+    versions difference prefix sums of the column's mass, whose rounding
+    grows with the levels summed: at km=79 the float32 plain version errs
+    by 1.27e-5 of the scale, the kernel by 1.14e-5 (NVIDIA H100 80GB HBM3,
+    700.00 W; PERF.md).  So past the flagship's NPZ levels the bound is
+    twice what the float32 plain version errs, where that is more
+    (K1_F32_CONTROL_FACTOR: two float32 results that each err by e part by
+    at most 2 e)."""
     import torch
     from fv3net_torch.ops import remap as rm
     from fv3net_torch.ops import remap_cuda
 
+    name = str(dtype).replace("torch.", "")
+    label = f"K1 {name} F={F} km={npz}"
+    args = remap_inputs(device, dtype, F, npz)
+    search, q = args[0], args[1]
+    dp1 = search["dp1"]
+    pe2 = search["pe2"]
+    dp2 = pe2[..., 1:] - pe2[..., :-1]
+
+    def kernel():
+        return remap_cuda.remap_apply_cuda(*args)
+
+    def plain():
+        return rm.remap_apply_plain(*args)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    check(torch.isfinite(got).all().item(), f"{label}: non-finite output")
+    scale, err, err_k, err_p = remap_readings(args, got)
+    if dtype == torch.float32:
+        rtol = (F32_RTOL if npz <= NPZ else
+                max(F32_RTOL, K1_F32_CONTROL_FACTOR * err_p / scale))
+        f32 = (f"; against the exact (float64) application: kernel "
+               f"{err_k:.3e}, plain {err_p:.3e}")
+        check(err_k <= rtol * scale, f"{label}: max|kernel-exact| {err_k} "
+              f"> {rtol} * {scale}")
+    else:
+        rtol, f32 = F64_RTOL, ""
+    check(err <= rtol * scale,
+          f"{label}: max|kernel-plain| {err} > {rtol} * {scale}")
+    m1 = (q * dp1).sum(-1)
+    m2 = (got * dp2).sum(-1)
+    cons = ((m2 - m1).abs() / m1.abs()).max().item()
+    mass_rtol = F32_RTOL if dtype == torch.float32 else F64_RTOL
+    check(cons <= mass_rtol,
+          f"{label}: column mass rel error {cons} > {mass_rtol}")
+    # each input read once, the output written once
+    moved = nbytes(q, *args[2:], dp1, search["w"], search["p"],
+                   search["pe1"], pe2, got)
+    ms = device_ms({"plain": plain, "kernel": kernel}, reps) if reps else None
+    log(f"  {label}: max|diff| {err:.3e} (scale {scale:.3e}, rtol "
+        f"{rtol:.3e}){f32}, column-mass rel err {cons:.3e}; {moved} bytes "
+        f"moved" + ("" if not reps else
+                    f"; device time kernel {ms['kernel']:.4f} ms, plain "
+                    f"{ms['plain']:.4f} ms (lower of two)"))
+    return err, ms, moved, got.numel()
+
+
+def phase_remap_kernel(device, reps=30):
+    """K1 against its plain version: the step's three calls (F = 3, 2, 1
+    on one search at C48, npz=32) in float32 and float64, timed, and one
+    call at km=79; returns its kernel-line numbers (F=3, float32) and the
+    step's sums."""
+    import torch
+
     worst = 0.0
-    line = {}
-    for dtype, rtol in ((torch.float32, F32_RTOL), (torch.float64, F64_RTOL)):
-        pe1, pe2, rng = flagship_edges(device, dtype)
-        search = rm.banded_search(pe1, pe2, window=2)
-        dp1 = search["dp1"]
-        dp2 = pe2[..., 1:] - pe2[..., :-1]
-        for F in (1, 2, 3):
-            q = torch.tensor(250.0 + 30.0 * rng.rand(F, 6, NPX, NPX, NPZ),
-                             dtype=dtype, device=device)
-            al, ar, a6 = rm.cs_profile(q, dp1, 1, 9)
-
-            def kernel():
-                return remap_cuda.remap_apply_cuda(search, q, al, ar, a6)
-
-            def plain():
-                return rm.remap_apply_plain(search, q, al, ar, a6)
-
-            got = kernel()
-            torch.cuda.synchronize()
-            want = plain()
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            check(torch.isfinite(got).all().item(), f"K1 F={F} {dtype}: "
-                  "non-finite output")
-            check(err <= rtol * scale,
-                  f"K1 F={F} {dtype}: max|kernel-plain| {err} > "
-                  f"{rtol} * {scale}")
-            m1 = (q * dp1).sum(-1)
-            m2 = (got * dp2).sum(-1)
-            cons = ((m2 - m1).abs() / m1.abs()).max().item()
-            check(cons <= rtol, f"K1 F={F} {dtype}: column mass rel "
-                  f"error {cons} > {rtol}")
-            ms = interleaved_ms({"plain": plain, "kernel": kernel}, reps)
-            name = str(dtype).replace("torch.", "")
-            # each input read once, the output written once
-            moved = nbytes(q, al, ar, a6, dp1, search["w"], search["p"],
-                           search["pe1"], search["pe2"], got)
-            log(f"  K1 {name} F={F}: max|diff| {err:.3e} (scale "
-                f"{scale:.3e}, rtol {rtol}), column-mass rel err "
-                f"{cons:.3e}; kernel {ms['kernel']:.4f} ms, plain "
-                f"{ms['plain']:.4f} ms (median of {reps}, lower of two); "
-                f"{moved} bytes moved")
-            if dtype == torch.float32:
-                worst = max(worst, err)
-            if dtype == torch.float32 and F == 3:
-                # work is data-independent: ~60 flops per output value
-                bound_ms, by = bound(moved, 60 * got.numel(), name)
-                line = {"ms": ms["kernel"], "plain_ms": ms["plain"],
-                        "bound_ms": bound_ms, "bound_by": by}
+    line = {"path_ms": 0.0, "path_bound_ms": 0.0}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        for F in (3, 2, 1):
+            err, ms, moved, n_out = remap_case(device, dtype, F, reps=reps)
+            # work is data-independent: ~60 flops per output value
+            bound_ms, by = bound(moved, 60 * n_out, name)
+            if dtype != torch.float32:
+                continue
+            worst = max(worst, err)
+            line["path_ms"] += ms["kernel"]
+            line["path_bound_ms"] += bound_ms
+            if F == 3:
+                line.update(ms=ms["kernel"], plain_ms=ms["plain"],
+                            bound_ms=bound_ms, bound_by=by)
+    log(f"  K1, the step's three calls (F = 3, 2, 1; float32): "
+        f"{line['path_ms']:.4f} ms of device time against a bound of "
+        f"{line['path_bound_ms']:.4f} ms "
+        f"({100 * line['path_bound_ms'] / line['path_ms']:.1f}%)")
+    for dtype in (torch.float32, torch.float64):
+        remap_case(device, dtype, 3, npz=KM_DEEP)
     line["max_abs_err"] = worst
     return line
 
@@ -344,6 +521,9 @@ def fields(state):
 
 KERNELS = ("remap_apply", "weighted_select_dot", "spec_band_dot",
            "taumol_lw", "weighted_block_average")
+# the __global__ functions of the chunk's hand kernels (K1, K4, K3, K2)
+HAND_KERNELS = ("remap_apply_kernel", "weighted_select_kernel",
+                "spec_band_kernel", "taumol_lw_kernel")
 
 
 def reset_counts():
@@ -530,18 +710,21 @@ def profile_chunk(label, step, state, ml_params, sst, cosz):
         if name not in host:
             continue
         e = host[name]
-        busy = getattr(e, key)  # the kernels launched inside the range
+        # the kernels PyTorch ops launched inside the range: those launched
+        # through ctypes (K1-K4) count in the total and per kernel below,
+        # not here
+        busy = getattr(e, key)
         span_us = getattr(span[name], key) if name in span else float("nan")
         log(f"  range {name}: {e.count} calls, host "
             f"{e.cpu_time_total / 1e3:.1f} ms, device busy "
             f"{busy / 1e3:.1f} ms ({100 * busy / max(device_us, 1e-9):.1f}% "
             f"of device busy), device span {span_us / 1e3:.1f} ms")
-    for e in device:
-        for kname in ("remap_apply_kernel", "weighted_select_kernel",
-                      "spec_band_kernel", "taumol_lw_kernel"):
-            if kname in e.key:
-                log(f"  kernel {kname}: {e.count} launches, "
-                    f"{getattr(e, self_key) / 1e3:.3f} ms")
+    # the hand kernels by name, summed over their template instances
+    for kname in HAND_KERNELS:
+        mine = [e for e in device if kname in e.key]
+        if mine:
+            log(f"  kernel {kname}: {sum(e.count for e in mine)} launches, "
+                f"{sum(getattr(e, self_key) for e in mine) / 1e3:.3f} ms")
     for line in events.table(sort_by=self_key, row_limit=15).splitlines():
         log(f"  | {line}")
 
@@ -562,7 +745,8 @@ def radiation_inputs(state, sst, cosz, lat):
 
 
 class Recorder:
-    """Wraps the K4/K3 wrappers to keep the arguments of every call."""
+    """Wraps the K4/K3 wrappers to keep the arguments of every call: K4's
+    (terms, tab), K3's (wids, ww, sids, sw, tab, n_paths, nspa)."""
 
     def __init__(self):
         from fv3net_torch.ops import ktable_cuda
@@ -866,11 +1050,10 @@ def max_diff(got, want, label):
     return diff, torch.where(finite, want, 0.0).abs().max().item()
 
 
-def _select_plain(ids, w, tab):
+def _select_plain(terms, tab):
     from fv3net_torch.ops import ktable
 
-    return ktable.weighted_select_dot_plain(
-        [(ids[k], w[k]) for k in range(ids.shape[0])], tab)
+    return ktable.weighted_select_dot_plain(terms, tab)
 
 
 def _spec_plain(wids, ww, sids, sw, tab, n_paths, nspa):
@@ -884,13 +1067,41 @@ def _spec_plain(wids, ww, sids, sw, tab, n_paths, nspa):
     return ktable.spec_band_dot_plain(w_paths, s_paths, tab, nspa)
 
 
-def _embedding_bag_select(ids, w, tab):
+def _embedding_bag_select(terms, tab):
     """K4 as one library call: bags of the K rows of each point."""
+    import torch
     import torch.nn.functional as F
 
-    idx, psw = ids.T.contiguous(), w.T.contiguous()
+    lead = torch.broadcast_shapes(*[x.shape for t in terms for x in t
+                                    if x is not None])
+    rows = tab.shape[0]
+    idx = torch.stack([i.expand(lead).reshape(-1).long().clamp(0, rows - 1)
+                       for i, _ in terms], 1)
+    psw = torch.stack([
+        (torch.ones(lead, dtype=tab.dtype, device=tab.device) if w is None
+         else w.expand(lead)).reshape(-1) for _, w in terms], 1)
+    shape = tuple(lead) + (tab.shape[1],)
     return lambda: F.embedding_bag(idx, tab, per_sample_weights=psw,
-                                   mode="sum")
+                                   mode="sum").view(shape)
+
+
+def _select_cost(terms, tab, out):
+    """(bytes, flops) K4 must move and do: each distinct input read once
+    (ids at their own width), the output written once."""
+    seen = {}
+    for x in [tab, out] + [x for t in terms for x in t if x is not None]:
+        seen.setdefault((x.data_ptr(), x.numel()), x)
+    G = tab.shape[1]
+    return nbytes(*seen.values()), 2 * len(terms) * (out.numel() // G) * G
+
+
+def _spec_cost(a, out):
+    """(bytes, flops) K3 must move and do."""
+    wids, _, sids, _, tab, n_paths, nspa = a
+    kw, st = wids.shape[0] // n_paths, sids.shape[0] // n_paths
+    N, ng = wids.shape[1], tab.shape[1] // nspa
+    moved = nbytes(*[x for x in a if hasattr(x, "numel")], out)
+    return moved, N * ng * n_paths * st * (2 * kw + 2)
 
 
 def _embedding_bag_spec(wids, ww, sids, sw, tab, n_paths, nspa):
@@ -917,28 +1128,47 @@ def _embedding_bag_spec(wids, ww, sids, sw, tab, n_paths, nspa):
 
 
 def phase_ktable(rec, reps=20):
-    """K4 and K3 against their plain versions on every recorded call, and
+    """K4 and K3 against their plain versions on every recorded call, the
+    recorded calls of each timed together (the radiation call's path), and
     timings on four of them.  Returns the two kernel lines' numbers."""
     import torch
     from fv3net_torch.ops import ktable_cuda
 
     worst = {"weighted_select_dot": 0.0, "spec_band_dot": 0.0}
-    for name, calls, plain in (
-            ("weighted_select_dot", rec.select, _select_plain),
-            ("spec_band_dot", rec.spec, _spec_plain)):
+    path = {}
+    for name, calls, plain, cost, kernel in (
+            ("weighted_select_dot", rec.select, _select_plain, _select_cost,
+             ktable_cuda.weighted_select_dot_cuda),
+            ("spec_band_dot", rec.spec, _spec_plain, _spec_cost,
+             ktable_cuda.spec_band_dot_cuda)):
+        path_bound = 0.0
         for i, (a, out) in enumerate(calls):
             err, scale = max_diff(out, plain(*a), f"{name} call {i}")
+            tab = a[1] if len(a) == 2 else a[4]
             check(err <= KTABLE_RTOL["float32"] * scale,
-                  f"{name} call {i} (tab {tuple(a[2 if len(a) == 3 else 4].shape)}):"
-                  f" max|kernel-plain| {err} > {KTABLE_RTOL['float32']} * "
+                  f"{name} call {i} (tab {tuple(tab.shape)}): "
+                  f"max|kernel-plain| {err} > {KTABLE_RTOL['float32']} * "
                   f"{scale}")
             worst[name] = max(worst[name], err)
+            moved, flops = cost(*a, out) if len(a) == 2 else cost(a, out)
+            path_bound += bound(moved, flops, "float32")[0]
+
+        def run_path(calls=calls, kernel=kernel):
+            for a, _ in calls:
+                kernel(*a)
+
+        before = read_counts()[name]
+        ms = device_ms({"path": run_path}, 4, warmup=1)["path"]
+        check(read_counts()[name] > before, f"{name} did not launch")
+        path[name] = {"path_ms": ms, "path_bound_ms": path_bound}
         log(f"  {name}: {len(calls)} calls of one radiation call, kernel "
-            f"against plain within {worst[name]:.3e} (float32)")
+            f"against plain within {worst[name]:.3e} (float32); all of "
+            f"them {ms:.4f} ms of device time against a bound of "
+            f"{path_bound:.4f} ms ({100 * path_bound / ms:.1f}%)")
 
     def pick_select(shape):
         for a, _ in rec.select:
-            if tuple(a[2].shape) == shape:
+            if tuple(a[1].shape) == shape:
                 return a
         raise SmokeFailure(f"no K4 call on a {shape} table")
 
@@ -961,29 +1191,29 @@ def phase_ktable(rec, reps=20):
     for name, label, a in cases:
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).replace("torch.", "")
-            a_dt = tuple(x.to(dtype) if torch.is_tensor(x)
-                         and x.is_floating_point() else x for x in a)
+
+            def to(x):
+                return (x.to(dtype) if torch.is_tensor(x)
+                        and x.is_floating_point() else x)
+
             if name == "weighted_select_dot":
-                ids, w, tab = a_dt
+                terms, tab = a
+                a_dt = ([(i, None if w is None else to(w)) for i, w in terms],
+                        to(tab))
                 kernel = ktable_cuda.weighted_select_dot_cuda
 
                 def plain(a=a_dt):
                     return _select_plain(*a)
 
-                lib = _embedding_bag_select(ids, w, tab)
-                K, N = ids.shape
-                flops = 2 * K * N * tab.shape[1]
+                lib = _embedding_bag_select(*a_dt)
             else:
-                wids, ww, sids, sw, tab, n_paths, nspa = a_dt
+                a_dt = tuple(to(x) for x in a)
                 kernel = ktable_cuda.spec_band_dot_cuda
 
                 def plain(a=a_dt):
                     return _spec_plain(*a)
 
                 lib = _embedding_bag_spec(*a_dt)
-                kw, st = wids.shape[0] // n_paths, sids.shape[0] // n_paths
-                N, ng = wids.shape[1], tab.shape[1] // nspa
-                flops = N * ng * n_paths * st * (2 * kw + 2)
             before = read_counts()
             got = kernel(*a_dt)
             torch.cuda.synchronize()
@@ -993,27 +1223,31 @@ def phase_ktable(rec, reps=20):
             check(err <= rtol * scale, f"{name} {label} {dname}: "
                   f"max|kernel-plain| {err} > {rtol} * {scale}")
             lib_err = max_diff(lib(), want, f"embedding_bag {label}")[0]
-            ms = interleaved_ms({"plain": plain,
-                                 "kernel": lambda: kernel(*a_dt),
-                                 "library": lib}, reps)
+            ms = device_ms({"plain": plain, "kernel": lambda: kernel(*a_dt),
+                            "library": lib}, reps)
             check(read_counts() != before, f"{name} did not launch")
-            moved = nbytes(*[x for x in a_dt if torch.is_tensor(x)], got)
+            moved, flops = (_select_cost(*a_dt, got)
+                            if name == "weighted_select_dot"
+                            else _spec_cost(a_dt, got))
             bound_ms, by = bound(moved, flops, dname)
-            log(f"  {name} {label} {dname}: N={got.shape[0]}, out "
-                f"{tuple(got.shape)}; max|diff| {err:.3e} (scale "
-                f"{scale:.3e}, rtol {rtol}); embedding_bag max|diff| "
-                f"{lib_err:.3e}; kernel {ms['kernel']:.4f} ms, plain "
-                f"{ms['plain']:.4f} ms, embedding_bag {ms['library']:.4f} "
-                f"ms (median of {reps}, lower of two); {moved} bytes "
-                f"moved, {flops} flops, bound {bound_ms:.4f} ms ({by})")
+            log(f"  {name} {label} {dname}: out {tuple(got.shape)}; "
+                f"max|diff| {err:.3e} (scale {scale:.3e}, rtol {rtol}); "
+                f"embedding_bag max|diff| {lib_err:.3e}; device time kernel "
+                f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
+                f"embedding_bag {ms['library']:.4f} ms (lower of two); "
+                f"{moved} bytes moved, {flops} flops, bound "
+                f"{bound_ms:.4f} ms ({by}, "
+                f"{100 * bound_ms / ms['kernel']:.1f}% of it)")
             # the kernel line reads the float32 call of the largest
             # output of each kernel on the main path
             if dtype == torch.float32 and label.startswith(
                     ("mtab_lo1", "LW band 3")):
                 lines[name] = {"max_abs_err": worst[name],
-                               "ms": ms["kernel"], "plain_ms": ms["plain"],
+                               "ms": ms["kernel"],
+                               "plain_ms": ms["plain"],
                                "bound_ms": bound_ms, "bound_by": by,
-                               "library_ms": ms["library"]}
+                               "library_ms": ms["library"],
+                               **path[name]}
     return lines
 
 
@@ -1156,7 +1390,7 @@ def phase_taumol(k2_args, tables64, reps=10):
         def packed():  # the launch alone, on planes packed beforehand
             return taumol_cuda.taumol_lw_packed(fp, ip, flat, meta, lead)
 
-        ms = interleaved_ms({
+        dev = device_ms({
             "plain": lambda: rlw.taumol_lw_plain(*args),
             "kernel": lambda: taumol_cuda.taumol_lw_cuda(*args),
             "launch": packed,
@@ -1175,19 +1409,21 @@ def phase_taumol(k2_args, tables64, reps=10):
             f"{errs['tautot'][1]:.3e}), rtol {TAUMOL_RTOL[dname]}, value by "
             f"value within {errs['tautot'][2]:.3e} relative (bound "
             f"{TAUMOL_VALUE_RTOL[dname]}), "
-            f"{n_bad} non-finite values (at the same points); wrapper "
-            f"{ms['kernel']:.3f} ms (packing the points and the launch), "
-            f"the launch alone {ms['launch']:.3f} ms, plain "
-            f"{ms['plain']:.3f} ms, the K3/K4 route {ms['ktable']:.3f} ms "
-            f"(median of {reps}, lower of two); {moved} bytes moved "
+            f"{n_bad} non-finite values (at the same points); device time "
+            f"wrapper {dev['kernel']:.3f} ms (packing the points and the "
+            f"launch), the launch alone "
+            f"{dev['launch']:.3f} ms, plain {dev['plain']:.3f} ms, the "
+            f"K3/K4 route {dev['ktable']:.3f} ms; {moved} bytes moved "
             f"({nbytes(fp, ip)} in the point planes, {nbytes(flat, meta)} "
             f"in the tables, {nbytes(*got)} out), bound {bound_ms:.4f} ms "
             f"({by})")
         if dname == "float32":
+            # its path: the one call of a radiation call on the mega route
             line = {"max_abs_err": max(e[0] for e in errs.values()),
-                    "ms": ms["kernel"], "plain_ms": ms["plain"],
+                    "ms": dev["kernel"], "plain_ms": dev["plain"],
                     "bound_ms": bound_ms, "bound_by": by,
-                    "library_ms": None}
+                    "library_ms": None, "path_ms": dev["kernel"],
+                    "path_bound_ms": bound_ms}
     return line
 
 
@@ -1202,6 +1438,7 @@ def phase_wavg(device, reps=20):
 
     rng = np.random.RandomState(0)
     line = {}
+    path = {"path_ms": 0.0, "path_bound_ms": 0.0}
     # the two calls the pipeline makes per time index (a weight plane per
     # tile: shared by the levels of a [tile, z, y, x] variable, one each
     # for a [tile, y, x] variable), then one plane for every batch, then a
@@ -1236,7 +1473,7 @@ def phase_wavg(device, reps=20):
                     ).reshape(got.shape)
 
         lib_rel = ((library() - want).abs() / want.abs()).max().item()
-        ms = interleaved_ms({
+        dev = device_ms({
             "plain": lambda: coarsen.weighted_block_average_plain(x, w,
                                                                   factor),
             "kernel": lambda: coarsen.weighted_block_average(x, w, factor),
@@ -1246,16 +1483,24 @@ def phase_wavg(device, reps=20):
         bound_ms, by = bound(moved, 3 * x.numel(), "float32")
         log(f"  K5 x {shape}, w {w_shape}, factor {factor}: max relative "
             f"|diff| {rel:.3e} (rtol {WAVG_RTOL}), max|diff| {err:.3e}; "
-            f"avg_pool2d form max relative |diff| {lib_rel:.3e}; kernel "
-            f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, avg_pool2d "
-            f"form {ms['library']:.4f} ms (median of {reps}, lower of two); "
-            f"{moved} bytes moved, bound {bound_ms:.4f} ms ({by}), "
-            f"{moved / ms['kernel'] / 1e6:.1f} GB/s")
+            f"avg_pool2d form max relative |diff| {lib_rel:.3e}; device "
+            f"time kernel {dev['kernel']:.4f} ms, "
+            f"plain {dev['plain']:.4f} ms, avg_pool2d form "
+            f"{dev['library']:.4f} ms; {moved} bytes moved, bound "
+            f"{bound_ms:.4f} ms ({by}), "
+            f"{moved / dev['kernel'] / 1e6:.1f} GB/s")
+        if shape in (cases[0][0], cases[1][0]):
+            # its path: the pipeline's two calls of a time index
+            path["path_ms"] += dev["kernel"]
+            path["path_bound_ms"] += bound_ms
         if shape == cases[0][0]:
-            line = {"max_abs_err": err, "ms": ms["kernel"],
-                    "plain_ms": ms["plain"], "bound_ms": bound_ms,
-                    "bound_by": by, "library_ms": ms["library"]}
-    return line
+            line = {"max_abs_err": err, "ms": dev["kernel"],
+                    "plain_ms": dev["plain"], "bound_ms": bound_ms,
+                    "bound_by": by, "library_ms": dev["library"]}
+    log(f"  K5, the pipeline's two calls of a time index: "
+        f"{path['path_ms']:.4f} ms of device time against a bound of "
+        f"{path['path_bound_ms']:.4f} ms")
+    return dict(line, **path)
 
 
 def phase_pipeline(device):
@@ -1339,7 +1584,88 @@ def phase_pipeline(device):
     return counts
 
 
+def kernel_times(device, reps=30):
+    """The yardstick on which two trees' K1 and K4 are compared
+    (``--kernel-times``; ``--tree`` picks the tree).
+
+    K1 on the dycore step's three calls (F = 3, 2, 1 at C48, npz=32) and
+    K4 on a call shaped as the main path's ``mtab_lo1`` selection (4 terms
+    of int64 ids and float32 weights at the radiation's 442,368 points into
+    a 70 x 54 table; seeded, not recorded), float32, each timed three ways:
+    CUDA events around one wrapper call with the host's work in
+    (:func:`interleaved_ms`, how PRs 1-3 timed the kernels), device time
+    (:func:`device_ms`), and the host's microseconds per call queued back
+    to back.  Then K1's float32 readings against the exact (float64)
+    application at km=32 and at km=79, the kernel's and the plain
+    version's.  Returns them as a dict."""
+    import numpy as np
+    import torch
+    from fv3net_torch.ops import ktable, remap_cuda
+
+    def host_us(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    out = {}
+    for F in (3, 2, 1):
+        args = remap_inputs(device, torch.float32, F)
+        fn = (lambda a=args: remap_cuda.remap_apply_cuda(*a))
+        out[f"K1 F={F}"] = {"events_ms": interleaved_ms({"k": fn}, reps)["k"],
+                            "device_ms": device_ms({"k": fn}, reps)["k"],
+                            "host_us": host_us(fn)}
+    rng = np.random.RandomState(0)
+    lead, rows, G = (6 * NPX * NPX, NPZ), 70, 54
+    tab = torch.tensor(rng.rand(rows, G), dtype=torch.float32, device=device)
+    terms = [(torch.tensor(rng.randint(0, rows, lead), dtype=torch.int64,
+                           device=device),
+              torch.tensor(rng.rand(*lead), dtype=torch.float32,
+                           device=device)) for _ in range(4)]
+    got = ktable.weighted_select_dot(terms, tab)
+    err = (got - ktable.weighted_select_dot_plain(terms, tab)).abs().max()
+    check(err.item() <= KTABLE_RTOL["float32"] * got.abs().max().item(),
+          f"K4 mtab_lo1 shape: max|kernel-plain| {err.item()}")
+    fn = (lambda: ktable.weighted_select_dot(terms, tab))
+    out["K4 mtab_lo1"] = {"events_ms": interleaved_ms({"k": fn}, reps)["k"],
+                          "device_ms": device_ms({"k": fn}, reps)["k"],
+                          "host_us": host_us(fn)}
+    for name, v in out.items():
+        log(f"  {name}: CUDA events of one call (host work in) "
+            f"{v['events_ms']:.4f} ms, device time {v['device_ms']:.4f} ms, "
+            f"host {v['host_us']:.1f} us per call")
+    for npz in (NPZ, KM_DEEP):
+        args = remap_inputs(device, torch.float32, 3, npz)
+        got = remap_cuda.remap_apply_cuda(*args)
+        scale, err, err_k, err_p = remap_readings(args, got)
+        out[f"K1 float32 F=3 km={npz}"] = {
+            "scale": scale, "kernel_plain": err, "kernel_exact": err_k,
+            "plain_exact": err_p}
+        log(f"  K1 float32 F=3 km={npz}: max|kernel-plain| {err:.3e} "
+            f"({err / scale:.3e} of scale {scale:.3e}); against the exact "
+            f"application: kernel {err_k:.3e} ({err_k / scale:.3e}), plain "
+            f"{err_p:.3e} ({err_p / scale:.3e})")
+    return out
+
+
 def main():
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--kernel-times", action="store_true",
+        help="build K1 and K4 and time them on one yardstick (see "
+             "kernel_times) instead of the smoke run")
+    parser.add_argument(
+        "--tree", default=os.path.dirname(os.path.abspath(__file__)),
+        help="directory whose fv3net_torch is imported (default: this "
+             "script's)")
+    opts = parser.parse_args()
     import torch
 
     log("phase 1: device")
@@ -1351,13 +1677,25 @@ def main():
         f"{torch.cuda.device_count()} device(s)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    tree = os.path.abspath(opts.tree)
+    sys.path.insert(0, tree)
     try:
         import fv3net_torch.entry  # noqa: F401
     except ImportError as e:
-        raise SmokeFailure(f"fv3net_torch is not beside this script: {e}")
+        raise SmokeFailure(f"fv3net_torch is not in {tree}: {e}")
+    check(os.path.dirname(os.path.dirname(fv3net_torch.__file__)) == tree,
+          f"fv3net_torch came from {fv3net_torch.__file__}, not {tree}")
     device = torch.device(DEVICE)
     t_start = time.perf_counter()
+    if opts.kernel_times:
+        from fv3net_torch.ops import ktable_cuda, remap_cuda
+
+        log(f"kernel times of {tree}")
+        for m in (remap_cuda, ktable_cuda):
+            log(f"  built {m.build().path.name}")
+        print(json.dumps({"kernel_times": kernel_times(device),
+                          "device": smi}), flush=True)
+        return 0
 
     log("phase 2: build")
     build_kernels()
@@ -1427,7 +1765,8 @@ def main():
          "replaces": v["replaces"], "launches": counts[name],
          "max_abs_err": v["max_abs_err"], "ms": v["ms"],
          "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
-         "bound_by": v["bound_by"], "library_ms": v["library_ms"]}
+         "bound_by": v["bound_by"], "library_ms": v["library_ms"],
+         "path_ms": v["path_ms"], "path_bound_ms": v["path_bound_ms"]}
         for name, v in common.items()
     ]}
     for k in line["kernels"]:

@@ -4,9 +4,9 @@
 // call in weighted_select_dot); its plain PyTorch statement is
 // fv3net_torch/ops/ktable.py::weighted_select_dot_plain:
 //
-//   out[n, g] = sum_k w[k, n] * tab[clamp(ids[k, n], 0, R-1), g]
+//   out[n, g] = sum_k w_k[n] * tab[clamp(ids_k[n], 0, R-1), g]
 //
-// with ids/w [K, N] (K small: 1-4 at the RRTMG sites) and tab [R, G].
+// for K <= 16 (id, weight) terms (1-4 at the RRTMG sites) and tab [R, G].
 //
 // K3 replaces fv3net_tpu/ops/pallas_ktable.py::_spec_kernel (the Pallas
 // call in spec_band_dot); plain statement ktable.py::spec_band_dot_plain.
@@ -22,43 +22,106 @@
 // gathers, since the one-hot matmul only stood in for the gather the TPU
 // lacked.
 //
-// Design: one thread per output element (n, g), consecutive threads along
-// g, so the output is written coalesced and the K (id, weight) pairs of a
-// point are read once per warp through the cache.  K4 reads its table
-// (at most 181 x 140 values at the RRTMG sites) through L1; K3 stages its
-// table (at most 236 x 80 values, 151 KB in float64) in dynamic shared
-// memory once per block, and each block then walks the points with a
-// grid-stride loop so the staging is paid once per resident block.
-// Sums run in the compute type, in the same order as the plain versions.
-//
 // What bounds them: memory traffic.  Per point K4 reads K ids and weights
-// and writes G values (2-4 flops per value read); K3 reads
-// n_paths*(kw+st) ids and weights and writes ng values.  Table reads hit
-// L1 / shared memory.
+// and writes G values, 2 flops per table value read; at the main path's
+// mtab_lo1 call (K=4, N=442,368, G=54, int64 ids) that is 117 MB,
+// 0.035 ms at 3.35 TB/s, nearly all of it the output.  K3 reads n_paths*(kw+st) ids
+// and weights per point and writes ng values.  Table reads hit L1 /
+// shared memory (every RRTMG table is at most 181 x 140 values).
+//
+// K4 design: a block owns a tile of P consecutive points (about 8,192 / G
+// of them), whose P*G outputs are one contiguous range.  It takes its K
+// terms as the caller holds them: a struct of up to 16 id and weight
+// pointers passed by value, ids int32 or int64 (a bit per term), a null
+// weight meaning 1.  The block loads the tile's ids and weights once,
+// coalesced, clamps the ids and keeps (row offset, weight) per term and
+// point in shared memory; its threads then walk the tile's outputs with
+// 32-bit indices, the (point, g) of each output carried forward from the
+// last without a division.  Consecutive threads take consecutive outputs:
+// the table gathers through the read-only cache, not the stores, set the
+// pace, and a warp's K gathers then touch one run of each of at most two
+// rows.  (With 4 outputs per thread and 16-byte stores a warp's gathers
+// spanned 4 times the cache lines: K4 took 3.41 ms of the RRTMG chunk
+// against 3.14-3.17 ms this way, on an NVIDIA H100 80GB HBM3 at 700 W,
+// chip_smoke.py.)  What holds it near 43% of its bound at mtab_lo1: the K
+// gathers and shared-memory reads per output, not the bytes; float64
+// takes nearly the same time for twice the bytes.  Terms are summed
+// k = 0..K-1, one multiply-add each, in the order of the plain version.
+//
+// K3 design: one thread per output element (n, g), consecutive threads
+// along g; the table (at most 236 x 80 values, 151 KB in float64) is
+// staged in dynamic shared memory once per block, and each block walks the
+// points with a grid-stride loop so the staging is paid once per resident
+// block.  Sums run in the compute type, in the same order as the plain
+// versions.
 
 #include <cuda_runtime.h>
 
+// The K4 terms as the wrapper packs them (ops/ktable_cuda.py::SelectTerms),
+// passed by value.
+constexpr int kMaxTerms = 16;
+struct SelectTerms {
+  const void* ids[kMaxTerms];
+  const void* w[kMaxTerms];
+  int n_terms;
+  unsigned int ids64;  // bit k set: ids[k] holds int64, else int32
+};
+
 namespace {
 
+constexpr int kSelectThreads = 256;
+constexpr int kSelectTileValues = 8192;  // outputs per tile, about
+constexpr int kSelectSmem = 48 * 1024;   // bytes of (row, weight) per tile
+
+// a term's clamped row offset r * G and its weight, at one point
 template <typename T>
-__global__ void weighted_select_kernel(const int* __restrict__ ids,
-                                       const T* __restrict__ w,
-                                       const T* __restrict__ tab,
-                                       T* __restrict__ out, int K,
-                                       long long N, int R, int G) {
-  const long long total = N * G;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    const long long n = t / G;
-    const int g = (int)(t - n * G);
+struct SelectPair {
+  int row;
+  T w;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kSelectThreads) weighted_select_kernel(
+    const SelectTerms terms, const T* __restrict__ tab, T* __restrict__ out,
+    long long N, int R, int G, int P) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int K = terms.n_terms;
+  SelectPair<T>* s_pair = reinterpret_cast<SelectPair<T>*>(smem_raw);
+  const long long n0 = (long long)blockIdx.x * P;
+  const int np = (int)min((long long)P, N - n0);
+
+  for (int k = 0; k < K; ++k) {  // [K][P]
+    const bool wide = (terms.ids64 >> k) & 1u;
+    const T* wk = static_cast<const T*>(terms.w[k]);
+    const int* id32 = static_cast<const int*>(terms.ids[k]) + n0;
+    const long long* id64 = static_cast<const long long*>(terms.ids[k]) + n0;
+    for (int i = threadIdx.x; i < np; i += blockDim.x) {
+      long long r = wide ? __ldg(id64 + i) : (long long)__ldg(id32 + i);
+      r = r < 0 ? 0 : (r >= R ? R - 1 : r);
+      s_pair[k * P + i] = {(int)r * G, wk ? __ldg(wk + n0 + i) : T(1)};
+    }
+  }
+  __syncthreads();
+
+  // consecutive threads on consecutive outputs: a warp's store is one
+  // contiguous run, and its table reads one run per row (at most two rows)
+  T* o = out + n0 * G;
+  const int total = np * G;
+  const int dn = blockDim.x / G, dg = blockDim.x - dn * G;
+  int n = threadIdx.x / G, g = threadIdx.x - n * G;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
     T acc = T(0);
     for (int k = 0; k < K; ++k) {
-      int r = __ldg(ids + k * N + n);
-      r = min(max(r, 0), R - 1);
-      acc += __ldg(w + k * N + n) * __ldg(tab + (long long)r * G + g);
+      const SelectPair<T> pr = s_pair[k * P + n];
+      acc += pr.w * __ldg(tab + pr.row + g);
     }
-    out[t] = acc;
+    o[e] = acc;
+    n += dn;
+    g += dg;
+    if (g >= G) {
+      g -= G;
+      ++n;
+    }
   }
 }
 
@@ -105,15 +168,25 @@ __global__ void spec_band_kernel(const int* __restrict__ wids,
 constexpr int kThreads = 256;
 
 template <typename T>
-int launch_select(const void* ids, const void* w, const void* tab, void* out,
-                  int K, long long N, int R, int G, void* stream) {
+int launch_select(SelectTerms terms, const void* tab, void* out, long long N,
+                  int R, int G, void* stream) {
   if (N == 0) return 0;
-  if (K < 1 || R < 1 || G < 1) return (int)cudaErrorInvalidValue;
-  const long long blocks = (N * G + kThreads - 1) / kThreads;
+  const int K = terms.n_terms;
+  if (K < 1 || K > kMaxTerms || R < 1 || G < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)R * G > 2147483647LL) return (int)cudaErrorInvalidValue;
+  // points per tile: about kSelectTileValues outputs, within kSelectSmem
+  int P = (kSelectTileValues + G - 1) / G;
+  const int p_max = kSelectSmem / (K * (int)sizeof(SelectPair<T>));
+  if (P > p_max) P = p_max;
+  if ((long long)P * G + kSelectThreads > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (N + P - 1) / P;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  weighted_select_kernel<T><<<(unsigned int)blocks, kThreads, 0,
+  const size_t smem = (size_t)K * P * sizeof(SelectPair<T>);
+  weighted_select_kernel<T><<<(unsigned int)blocks, kSelectThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
-      (const int*)ids, (const T*)w, (const T*)tab, (T*)out, K, N, R, G);
+      terms, (const T*)tab, (T*)out, N, R, G, P);
   return (int)cudaGetLastError();
 }
 
@@ -154,18 +227,16 @@ int launch_spec(const void* wids, const void* ww, const void* sids,
 
 }  // namespace
 
-extern "C" int fv3_ktable_select_f32(const void* ids, const void* w,
-                                     const void* tab, void* out, int K,
-                                     long long N, int R, int G,
+extern "C" int fv3_ktable_select_f32(SelectTerms terms, const void* tab,
+                                     void* out, long long N, int R, int G,
                                      void* stream) {
-  return launch_select<float>(ids, w, tab, out, K, N, R, G, stream);
+  return launch_select<float>(terms, tab, out, N, R, G, stream);
 }
 
-extern "C" int fv3_ktable_select_f64(const void* ids, const void* w,
-                                     const void* tab, void* out, int K,
-                                     long long N, int R, int G,
+extern "C" int fv3_ktable_select_f64(SelectTerms terms, const void* tab,
+                                     void* out, long long N, int R, int G,
                                      void* stream) {
-  return launch_select<double>(ids, w, tab, out, K, N, R, G, stream);
+  return launch_select<double>(terms, tab, out, N, R, G, stream);
 }
 
 extern "C" int fv3_ktable_spec_f32(const void* wids, const void* ww,

@@ -53,23 +53,11 @@ def weighted_select_dot_plain(terms: Sequence[Term],
 def weighted_select_dot(terms: Sequence[Term], tab: torch.Tensor,
                         impl: Optional[str] = None) -> torch.Tensor:
     """``sum_k w_k * tab[ids_k]``: K4 on a CUDA table, else the plain
-    version (see :func:`weighted_select_dot_plain`)."""
+    version (see :func:`weighted_select_dot_plain`).  The kernel takes the
+    terms as they are (see :func:`ktable_cuda.pack_terms`)."""
     if not _use_kernel(tab, impl):
         return weighted_select_dot_plain(terms, tab)
-    lead = tuple(terms[0][0].shape)
-    ids = torch.stack([i.expand(lead).reshape(-1) for i, _ in terms])
-    one = None
-    ws = []
-    for _, w in terms:
-        if w is None:
-            if one is None:
-                one = torch.ones(lead, dtype=tab.dtype, device=tab.device)
-            w = one
-        ws.append(w.expand(lead).reshape(-1))
-    out = ktable_cuda.weighted_select_dot_cuda(
-        ids.to(torch.int32), torch.stack(ws).to(tab.dtype), tab.contiguous()
-    )
-    return out.reshape(lead + (tab.shape[1],))
+    return ktable_cuda.weighted_select_dot_cuda(terms, tab.contiguous())
 
 
 def spec_band_dot_plain(w_paths: Sequence[List[Term]],

@@ -2,7 +2,10 @@
 
 The kernel replaces the TPU kernel ``fv3net_tpu/ops/pallas_remap.py::
 _kernel``; its plain PyTorch version is
-:func:`fv3net_torch.ops.remap.remap_apply_plain`.
+:func:`fv3net_torch.ops.remap.remap_apply_plain`.  It runs a warp per
+column (lane j holds levels j, j+32, ...) and walks all of a call's
+fields with the column's search planes read once, so one call on a stack
+of F fields costs far less than F calls.
 
 Build: :func:`fv3net_torch.ops.cuda_build.build` compiles the source at
 first use (nothing is built when this module is imported).  There is no
@@ -22,7 +25,7 @@ from fv3net_torch.ops import cuda_build
 from fv3net_torch.ops.cuda_build import check_tensor
 
 SOURCE = "remap_apply.cu"
-KM_MAX = 128  # largest KMAX bucket compiled into the kernel
+KM_MAX = 128  # 4 levels per lane, the largest bucket compiled
 
 LAUNCHES = 0
 

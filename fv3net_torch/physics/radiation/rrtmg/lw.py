@@ -150,11 +150,9 @@ def prep_lw_tables(lwdict: Dict, dtype=torch.float64, device=None,
 
 # ------------------------------------------------------------------ helpers
 def _weighted_rows(tab, terms, impl=None):
-    """``sum_k w_k * tab[clip(id_k)]``: one K4 selection."""
-    rows = tab.shape[0]
-    return ktable.weighted_select_dot(
-        [(ids.clamp(0, rows - 1), w) for ids, w in terms], tab, impl
-    )
+    """``sum_k w_k * tab[clip(id_k)]``: one K4 selection (both versions
+    clamp the ids)."""
+    return ktable.weighted_select_dot(terms, tab, impl)
 
 
 def _take(tab, ids, impl=None):

@@ -172,11 +172,104 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         ktable.spec_band_dot(*paths, _t(tab, torch.float64), 5, impl="tpu")
 
 
+# ------------------------------------------------ K4's terms, as packed
+def _pack_inputs(dtype=torch.float64):
+    rng = np.random.default_rng(7)
+    tab = torch.tensor(rng.random((9, 5)), dtype=dtype)
+    ids = torch.tensor(rng.integers(0, 9, (3, 4)))
+    w = torch.tensor(rng.random((3, 4)), dtype=dtype)
+    return tab, ids, w
+
+
+def test_pack_terms_none_weight_is_a_null_pointer():
+    tab, ids, w = _pack_inputs()
+    struct, keep, lead = ktable_cuda.pack_terms([(ids, None), (ids, w)], tab)
+    assert lead == (3, 4)
+    assert struct.n_terms == 2
+    assert struct.w[0] is None  # ctypes reads a null pointer as None
+    assert struct.w[1] == w.data_ptr()
+    assert all(struct.ids[k] is None for k in range(2, ktable_cuda.MAX_TERMS))
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_pack_terms_takes_ids_as_they_are(id_dtype):
+    """int32 and int64 ids go to the kernel without a cast or a copy; a bit
+    per term tells the kernel their width."""
+    tab, ids, w = _pack_inputs(torch.float32)
+    ids = ids.to(id_dtype)
+    w = w.float()
+    struct, keep, _ = ktable_cuda.pack_terms([(ids, w), (ids + 1, w)], tab)
+    assert struct.ids[0] == ids.data_ptr()
+    assert struct.w[0] == struct.w[1] == w.data_ptr()
+    assert struct.ids64 == (0b11 if id_dtype == torch.int64 else 0)
+    assert any(x.data_ptr() == struct.ids[1] for x in keep)
+
+
+def test_pack_terms_copies_only_a_broadcast_or_strided_term():
+    tab, ids, w = _pack_inputs()
+    row = ids[:1]  # [1, 4], broadcast over the 3 rows of the lead
+    strided = w.T.contiguous().T  # [3, 4], not contiguous
+    struct, keep, lead = ktable_cuda.pack_terms(
+        [(ids, w), (row, strided)], tab)
+    assert lead == (3, 4)
+    assert struct.ids[0] == ids.data_ptr() and struct.w[0] == w.data_ptr()
+    copies = {x.data_ptr(): x for x in keep}
+    got_row = copies[struct.ids[1]]
+    assert got_row.is_contiguous() and got_row.shape == (3, 4)
+    assert torch.equal(got_row, row.expand(3, 4))
+    got_w = copies[struct.w[1]]
+    assert struct.w[1] != strided.data_ptr() and got_w.is_contiguous()
+    assert torch.equal(got_w, strided)
+
+
+def test_pack_terms_refuses_other_dtypes():
+    tab, ids, w = _pack_inputs()
+    with pytest.raises(TypeError, match="weight of term 0"):
+        ktable_cuda.pack_terms([(ids, w.float())], tab)
+    with pytest.raises(TypeError, match="ids of term 1"):
+        ktable_cuda.pack_terms([(ids, w), (ids.double(), w)], tab)
+
+
+@pytest.mark.parametrize("K", [0, ktable_cuda.MAX_TERMS + 1])
+def test_pack_terms_refuses_a_count_of_terms(K):
+    tab, ids, w = _pack_inputs()
+    with pytest.raises(ValueError, match="terms"):
+        ktable_cuda.pack_terms([(ids, w)] * K, tab)
+    if K:  # the dispatcher's kernel path refuses it too
+        with pytest.raises(ValueError):
+            ktable.weighted_select_dot([(ids, w)] * K, tab, impl="cuda")
+
+
+def test_pack_terms_allows_sixteen_terms():
+    tab, ids, w = _pack_inputs()
+    terms = [(ids + k, None if k % 3 else w) for k in range(16)]
+    struct, _, _ = ktable_cuda.pack_terms(terms, tab)
+    assert struct.n_terms == 16 and struct.ids64 == (1 << 16) - 1
+    assert [struct.w[k] is None for k in range(16)] == [
+        bool(k % 3) for k in range(16)]
+
+
 # ---------------------------------------------------------------- the card
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_check_ranges_sees_ids_as_the_caller_passed_them(monkeypatch, on):
+    """``CHECK_RANGES`` checks each id tensor as given: a lerp of the LW
+    optics passes ``index + 1`` past a table's last row for the kernel to
+    clamp, and with the switch on that raises."""
+    monkeypatch.setattr(ktable_cuda, "CHECK_RANGES", on)
+    index = torch.tensor([[0, 8], [9, 3]])  # rows of a 10-row table
+    ktable_cuda._check_range("weighted_select_dot", "ids", index, 10)
+    if on:
+        with pytest.raises(IndexError, match=r"\[1, 10\]"):
+            ktable_cuda._check_range("weighted_select_dot", "ids",
+                                     index + 1, 10)
+    else:
+        ktable_cuda._check_range("weighted_select_dot", "ids", index + 1, 10)
 
 
 @pytest.mark.gpu
@@ -221,6 +314,45 @@ def test_spec_band_kernel_matches_plain_on_card(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_weighted_select_kernel_takes_every_term_form_on_card(dtype):
+    """K4 over K in {1, 2, 3, 4, 16} and G in {1, 7, 16, 54, 140}, int32
+    and int64 ids (mixed in one call), None weights, a broadcast id term,
+    N off any multiple of the tile, out-of-range ids, and N = 0."""
+    dev = _cuda()
+    tdt = TORCH[dtype]
+    rng = np.random.default_rng(11)
+    N = 20011
+    for K in (1, 2, 3, 4, 16):
+        for G in (1, 7, 16, 54, 140):
+            R = 13
+            tab = torch.tensor(rng.standard_normal((R, G)), dtype=tdt,
+                               device=dev)
+            terms = []
+            for k in range(K):
+                ids = torch.tensor(rng.integers(-2, R + 2, N), device=dev,
+                                   dtype=torch.int64 if k % 2 else
+                                   torch.int32)
+                w = (None if k % 3 == 0 else
+                     torch.tensor(rng.random(N), dtype=tdt, device=dev))
+                terms.append((ids, w))
+            if K > 1:
+                terms[1] = (terms[1][0][:1], terms[1][1])  # broadcast
+            before = ktable_cuda.SELECT_LAUNCHES
+            got = ktable.weighted_select_dot(terms, tab)
+            torch.cuda.synchronize()
+            assert ktable_cuda.SELECT_LAUNCHES == before + 1
+            want = ktable.weighted_select_dot(terms, tab, impl="torch")
+            assert got.shape == want.shape == (N, G)
+            err = (got - want).abs().max().item()
+            assert err <= RTOL[dtype] * want.abs().max().item(), (K, G, err)
+    empty = [(torch.zeros(0, dtype=torch.int64, device=dev), None)]
+    before = ktable_cuda.SELECT_LAUNCHES
+    out = ktable.weighted_select_dot(empty, tab)
+    assert out.shape == (0, G) and ktable_cuda.SELECT_LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_kernels_clamp_ids_and_check_ranges_on_card(dtype):
     """Out-of-range ids read the edge rows, as in the plain versions; with
     ``CHECK_RANGES`` on, the wrappers refuse them instead."""
@@ -229,9 +361,10 @@ def test_kernels_clamp_ids_and_check_ranges_on_card(dtype):
     tab = torch.arange(30.0, dtype=tdt, device=dev).reshape(10, 3)
     ids = torch.tensor([[-3, 0, 9, 12]], dtype=torch.int32, device=dev)
     w = torch.ones(1, 4, dtype=tdt, device=dev)
-    got = ktable_cuda.weighted_select_dot_cuda(ids, w, tab)
-    torch.testing.assert_close(got, tab[torch.tensor([0, 0, 9, 9])],
-                               rtol=0, atol=0)
+    for term in ((ids[0], w[0]), (ids[0].long(), None)):
+        got = ktable_cuda.weighted_select_dot_cuda([term], tab)
+        torch.testing.assert_close(got, tab[torch.tensor([0, 0, 9, 9])],
+                                   rtol=0, atol=0)
     flat = tab.reshape(5, 6)  # nbase 5, nspa 2, ng 3
     sids = torch.tensor([[5, -1, 1, 0]], dtype=torch.int32, device=dev)
     got = ktable_cuda.spec_band_dot_cuda(ids, w, sids, w, flat, 1, 2)
@@ -241,7 +374,7 @@ def test_kernels_clamp_ids_and_check_ranges_on_card(dtype):
     ktable_cuda.CHECK_RANGES = True
     try:
         with pytest.raises(IndexError):
-            ktable_cuda.weighted_select_dot_cuda(ids, w, tab)
+            ktable_cuda.weighted_select_dot_cuda([(ids[0], w[0])], tab)
         with pytest.raises(IndexError):
             ktable_cuda.spec_band_dot_cuda(ids.clamp(0, 4), w, sids, w,
                                            flat, 1, 2)

@@ -245,30 +245,37 @@ def _hybrid_edges(n=48, km=32, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5), ("float64", 1e-12)])
 def test_kernel_matches_plain_on_card(dtype, rtol):
-    """K1 on the card against the plain version on the same CUDA inputs:
-    max |diff| <= rtol * max |plain|, and column conservation."""
+    """K1 on the card against the plain version on the same CUDA inputs,
+    over km in {32, 33, 64, 79, 128} (one to four levels per lane; C48 at
+    km=32, C16 otherwise), window in {1, 2, 3}, F in {1, 2, 3, 6} fields
+    and iv in {-1, 0, 1}: max |diff| <= rtol * max |plain|, and column
+    conservation."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    pe1, pe2, rng = _hybrid_edges()
     dev = torch.device("cuda")
     tdt = TORCH[dtype]
-    st = tr.banded_search(torch.tensor(pe1, dtype=tdt, device=dev),
-                          torch.tensor(pe2, dtype=tdt, device=dev), 2)
-    for F in (1, 2, 3):
-        for iv in (-1, 0, 1):
-            q = torch.tensor(_field(rng, pe1.shape[:-1], 32, F, iv),
-                             dtype=tdt, device=dev)
-            before = remap_cuda.LAUNCHES
-            got = tr.remap_apply(st, q, iv=iv, kord=9, impl="cuda")
-            torch.cuda.synchronize()
-            assert remap_cuda.LAUNCHES == before + 1
-            want = tr.remap_apply(st, q, iv=iv, kord=9, impl="torch")
-            err = (got - want).abs().max().item()
-            assert err <= rtol * want.abs().max().item(), (F, iv, err)
+    for km in (32, 33, 64, 79, 128):
+        pe1, pe2, rng = _hybrid_edges(n=48 if km == 32 else 16, km=km)
+        for window in (1, 2, 3):
+            st = tr.banded_search(torch.tensor(pe1, dtype=tdt, device=dev),
+                                  torch.tensor(pe2, dtype=tdt, device=dev),
+                                  window)
             dp1 = st["dp1"]
             dp2 = st["pe2"][..., 1:] - st["pe2"][..., :-1]
-            m1 = (q * dp1).sum(-1)
-            m2 = (got * dp2).sum(-1)
-            assert ((m2 - m1).abs() <= rtol * m1.abs().max()).all()
+            for F in (1, 2, 3, 6):
+                for iv in (-1, 0, 1):
+                    q = torch.tensor(_field(rng, pe1.shape[:-1], km, F, iv),
+                                     dtype=tdt, device=dev)
+                    before = remap_cuda.LAUNCHES
+                    got = tr.remap_apply(st, q, iv=iv, kord=9, impl="cuda")
+                    torch.cuda.synchronize()
+                    assert remap_cuda.LAUNCHES == before + 1
+                    want = tr.remap_apply(st, q, iv=iv, kord=9, impl="torch")
+                    err = (got - want).abs().max().item()
+                    case = (km, window, F, iv, err)
+                    assert err <= rtol * want.abs().max().item(), case
+                    m1 = (q * dp1).sum(-1)
+                    m2 = (got * dp2).sum(-1)
+                    assert ((m2 - m1).abs() <= rtol * m1.abs().max()).all(), case
     with pytest.raises(TypeError):
         remap_cuda.remap_apply_cuda(st, q.half(), q.half(), q.half(), q.half())
