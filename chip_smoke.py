@@ -10,7 +10,8 @@ Phases (any failure exits nonzero, and no result line is printed):
 2. build: compiles the port's four CUDA sources for sm_90a from this
    checkout, one ``nvcc`` each, all at once: ``remap_apply.cu`` (K1),
    ``ktable.cu`` (K4 and K3), ``taumol_lw.cu`` (K2) and ``wavg.cu`` (K5),
-   with nvcc's register and spill lines;
+   with nvcc's register and spill lines and how K3 and K2 launch (points
+   per tile, shared memory, blocks an SM holds);
 3. K1 against its plain PyTorch version on the card on the dycore
    step's three calls (C48, npz=32, F = 3, 2, 1 fields on one search;
    float32 and float64), with times, their sum per step beside the sum of
@@ -26,7 +27,8 @@ Phases (any failure exits nonzero, and no result line is printed):
    fields, air-mass drift and the exact launch counts per chunk (K1, K4
    and K3; on the second route fewer K4 and K3 and 2 K2); then one chunk
    of each under ``torch.profiler`` with its device time split by the
-   step's ranges (dynamics, radiation, physics, ml);
+   step's ranges (dynamics, radiation, physics, ml), each hand kernel
+   counted in the range that launched it;
 6. one RRTMG radiation call alone on the first route's state after its
    4th chunk: its time on both routes, OLR and the SW fluxes (the
    down-flux at the top from ``RRTMGDriver`` itself) inside physical
@@ -74,10 +76,12 @@ device; the host's work between launches is in neither).
 
     python3 chip_smoke.py --kernel-times [--tree DIR]
 
-instead builds K1 and K4 of DIR's ``fv3net_torch`` (default: the one
-beside this script) and times them on one yardstick, device time beside
-the CUDA events of one call with the wrapper's host work in, so that two
-trees (a change and its parent) compare call by call; see
+instead builds K1-K4 of DIR's ``fv3net_torch`` (default: the one
+beside this script), logs the registers, stack, shared and local memory
+of K3's and K2's instances (``cuobjdump``), and times them on one
+yardstick, device time beside the CUDA events of one call with the
+wrapper's host work in, with a digest of K3's and K2's outputs, so that
+two trees (a change and its parent) compare call by call; see
 :func:`kernel_times`.
 
 The line before the last two is the ``kernels`` JSON line; then the
@@ -521,9 +525,12 @@ def fields(state):
 
 KERNELS = ("remap_apply", "weighted_select_dot", "spec_band_dot",
            "taumol_lw", "weighted_block_average")
-# the __global__ functions of the chunk's hand kernels (K1, K4, K3, K2)
-HAND_KERNELS = ("remap_apply_kernel", "weighted_select_kernel",
-                "spec_band_kernel", "taumol_lw_kernel")
+# the __global__ functions of the chunk's hand kernels (K1, K4, K3, K2),
+# by the name of their wrapper's launch count
+HAND_KERNELS = {"remap_apply_kernel": "remap_apply",
+                "weighted_select_kernel": "weighted_select_dot",
+                "spec_band_kernel": "spec_band_dot",
+                "taumol_lw_kernel": "taumol_lw"}
 
 
 def reset_counts():
@@ -671,16 +678,57 @@ def phase_rrtmg(device):
     return paths, radiation_states
 
 
+class RangeLaunches:
+    """While active, counts each kernel's launches inside each of the
+    step's ranges: ``runtime/fused.py`` opens them with
+    ``record_function``, which is wrapped to read the launch counts at
+    each range's entry and exit (the ranges do not nest)."""
+
+    def __init__(self):
+        from fv3net_torch.runtime import fused
+
+        self.mod, self.orig = fused, fused.record_function
+        self.counts = {name: dict.fromkeys(KERNELS, 0) for name in RANGES}
+
+    def __enter__(self):
+        import contextlib
+
+        orig, counts = self.orig, self.counts
+
+        @contextlib.contextmanager
+        def counted(name):
+            before = read_counts()
+            with orig(name):
+                yield
+            after = read_counts()
+            for k in KERNELS:
+                counts[name][k] += after[k] - before[k]
+
+        self.mod.record_function = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.record_function = self.orig
+
+
 def profile_chunk(label, step, state, ml_params, sst, cosz):
     """One chunk under torch.profiler: the device's busy share of the
     wall time, the device time of each of the step's ranges and the
-    device time by op."""
+    device time by op.
+
+    A range's device time from the profiler counts the kernels of the
+    PyTorch ops inside it but not the hand kernels, which are launched
+    through ctypes outside any op; so each hand kernel's device time is
+    added to the ranges whose launches it made (:class:`RangeLaunches`),
+    in proportion to them (exact where all of a kernel's launches lie in
+    one range, as on the flagship's path)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            RangeLaunches() as in_range:
         t0 = time.perf_counter()
         step(state, ml_params, sst, cosz)
         torch.cuda.synchronize()
@@ -702,6 +750,25 @@ def profile_chunk(label, step, state, ml_params, sst, cosz):
         f"{wall_us / 1e3:.1f} ms, device busy {device_us / 1e3:.1f} ms "
         f"({100 * device_us / wall_us:.1f}%), {n_kernels} device "
         f"activities")
+    # the hand kernels by name, summed over their template instances, and
+    # their device time by the range that launched them
+    hand_us = dict.fromkeys(RANGES, 0.0)
+    for kname, count_name in HAND_KERNELS.items():
+        mine = [e for e in device if kname in e.key]
+        if not mine:
+            continue
+        n = sum(e.count for e in mine)
+        us = sum(getattr(e, self_key) for e in mine)
+        launched = sum(c[count_name] for c in in_range.counts.values())
+        log(f"  kernel {kname}: {n} launches, {us / 1e3:.3f} ms; launched "
+            + ", ".join(f"{c[count_name]} in {r}"
+                        for r, c in in_range.counts.items()
+                        if c[count_name]))
+        if launched != n:
+            log(f"  ({kname}: {n} launches traced, {launched} counted in "
+                "the step's ranges: its share of each range is not exact)")
+        for r, c in in_range.counts.items():
+            hand_us[r] += us * c[count_name] / max(launched, 1)
     host = {e.key: e for e in events
             if e.key in RANGES and e.cpu_time_total > 0}
     span = {e.key: e for e in events
@@ -710,21 +777,15 @@ def profile_chunk(label, step, state, ml_params, sst, cosz):
         if name not in host:
             continue
         e = host[name]
-        # the kernels PyTorch ops launched inside the range: those launched
-        # through ctypes (K1-K4) count in the total and per kernel below,
-        # not here
-        busy = getattr(e, key)
+        # the kernels of the PyTorch ops inside the range, and the hand
+        # kernels it launched
+        busy = getattr(e, key) + hand_us[name]
         span_us = getattr(span[name], key) if name in span else float("nan")
         log(f"  range {name}: {e.count} calls, host "
             f"{e.cpu_time_total / 1e3:.1f} ms, device busy "
             f"{busy / 1e3:.1f} ms ({100 * busy / max(device_us, 1e-9):.1f}% "
-            f"of device busy), device span {span_us / 1e3:.1f} ms")
-    # the hand kernels by name, summed over their template instances
-    for kname in HAND_KERNELS:
-        mine = [e for e in device if kname in e.key]
-        if mine:
-            log(f"  kernel {kname}: {sum(e.count for e in mine)} launches, "
-                f"{sum(getattr(e, self_key) for e in mine) / 1e3:.3f} ms")
+            f"of device busy; hand kernels {hand_us[name] / 1e3:.3f} ms of "
+            f"it), device span {span_us / 1e3:.1f} ms")
     for line in events.table(sort_by=self_key, row_limit=15).splitlines():
         log(f"  | {line}")
 
@@ -746,7 +807,7 @@ def radiation_inputs(state, sst, cosz, lat):
 
 class Recorder:
     """Wraps the K4/K3 wrappers to keep the arguments of every call: K4's
-    (terms, tab), K3's (wids, ww, sids, sw, tab, n_paths, nspa)."""
+    (terms, tab), K3's (w_paths, s_paths, tab, nspa)."""
 
     def __init__(self):
         from fv3net_torch.ops import ktable_cuda
@@ -1056,14 +1117,9 @@ def _select_plain(terms, tab):
     return ktable.weighted_select_dot_plain(terms, tab)
 
 
-def _spec_plain(wids, ww, sids, sw, tab, n_paths, nspa):
+def _spec_plain(w_paths, s_paths, tab, nspa):
     from fv3net_torch.ops import ktable
 
-    kw, st = wids.shape[0] // n_paths, sids.shape[0] // n_paths
-    w_paths = [[(wids[p * kw + k], ww[p * kw + k]) for k in range(kw)]
-               for p in range(n_paths)]
-    s_paths = [[(sids[p * st + s], sw[p * st + s]) for s in range(st)]
-               for p in range(n_paths)]
     return ktable.spec_band_dot_plain(w_paths, s_paths, tab, nspa)
 
 
@@ -1095,36 +1151,55 @@ def _select_cost(terms, tab, out):
     return nbytes(*seen.values()), 2 * len(terms) * (out.numel() // G) * G
 
 
+def _distinct_bytes(tensors):
+    """Bytes of the distinct tensors among ``tensors`` (None skipped), each
+    read once at its own width."""
+    seen = {}
+    for x in tensors:
+        if x is not None:
+            seen.setdefault((x.data_ptr(), x.numel()), x)
+    return nbytes(*seen.values())
+
+
 def _spec_cost(a, out):
-    """(bytes, flops) K3 must move and do."""
-    wids, _, sids, _, tab, n_paths, nspa = a
-    kw, st = wids.shape[0] // n_paths, sids.shape[0] // n_paths
-    N, ng = wids.shape[1], tab.shape[1] // nspa
-    moved = nbytes(*[x for x in a if hasattr(x, "numel")], out)
-    return moved, N * ng * n_paths * st * (2 * kw + 2)
+    """(bytes, flops) K3 must move and do: each distinct input read once
+    (ids at their own width), the output written once."""
+    w_paths, s_paths, tab, nspa = a
+    n_paths, kw, st = len(w_paths), len(w_paths[0]), len(s_paths[0])
+    pairs = [x for p in w_paths + s_paths for pair in p for x in pair]
+    moved = _distinct_bytes([tab, out] + pairs)
+    return moved, out.numel() * n_paths * st * (2 * kw + 2)
 
 
-def _embedding_bag_spec(wids, ww, sids, sw, tab, n_paths, nspa):
+def _embedding_bag_spec(w_paths, s_paths, tab, nspa):
     """K3 as one library call over the [nbase*nspa, ng] view: index
     row*nspa + pos, weight ww*sw, for every (path, stencil, base) term."""
     import torch
     import torch.nn.functional as F
 
-    kw, st = wids.shape[0] // n_paths, sids.shape[0] // n_paths
     nbase = tab.shape[0]
+    lead = torch.broadcast_shapes(*[x.shape for p in w_paths + s_paths
+                                    for pair in p for x in pair
+                                    if x is not None])
+
+    def weight(w):
+        return (torch.ones(lead, dtype=tab.dtype, device=tab.device)
+                if w is None else w.expand(lead))
+
     idx, wts = [], []
-    for p in range(n_paths):
-        for s in range(st):
-            pos = sids[p * st + s].long().clamp(0, nspa - 1)
-            for k in range(kw):
-                row = wids[p * kw + k].long().clamp(0, nbase - 1)
-                idx.append(row * nspa + pos)
-                wts.append(ww[p * kw + k] * sw[p * st + s])
+    for wp, sp in zip(w_paths, s_paths):
+        for pos, sw in sp:
+            pos = pos.expand(lead).long().clamp(0, nspa - 1)
+            for row, ww in wp:
+                row = row.expand(lead).long().clamp(0, nbase - 1)
+                idx.append((row * nspa + pos).reshape(-1))
+                wts.append((weight(ww) * weight(sw)).reshape(-1))
     idx = torch.stack(idx, 1).contiguous()
     wts = torch.stack(wts, 1).contiguous()
     view = tab.reshape(nbase * nspa, tab.shape[1] // nspa)
+    shape = tuple(lead) + (view.shape[1],)
     return lambda: F.embedding_bag(idx, view, per_sample_weights=wts,
-                                   mode="sum")
+                                   mode="sum").view(shape)
 
 
 def phase_ktable(rec, reps=20):
@@ -1144,7 +1219,7 @@ def phase_ktable(rec, reps=20):
         path_bound = 0.0
         for i, (a, out) in enumerate(calls):
             err, scale = max_diff(out, plain(*a), f"{name} call {i}")
-            tab = a[1] if len(a) == 2 else a[4]
+            tab = a[1] if len(a) == 2 else a[2]
             check(err <= KTABLE_RTOL["float32"] * scale,
                   f"{name} call {i} (tab {tuple(tab.shape)}): "
                   f"max|kernel-plain| {err} > {KTABLE_RTOL['float32']} * "
@@ -1174,7 +1249,7 @@ def phase_ktable(rec, reps=20):
 
     def pick_spec(shape, n_paths):
         for a, _ in rec.spec:
-            if tuple(a[4].shape) == shape and a[5] == n_paths:
+            if tuple(a[2].shape) == shape and len(a[0]) == n_paths:
                 return a
         raise SmokeFailure(f"no K3 call on a {shape} table")
 
@@ -1207,7 +1282,11 @@ def phase_ktable(rec, reps=20):
 
                 lib = _embedding_bag_select(*a_dt)
             else:
-                a_dt = tuple(to(x) for x in a)
+                w_paths, s_paths, tab, nspa = a
+                a_dt = tuple([[(i, None if w is None else to(w))
+                               for i, w in path] for path in paths]
+                             for paths in (w_paths, s_paths)) + (to(tab),
+                                                                  nspa)
                 kernel = ktable_cuda.spec_band_dot_cuda
 
                 def plain(a=a_dt):
@@ -1383,12 +1462,12 @@ def phase_taumol(k2_args, tables64, reps=10):
                   f"value {rel} > {TAUMOL_VALUE_RTOL[dname]}")
         n_bad = int((~torch.isfinite(want[1])).sum())
         flat, meta, _ = taumol_cuda.pack_tables(args[6])
-        fp, ip = taumol_cuda.pack_points(*args[:6])
-        N = fp.shape[1]
+        planes, keep = taumol_cuda.pack_planes(*args[:6], flat)
         lead = tuple(got[0].shape[:-1])
+        N = math.prod(lead)
 
-        def packed():  # the launch alone, on planes packed beforehand
-            return taumol_cuda.taumol_lw_packed(fp, ip, flat, meta, lead)
+        def packed(keep=keep):  # the launch alone, on planes packed before
+            return taumol_cuda.taumol_lw_launch(planes, flat, meta, lead)
 
         dev = device_ms({
             "plain": lambda: rlw.taumol_lw_plain(*args),
@@ -1399,9 +1478,12 @@ def phase_taumol(k2_args, tables64, reps=10):
         check(all(torch.equal(a.nan_to_num(), b.nan_to_num())
                   for a, b in zip(packed(), got)),
               "K2 gave two answers on the same planes")
-        # the point planes and the tables read once, both outputs written
-        # once; ~2,000 flops per point
-        moved = nbytes(fp, ip, flat, meta, *got)
+        # the point planes (each at its own width) and the tables read
+        # once, both outputs written once; ~2,000 flops per point
+        point_bytes = N * (len(taumol_cuda.FLOAT_PLANES) * flat.element_size()
+                           + sum(args[0][k].element_size()
+                                 for k in taumol_cuda.INT_PLANES))
+        moved = point_bytes + nbytes(flat, meta, *got)
         bound_ms, by = bound(moved, 2000 * N, dname)
         log(f"  K2 {dname}: N={N} points, fracs max|diff| "
             f"{errs['fracs'][0]:.3e} (scale {errs['fracs'][1]:.3e}), tautot "
@@ -1410,11 +1492,11 @@ def phase_taumol(k2_args, tables64, reps=10):
             f"value within {errs['tautot'][2]:.3e} relative (bound "
             f"{TAUMOL_VALUE_RTOL[dname]}), "
             f"{n_bad} non-finite values (at the same points); device time "
-            f"wrapper {dev['kernel']:.3f} ms (packing the points and the "
-            f"launch), the launch alone "
+            f"wrapper {dev['kernel']:.3f} ms (packing the plane pointers "
+            f"and the launch), the launch alone "
             f"{dev['launch']:.3f} ms, plain {dev['plain']:.3f} ms, the "
             f"K3/K4 route {dev['ktable']:.3f} ms; {moved} bytes moved "
-            f"({nbytes(fp, ip)} in the point planes, {nbytes(flat, meta)} "
+            f"({point_bytes} in the point planes, {nbytes(flat, meta)} "
             f"in the tables, {nbytes(*got)} out), bound {bound_ms:.4f} ms "
             f"({by})")
         if dname == "float32":
@@ -1584,23 +1666,188 @@ def phase_pipeline(device):
     return counts
 
 
+# K3 calls of the yardstick (--kernel-times): (nbase, nspa, ng, n_paths,
+# kw, st) of LW band 3 lower, the main path's K3 kernel-line call, and of
+# LW band 3 upper, the largest table (236 x 80)
+K3_YARDSTICK = {"LW band 3 lower": (70, 9, 16, 2, 2, 3),
+                "LW band 3 upper": (236, 5, 16, 2, 2, 2)}
+
+
+def k3_call(device, dtype, case, seed=1):
+    """``(w_paths, s_paths, tab, nspa)`` of a seeded K3 call of
+    ``K3_YARDSTICK[case]`` at the radiation's 442,368 points ([13,824, 32],
+    ids int64 and weights of ``dtype``, as the main path holds them)."""
+    import numpy as np
+    import torch
+
+    nbase, nspa, ng, n_paths, kw, st = K3_YARDSTICK[case]
+    rng = np.random.RandomState(seed)
+    lead = (6 * NPX * NPX, NPZ)
+
+    def pairs(hi, n, scale):
+        return [(torch.tensor(rng.randint(0, hi, lead), dtype=torch.int64,
+                              device=device),
+                 torch.tensor(scale * rng.rand(*lead), dtype=dtype,
+                              device=device)) for _ in range(n)]
+
+    w_paths = [pairs(nbase, kw, 1.0) for _ in range(n_paths)]
+    s_paths = [pairs(nspa, st, 1e3) for _ in range(n_paths)]
+    tab = torch.tensor(rng.rand(nbase, nspa * ng), dtype=dtype,
+                       device=device)
+    return w_paths, s_paths, tab, nspa
+
+
+def column_state(C, L, seed=0):
+    """Seeded radiation inputs of C columns x L levels on the hybrid
+    coordinate (numpy; z index 0 = model top), with clouds in half the
+    layers; returns ``(state, cosz)``."""
+    import numpy as np
+    from fv3net_torch.dycore.vertical import hybrid_coordinate
+
+    rng = np.random.RandomState(seed)
+    ak, bk = hybrid_coordinate(L)
+    pe = ak[None] + bk[None] * (1e5 + 3000 * rng.randn(C))[:, None]
+    pmid = 0.5 * (pe[:, 1:] + pe[:, :-1])
+    T = np.maximum(290 * (pmid / 1e5) ** 0.2, 200) + 3 * rng.randn(C, L)
+    lat = rng.uniform(-1.4, 1.4, C)
+    state = {
+        "air_temperature": T,
+        "pressure_thickness_of_atmospheric_layer": np.diff(pe, axis=1),
+        "specific_humidity": 0.02 * (pmid / 1e5) ** 3 * rng.rand(C, L) ** 2,
+        "cloud_water_mixing_ratio": 1e-4 * rng.rand(C, L) * (
+            rng.rand(C, L) > 0.5),
+        "surface_temperature": T[:, -1] + 1,
+        "latitude": lat,
+        "longitude": rng.uniform(0, 6.28, C),
+    }
+    return state, np.clip(np.cos(lat), -0.3, 1)
+
+
+def k2_call(device, dtype, seed=0):
+    """The arguments ``(c, colamt, coldry, colbrd, wx, tauaer, T)`` that
+    one RRTMG call on the mega route hands to K2's wrapper, on seeded
+    columns at the flagship's size (13,824 x 32), made by the tree's own
+    ``RRTMGDriver``."""
+    import datetime
+
+    import torch
+    from fv3net_torch.physics.radiation.rrtmg import taumol_cuda
+    from fv3net_torch.physics.radiation.rrtmg.driver import (
+        RRTMGConfig,
+        RRTMGDriver,
+    )
+
+    state, cosz = column_state(6 * NPX * NPX, NPZ, seed)
+    driver = RRTMGDriver(RRTMGConfig(), dtype=dtype, device=device,
+                         lw_taumol="mega")
+    with Capture(taumol_cuda, "taumol_lw_cuda") as call:
+        driver(datetime.datetime(2016, 7, 1),
+               {k: torch.tensor(v, dtype=dtype, device=device)
+                for k, v in state.items()},
+               cosz=torch.tensor(cosz, dtype=dtype, device=device))
+    torch.cuda.synchronize()
+    check(call.args is not None, "the RRTMG call made no K2 call")
+    return call.args
+
+
+def k2_launch(args):
+    """A function that runs K2's launch alone on the arguments' point
+    planes, packed once beforehand, in the tree's own form."""
+    from fv3net_torch.physics.radiation.rrtmg import taumol_cuda as tc
+
+    flat, meta, _ = tc.pack_tables(args[6])
+    lead = tuple(args[2].shape)
+    if hasattr(tc, "pack_points"):  # a tree that copies the planes
+        fp, ip = tc.pack_points(*args[:6])
+        return lambda: tc.taumol_lw_packed(fp, ip, flat, meta, lead)
+    planes, keep = tc.pack_planes(*args[:6], flat)
+    return lambda keep=keep: tc.taumol_lw_launch(planes, flat, meta, lead)
+
+
+def digest(*tensors):
+    """sha256 (first 16 hex digits) of the tensors' bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def resource_usage(path):
+    """``cuobjdump --dump-resource-usage`` of a built library: per kernel
+    instance (demangled where ``cu++filt`` is found) its registers, stack,
+    shared and local bytes."""
+    import re
+    import shutil
+
+    cuda_bin = "/usr/local/cuda/bin"
+    tool = shutil.which("cuobjdump") or os.path.join(cuda_bin, "cuobjdump")
+    out = subprocess.run([tool, "--dump-resource-usage", str(path)],
+                         capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    filt = shutil.which("cu++filt") or os.path.join(cuda_bin, "cu++filt")
+    rows = []
+    for line in out.stdout.splitlines():  # "Function f:", then its usage
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = m.group(1)
+            if os.path.exists(filt):
+                name = subprocess.run([filt, name], capture_output=True,
+                                      text=True).stdout.strip() or name
+            rows.append((name, {}))
+        res = re.findall(r"\b(REG|STACK|SHARED|LOCAL):(\d+)", line)
+        if res and rows:
+            rows[-1][1].update({k: int(v) for k, v in res})
+    return rows
+
+
+def log_plans():
+    """How the tree's K3 and K2 launch on this card (points per tile,
+    shared bytes, threads, blocks an SM holds by
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), where the tree
+    reports it."""
+    import torch
+    from fv3net_torch.ops import ktable_cuda
+    from fv3net_torch.physics.radiation.rrtmg import taumol_cuda
+
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).replace("torch.", "")
+        if hasattr(ktable_cuda, "spec_plan"):
+            for case, (nbase, nspa, ng, n_paths, kw, st) in \
+                    K3_YARDSTICK.items():
+                plan = ktable_cuda.spec_plan(dtype, n_paths * (kw + st), ng)
+                log(f"  K3 {case} {dname}: {plan}")
+        if hasattr(taumol_cuda, "launch_plan"):
+            log(f"  K2 {dname}: {taumol_cuda.launch_plan(dtype)}")
+
+
 def kernel_times(device, reps=30):
-    """The yardstick on which two trees' K1 and K4 are compared
+    """The yardstick on which two trees' kernels are compared
     (``--kernel-times``; ``--tree`` picks the tree).
 
-    K1 on the dycore step's three calls (F = 3, 2, 1 at C48, npz=32) and
-    K4 on a call shaped as the main path's ``mtab_lo1`` selection (4 terms
+    K1 on the dycore step's three calls (F = 3, 2, 1 at C48, npz=32); K4
+    on a call shaped as the main path's ``mtab_lo1`` selection (4 terms
     of int64 ids and float32 weights at the radiation's 442,368 points into
-    a 70 x 54 table; seeded, not recorded), float32, each timed three ways:
-    CUDA events around one wrapper call with the host's work in
-    (:func:`interleaved_ms`, how PRs 1-3 timed the kernels), device time
-    (:func:`device_ms`), and the host's microseconds per call queued back
-    to back.  Then K1's float32 readings against the exact (float64)
-    application at km=32 and at km=79, the kernel's and the plain
-    version's.  Returns them as a dict."""
+    a 70 x 54 table; seeded, not recorded); K3 through
+    ``ktable.spec_band_dot`` on seeded calls shaped as LW band 3 lower and
+    as LW band 3 upper, the largest table (``K3_YARDSTICK``), in float32
+    and float64; K2 through ``taumol_cuda.taumol_lw_cuda`` on the arguments
+    that the tree's own RRTMG driver makes from seeded columns
+    (:func:`k2_call`), float32 and float64, and its launch alone.  Each is
+    timed three ways: CUDA events around one wrapper call with the host's
+    work in (:func:`interleaved_ms`, how PRs 1-3 timed the kernels),
+    device time (:func:`device_ms`), and the host's microseconds per call
+    queued back to back; K3's and K2's outputs also by their digest
+    (:func:`digest`), equal on two trees when they agree bit for bit.
+    Then K1's float32 readings against the exact (float64) application at
+    km=32 and at km=79, the kernel's and the plain version's.  Returns
+    them as a dict."""
     import numpy as np
     import torch
     from fv3net_torch.ops import ktable, remap_cuda
+    from fv3net_torch.physics.radiation.rrtmg import lw as rlw
+    from fv3net_torch.physics.radiation.rrtmg import taumol_cuda
 
     def host_us(fn):
         for _ in range(3):
@@ -1614,12 +1861,19 @@ def kernel_times(device, reps=30):
         return us
 
     out = {}
+
+    def three_ways(name, fn, n=reps, **extra):
+        v = out[name] = dict({"events_ms": interleaved_ms({"k": fn}, n)["k"],
+                              "device_ms": device_ms({"k": fn}, n)["k"],
+                              "host_us": host_us(fn)}, **extra)
+        log(f"  {name}: CUDA events of one call (host work in) "
+            f"{v['events_ms']:.4f} ms, device time {v['device_ms']:.4f} ms, "
+            f"host {v['host_us']:.1f} us per call"
+            + (f", digest {v['digest']}" if "digest" in v else ""))
+
     for F in (3, 2, 1):
         args = remap_inputs(device, torch.float32, F)
-        fn = (lambda a=args: remap_cuda.remap_apply_cuda(*a))
-        out[f"K1 F={F}"] = {"events_ms": interleaved_ms({"k": fn}, reps)["k"],
-                            "device_ms": device_ms({"k": fn}, reps)["k"],
-                            "host_us": host_us(fn)}
+        three_ways(f"K1 F={F}", lambda a=args: remap_cuda.remap_apply_cuda(*a))
     rng = np.random.RandomState(0)
     lead, rows, G = (6 * NPX * NPX, NPZ), 70, 54
     tab = torch.tensor(rng.rand(rows, G), dtype=torch.float32, device=device)
@@ -1631,14 +1885,36 @@ def kernel_times(device, reps=30):
     err = (got - ktable.weighted_select_dot_plain(terms, tab)).abs().max()
     check(err.item() <= KTABLE_RTOL["float32"] * got.abs().max().item(),
           f"K4 mtab_lo1 shape: max|kernel-plain| {err.item()}")
-    fn = (lambda: ktable.weighted_select_dot(terms, tab))
-    out["K4 mtab_lo1"] = {"events_ms": interleaved_ms({"k": fn}, reps)["k"],
-                          "device_ms": device_ms({"k": fn}, reps)["k"],
-                          "host_us": host_us(fn)}
-    for name, v in out.items():
-        log(f"  {name}: CUDA events of one call (host work in) "
-            f"{v['events_ms']:.4f} ms, device time {v['device_ms']:.4f} ms, "
-            f"host {v['host_us']:.1f} us per call")
+    three_ways("K4 mtab_lo1", lambda: ktable.weighted_select_dot(terms, tab))
+    for case in K3_YARDSTICK:
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).replace("torch.", "")
+            a = k3_call(device, dtype, case)
+            got = ktable.spec_band_dot(*a)
+            torch.cuda.synchronize()
+            err, scale = max_diff(got, ktable.spec_band_dot_plain(*a),
+                                  f"K3 {case} {dname}")
+            check(err <= KTABLE_RTOL[dname] * scale,
+                  f"K3 {case} {dname}: max|kernel-plain| {err}")
+            three_ways(f"K3 {case} {dname}",
+                       lambda a=a: ktable.spec_band_dot(*a),
+                       digest=digest(got))
+            del a, got
+    for dtype, n in ((torch.float32, 10), (torch.float64, 5)):
+        dname = str(dtype).replace("torch.", "")
+        args = k2_call(device, dtype)
+        got = taumol_cuda.taumol_lw_cuda(*args)
+        torch.cuda.synchronize()
+        want = rlw.taumol_lw_plain(*args)
+        for name, g, w in zip(("fracs", "tautot"), got, want):
+            err, scale = max_diff(g, w, f"K2 {dname} {name}")
+            check(err <= TAUMOL_RTOL[dname] * scale,
+                  f"K2 {dname} {name}: max|kernel-plain| {err}")
+        three_ways(f"K2 {dname}",
+                   lambda a=args: taumol_cuda.taumol_lw_cuda(*a), n,
+                   digest=digest(*got))
+        three_ways(f"K2 {dname} launch", k2_launch(args), n)
+        del args, got, want
     for npz in (NPZ, KM_DEEP):
         args = remap_inputs(device, torch.float32, 3, npz)
         got = remap_cuda.remap_apply_cuda(*args)
@@ -1659,7 +1935,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--kernel-times", action="store_true",
-        help="build K1 and K4 and time them on one yardstick (see "
+        help="build K1-K4 and time them on one yardstick (see "
              "kernel_times) instead of the smoke run")
     parser.add_argument(
         "--tree", default=os.path.dirname(os.path.abspath(__file__)),
@@ -1689,16 +1965,23 @@ def main():
     t_start = time.perf_counter()
     if opts.kernel_times:
         from fv3net_torch.ops import ktable_cuda, remap_cuda
+        from fv3net_torch.physics.radiation.rrtmg import taumol_cuda
 
         log(f"kernel times of {tree}")
-        for m in (remap_cuda, ktable_cuda):
-            log(f"  built {m.build().path.name}")
+        for m in (remap_cuda, ktable_cuda, taumol_cuda):
+            path = m.build().path
+            log(f"  built {path.name}")
+            if m is not remap_cuda:
+                for name, res in resource_usage(path):
+                    log(f"  resources of {name}: {res}")
+        log_plans()
         print(json.dumps({"kernel_times": kernel_times(device),
                           "device": smi}), flush=True)
         return 0
 
     log("phase 2: build")
     build_kernels()
+    log_plans()
 
     log("phase 3: remap kernel K1 against its plain version")
     remap_line = phase_remap_kernel(device)

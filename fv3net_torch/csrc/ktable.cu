@@ -25,9 +25,9 @@
 // What bounds them: memory traffic.  Per point K4 reads K ids and weights
 // and writes G values, 2 flops per table value read; at the main path's
 // mtab_lo1 call (K=4, N=442,368, G=54, int64 ids) that is 117 MB,
-// 0.035 ms at 3.35 TB/s, nearly all of it the output.  K3 reads n_paths*(kw+st) ids
-// and weights per point and writes ng values.  Table reads hit L1 /
-// shared memory (every RRTMG table is at most 181 x 140 values).
+// 0.035 ms at 3.35 TB/s, nearly all of it the output.  K3 reads
+// n_paths*(kw+st) ids and weights per point and writes ng values.  Table
+// reads hit L1 (every RRTMG table is at most 236 x 140 values).
 //
 // K4 design: a block owns a tile of P consecutive points (about 8,192 / G
 // of them), whose P*G outputs are one contiguous range.  It takes its K
@@ -48,14 +48,34 @@
 // takes nearly the same time for twice the bytes.  Terms are summed
 // k = 0..K-1, one multiply-add each, in the order of the plain version.
 //
-// K3 design: one thread per output element (n, g), consecutive threads
-// along g; the table (at most 236 x 80 values, 151 KB in float64) is
-// staged in dynamic shared memory once per block, and each block walks the
-// points with a grid-stride loop so the staging is paid once per resident
-// block.  Sums run in the compute type, in the same order as the plain
-// versions.
+// K3 design: K4's, with the stencil on top.  It takes its terms in K4's
+// struct, by pointer as the caller holds them: first the n_paths * kw base
+// pairs, path-major, then the n_paths * st stencil pairs (kw <= 4).  A
+// block owns a tile of P consecutive points, whose P*ng outputs are one
+// contiguous range.  It loads the tile's ids and weights once, coalesced,
+// clamps them and keeps per term and point in shared memory the base row's
+// offset row * nspa * ng, or the stencil position's pos * ng, with its
+// weight; its threads then walk the tile's outputs, consecutive threads on
+// consecutive pairs of outputs (ng is even at every RRTMG band; an odd ng
+// takes one output a thread), the (point, g) of each carried forward from
+// the last with 32-bit indices and no division.  A thread's two outputs
+// share its point's pairs, read once, and each table read brings both
+// (8 or 16 bytes); a path's base pairs go to registers once and serve its
+// st stencil positions.  The blocks are persistent (as many as are
+// resident, walking the tiles); the table is read through the read-only
+// cache.  Sums keep the plain version's order, for p, for s:
+// a = sum_k ww * tab, then acc += sw * a, each step one fused multiply-add,
+// written out.
+//
+// What holds K3 back (LW band 3 lower, float32, NVIDIA H100 80GB HBM3 at
+// 700 W, chip_smoke.py --kernel-times): latency, not bytes: per pair of
+// outputs 12 gathers and 10 shared-memory pair reads.  One output a
+// thread with the table in shared memory read 0.115 ms, two outputs with
+// the table in shared memory 0.090-0.108 ms (2-3 blocks an SM), two
+// outputs through the cache 0.082-0.083 ms (6 blocks an SM).
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 // The K4 terms as the wrapper packs them (ops/ktable_cuda.py::SelectTerms),
 // passed by value.
@@ -125,47 +145,139 @@ __global__ void __launch_bounds__(kSelectThreads) weighted_select_kernel(
   }
 }
 
-template <typename T>
-__global__ void spec_band_kernel(const int* __restrict__ wids,
-                                 const T* __restrict__ ww,
-                                 const int* __restrict__ sids,
-                                 const T* __restrict__ sw,
-                                 const T* __restrict__ tab,
-                                 T* __restrict__ out, long long N,
-                                 int n_paths, int kw, int st, int nbase,
-                                 int nspa, int ng) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* stab = reinterpret_cast<T*>(smem_raw);
-  const int row_len = nspa * ng;
-  const int tab_n = nbase * row_len;
-  for (int i = threadIdx.x; i < tab_n; i += blockDim.x) stab[i] = tab[i];
-  __syncthreads();
-
-  const long long total = N * ng;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    const long long n = t / ng;
-    const int g = (int)(t - n * ng);
-    T acc = T(0);
-    for (int p = 0; p < n_paths; ++p) {
-      for (int s = 0; s < st; ++s) {
-        const long long si = (long long)(p * st + s) * N + n;
-        const int pos = min(max(__ldg(sids + si), 0), nspa - 1);
-        T a = T(0);
-        for (int k = 0; k < kw; ++k) {
-          const long long wi = (long long)(p * kw + k) * N + n;
-          const int row = min(max(__ldg(wids + wi), 0), nbase - 1);
-          a += __ldg(ww + wi) * stab[row * row_len + pos * ng + g];
-        }
-        acc += __ldg(sw + si) * a;
-      }
-    }
-    out[t] = acc;
-  }
+// a + x * y rounded once: the plain version's multiply-add, fused as the
+// compiler contracted it in the one-output-a-thread design before this
+// one, whose results this kernel keeps to the bit
+__device__ __forceinline__ float mad(float x, float y, float a) {
+  return fmaf(x, y, a);
+}
+__device__ __forceinline__ double mad(double x, double y, double a) {
+  return fma(x, y, a);
 }
 
-constexpr int kThreads = 256;
+// kVec neighbouring values of T, read and written as one
+template <typename T, int kVec>
+struct Vec {
+  using type = T;
+};
+template <>
+struct Vec<float, 2> {
+  using type = float2;
+};
+template <>
+struct Vec<double, 2> {
+  using type = double2;
+};
+__device__ __forceinline__ float lane(float x, int) { return x; }
+__device__ __forceinline__ double lane(double x, int) { return x; }
+__device__ __forceinline__ float lane(float2 x, int j) {
+  return j ? x.y : x.x;
+}
+__device__ __forceinline__ double lane(double2 x, int j) {
+  return j ? x.y : x.x;
+}
+__device__ __forceinline__ void set(float* o, const float* a) { *o = a[0]; }
+__device__ __forceinline__ void set(double* o, const double* a) {
+  *o = a[0];
+}
+__device__ __forceinline__ void set(float2* o, const float* a) {
+  *o = make_float2(a[0], a[1]);
+}
+__device__ __forceinline__ void set(double2* o, const double* a) {
+  *o = make_double2(a[0], a[1]);
+}
+
+constexpr int kSpecThreads = 256;
+constexpr int kSpecTileValues = 4096;  // outputs per tile, about
+constexpr int kSpecPairSmem = 48 * 1024;  // bytes of pairs per tile, at most
+constexpr int kSpecMaxBase = 4;        // base pairs per path (kw)
+
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kSpecThreads) spec_band_kernel(
+    const SelectTerms terms, const T* __restrict__ tab, T* __restrict__ out,
+    long long N, int n_paths, int kw, int st, int nbase, int nspa, int ng,
+    int P) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int K = terms.n_terms;  // n_paths * (kw + st)
+  const int n_base = n_paths * kw;
+  const int row_len = nspa * ng;
+  SelectPair<T>* s_pair = reinterpret_cast<SelectPair<T>*>(smem_raw);
+  const long long tiles = (N + P - 1) / P;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long n0 = tile * P;
+    const int np = (int)min((long long)P, N - n0);
+    __syncthreads();  // the last tile's readers are done
+    for (int k = 0; k < K; ++k) {  // [K][P]
+      const bool wide = (terms.ids64 >> k) & 1u;
+      const bool base = k < n_base;
+      const int hi = base ? nbase - 1 : nspa - 1;
+      const int step = base ? row_len : ng;
+      const T* wk = static_cast<const T*>(terms.w[k]);
+      const int* id32 = static_cast<const int*>(terms.ids[k]) + n0;
+      const long long* id64 =
+          static_cast<const long long*>(terms.ids[k]) + n0;
+      for (int i = threadIdx.x; i < np; i += blockDim.x) {
+        long long r = wide ? __ldg(id64 + i) : (long long)__ldg(id32 + i);
+        r = r < 0 ? 0 : (r > hi ? hi : r);
+        s_pair[k * P + i] = {(int)r * step, wk ? __ldg(wk + n0 + i) : T(1)};
+      }
+    }
+    __syncthreads();
+
+    // a thread takes kVec neighbouring outputs of a point (ng is a
+    // multiple of kVec), its table reads kVec wide
+    using V = typename Vec<T, kVec>::type;
+    V* o = reinterpret_cast<V*>(out + n0 * ng);
+    const int nv = ng / kVec;  // a point's vectors
+    const int total = np * nv;
+    const int dn = blockDim.x / nv, dh = blockDim.x - dn * nv;
+    int n = threadIdx.x / nv, h = threadIdx.x - n * nv;
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      const int g = kVec * h;
+      T acc[kVec];
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) acc[j] = T(0);
+      for (int p = 0; p < n_paths; ++p) {
+        int row[kSpecMaxBase];
+        T ww[kSpecMaxBase];
+#pragma unroll
+        for (int k = 0; k < kSpecMaxBase; ++k) {
+          if (k < kw) {
+            const SelectPair<T> pr = s_pair[(p * kw + k) * P + n];
+            row[k] = pr.row + g;
+            ww[k] = pr.w;
+          }
+        }
+        for (int s = 0; s < st; ++s) {
+          const SelectPair<T> ps = s_pair[(n_base + p * st + s) * P + n];
+          const T* ts = tab + ps.row;
+          T a[kVec];
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) a[j] = T(0);
+#pragma unroll
+          for (int k = 0; k < kSpecMaxBase; ++k) {
+            if (k < kw) {
+              const V* src = reinterpret_cast<const V*>(ts + row[k]);
+              const V x = __ldg(src);
+#pragma unroll
+              for (int j = 0; j < kVec; ++j)
+                a[j] = mad(ww[k], lane(x, j), a[j]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) acc[j] = mad(ps.w, a[j], acc[j]);
+        }
+      }
+      set(o + e, acc);
+      n += dn;
+      h += dh;
+      if (h >= nv) {
+        h -= nv;
+        ++n;
+      }
+    }
+  }
+}
 
 template <typename T>
 int launch_select(SelectTerms terms, const void* tab, void* out, long long N,
@@ -190,38 +302,64 @@ int launch_select(SelectTerms terms, const void* tab, void* out, long long N,
   return (int)cudaGetLastError();
 }
 
+// K3's instance: two outputs a thread, or one (an odd ng, or a table not
+// aligned to its pairs of values)
 template <typename T>
-int launch_spec(const void* wids, const void* ww, const void* sids,
-                const void* sw, const void* tab, void* out, long long N,
+auto spec_kernel(bool pairs) {
+  return pairs ? spec_band_kernel<T, 2> : spec_band_kernel<T, 1>;
+}
+
+// K3's launch configuration: points per tile, shared memory for the
+// pairs, blocks per SM
+struct SpecPlan {
+  int P;
+  size_t smem;
+  int per_sm;
+};
+
+template <typename T>
+int plan_spec(int K, int ng, SpecPlan* plan) {
+  int P = (kSpecTileValues + ng - 1) / ng;
+  const int p_max = kSpecPairSmem / (K * (int)sizeof(SelectPair<T>));
+  if (P > p_max) P = p_max;
+  plan->P = P;
+  plan->smem = (size_t)K * P * sizeof(SelectPair<T>);
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &plan->per_sm, spec_kernel<T>(ng % 2 == 0), kSpecThreads,
+      plan->smem);
+  if (err != cudaSuccess) return (int)err;
+  return plan->per_sm < 1 ? (int)cudaErrorInvalidConfiguration : 0;
+}
+
+template <typename T>
+int launch_spec(SelectTerms terms, const void* tab, void* out, long long N,
                 int n_paths, int kw, int st, int nbase, int nspa, int ng,
                 void* stream) {
   if (N == 0) return 0;
-  if (n_paths < 1 || kw < 1 || st < 1 || nbase < 1 || nspa < 1 || ng < 1)
+  if (n_paths < 1 || kw < 1 || kw > kSpecMaxBase || st < 1 || nbase < 1 ||
+      nspa < 1 || ng < 1 || terms.n_terms != n_paths * (kw + st) ||
+      terms.n_terms > kMaxTerms)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)nbase * nspa * ng * sizeof(T);
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(spec_band_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, spec_band_kernel<T>, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long want = (N * ng + kThreads - 1) / kThreads;
-  const long long resident = (long long)sms * per_sm;
+  if ((long long)nbase * nspa * ng > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  SpecPlan plan;
+  int err = plan_spec<T>(terms.n_terms, ng, &plan);
+  if (err != 0) return err;
+  int device = 0, sms = 0;
+  cudaError_t cerr;
+  if ((cerr = cudaGetDevice(&device)) != cudaSuccess) return (int)cerr;
+  cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const long long tiles = (N + plan.P - 1) / plan.P;
+  const long long resident = (long long)sms * plan.per_sm;
   const unsigned int blocks =
-      (unsigned int)(want < resident ? want : resident);
-  spec_band_kernel<T><<<blocks, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      (const int*)wids, (const T*)ww, (const int*)sids, (const T*)sw,
-      (const T*)tab, (T*)out, N, n_paths, kw, st, nbase, nspa, ng);
+      (unsigned int)(tiles < resident ? tiles : resident);
+  auto kernel = spec_kernel<T>(ng % 2 == 0 &&
+                               (size_t)tab % (2 * sizeof(T)) == 0);
+  kernel<<<blocks, kSpecThreads, plan.smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      terms, (const T*)tab, (T*)out, N, n_paths, kw, st, nbase, nspa, ng,
+      plan.P);
   return (int)cudaGetLastError();
 }
 
@@ -239,20 +377,33 @@ extern "C" int fv3_ktable_select_f64(SelectTerms terms, const void* tab,
   return launch_select<double>(terms, tab, out, N, R, G, stream);
 }
 
-extern "C" int fv3_ktable_spec_f32(const void* wids, const void* ww,
-                                   const void* sids, const void* sw,
-                                   const void* tab, void* out, long long N,
-                                   int n_paths, int kw, int st, int nbase,
-                                   int nspa, int ng, void* stream) {
-  return launch_spec<float>(wids, ww, sids, sw, tab, out, N, n_paths, kw, st,
-                            nbase, nspa, ng, stream);
+extern "C" int fv3_ktable_spec_f32(SelectTerms terms, const void* tab,
+                                   void* out, long long N, int n_paths,
+                                   int kw, int st, int nbase, int nspa,
+                                   int ng, void* stream) {
+  return launch_spec<float>(terms, tab, out, N, n_paths, kw, st, nbase, nspa,
+                            ng, stream);
 }
 
-extern "C" int fv3_ktable_spec_f64(const void* wids, const void* ww,
-                                   const void* sids, const void* sw,
-                                   const void* tab, void* out, long long N,
-                                   int n_paths, int kw, int st, int nbase,
-                                   int nspa, int ng, void* stream) {
-  return launch_spec<double>(wids, ww, sids, sw, tab, out, N, n_paths, kw,
-                             st, nbase, nspa, ng, stream);
+extern "C" int fv3_ktable_spec_f64(SelectTerms terms, const void* tab,
+                                   void* out, long long N, int n_paths,
+                                   int kw, int st, int nbase, int nspa,
+                                   int ng, void* stream) {
+  return launch_spec<double>(terms, tab, out, N, n_paths, kw, st, nbase,
+                             nspa, ng, stream);
+}
+
+// K3's plan for a call of K terms with ng outputs a point: points per
+// tile, the shared bytes of a block and the blocks a SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+extern "C" int fv3_ktable_spec_plan(int f64, int K, int ng, int* P,
+                                    long long* smem, int* per_sm) {
+  SpecPlan plan;
+  const int err = f64 ? plan_spec<double>(K, ng, &plan)
+                      : plan_spec<float>(K, ng, &plan);
+  if (err != 0) return err;
+  *P = plan.P;
+  *smem = (long long)plan.smem;
+  *per_sm = plan.per_sm;
+  return 0;
 }

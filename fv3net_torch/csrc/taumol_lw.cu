@@ -21,21 +21,41 @@
 // troposphere, upper: above it), where the plain version computes both
 // and selects.
 //
-// Design.  A block owns a tile of 128 consecutive points and walks the 16
-// bands.  Per band, phase 1 runs one thread per point: the species
+// Design.  A block owns a tile of kP = 32 consecutive points and walks
+// the 16 bands in groups of 8 (float32) or 4 (float64) bands, a warp a
+// band.  Per group, phase 1 runs one thread per (point, band): the species
 // ratios, stencil positions and weights, gas-amount adjustments and
 // pressure corrections of that band go into a small record in shared
-// memory (the per-point rows and weights that all bands share are written
-// once, before the loop).  Phase 2 runs the block's threads over
-// (point, g) of the band: each reads its point's record, gathers the
-// table values it names and writes tautot and fracs, ng consecutive
-// values per point.  What each (band, atmosphere) sums is described by 24
-// integers ("descriptor") that the wrapper builds beside the packed
-// tables (taumol_cuda.py::pack_tables); phase 2 interprets them.
+// memory (each point's values and the rows and weights that all bands
+// share are loaded once, before the loop).  Phase 2 runs the block's
+// threads over (band, point, g) of the group: each reads its point's
+// record, gathers the table values it names and puts tautot and fracs in
+// the tile's [kP, 140] rows in shared memory.  After the last group the
+// tile's rows, one contiguous range of each output, go out as 16-byte
+// stores.  What each (band, atmosphere) sums is described by 24 integers
+// ("descriptor") that the wrapper builds beside the packed tables
+// (taumol_cuda.py::pack_tables); phase 2 interprets them.  The
+// descriptors and the point planes' pointers are read into shared memory
+// once per block, and the blocks are persistent (as many as are resident,
+// walking the tiles).  The planes come as the caller holds them: a
+// pointer and an element stride each, the index planes int32, int64 or
+// bool (taumol_cuda.py::pack_planes).  A float32 block has 512 threads
+// and must fit 3 to an SM (its tile takes 71 KB of shared memory), which
+// holds a thread to 40 registers; a float64 block 128 threads, 2 to an SM.
 //
-// What bounds it: memory traffic.  Per point it reads 60 values and writes
-// 280; the tables (0.6 MB in float32) stay in L2/L1 and are read through
-// the read-only cache.  Arithmetic is ~2,000 flops per point.
+// What bounds it: memory traffic.  Per point it reads 53 values and 7
+// indices and writes 280 values; the tables (0.4 MB in float32) stay in
+// L2/L1 and are read through the read-only cache.  Arithmetic is ~2,000
+// flops per point.  What holds it back is latency, in phase 1 as much as
+// in phase 2: each output gathers 10-30 table values in a chain that
+// starts from its point's record, and each band record is a chain of
+// divisions, pow and fmod with its point's atmosphere diverging in the
+// warp.  On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py
+// --kernel-times, float32, N = 442,368), running one phase twice added
+// 1.2 ms (phase 1), 1.1 ms (phase 2), 0.17 ms (the point loads) and
+// 0.07 ms (the stores) to a 1.78 ms launch, and the launch fell as the
+// warps an SM holds grew: 12 warps 2.87 ms, 24 2.13, 36 1.89, 48 1.78
+// (640 threads a block, 60 warps, spill registers and read 1.94).
 //
 // The source is compiled without fused multiply-adds (-fmad=false), so
 // the integer parts of the species parameters, which pick table rows, are
@@ -58,14 +78,27 @@
 #define FV3_LDG(p) (*(p))
 #endif
 
+// The point planes as the wrapper packs them (taumol_cuda.py::Planes),
+// passed by value: plane k's value at point n is f[k][n * fs[k]], in the
+// tables' type; the index planes hold int32, int64 or bool (iw bytes).
+constexpr int kFloatPlanes = 53;  // F_* below
+constexpr int kIndexPlanes = 7;   // I_* below
+struct Planes {
+  const void* f[kFloatPlanes];
+  const void* i[kIndexPlanes];
+  long long fs[kFloatPlanes];
+  long long is[kIndexPlanes];
+  int iw[kIndexPlanes];
+};
+
 namespace {
 
-constexpr int kP = 128;      // points per tile (threads per block)
+constexpr int kP = 32;       // points per tile
 constexpr int kBands = 16;
 constexpr int kG = 140;      // g-points of all bands
 constexpr int kNI = 19;      // temperature rows of the minor-gas tables
 
-// float planes [kNF, N] and integer planes [kNI_PLANES, N] of the points
+// the float planes (F_*) and index planes (I_*) of the points
 enum {
   F_FAC00 = 0, F_FAC01, F_FAC10, F_FAC11, F_PAVEL, F_SCALEMINOR,
   F_SCALEMINORN2, F_SELFFAC, F_SELFFRAC, F_FORFAC, F_FORFRAC, F_MINORFRAC,
@@ -76,6 +109,8 @@ enum {
   F_TAUAER = 37,   // 16 bands
 };
 enum { I_JP = 0, I_JT, I_JT1, I_INDSELF, I_INDFOR, I_INDMINOR, I_TROPO };
+static_assert(F_TAUAER + kBands == kFloatPlanes, "float planes");
+static_assert(I_TROPO + 1 == kIndexPlanes, "index planes");
 
 // meta: integer description of the packed tables
 enum {
@@ -94,6 +129,7 @@ enum {
   D_FOFF = 23,
   kDesc = 24,
 };
+constexpr int kMeta = M_DESC + 2 * kBands * kDesc;
 // reference amount ratios at fixed levels (taumol_cuda.py::REFRAT)
 enum {
   R_B3_PLA = 0, R_B3_PLB, R_B3_MA, R_B3_MB, R_B4_PLA, R_B4_PLB, R_B5_PLA,
@@ -228,32 +264,47 @@ FV3_DEV T adjust(T col, T ref, T thresh, T add, T expo) {
   return (rat > thresh) ? (add + pow(rat - add, expo)) * ref : col;
 }
 
+// float plane k at point n
 template <typename T>
-FV3_DEV void load_point(const T* __restrict__ fp, const int* __restrict__ ip,
-                        long long N, long long n, Point<T>& p) {
-  p.fac00 = FV3_LDG(fp + F_FAC00 * N + n);
-  p.fac01 = FV3_LDG(fp + F_FAC01 * N + n);
-  p.fac10 = FV3_LDG(fp + F_FAC10 * N + n);
-  p.fac11 = FV3_LDG(fp + F_FAC11 * N + n);
-  p.pavel = FV3_LDG(fp + F_PAVEL * N + n);
-  p.scaleminor = FV3_LDG(fp + F_SCALEMINOR * N + n);
-  p.scaleminorn2 = FV3_LDG(fp + F_SCALEMINORN2 * N + n);
-  p.minorfrac = FV3_LDG(fp + F_MINORFRAC * N + n);
-  for (int k = 0; k < 12; ++k) p.rf[k] = FV3_LDG(fp + (F_RFRATE + k) * N + n);
-  for (int k = 0; k < 7; ++k) p.col[k] = FV3_LDG(fp + (F_COLAMT + k) * N + n);
-  p.coldry = FV3_LDG(fp + F_COLDRY * N + n);
-  p.colbrd = FV3_LDG(fp + F_COLBRD * N + n);
-  p.jp = FV3_LDG(ip + I_JP * N + n);
+FV3_DEV T plane(const Planes& pl, int k, long long n) {
+  return FV3_LDG(static_cast<const T*>(pl.f[k]) + n * pl.fs[k]);
 }
 
-// the rows and weights every band of the point shares (lw.py:411-438)
+// index plane k at point n
+FV3_DEV int index_plane(const Planes& pl, int k, long long n) {
+  const long long o = n * pl.is[k];
+  if (pl.iw[k] == 8)
+    return (int)FV3_LDG(static_cast<const long long*>(pl.i[k]) + o);
+  if (pl.iw[k] == 1)
+    return (int)FV3_LDG(static_cast<const unsigned char*>(pl.i[k]) + o);
+  return FV3_LDG(static_cast<const int*>(pl.i[k]) + o);
+}
+
 template <typename T>
-FV3_DEV void common_point(const T* __restrict__ fp, const int* __restrict__ ip,
-                          const int* __restrict__ meta, long long N,
-                          long long n, const Point<T>& p, Common<T>& c) {
-  const int jt = FV3_LDG(ip + I_JT * N + n);
-  const int jt1 = FV3_LDG(ip + I_JT1 * N + n);
-  const int upper = FV3_LDG(ip + I_TROPO * N + n) ? 0 : 1;
+FV3_DEV void load_point(const Planes& pl, long long n, Point<T>& p) {
+  p.fac00 = plane<T>(pl, F_FAC00, n);
+  p.fac01 = plane<T>(pl, F_FAC01, n);
+  p.fac10 = plane<T>(pl, F_FAC10, n);
+  p.fac11 = plane<T>(pl, F_FAC11, n);
+  p.pavel = plane<T>(pl, F_PAVEL, n);
+  p.scaleminor = plane<T>(pl, F_SCALEMINOR, n);
+  p.scaleminorn2 = plane<T>(pl, F_SCALEMINORN2, n);
+  p.minorfrac = plane<T>(pl, F_MINORFRAC, n);
+  for (int k = 0; k < 12; ++k) p.rf[k] = plane<T>(pl, F_RFRATE + k, n);
+  for (int k = 0; k < 7; ++k) p.col[k] = plane<T>(pl, F_COLAMT + k, n);
+  p.coldry = plane<T>(pl, F_COLDRY, n);
+  p.colbrd = plane<T>(pl, F_COLBRD, n);
+  p.jp = index_plane(pl, I_JP, n);
+}
+
+// the rows and weights every band of the point shares (lw.py:411-438);
+// meta: the table description, in device or shared memory
+template <typename T>
+FV3_DEV void common_point(const Planes& pl, const int* meta, long long n,
+                          const Point<T>& p, Common<T>& c) {
+  const int jt = index_plane(pl, I_JT, n);
+  const int jt1 = index_plane(pl, I_JT1, n);
+  const int upper = index_plane(pl, I_TROPO, n) ? 0 : 1;
   c.upper = upper;
   c.fac[0] = p.fac00;
   c.fac[1] = p.fac10;
@@ -263,31 +314,31 @@ FV3_DEV void common_point(const T* __restrict__ fp, const int* __restrict__ ip,
   if (upper) {
     b0 = (p.jp - 13) * 5 + (jt - 1);
     b1 = (p.jp - 12) * 5 + (jt1 - 1);
-    top = FV3_LDG(meta + M_NBASE_HI) - 1;
+    top = meta[M_NBASE_HI] - 1;
   } else {
     b0 = (p.jp - 1) * 5 + (jt - 1);
     b1 = p.jp * 5 + (jt1 - 1);
-    top = FV3_LDG(meta + M_NBASE_LO) - 1;
+    top = meta[M_NBASE_LO] - 1;
   }
   c.row[0] = clampi(b0, 0, top);
   c.row[1] = clampi(b0 + 1, 0, top);
   c.row[2] = clampi(b1, 0, top);
   c.row[3] = clampi(b1 + 1, 0, top);
-  const int inds = FV3_LDG(ip + I_INDSELF * N + n) - 1;
-  const T sfac = FV3_LDG(fp + F_SELFFAC * N + n);
-  const T sfrac = FV3_LDG(fp + F_SELFFRAC * N + n);
+  const int inds = index_plane(pl, I_INDSELF, n) - 1;
+  const T sfac = plane<T>(pl, F_SELFFAC, n);
+  const T sfrac = plane<T>(pl, F_SELFFRAC, n);
   c.selfi[0] = clampi(inds, 0, 9);
   c.selfi[1] = clampi(inds + 1, 0, 9);
   c.selfw[0] = sfac * (T(1) - sfrac);
   c.selfw[1] = sfac * sfrac;
-  const int indf = FV3_LDG(ip + I_INDFOR * N + n) - 1;
-  const T ffac = FV3_LDG(fp + F_FORFAC * N + n);
-  const T ffrac = FV3_LDG(fp + F_FORFRAC * N + n);
+  const int indf = index_plane(pl, I_INDFOR, n) - 1;
+  const T ffac = plane<T>(pl, F_FORFAC, n);
+  const T ffrac = plane<T>(pl, F_FORFRAC, n);
   c.fori[0] = clampi(indf, 0, 3);
   c.fori[1] = clampi(indf + 1, 0, 3);
   c.forw[0] = ffac * (T(1) - ffrac);
   c.forw[1] = ffac * ffrac;
-  const int im = FV3_LDG(ip + I_INDMINOR * N + n) - 1;
+  const int im = index_plane(pl, I_INDMINOR, n) - 1;
   c.m1i[0] = clampi(im, 0, kNI - 1);
   c.m1i[1] = clampi(im + 1, 0, kNI - 1);
   c.m1w[0] = T(1) - p.minorfrac;
@@ -299,12 +350,12 @@ FV3_DEV void common_point(const T* __restrict__ fp, const int* __restrict__ ip,
 // phase 1: band b of one point in its atmosphere (lw.py:472-753)
 template <typename T>
 FV3_DEV void band_point(int b, const Point<T>& p, const Common<T>& c,
-                        const T* __restrict__ tab,
-                        const int* __restrict__ meta, T om, BandRec<T>& r) {
-  const T* refrat = tab + FV3_LDG(meta + M_REFRAT);
+                        const T* __restrict__ tab, const int* meta, T om,
+                        BandRec<T>& r) {
+  const T* refrat = tab + meta[M_REFRAT];
   // chi_mls rows [59, 7]; the 1-based jp is used as a 0-based row
-  const T* chi_jp = tab + FV3_LDG(meta + M_CHI) + clampi(p.jp, 0, 58) * 7;
-  const T* chi_jp1 = tab + FV3_LDG(meta + M_CHI) + clampi(p.jp + 1, 0, 58) * 7;
+  const T* chi_jp = tab + meta[M_CHI] + clampi(p.jp, 0, 58) * 7;
+  const T* chi_jp1 = tab + meta[M_CHI] + clampi(p.jp + 1, 0, 58) * 7;
   const T h2o = p.col[0], co2 = p.col[1], o3 = p.col[2], n2o = p.col[3],
           ch4 = p.col[4];
   const bool up = c.upper != 0;
@@ -509,18 +560,17 @@ FV3_DEV void band_point(int b, const Point<T>& p, const Common<T>& c,
 template <typename T>
 FV3_DEV void eval_point(int b, int ig, const Common<T>& c,
                         const BandRec<T>& r, const T* __restrict__ tab,
-                        const int* __restrict__ meta,
-                        const T* __restrict__ fp, long long N, long long n,
+                        const int* meta, const Planes& pl, long long n,
                         T& tau, T& frac) {
   const int* d = meta + M_DESC + (b * 2 + c.upper) * kDesc;
-  const int g = FV3_LDG(meta + M_NS + b) + ig;
+  const int g = meta[M_NS + b] + ig;
   T acc = T(0);
 
-  const int major = FV3_LDG(d + D_MAJOR);
+  const int major = d[D_MAJOR];
   if (major) {
-    const T* t = tab + FV3_LDG(d + D_MOFF) + ig;
-    const int rowlen = FV3_LDG(d + D_MROW);
-    const int step = FV3_LDG(d + D_MPOS);
+    const T* t = tab + d[D_MOFF] + ig;
+    const int rowlen = d[D_MROW];
+    const int step = d[D_MPOS];
     for (int path = 0; path < 2; ++path) {
       const int ra = (major == 2) ? 0 : c.row[2 * path];
       const int rb = (major == 2) ? 1 : c.row[2 * path + 1];
@@ -534,24 +584,24 @@ FV3_DEV void eval_point(int b, int ig, const Common<T>& c,
       }
     }
   }
-  if (FV3_LDG(d + D_SELF)) {
-    const T* t = tab + FV3_LDG(meta + M_SELF) + g;
+  if (d[D_SELF]) {
+    const T* t = tab + meta[M_SELF] + g;
     acc = acc + (c.selfw[0] * FV3_LDG(t + c.selfi[0] * kG) +
                  c.selfw[1] * FV3_LDG(t + c.selfi[1] * kG));
   }
-  if (FV3_LDG(d + D_FOR)) {
-    const T* t = tab + FV3_LDG(meta + M_FOR) + g;
+  if (d[D_FOR]) {
+    const T* t = tab + meta[M_FOR] + g;
     acc = acc + (c.forw[0] * FV3_LDG(t + c.fori[0] * kG) +
                  c.forw[1] * FV3_LDG(t + c.fori[1] * kG));
   }
-  const int n_minor = FV3_LDG(d + D_NMINOR);
+  const int n_minor = d[D_NMINOR];
   int slot = 0;  // the band's bilinear minors, in order
   for (int k = 0; k < n_minor; ++k) {
     const int* m = d + D_MINOR + 3 * k;
-    const T* t = tab + FV3_LDG(m + 1) + ig;
-    const int rowlen = FV3_LDG(m + 2);
+    const T* t = tab + m[1] + ig;
+    const int rowlen = m[2];
     T v;
-    if (FV3_LDG(m) == 1) {
+    if (m[0] == 1) {
       v = c.m1w[0] * FV3_LDG(t + c.m1i[0] * rowlen) +
           c.m1w[1] * FV3_LDG(t + c.m1i[1] * rowlen);
     } else {
@@ -566,29 +616,29 @@ FV3_DEV void eval_point(int b, int ig, const Common<T>& c,
     }
     acc = acc + r.mscale[k] * v;
   }
-  const int n_halo = FV3_LDG(d + D_NHALO);
+  const int n_halo = d[D_NHALO];
   if (n_halo) {
-    T h = FV3_LDG(fp + (F_WX + FV3_LDG(d + D_HALO)) * N + n) *
-          FV3_LDG(tab + FV3_LDG(d + D_HALO + 1) + ig);
+    T h = plane<T>(pl, F_WX + d[D_HALO], n) *
+          FV3_LDG(tab + d[D_HALO + 1] + ig);
     if (n_halo > 1) {
-      h = h + FV3_LDG(fp + (F_WX + FV3_LDG(d + D_HALO + 2)) * N + n) *
-                  FV3_LDG(tab + FV3_LDG(d + D_HALO + 3) + ig);
+      h = h + plane<T>(pl, F_WX + d[D_HALO + 2], n) *
+                  FV3_LDG(tab + d[D_HALO + 3] + ig);
     }
     acc = acc + h;
   }
   acc = r.corr * acc;
-  const int co2adj = FV3_LDG(d + D_CO2ADJ);
+  const int co2adj = d[D_CO2ADJ];
   if (co2adj >= 0) acc = acc * FV3_LDG(tab + co2adj + ig);
-  tau = acc + FV3_LDG(fp + (F_TAUAER + b) * N + n);
+  tau = acc + plane<T>(pl, F_TAUAER + b, n);
 
-  const int fkind = FV3_LDG(d + D_FRAC);
-  const T* ft = tab + FV3_LDG(d + D_FOFF) + ig;
+  const int fkind = d[D_FRAC];
+  const T* ft = tab + d[D_FOFF] + ig;
   if (fkind == 0) {
     frac = T(0);
   } else if (fkind == 1) {
     frac = FV3_LDG(ft);
   } else {
-    const int ng = FV3_LDG(meta + M_NG + b);
+    const int ng = meta[M_NG + b];
     frac = (T(1) - r.fpl) * FV3_LDG(ft + r.fj[0] * ng) +
            r.fpl * FV3_LDG(ft + r.fj[1] * ng);
   }
@@ -596,54 +646,135 @@ FV3_DEV void eval_point(int b, int ig, const Common<T>& c,
 
 #ifdef __CUDACC__
 
+// a block's threads, and the bands a phase-1 round takes (a warp each)
 template <typename T>
-__global__ void __launch_bounds__(kP)
-taumol_lw_kernel(const T* __restrict__ fp, const int* __restrict__ ip,
-                 const T* __restrict__ tab, const int* __restrict__ meta,
-                 T* __restrict__ fracs, T* __restrict__ tautot, long long N,
-                 T om) {
-  __shared__ Common<T> sc[kP];
-  __shared__ BandRec<T> sb[kP];
+struct Shape {
+  static constexpr int threads = sizeof(T) == 4 ? 512 : 128;
+  static constexpr int group = sizeof(T) == 4 ? 8 : 4;
+  // blocks an SM must hold: caps the registers a thread may use
+  static constexpr int min_blocks = sizeof(T) == 4 ? 3 : 2;
+};
+
+// a block's shared memory: the tile's output rows, its points' values and
+// records, the plane pointers and the table description
+template <typename T>
+struct Tile {
+  T tau[kP * kG];
+  T frac[kP * kG];
+  Point<T> pt[kP];
+  Common<T> c[kP];
+  BandRec<T> rec[Shape<T>::group][kP];
+  Planes planes;
+  int meta[kMeta];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(Shape<T>::threads, Shape<T>::min_blocks)
+taumol_lw_kernel(const Planes planes, const T* __restrict__ tab,
+                 const int* __restrict__ meta, T* __restrict__ fracs,
+                 T* __restrict__ tautot, long long N, T om) {
+  constexpr int kGroup = Shape<T>::group;
+  constexpr int kThreads = Shape<T>::threads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Tile<T>& s = *reinterpret_cast<Tile<T>*>(smem_raw);
   const int tid = threadIdx.x;
-  const long long n0 = (long long)blockIdx.x * kP;
-  const long long n = n0 + tid;
-  const bool live = n < N;
-  const int np = (N - n0 < kP) ? (int)(N - n0) : kP;
-  Point<T> pt;
-  if (live) {
-    load_point(fp, ip, N, n, pt);
-    common_point(fp, ip, meta, N, n, pt, sc[tid]);
-  }
-  for (int b = 0; b < kBands; ++b) {
-    __syncthreads();  // the previous band's readers are done
-    if (live) band_point(b, pt, sc[tid], tab, meta, om, sb[tid]);
+  for (int i = tid; i < kMeta; i += kThreads) s.meta[i] = __ldg(meta + i);
+  if (tid == 0) s.planes = planes;
+  const long long tiles = (N + kP - 1) / kP;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long n0 = tile * kP;
+    const int np = (int)min((long long)kP, N - n0);
+    __syncthreads();  // the last tile's rows are out
+    if (tid < np) {
+      load_point(s.planes, n0 + tid, s.pt[tid]);
+      common_point(s.planes, s.meta, n0 + tid, s.pt[tid], s.c[tid]);
+    }
+    for (int b0 = 0; b0 < kBands; b0 += kGroup) {
+      __syncthreads();  // the points are loaded; the last group is read
+      const int q1 = tid % kP, slot1 = tid / kP;
+      if (slot1 < kGroup && q1 < np)
+        band_point(b0 + slot1, s.pt[q1], s.c[q1], tab, s.meta, om,
+                   s.rec[slot1][q1]);
+      __syncthreads();
+      // phase 2 over (band, point, g) of the group: band slot k's outputs
+      // are [end[k-1], end[k])
+      int end[kGroup];
+      int e = 0;
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        e += np * s.meta[M_NG + b0 + k];
+        end[k] = e;
+      }
+      for (int t = tid; t < e; t += kThreads) {
+        int slot = 0, first = 0;
+#pragma unroll
+        for (int k = 0; k < kGroup - 1; ++k) {
+          if (t >= end[k]) {
+            slot = k + 1;
+            first = end[k];
+          }
+        }
+        const int b = b0 + slot;
+        const int ng = s.meta[M_NG + b];
+        const int u = t - first;
+        const int q = u / ng;
+        const int ig = u - q * ng;
+        const int o = q * kG + s.meta[M_NS + b] + ig;
+        eval_point(b, ig, s.c[q], s.rec[slot][q], tab, s.meta, s.planes,
+                   n0 + q, s.tau[o], s.frac[o]);
+      }
+    }
     __syncthreads();
-    const int ng = __ldg(meta + M_NG + b);
-    const int ns = __ldg(meta + M_NS + b);
-    const int total = np * ng;
-    for (int t = tid; t < total; t += kP) {
-      const int q = t / ng;
-      const int ig = t - q * ng;
-      T tau, frac;
-      eval_point(b, ig, sc[q], sb[q], tab, meta, fp, N, n0 + q, tau, frac);
-      const long long o = (n0 + q) * kG + ns + ig;
-      tautot[o] = tau;
-      fracs[o] = frac;
+    // the tile's rows are one contiguous range of each output
+    const int n_vec = np * kG * (int)sizeof(T) / 16;
+    const float4* tau_v = reinterpret_cast<const float4*>(s.tau);
+    const float4* frac_v = reinterpret_cast<const float4*>(s.frac);
+    float4* tau_o = reinterpret_cast<float4*>(tautot + n0 * kG);
+    float4* frac_o = reinterpret_cast<float4*>(fracs + n0 * kG);
+    for (int v = tid; v < n_vec; v += kThreads) {
+      tau_o[v] = tau_v[v];
+      frac_o[v] = frac_v[v];
     }
   }
 }
 
+// blocks a SM holds of the kernel for T, with its shared memory opted in
 template <typename T>
-int launch_taumol(const void* fp, const void* ip, const void* tab,
-                  const void* meta, void* fracs, void* tautot, long long N,
-                  double oneminus, void* stream) {
+int taumol_blocks_per_sm(int* per_sm) {
+  const size_t smem = sizeof(Tile<T>);
+  cudaError_t err = cudaFuncSetAttribute(
+      taumol_lw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, taumol_lw_kernel<T>, Shape<T>::threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  return *per_sm < 1 ? (int)cudaErrorInvalidConfiguration : 0;
+}
+
+template <typename T>
+int launch_taumol(Planes planes, const void* tab, const void* meta,
+                  void* fracs, void* tautot, long long N, double oneminus,
+                  void* stream) {
   if (N == 0) return 0;
-  const long long blocks = (N + kP - 1) / kP;
-  if (N < 0 || blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  taumol_lw_kernel<T><<<(unsigned int)blocks, kP, 0,
+  // 16-byte stores of the tile rows
+  if (N < 0 || ((size_t)fracs | (size_t)tautot) % 16)
+    return (int)cudaErrorInvalidValue;
+  int per_sm = 0, device = 0, sms = 0;
+  int err = taumol_blocks_per_sm<T>(&per_sm);
+  if (err != 0) return err;
+  cudaError_t cerr;
+  if ((cerr = cudaGetDevice(&device)) != cudaSuccess) return (int)cerr;
+  cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const long long tiles = (N + kP - 1) / kP;
+  const long long resident = (long long)sms * per_sm;
+  const unsigned int blocks =
+      (unsigned int)(tiles < resident ? tiles : resident);
+  taumol_lw_kernel<T><<<blocks, Shape<T>::threads, sizeof(Tile<T>),
                         static_cast<cudaStream_t>(stream)>>>(
-      (const T*)fp, (const int*)ip, (const T*)tab, (const int*)meta,
-      (T*)fracs, (T*)tautot, N, (T)oneminus);
+      planes, (const T*)tab, (const int*)meta, (T*)fracs, (T*)tautot, N,
+      (T)oneminus);
   return (int)cudaGetLastError();
 }
 
@@ -653,20 +784,29 @@ int launch_taumol(const void* fp, const void* ip, const void* tab,
 
 #ifdef __CUDACC__
 
-extern "C" int fv3_taumol_lw_f32(const void* fp, const void* ip,
-                                 const void* tab, const void* meta,
-                                 void* fracs, void* tautot, long long N,
-                                 double oneminus, void* stream) {
-  return launch_taumol<float>(fp, ip, tab, meta, fracs, tautot, N, oneminus,
+extern "C" int fv3_taumol_lw_f32(Planes planes, const void* tab,
+                                 const void* meta, void* fracs, void* tautot,
+                                 long long N, double oneminus, void* stream) {
+  return launch_taumol<float>(planes, tab, meta, fracs, tautot, N, oneminus,
                               stream);
 }
 
-extern "C" int fv3_taumol_lw_f64(const void* fp, const void* ip,
-                                 const void* tab, const void* meta,
-                                 void* fracs, void* tautot, long long N,
-                                 double oneminus, void* stream) {
-  return launch_taumol<double>(fp, ip, tab, meta, fracs, tautot, N, oneminus,
+extern "C" int fv3_taumol_lw_f64(Planes planes, const void* tab,
+                                 const void* meta, void* fracs, void* tautot,
+                                 long long N, double oneminus, void* stream) {
+  return launch_taumol<double>(planes, tab, meta, fracs, tautot, N, oneminus,
                                stream);
+}
+
+// a block's shared bytes, threads and the blocks a SM holds of the kernel
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+extern "C" int fv3_taumol_lw_plan(int f64, long long* smem, int* threads,
+                                  int* per_sm) {
+  *smem = f64 ? (long long)sizeof(Tile<double>)
+              : (long long)sizeof(Tile<float>);
+  *threads = f64 ? Shape<double>::threads : Shape<float>::threads;
+  return f64 ? taumol_blocks_per_sm<double>(per_sm)
+             : taumol_blocks_per_sm<float>(per_sm);
 }
 
 #endif

@@ -66,8 +66,9 @@ def spec_band_dot_plain(w_paths: Sequence[List[Term]],
     """``sum_p sum_s sw * (sum_k ww * tab[row_k, pos_s])`` as gathers.
 
     w_paths: per path a list of (base row, weight) pairs; s_paths: per
-    path a list of (stencil position, weight) pairs (scales folded in);
-    tab_flat [nbase, nspa*ng].  Returns [..., ng]."""
+    path a list of (stencil position, weight) pairs (scales folded in); a
+    weight may be None (weight 1); tab_flat [nbase, nspa*ng].  Returns
+    [..., ng]."""
     nbase = tab_flat.shape[0]
     ng = tab_flat.shape[1] // nspa
     tab = tab_flat.reshape(nbase * nspa, ng)  # row index base*nspa + pos
@@ -78,9 +79,10 @@ def spec_band_dot_plain(w_paths: Sequence[List[Term]],
             pos = pos.long().clamp(0, nspa - 1)
             a = None
             for r, ww in rows:
-                term = ww[..., None] * tab[r + pos]
+                sel = tab[r + pos]
+                term = sel if ww is None else ww[..., None] * sel
                 a = term if a is None else a + term
-            term = swt[..., None] * a
+            term = a if swt is None else swt[..., None] * a
             out = term if out is None else out + term
     return out
 
@@ -90,20 +92,9 @@ def spec_band_dot(w_paths: Sequence[List[Term]],
                   nspa: int, impl: Optional[str] = None) -> torch.Tensor:
     """A band's species-interpolated tau: K3 on a CUDA table, else the
     plain version (see :func:`spec_band_dot_plain`).  Every path has the
-    same number of base pairs and of stencil pairs."""
+    same number of base pairs and of stencil pairs; the kernel takes the
+    pairs as they are (see :func:`ktable_cuda.pack_spec_terms`)."""
     if not _use_kernel(tab_flat, impl):
         return spec_band_dot_plain(w_paths, s_paths, tab_flat, nspa)
-    lead = tuple(w_paths[0][0][0].shape)
-
-    def flat(x, dtype):
-        return x.expand(lead).reshape(-1).to(dtype)
-
-    idt, fdt = torch.int32, tab_flat.dtype
-    wids = torch.stack([flat(i, idt) for p in w_paths for i, _ in p])
-    ww = torch.stack([flat(w, fdt) for p in w_paths for _, w in p])
-    sids = torch.stack([flat(i, idt) for p in s_paths for i, _ in p])
-    sw = torch.stack([flat(w, fdt) for p in s_paths for _, w in p])
-    out = ktable_cuda.spec_band_dot_cuda(
-        wids, ww, sids, sw, tab_flat.contiguous(), len(w_paths), nspa
-    )
-    return out.reshape(lead + (out.shape[1],))
+    return ktable_cuda.spec_band_dot_cuda(w_paths, s_paths,
+                                          tab_flat.contiguous(), nspa)

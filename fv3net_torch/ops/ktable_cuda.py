@@ -6,11 +6,12 @@ K4 (:func:`weighted_select_dot_cuda`) replaces the TPU kernel
 their plain PyTorch versions are in :mod:`fv3net_torch.ops.ktable`, whose
 dispatchers call these wrappers on CUDA tensors.
 
-K4 takes its (ids, weight) terms as the caller holds them: up to
+Both take their (ids, weight) terms as the caller holds them: up to
 ``MAX_TERMS`` pairs, ids int32 or int64, a weight of the table's dtype or
 None (weight 1), packed by :func:`pack_terms` into a :class:`SelectTerms`
 struct of pointers that the kernel receives by value.  Only a term that is
-broadcast or not contiguous is copied.
+broadcast or not contiguous is copied.  K3's terms are its paths' base
+pairs, then their stencil pairs.
 
 Build: :func:`fv3net_torch.ops.cuda_build.build` compiles the source at
 first use (nothing is built when this module is imported).  There is no
@@ -39,8 +40,8 @@ from fv3net_torch.ops import cuda_build
 from fv3net_torch.ops.cuda_build import check_tensor
 
 SOURCE = "ktable.cu"
-SMEM_MAX = 232448  # bytes of shared memory a block may opt in to (H100)
-MAX_TERMS = 16  # the (ids, weight) pairs one K4 call takes
+MAX_TERMS = 16  # the (ids, weight) pairs one K4 or K3 call takes
+MAX_BASE = 4  # K3's base pairs per path
 
 SELECT_LAUNCHES = 0
 SPEC_LAUNCHES = 0
@@ -55,9 +56,9 @@ def build() -> cuda_build.BuildInfo:
 
 
 class SelectTerms(ctypes.Structure):
-    """K4's terms as the kernel takes them (``csrc/ktable.cu``): the id and
-    weight pointers of each term (a null weight means 1), their count, and
-    a bit per term whose ids are int64 rather than int32."""
+    """K4's and K3's terms as the kernels take them (``csrc/ktable.cu``):
+    the id and weight pointers of each term (a null weight means 1), their
+    count, and a bit per term whose ids are int64 rather than int32."""
 
     _fields_ = [("ids", ctypes.c_void_p * MAX_TERMS),
                 ("w", ctypes.c_void_p * MAX_TERMS),
@@ -74,8 +75,12 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [SelectTerms, ptr, ptr, i64, i32, i32, ptr]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"fv3_ktable_spec_{sfx}")
-        fn.argtypes = [ptr] * 6 + [i64] + [i32] * 6 + [ptr]
+        fn.argtypes = [SelectTerms, ptr, ptr, i64] + [i32] * 6 + [ptr]
         fn.restype = ctypes.c_int
+    lib.fv3_ktable_spec_plan.argtypes = (
+        [i32] * 3 + [ctypes.POINTER(i32), ctypes.POINTER(i64),
+                     ctypes.POINTER(i32)])
+    lib.fv3_ktable_spec_plan.restype = ctypes.c_int
     return lib
 
 
@@ -109,8 +114,9 @@ def _as_lead(x: torch.Tensor, lead: tuple) -> torch.Tensor:
     return x if x.is_contiguous() else x.contiguous()
 
 
-def pack_terms(terms, tab: torch.Tensor):
-    """K4's terms as a :class:`SelectTerms` struct.
+def pack_terms(terms, tab: torch.Tensor, kernel="weighted_select_dot"):
+    """K4's (or, as ``kernel`` names it, K3's) terms as a
+    :class:`SelectTerms` struct.
 
     terms: 1 to ``MAX_TERMS`` (ids, w) pairs over one broadcast leading
     shape, on ``tab``'s device; ids int32 or int64, w of ``tab``'s dtype
@@ -119,8 +125,8 @@ def pack_terms(terms, tab: torch.Tensor):
     broadcast or strided one), which must live until the launch is done."""
     K = len(terms)
     if not 1 <= K <= MAX_TERMS:
-        raise ValueError(f"weighted_select_dot kernel takes 1 to "
-                         f"{MAX_TERMS} terms, got {K}")
+        raise ValueError(f"{kernel} kernel takes 1 to {MAX_TERMS} terms, "
+                         f"got {K}")
     # the host's work here is a fair share of a call: the common case, all
     # terms of one shape, skips torch.broadcast_shapes
     shapes = [x.shape for pair in terms for x in pair if x is not None]
@@ -134,16 +140,15 @@ def pack_terms(terms, tab: torch.Tensor):
     keep = []
     for k, (ids, w) in enumerate(terms):
         if ids.dtype not in (torch.int32, torch.int64):
-            raise TypeError(f"weighted_select_dot kernel: ids of term {k} "
-                            f"are {ids.dtype}, not int32 or int64")
+            raise TypeError(f"{kernel} kernel: ids of term {k} are "
+                            f"{ids.dtype}, not int32 or int64")
         if w is not None and w.dtype != dtype:
-            raise TypeError(f"weighted_select_dot kernel: weight of term {k} "
-                            f"is {w.dtype}, the table {dtype}")
+            raise TypeError(f"{kernel} kernel: weight of term {k} is "
+                            f"{w.dtype}, the table {dtype}")
         for name, x in (("ids", ids), ("weight", w)):
             if x is not None and x.device != device:
-                raise ValueError(f"weighted_select_dot kernel: {name} of "
-                                 f"term {k} is on {x.device}, the table on "
-                                 f"{device}")
+                raise ValueError(f"{kernel} kernel: {name} of term {k} is "
+                                 f"on {x.device}, the table on {device}")
         ids = _as_lead(ids, lead)
         keep.append(ids)
         struct.ids[k] = ids.data_ptr()
@@ -182,47 +187,78 @@ def weighted_select_dot_cuda(terms, tab: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def spec_band_dot_cuda(wids: torch.Tensor, ww: torch.Tensor,
-                       sids: torch.Tensor, sw: torch.Tensor,
-                       tab: torch.Tensor, n_paths: int,
-                       nspa: int) -> torch.Tensor:
-    """K3: the species-interpolated band tau of ``n_paths`` paths.
+def pack_spec_terms(w_paths, s_paths, tab: torch.Tensor):
+    """K3's terms as a :class:`SelectTerms` struct: the paths' base pairs,
+    path-major, then their stencil pairs.
 
-    wids int32 / ww [n_paths*kw, N]: the (base row, weight) pairs of each
-    path, path-major; sids int32 / sw [n_paths*st, N]: its (stencil
-    position, weight) pairs; tab [nbase, nspa*ng].  Returns [N, ng]."""
+    Every path has the same kw <= ``MAX_BASE`` base pairs and st stencil
+    pairs, ``MAX_TERMS`` at most in all, each pair as :func:`pack_terms`
+    takes it.  Returns ``(struct, keep, lead, (n_paths, kw, st))``."""
+    kernel = "spec_band_dot"
+    n_paths = len(w_paths)
+    kw = len(w_paths[0]) if n_paths else 0
+    st = len(s_paths[0]) if len(s_paths) else 0
+    if (n_paths < 1 or len(s_paths) != n_paths or kw < 1 or st < 1
+            or any(len(p) != kw for p in w_paths)
+            or any(len(p) != st for p in s_paths)):
+        raise ValueError(f"{kernel} kernel: every path needs the same "
+                         f"number of base pairs and of stencil pairs")
+    if kw > MAX_BASE:
+        raise ValueError(f"{kernel} kernel takes at most {MAX_BASE} base "
+                         f"pairs a path, got {kw}")
+    terms = ([pair for p in w_paths for pair in p]
+             + [pair for p in s_paths for pair in p])
+    struct, keep, lead = pack_terms(terms, tab, kernel)
+    return struct, keep, lead, (n_paths, kw, st)
+
+
+def spec_band_dot_cuda(w_paths, s_paths, tab: torch.Tensor,
+                       nspa: int) -> torch.Tensor:
+    """K3: the species-interpolated band tau of ``len(w_paths)`` paths.
+
+    w_paths: per path its (base row, weight) pairs; s_paths: per path its
+    (stencil position, weight) pairs, as :func:`pack_spec_terms` takes
+    them; tab [nbase, nspa*ng] float32 or float64, contiguous, on a CUDA
+    device.  Returns [*lead, ng]."""
     global SPEC_LAUNCHES
     kernel = "spec_band_dot"
     _check_table(kernel, tab)
-    if wids.ndim != 2 or sids.ndim != 2:
-        raise ValueError(f"{kernel} kernel: ids must be 2-D")
     nbase, width = tab.shape
     if nspa < 1 or width % nspa:
         raise ValueError(f"{kernel} kernel: table width {width} is not a "
                          f"multiple of nspa={nspa}")
     ng = width // nspa
-    n_w, N = wids.shape
-    n_s = sids.shape[0]
-    if n_paths < 1 or n_w % n_paths or n_s % n_paths:
-        raise ValueError(f"{kernel} kernel: {n_w} base and {n_s} stencil "
-                         f"rows do not split into {n_paths} paths")
-    if tab.numel() * tab.element_size() > SMEM_MAX:
-        raise ValueError(f"{kernel} kernel: table of "
-                         f"{tab.numel() * tab.element_size()} bytes exceeds "
-                         f"shared memory ({SMEM_MAX})")
-    check_tensor(kernel, "wids", wids, (n_w, N), torch.int32, tab.device)
-    check_tensor(kernel, "ww", ww, (n_w, N), tab.dtype, tab.device)
-    check_tensor(kernel, "sids", sids, (n_s, N), torch.int32, tab.device)
-    check_tensor(kernel, "sw", sw, (n_s, N), tab.dtype, tab.device)
-    _check_range(kernel, "wids", wids, nbase)
-    _check_range(kernel, "sids", sids, nspa)
-    out = torch.empty((N, ng), dtype=tab.dtype, device=tab.device)
+    struct, keep, lead, (n_paths, kw, st) = pack_spec_terms(
+        w_paths, s_paths, tab)
+    for p, path in enumerate(w_paths):
+        for k, (ids, _) in enumerate(path):
+            _check_range(kernel, f"base ids {k} of path {p}", ids, nbase)
+    for p, path in enumerate(s_paths):
+        for k, (ids, _) in enumerate(path):
+            _check_range(kernel, f"stencil ids {k} of path {p}", ids, nspa)
+    out = torch.empty(lead + (ng,), dtype=tab.dtype, device=tab.device)
+    N = math.prod(lead)
+    if N == 0:
+        return out
     fn = getattr(_library(), f"fv3_ktable_spec_{_SUFFIX[tab.dtype]}")
     with torch.cuda.device(tab.device):
         stream = torch.cuda.current_stream(tab.device).cuda_stream
-        err = fn(wids.data_ptr(), ww.data_ptr(), sids.data_ptr(),
-                 sw.data_ptr(), tab.data_ptr(), out.data_ptr(), N, n_paths,
-                 n_w // n_paths, n_s // n_paths, nbase, nspa, ng, stream)
+        err = fn(struct, tab.data_ptr(), out.data_ptr(), N, n_paths, kw, st,
+                 nbase, nspa, ng, stream)
     _raise_on(kernel, err)
     SPEC_LAUNCHES += 1
     return out
+
+
+def spec_plan(dtype: torch.dtype, n_terms: int, ng: int) -> dict:
+    """How K3 launches on the current card for a call of ``n_terms`` terms
+    and ``ng`` outputs a point in ``dtype``: points per tile, a block's
+    shared bytes and the blocks an SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    P, per_sm, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    err = _library().fv3_ktable_spec_plan(
+        int(dtype == torch.float64), n_terms, ng, ctypes.byref(P),
+        ctypes.byref(smem), ctypes.byref(per_sm))
+    _raise_on("spec_band_dot", err)
+    return {"points_per_tile": P.value, "smem_bytes": smem.value,
+            "blocks_per_sm": per_sm.value}

@@ -10,9 +10,11 @@ wrapper on CUDA tensors.
 buffer, beside an integer array that says where each lies and what each
 (band, atmosphere) sums (the descriptors the kernel's second phase
 interprets); it runs once per ``prep_lw_tables`` result and is kept on
-that dict.  :func:`pack_points` stacks the per-point values into one
-float and one integer plane array per call; :func:`taumol_lw_packed`
-launches the kernel on both.
+that dict.  :func:`pack_planes` hands the kernel the per-point values
+where the caller holds them, a pointer and an element stride per plane in
+a :class:`Planes` struct passed by value (only a plane that is not evenly
+strided over the points is copied); :func:`taumol_lw_launch` launches
+the kernel on them.
 
 Build: :func:`fv3net_torch.ops.cuda_build.build` compiles the source at
 first use, without fused multiply-adds (see the source).  There is no
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import math
 from typing import Dict, List, Tuple
 
@@ -53,6 +56,22 @@ FLOAT_PLANES = (
     + [f"tauaer{i}" for i in range(P.NBANDS_LW)]
 )
 INT_PLANES = ["jp", "jt", "jt1", "indself", "indfor", "indminor", "tropo"]
+# bytes of an index the kernel reads, by dtype
+_INDEX_WIDTH = {torch.int32: 4, torch.int64: 8, torch.bool: 1}
+
+
+class Planes(ctypes.Structure):
+    """The point planes as the kernel takes them (``csrc/taumol_lw.cu``):
+    per plane a pointer and an element stride (plane k's value at point n
+    lies at ``f[k] + n * fs[k]``), float planes in ``FLOAT_PLANES``' order
+    and in the tables' dtype, index planes in ``INT_PLANES``' order with
+    their bytes per index (4, 8 or 1 for bool)."""
+
+    _fields_ = [("f", ctypes.c_void_p * len(FLOAT_PLANES)),
+                ("i", ctypes.c_void_p * len(INT_PLANES)),
+                ("fs", ctypes.c_longlong * len(FLOAT_PLANES)),
+                ("istride", ctypes.c_longlong * len(INT_PLANES)),
+                ("iw", ctypes.c_int * len(INT_PLANES))]
 
 # reference amount ratios chi_mls[a, level] / chi_mls[b, level] at fixed
 # levels, in the kernel's order (R_* in the source): (a, b, level)
@@ -137,8 +156,13 @@ def _library() -> ctypes.CDLL:
     ptr = ctypes.c_void_p
     for sfx in _SUFFIX.values():
         fn = getattr(lib, f"fv3_taumol_lw_{sfx}")
-        fn.argtypes = [ptr] * 6 + [ctypes.c_longlong, ctypes.c_double, ptr]
+        fn.argtypes = [Planes] + [ptr] * 4 + [ctypes.c_longlong,
+                                               ctypes.c_double, ptr]
         fn.restype = ctypes.c_int
+    lib.fv3_taumol_lw_plan.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.fv3_taumol_lw_plan.restype = ctypes.c_int
     return lib
 
 
@@ -264,58 +288,112 @@ def pack_tables(T: Dict) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     return T[_PACK_KEY]
 
 
-def pack_points(c: Dict, colamt, coldry, colbrd, wx,
-                tauaer) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The per-point values as plane arrays: floats
-    [len(FLOAT_PLANES), N] in ``coldry``'s dtype and int32
-    [len(INT_PLANES), N], N = columns x layers."""
-    dtype = coldry.dtype
-
-    def last_first(x):  # [C, L, k...] -> [k, N]
-        return x.reshape(coldry.numel(), -1).T
-
-    fp = torch.cat(
-        [c[k].reshape(1, -1) for k in FLOAT_PLANES[:12]]
-        + [last_first(c["rfrate"]), last_first(colamt),
-           coldry.reshape(1, -1), colbrd.reshape(1, -1), last_first(wx),
-           last_first(tauaer)]
-    ).to(dtype).contiguous()
-    ip = torch.stack(
-        [c[k].reshape(-1).to(torch.int32) for k in INT_PLANES]
-    ).contiguous()
-    return fp, ip
+def _even_stride(shape, strides):
+    """The element stride s with which the value at flat index n over
+    ``shape`` lies n * s elements from the first, given the dimensions'
+    ``strides``, or None where there is none."""
+    dims = [(n, st) for n, st in zip(shape, strides) if n != 1]
+    if not dims:
+        return 1
+    step = expect = dims[-1][1]
+    for n, st in reversed(dims):
+        if st != expect:
+            return None
+        expect = st * n
+    return step
 
 
-def taumol_lw_packed(fp: torch.Tensor, ip: torch.Tensor, flat: torch.Tensor,
-                     meta: torch.Tensor,
+def _planes(kernel: str, name: str, x: torch.Tensor, lead: Tuple[int, ...],
+            device, keep: List[torch.Tensor]):
+    """(pointers, element stride) of the planes of ``x`` [*lead, *rest], in
+    C order over rest; ``x`` is copied (and kept in ``keep``) only if its
+    planes are not evenly strided over the points."""
+    if tuple(x.shape[:len(lead)]) != lead:
+        raise ValueError(f"{kernel} kernel: {name} has shape "
+                         f"{tuple(x.shape)}, the points {lead}")
+    if x.device != device:
+        raise ValueError(f"{kernel} kernel: {name} is on {x.device}, the "
+                         f"tables on {device}")
+    rest = tuple(x.shape[len(lead):])
+    step = _even_stride(lead, x.stride()[:len(lead)])
+    if step is None:
+        x = x.contiguous()
+        keep.append(x)
+        step = _even_stride(lead, x.stride()[:len(lead)])
+    base, size = x.data_ptr(), x.element_size()
+    inner = x.stride()[len(lead):]
+    return [base + size * sum(i * st for i, st in zip(idx, inner))
+            for idx in itertools.product(*map(range, rest))], step
+
+
+def pack_planes(c: Dict, colamt, coldry, colbrd, wx, tauaer,
+                flat: torch.Tensor) -> Tuple[Planes, List[torch.Tensor]]:
+    """The per-point values of ``lw.taumol_lw``'s arguments as a
+    :class:`Planes` struct: each plane where the caller holds it
+    (``colamt``, ``wx``, ``tauaer`` and ``c["rfrate"]`` in their
+    [C, L, k] layouts), float planes in ``flat``'s dtype, index planes
+    int32, int64 or bool, all over ``coldry``'s shape on ``flat``'s
+    device.  Returns ``(struct, keep)``: ``keep`` holds the copies the
+    struct points into (of planes not evenly strided), which must live
+    until the launch is done."""
+    kernel = "taumol_lw"
+    lead = tuple(coldry.shape)
+    # the float planes' sources, in FLOAT_PLANES' order
+    floats = ([(k, c[k]) for k in FLOAT_PLANES[:12]]
+              + [("rfrate", c["rfrate"]), ("colamt", colamt),
+                 ("coldry", coldry), ("colbrd", colbrd), ("wx", wx),
+                 ("tauaer", tauaer)])
+    keep = []
+    f, fs = [], []
+    for name, x in floats:
+        if x.dtype != flat.dtype:
+            raise TypeError(f"{kernel} kernel: plane {name} is {x.dtype}, "
+                            f"the tables {flat.dtype}")
+        ptrs, step = _planes(kernel, name, x, lead, flat.device, keep)
+        f += ptrs
+        fs += [step] * len(ptrs)
+    if len(f) != len(FLOAT_PLANES):
+        raise ValueError(f"{kernel} kernel: {len(f)} float planes, not "
+                         f"{len(FLOAT_PLANES)}")
+    i, istride, iw = [], [], []
+    for name in INT_PLANES:
+        x = c[name]
+        if x.dtype not in _INDEX_WIDTH:
+            raise TypeError(f"{kernel} kernel: index plane {name} is "
+                            f"{x.dtype}, not int32, int64 or bool")
+        (ptr,), step = _planes(kernel, name, x, lead, flat.device, keep)
+        i.append(ptr)
+        istride.append(step)
+        iw.append(_INDEX_WIDTH[x.dtype])
+    return Planes(tuple(f), tuple(i), tuple(fs), tuple(istride),
+                  tuple(iw)), keep
+
+
+def taumol_lw_launch(planes: Planes, flat: torch.Tensor, meta: torch.Tensor,
                      lead: Tuple[int, ...]) -> Tuple[torch.Tensor,
                                                      torch.Tensor]:
-    """K2 on packed arguments: the point planes of :func:`pack_points`
-    (N = prod(lead) points) and the tables of :func:`pack_tables`, all
-    contiguous on one CUDA device.  Returns ``(fracs, tautot)``, each
-    ``lead + (140,)``."""
+    """K2 on the point planes of :func:`pack_planes` (N = prod(lead)
+    points) and the tables of :func:`pack_tables`, contiguous on one CUDA
+    device.  Returns ``(fracs, tautot)``, each ``lead + (140,)``."""
     global TAUMOL_LAUNCHES
     kernel = "taumol_lw"
     if flat.dtype not in _SUFFIX:
         raise TypeError(f"{kernel} kernel takes float32 or float64 tables, "
                         f"got {flat.dtype}")
-    N = math.prod(lead)
     check_tensor(kernel, "tables", flat, flat.shape, flat.dtype, flat.device)
     check_tensor(kernel, "table description", meta, meta.shape, torch.int32,
                  flat.device)
-    check_tensor(kernel, "point planes", fp, (len(FLOAT_PLANES), N),
-                 flat.dtype, flat.device)
-    check_tensor(kernel, "index planes", ip, (len(INT_PLANES), N),
-                 torch.int32, flat.device)
     fracs = torch.empty(tuple(lead) + (P.NGPT_LW,), dtype=flat.dtype,
                         device=flat.device)
     tautot = torch.empty_like(fracs)
+    N = math.prod(lead)
+    if N == 0:
+        return fracs, tautot
     fn = getattr(_library(), f"fv3_taumol_lw_{_SUFFIX[flat.dtype]}")
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
-        err = fn(fp.data_ptr(), ip.data_ptr(), flat.data_ptr(),
-                 meta.data_ptr(), fracs.data_ptr(), tautot.data_ptr(), N,
-                 float(P.ONEMINUS), stream)
+        err = fn(planes, flat.data_ptr(), meta.data_ptr(), fracs.data_ptr(),
+                 tautot.data_ptr(), N, float(P.ONEMINUS), stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
     TAUMOL_LAUNCHES += 1
@@ -326,7 +404,22 @@ def taumol_lw_cuda(c: Dict, colamt, coldry, colbrd, wx, tauaer,
                    T: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: ``(fracs, tautot)``, each [C, L, 140], of ``lw.taumol_lw``'s
     arguments, all on one CUDA device in the tables' dtype (float32 or
-    float64)."""
+    float64; index planes int32, int64 or bool)."""
     flat, meta, _ = pack_tables(T)
-    fp, ip = pack_points(c, colamt, coldry, colbrd, wx, tauaer)
-    return taumol_lw_packed(fp, ip, flat, meta, tuple(coldry.shape))
+    planes, keep = pack_planes(c, colamt, coldry, colbrd, wx, tauaer, flat)
+    return taumol_lw_launch(planes, flat, meta, tuple(coldry.shape))
+
+
+def launch_plan(dtype: torch.dtype) -> dict:
+    """How K2 launches on the current card in ``dtype``: a block's shared
+    bytes, its threads and the blocks an SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    smem = ctypes.c_longlong()
+    threads, per_sm = ctypes.c_int(), ctypes.c_int()
+    err = _library().fv3_taumol_lw_plan(
+        int(dtype == torch.float64), ctypes.byref(smem),
+        ctypes.byref(threads), ctypes.byref(per_sm))
+    if err != 0:
+        raise RuntimeError(f"taumol_lw kernel plan failed: cudaError {err}")
+    return {"smem_bytes": smem.value, "threads": threads.value,
+            "blocks_per_sm": per_sm.value}

@@ -1,6 +1,7 @@
-"""The CUDA sources of K1 (``csrc/remap_apply.cu``) and K4 (the weighted
-selection of ``csrc/ktable.cu``) run on the CPU, held against their plain
-versions.
+"""The CUDA sources of K1 (``csrc/remap_apply.cu``), K4 and K3 (the
+weighted selection and the species-interpolated band tau of
+``csrc/ktable.cu``) and K2 (``csrc/taumol_lw.cu``) run on the CPU, held
+against their plain versions.
 
 There is no CUDA compiler or card where these tests run, and a kernel that
 is right on the card is checked there (``-m gpu``).  Here each source is
@@ -9,7 +10,12 @@ below): a ``std::thread`` per CUDA thread, a ``std::barrier`` per block for
 ``__syncthreads`` and per warp for ``__syncwarp`` and the shuffles, and each
 ``kernel<<<grid, block, smem, stream>>>(args)`` rewritten as a call that
 runs the grid's blocks one after another.  That runs the kernels' own index
-arithmetic, warp layout and tiling, which the plain versions do not share.
+arithmetic, warp layout and tiling, which the plain versions do not share:
+K3's tiles of points in persistent blocks with two outputs a thread, K2's
+tiles with their output rows in shared
+memory, its band groups between barriers and its 16-byte stores.  (K2
+stores its rows with plain vector stores, so the emulation needs no
+stand-in for a bulk copy.)
 """
 import ctypes
 import functools
@@ -23,6 +29,7 @@ import torch
 
 from fv3net_torch.ops import cuda_build, ktable, ktable_cuda
 from fv3net_torch.ops import remap as tr
+from torch_port_util import column_state
 
 EMULATION = r"""
 #pragma once
@@ -35,7 +42,8 @@ EMULATION = r"""
 
 #define __global__
 #define __device__
-#define __launch_bounds__(x)
+#define __forceinline__ inline
+#define __launch_bounds__(...)
 #define __shared__ static
 
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
@@ -46,11 +54,19 @@ typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaErrorInvalidConfiguration = 9 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
-       cudaDevAttrMultiProcessorCount = 16 };
+       cudaDevAttrMultiProcessorCount = 16,
+       cudaDevAttrMaxSharedMemoryPerMultiprocessor = 81,
+       cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 inline int cudaGetLastError() { return 0; }
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
-inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 2; return 0; }
+// two SMs with an H100's shared memory
+inline int cudaDeviceGetAttribute(int* v, int attr, int) {
+  *v = attr == cudaDevAttrMaxSharedMemoryPerMultiprocessor ? 233472
+       : attr == cudaDevAttrMaxSharedMemoryPerBlockOptin   ? 232448
+                                                           : 2;
+  return 0;
+}
 template <class F>
 int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* v, F, int, size_t) {
   *v = 1;
@@ -58,10 +74,12 @@ int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* v, F, int, size_t) {
 }
 
 struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
 struct double2 { double x, y; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
+inline float2 make_float2(float a, float b) { return {a, b}; }
 inline double2 make_double2(double a, double b) { return {a, b}; }
 
 template <class T> T __ldg(const T* p) { return *p; }
@@ -162,7 +180,7 @@ def _rewrite_launches(src: str) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _emulated(source: str, tmp: str) -> ctypes.CDLL:
+def _emulated(source: str, tmp: str, flags: tuple = ()) -> ctypes.CDLL:
     from pathlib import Path
 
     tmp = Path(tmp)
@@ -173,7 +191,8 @@ def _emulated(source: str, tmp: str) -> ctypes.CDLL:
     lib = tmp / f"lib{source}.so"
     proc = subprocess.run(
         ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-         "-I", str(tmp / "include"), str(cc), "-o", str(lib), "-lpthread"],
+         *flags, "-I", str(tmp / "include"), str(cc), "-o", str(lib),
+         "-lpthread"],
         capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(lib))
@@ -184,7 +203,7 @@ def emulated(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the CUDA sources' CPU emulation")
     tmp = str(tmp_path_factory.mktemp("cuda_emulation"))
-    return lambda source: _emulated(source, tmp)
+    return lambda source, *flags: _emulated(source, tmp, flags)
 
 
 def _edges(C, km, seed):
@@ -274,3 +293,142 @@ def test_select_kernel_source_matches_plain(emulated, K, G, N, dtype):
     assert got.shape == want.shape == (N, G)
     if N:
         assert (got - want).abs().max() <= rtol * want.abs().max()
+
+
+# (n_paths, kw, st, nbase, nspa, ng, N): LW band 3 lower (the main path's
+# kernel-line call), LW band 3 upper (the largest table, 236 x 80), an SW
+# upper band, ng 2 (a tile of many points), an odd ng (one output a
+# thread), and no points; N is off any multiple of the tile
+K3_EMULATION_CASES = [(2, 2, 3, 70, 9, 16, 700), (2, 2, 2, 236, 5, 16, 300),
+                      (1, 4, 2, 236, 5, 12, 517), (1, 4, 2, 70, 9, 2, 2100),
+                      (3, 1, 1, 10, 3, 5, 97), (1, 2, 2, 7, 3, 4, 0)]
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", K3_EMULATION_CASES)
+def test_spec_kernel_source_matches_plain(emulated, case, dtype, offset):
+    """K3 over persistent blocks walking tiles of points (the last a
+    part), its terms by pointer with int32 and int64 ids (out of range
+    too), a weight of 1 (None) and a broadcast term, two outputs a thread
+    (even ng, an aligned table) or one (odd ng, or a table one value past
+    an aligned address), against the plain version."""
+    n_paths, kw, st, nbase, nspa, ng, N = case
+    tdt = {"float32": torch.float32, "float64": torch.float64}[dtype]
+    rtol = {"float32": 2e-6, "float64": 1e-13}[dtype]
+    rng = np.random.default_rng(sum(case))
+    buf = torch.tensor(rng.random(offset + nbase * nspa * ng), dtype=tdt)
+    tab = buf[offset:].view(nbase, nspa * ng)
+
+    def pairs(hi, n, scale, k0):
+        out = []
+        for k in range(k0, k0 + n):
+            ids = torch.tensor(rng.integers(-2, hi + 2, N),
+                               dtype=torch.int64 if k % 2 else torch.int32)
+            w = (None if k % 5 == 1 else
+                 torch.tensor(scale * rng.random(N), dtype=tdt))
+            out.append((ids, w))
+        return out
+
+    w_paths = [pairs(nbase, kw, 1.0, p * kw) for p in range(n_paths)]
+    s_paths = [pairs(nspa, st, 1e3, 7 + p * st) for p in range(n_paths)]
+    if N:
+        w_paths[0][0] = (w_paths[0][0][0][:1], w_paths[0][0][1])  # broadcast
+    terms = ([t for p in w_paths for t in p] + [t for p in s_paths for t in p])
+    struct, keep, lead = ktable_cuda.pack_terms(terms, tab, "spec_band_dot")
+    lib = emulated("ktable.cu")
+    fn = getattr(lib, "fv3_ktable_spec_" + ("f32" if dtype == "float32"
+                                             else "f64"))
+    fn.argtypes = [ktable_cuda.SelectTerms, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    got = torch.full(lead + (ng,), float("nan"), dtype=tdt)
+    assert fn(struct, tab.data_ptr(), got.data_ptr(), N, n_paths, kw, st,
+              nbase, nspa, ng, None) == 0
+    want = ktable.spec_band_dot_plain(w_paths, s_paths, tab, nspa)
+    assert got.shape == want.shape == (N, ng)
+    if N:
+        assert (got - want).abs().max() <= rtol * want.abs().max()
+    # the launch plan: about 4,096 outputs a tile, the pairs within 48 KB
+    i32 = ctypes.c_int
+    P, per_sm, smem = i32(), i32(), ctypes.c_longlong()
+    assert lib.fv3_ktable_spec_plan(
+        int(dtype == "float64"), len(terms), ng, ctypes.byref(P),
+        ctypes.byref(smem), ctypes.byref(per_sm)) == 0
+    pair = 8 if dtype == "float32" else 16
+    assert P.value == min(-(-4096 // ng), 48 * 1024 // (len(terms) * pair))
+    assert smem.value == len(terms) * P.value * pair
+
+
+@functools.lru_cache(maxsize=None)
+def _taumol_args(dtype):
+    """The arguments one RRTMG call on the CPU hands to its LW gas optics,
+    on 3 seeded columns of 32 levels."""
+    import datetime
+
+    from fv3net_torch.physics.radiation.rrtmg import driver as tdrv
+    from fv3net_torch.physics.radiation.rrtmg import lw as tlw
+
+    tdt = {"float32": torch.float32, "float64": torch.float64}[dtype]
+    state, cosz = column_state(3, 32)
+    seen = []
+    orig = tlw.taumol_lw_mega
+
+    def wrapped(*args):
+        seen.append(args[:7])
+        return orig(*args)
+
+    tlw.taumol_lw_mega = wrapped
+    try:
+        tdrv.RRTMGDriver(tdrv.RRTMGConfig(), dtype=tdt, device="cpu",
+                         lw_taumol="mega")(
+            datetime.datetime(2016, 7, 1),
+            {k: torch.tensor(v, dtype=tdt) for k, v in state.items()},
+            cosz=torch.tensor(cosz, dtype=tdt))
+    finally:
+        tlw.taumol_lw_mega = orig
+    return seen[0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_taumol_kernel_source_matches_plain(emulated, dtype):
+    """K2 itself (its tiles of points with the output rows in shared
+    memory, its band groups between barriers, its persistent blocks and
+    16-byte stores) on 2.5 columns whose levels straddle the tropopause, so
+    that each tile holds both atmospheres and the last is a part, against
+    ``taumol_lw_plain``: within 2e-6 (float32) and 1e-12 (float64) of each
+    output's scale and value by value, the Planck fractions equal."""
+    from fv3net_torch.physics.radiation.rrtmg import lw as tlw
+    from fv3net_torch.physics.radiation.rrtmg import params as P
+    from fv3net_torch.physics.radiation.rrtmg import taumol_cuda as tc
+
+    rtol = {"float32": 2e-6, "float64": 1e-12}[dtype]
+    value_rtol = {"float32": 2e-6, "float64": 1e-13}[dtype]
+    args = _taumol_args(dtype)
+    c = args[0]
+    N = 80  # 2.5 columns of 32 levels: tiles of 32 points
+    tropo = c["tropo"].reshape(-1)[:N]
+    assert tropo[:32].any() and (~tropo[:32]).any()
+    flat, meta, _ = tc.pack_tables(args[6])
+    planes, keep = tc.pack_planes(*args[:6], flat)
+    lib = emulated("taumol_lw.cu", "-D__CUDACC__")
+    fn = getattr(lib, "fv3_taumol_lw_" + ("f32" if dtype == "float32"
+                                           else "f64"))
+    fn.argtypes = [tc.Planes] + [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_double, ctypes.c_void_p]
+    shape = tuple(args[2].shape) + (P.NGPT_LW,)
+    fracs = torch.full(shape, float("nan"), dtype=flat.dtype)
+    tautot = torch.full_like(fracs, float("nan"))
+    assert fn(planes, flat.data_ptr(), meta.data_ptr(), fracs.data_ptr(),
+              tautot.data_ptr(), N, float(P.ONEMINUS), None) == 0
+    want = tlw.taumol_lw_plain(*args)
+    for g, w, name in zip((fracs, tautot), want, ("fracs", "tautot")):
+        g, w = g.reshape(-1, P.NGPT_LW), w.reshape(-1, P.NGPT_LW)
+        assert torch.isnan(g[N:]).all(), name  # nothing past the N points
+        g, w = g[:N], w[:N]
+        assert torch.isfinite(g).all() and torch.isfinite(w).all()
+        err = (g - w).abs().max().item()
+        assert err <= rtol * w.abs().max().item(), (name, err)
+        assert ((g - w).abs() <= value_rtol * w.abs()).all(), name
+    assert torch.equal(fracs.reshape(-1, P.NGPT_LW)[:N],
+                       want[0].reshape(-1, P.NGPT_LW)[:N])

@@ -172,7 +172,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         ktable.spec_band_dot(*paths, _t(tab, torch.float64), 5, impl="tpu")
 
 
-# ------------------------------------------------ K4's terms, as packed
+# ---------------------------------------- K4's and K3's terms, as packed
 def _pack_inputs(dtype=torch.float64):
     rng = np.random.default_rng(7)
     tab = torch.tensor(rng.random((9, 5)), dtype=dtype)
@@ -181,9 +181,25 @@ def _pack_inputs(dtype=torch.float64):
     return tab, ids, w
 
 
-def test_pack_terms_none_weight_is_a_null_pointer():
+def _pack(form, terms, tab):
+    """``terms`` packed by K4's :func:`pack_terms`, or by K3's
+    :func:`pack_spec_terms` as one path of one base pair and the rest
+    stencil pairs (the struct's order is the terms' either way)."""
+    if form == "K4":
+        return ktable_cuda.pack_terms(terms, tab)
+    struct, keep, lead, shape = ktable_cuda.pack_spec_terms(
+        [terms[:1]], [terms[1:]], tab)
+    assert shape == (1, 1, len(terms) - 1)
+    return struct, keep, lead
+
+
+FORMS = ["K4", "K3"]
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_pack_terms_none_weight_is_a_null_pointer(form):
     tab, ids, w = _pack_inputs()
-    struct, keep, lead = ktable_cuda.pack_terms([(ids, None), (ids, w)], tab)
+    struct, keep, lead = _pack(form, [(ids, None), (ids, w)], tab)
     assert lead == (3, 4)
     assert struct.n_terms == 2
     assert struct.w[0] is None  # ctypes reads a null pointer as None
@@ -191,26 +207,27 @@ def test_pack_terms_none_weight_is_a_null_pointer():
     assert all(struct.ids[k] is None for k in range(2, ktable_cuda.MAX_TERMS))
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
-def test_pack_terms_takes_ids_as_they_are(id_dtype):
+def test_pack_terms_takes_ids_as_they_are(id_dtype, form):
     """int32 and int64 ids go to the kernel without a cast or a copy; a bit
     per term tells the kernel their width."""
     tab, ids, w = _pack_inputs(torch.float32)
     ids = ids.to(id_dtype)
     w = w.float()
-    struct, keep, _ = ktable_cuda.pack_terms([(ids, w), (ids + 1, w)], tab)
+    struct, keep, _ = _pack(form, [(ids, w), (ids + 1, w)], tab)
     assert struct.ids[0] == ids.data_ptr()
     assert struct.w[0] == struct.w[1] == w.data_ptr()
     assert struct.ids64 == (0b11 if id_dtype == torch.int64 else 0)
     assert any(x.data_ptr() == struct.ids[1] for x in keep)
 
 
-def test_pack_terms_copies_only_a_broadcast_or_strided_term():
+@pytest.mark.parametrize("form", FORMS)
+def test_pack_terms_copies_only_a_broadcast_or_strided_term(form):
     tab, ids, w = _pack_inputs()
     row = ids[:1]  # [1, 4], broadcast over the 3 rows of the lead
     strided = w.T.contiguous().T  # [3, 4], not contiguous
-    struct, keep, lead = ktable_cuda.pack_terms(
-        [(ids, w), (row, strided)], tab)
+    struct, keep, lead = _pack(form, [(ids, w), (row, strided)], tab)
     assert lead == (3, 4)
     assert struct.ids[0] == ids.data_ptr() and struct.w[0] == w.data_ptr()
     copies = {x.data_ptr(): x for x in keep}
@@ -222,12 +239,24 @@ def test_pack_terms_copies_only_a_broadcast_or_strided_term():
     assert torch.equal(got_w, strided)
 
 
-def test_pack_terms_refuses_other_dtypes():
+@pytest.mark.parametrize("form", FORMS)
+def test_pack_terms_refuses_other_dtypes(form):
     tab, ids, w = _pack_inputs()
     with pytest.raises(TypeError, match="weight of term 0"):
-        ktable_cuda.pack_terms([(ids, w.float())], tab)
+        _pack(form, [(ids, w.float()), (ids, w)], tab)
     with pytest.raises(TypeError, match="ids of term 1"):
-        ktable_cuda.pack_terms([(ids, w), (ids.double(), w)], tab)
+        _pack(form, [(ids, w), (ids.double(), w)], tab)
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_pack_terms_refuses_another_device(form):
+    """A term on another device than the table is refused (the "meta"
+    device stands in for a card here)."""
+    tab, ids, w = _pack_inputs()
+    with pytest.raises(ValueError, match="ids of term 1 is on meta"):
+        _pack(form, [(ids, w), (ids.to("meta"), w)], tab)
+    with pytest.raises(ValueError, match="weight of term 0 is on meta"):
+        _pack(form, [(ids, w.to("meta")), (ids, w)], tab)
 
 
 @pytest.mark.parametrize("K", [0, ktable_cuda.MAX_TERMS + 1])
@@ -240,10 +269,35 @@ def test_pack_terms_refuses_a_count_of_terms(K):
             ktable.weighted_select_dot([(ids, w)] * K, tab, impl="cuda")
 
 
-def test_pack_terms_allows_sixteen_terms():
+@pytest.mark.parametrize("paths,match", [
+    ((2, 4, 5), "terms"),           # 18 terms
+    ((1, 5, 1), "base pairs"),      # kw > MAX_BASE
+    ((0, 1, 1), "same number"),     # no path
+    ("uneven", "same number"),      # paths of different widths
+])
+def test_pack_spec_terms_refuses_its_paths(paths, match):
+    """K3 takes 1 to ``MAX_TERMS`` pairs in all, at most ``MAX_BASE`` base
+    pairs a path, and every path alike."""
+    tab, ids, w = _pack_inputs()
+    if paths == "uneven":
+        w_paths = [[(ids, w)], [(ids, w), (ids, w)]]
+        s_paths = [[(ids, w)], [(ids, w)]]
+    else:
+        n_paths, kw, st = paths
+        w_paths = [[(ids, w)] * kw for _ in range(n_paths)]
+        s_paths = [[(ids, w)] * st for _ in range(n_paths)]
+    with pytest.raises(ValueError, match=match):
+        ktable_cuda.pack_spec_terms(w_paths, s_paths, tab)
+    # the dispatcher's kernel path refuses them too
+    with pytest.raises(ValueError):
+        ktable.spec_band_dot(w_paths, s_paths, tab, 1, impl="cuda")
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_pack_terms_allows_sixteen_terms(form):
     tab, ids, w = _pack_inputs()
     terms = [(ids + k, None if k % 3 else w) for k in range(16)]
-    struct, _, _ = ktable_cuda.pack_terms(terms, tab)
+    struct, _, _ = _pack(form, terms, tab)
     assert struct.n_terms == 16 and struct.ids64 == (1 << 16) - 1
     assert [struct.w[k] is None for k in range(16)] == [
         bool(k % 3) for k in range(16)]
@@ -367,7 +421,8 @@ def test_kernels_clamp_ids_and_check_ranges_on_card(dtype):
                                    rtol=0, atol=0)
     flat = tab.reshape(5, 6)  # nbase 5, nspa 2, ng 3
     sids = torch.tensor([[5, -1, 1, 0]], dtype=torch.int32, device=dev)
-    got = ktable_cuda.spec_band_dot_cuda(ids, w, sids, w, flat, 1, 2)
+    got = ktable_cuda.spec_band_dot_cuda([[(ids[0], w[0])]],
+                                         [[(sids[0].long(), None)]], flat, 2)
     want = flat.reshape(5, 2, 3)[torch.tensor([0, 0, 4, 4]),
                                  torch.tensor([1, 0, 1, 0])]
     torch.testing.assert_close(got, want, rtol=0, atol=0)
@@ -376,7 +431,52 @@ def test_kernels_clamp_ids_and_check_ranges_on_card(dtype):
         with pytest.raises(IndexError):
             ktable_cuda.weighted_select_dot_cuda([(ids[0], w[0])], tab)
         with pytest.raises(IndexError):
-            ktable_cuda.spec_band_dot_cuda(ids.clamp(0, 4), w, sids, w,
-                                           flat, 1, 2)
+            ktable_cuda.spec_band_dot_cuda([[(ids[0].clamp(0, 4), w[0])]],
+                                           [[(sids[0], w[0])]], flat, 2)
     finally:
         ktable_cuda.CHECK_RANGES = False
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_spec_band_kernel_takes_every_term_form_on_card(dtype):
+    """K3 over the shapes of the emulation's cases at 20,011 points: int32
+    and int64 ids (mixed in one call, out of range too), None weights, a
+    broadcast term, two outputs a thread and one (an odd ng, a table one
+    value past an aligned address), and N = 0."""
+    dev = _cuda()
+    tdt = TORCH[dtype]
+    rng = np.random.default_rng(13)
+    N = 20011
+    for n_paths, kw, st, nbase, nspa, ng, offset in [
+            (2, 2, 3, 70, 9, 16, 0), (2, 2, 2, 236, 5, 16, 0),
+            (1, 4, 2, 236, 5, 12, 0), (1, 4, 2, 70, 9, 2, 0),
+            (3, 1, 1, 10, 3, 5, 0), (2, 2, 3, 70, 9, 16, 1)]:
+        buf = torch.tensor(rng.random(offset + nbase * nspa * ng),
+                           dtype=tdt, device=dev)
+        tab = buf[offset:].view(nbase, nspa * ng)
+
+        def pairs(hi, n, k0):
+            return [(torch.tensor(rng.integers(-2, hi + 2, N), device=dev,
+                                  dtype=torch.int64 if k % 2 else
+                                  torch.int32),
+                     None if k % 5 == 1 else
+                     torch.tensor(rng.random(N), dtype=tdt, device=dev))
+                    for k in range(k0, k0 + n)]
+
+        w_paths = [pairs(nbase, kw, p * kw) for p in range(n_paths)]
+        s_paths = [pairs(nspa, st, 7 + p * st) for p in range(n_paths)]
+        w_paths[0][0] = (w_paths[0][0][0][:1], w_paths[0][0][1])
+        before = ktable_cuda.SPEC_LAUNCHES
+        got = ktable.spec_band_dot(w_paths, s_paths, tab, nspa)
+        torch.cuda.synchronize()
+        assert ktable_cuda.SPEC_LAUNCHES == before + 1
+        want = ktable.spec_band_dot(w_paths, s_paths, tab, nspa,
+                                    impl="torch")
+        assert got.shape == want.shape == (N, ng)
+        err = (got - want).abs().max().item()
+        assert err <= RTOL[dtype] * want.abs().max().item(), (nbase, ng, err)
+    empty = [[(torch.zeros(0, dtype=torch.int64, device=dev), None)]]
+    before = ktable_cuda.SPEC_LAUNCHES
+    out = ktable.spec_band_dot(empty, empty, tab, nspa)
+    assert out.shape == (0, ng) and ktable_cuda.SPEC_LAUNCHES == before

@@ -28,6 +28,7 @@ except ImportError:  # the card's machine has no jax
     jax = jnp = _profiles = None
 
 from fv3net_torch import entry
+from torch_port_util import column_state
 from fv3net_torch.ops import cuda_build
 from fv3net_torch.physics.radiation.rrtmg import driver as tdrv
 from fv3net_torch.physics.radiation.rrtmg import lw as tlw
@@ -185,26 +186,70 @@ def test_table_packing_round_trips(dtype):
     assert d4[tc.DESC_LEN + tc.D_CO2ADJ] == layout["b3_co2adj"][0]
 
 
+def _read_plane(ptr, stride, n, ctype):
+    """n values at ``ptr`` every ``stride`` elements of ``ctype``."""
+    size = ctypes.sizeof(ctype)
+    return [ctype.from_address(ptr + k * stride * size).value
+            for k in range(n)]
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_point_packing(dtype):
-    """The point planes carry every value the kernel reads, in its
-    order."""
-    c, colamt, coldry, colbrd, wx, tauaer, _ = _capture_taumol(dtype)
-    fp, ip = tc.pack_points(c, colamt, coldry, colbrd, wx, tauaer)
+    """The plane struct points at the caller's own tensors with their
+    element strides (``colamt``, ``wx``, ``tauaer``, ``rfrate`` in their
+    [C, L, k] layouts) and carries every value the kernel reads, in its
+    order; nothing is copied."""
+    c, colamt, coldry, colbrd, wx, tauaer, T = _capture_taumol(dtype)
+    flat = tc.pack_tables(T)[0]
+    planes, keep = tc.pack_planes(c, colamt, coldry, colbrd, wx, tauaer,
+                                  flat)
+    assert keep == []
     N = coldry.numel()
-    assert fp.shape == (len(tc.FLOAT_PLANES), N) == (53, N)
-    assert ip.shape == (len(tc.INT_PLANES), N) and ip.dtype == torch.int32
-    assert fp.dtype == TORCH[dtype] and fp.is_contiguous()
-    planes = dict(zip(tc.FLOAT_PLANES, fp))
-    assert torch.equal(planes["pavel"], c["pavel"].reshape(-1))
-    assert torch.equal(planes["rfrate51"], c["rfrate"][..., 5, 1].reshape(-1))
-    assert torch.equal(planes["colamt6"], colamt[..., 6].reshape(-1))
-    assert torch.equal(planes["colbrd"], colbrd.reshape(-1))
-    assert torch.equal(planes["wx3"], wx[..., 3].reshape(-1))
-    assert torch.equal(planes["tauaer15"], tauaer[..., 15].reshape(-1))
-    ints = dict(zip(tc.INT_PLANES, ip))
-    assert torch.equal(ints["jt1"].long(), c["jt1"].reshape(-1))
-    assert torch.equal(ints["tropo"].bool(), c["tropo"].reshape(-1))
+    assert len(planes.f) == len(tc.FLOAT_PLANES) == 53
+    assert len(planes.i) == len(tc.INT_PLANES) == 7
+    f = dict(zip(tc.FLOAT_PLANES, zip(planes.f, planes.fs)))
+    size = colamt.element_size()
+    assert f["pavel"] == (c["pavel"].data_ptr(), 1)
+    assert f["rfrate51"] == (c["rfrate"].data_ptr() + 11 * size, 12)
+    assert f["colamt6"] == (colamt.data_ptr() + 6 * size, 7)
+    assert f["colbrd"] == (colbrd.data_ptr(), 1)
+    assert f["wx3"] == (wx.data_ptr() + 3 * size, 4)
+    assert f["tauaer15"] == (tauaer.data_ptr() + 15 * size, 16)
+    ctype = ctypes.c_double if dtype == "float64" else ctypes.c_float
+    for name, want in (("rfrate51", c["rfrate"][..., 5, 1]),
+                       ("tauaer15", tauaer[..., 15]),
+                       ("fac11", c["fac11"])):
+        got = _read_plane(*f[name], N, ctype)
+        assert got == want.reshape(-1).tolist(), name
+    i = dict(zip(tc.INT_PLANES, zip(planes.i, planes.istride, planes.iw)))
+    assert i["jt1"] == (c["jt1"].data_ptr(), 1, 8)
+    assert i["tropo"] == (c["tropo"].data_ptr(), 1, 1)
+    assert _read_plane(i["tropo"][0], 1, N, ctypes.c_bool) == \
+        c["tropo"].reshape(-1).tolist()
+
+
+def test_point_packing_copies_only_uneven_planes():
+    """A plane that is not evenly strided over the points (a [C, L] view
+    of a transposed [L, C] tensor) is copied; a plane of another dtype, or
+    an index plane of a float dtype, is refused."""
+    c, colamt, coldry, colbrd, wx, tauaer, T = _capture_taumol("float64")
+    flat = tc.pack_tables(T)[0]
+    c = dict(c, pavel=c["pavel"].T.contiguous().T,
+             jp=c["jp"].to(torch.int32))
+    planes, keep = tc.pack_planes(c, colamt, coldry, colbrd, wx, tauaer,
+                                  flat)
+    assert len(keep) == 1 and torch.equal(keep[0], c["pavel"])
+    f = dict(zip(tc.FLOAT_PLANES, zip(planes.f, planes.fs)))
+    assert f["pavel"] == (keep[0].data_ptr(), 1)
+    assert (planes.i[0], planes.iw[0]) == (c["jp"].data_ptr(), 4)
+    with pytest.raises(TypeError, match="plane fac00"):
+        tc.pack_planes(dict(c, fac00=c["fac00"].float()), colamt, coldry,
+                       colbrd, wx, tauaer, flat)
+    with pytest.raises(TypeError, match="index plane jt"):
+        tc.pack_planes(dict(c, jt=c["jt"].double()), colamt, coldry,
+                       colbrd, wx, tauaer, flat)
+    with pytest.raises(ValueError, match="shape"):
+        tc.pack_planes(c, colamt, coldry[:, :-1], colbrd, wx, tauaer, flat)
 
 
 def test_taumol_lw_matches_reference_megakernel():
@@ -261,11 +306,8 @@ HOST_PROGRAM = r"""
 namespace {
 
 template <typename T>
-int host_taumol(const void* fp_, const void* ip_, const void* tab_,
-                const void* meta_, void* fracs_, void* tautot_, long long N,
-                double oneminus) {
-  const T* fp = (const T*)fp_;
-  const int* ip = (const int*)ip_;
+int host_taumol(const Planes& pl, const void* tab_, const void* meta_,
+                void* fracs_, void* tautot_, long long N, double oneminus) {
   const T* tab = (const T*)tab_;
   const int* meta = (const int*)meta_;
   T* fracs = (T*)fracs_;
@@ -277,8 +319,8 @@ int host_taumol(const void* fp_, const void* ip_, const void* tab_,
   for (long long n0 = 0; n0 < N; n0 += kP) {
     const int np = (N - n0 < kP) ? (int)(N - n0) : kP;
     for (int q = 0; q < np; ++q) {
-      load_point(fp, ip, N, n0 + q, pts[q]);
-      common_point(fp, ip, meta, N, n0 + q, pts[q], sc[q]);
+      load_point(pl, n0 + q, pts[q]);
+      common_point(pl, meta, n0 + q, pts[q], sc[q]);
     }
     for (int b = 0; b < kBands; ++b) {
       for (int q = 0; q < np; ++q)
@@ -289,7 +331,7 @@ int host_taumol(const void* fp_, const void* ip_, const void* tab_,
         const int q = t / ng;
         const int ig = t - q * ng;
         T tau, frac;
-        eval_point(b, ig, sc[q], sb[q], tab, meta, fp, N, n0 + q, tau, frac);
+        eval_point(b, ig, sc[q], sb[q], tab, meta, pl, n0 + q, tau, frac);
         tautot[(n0 + q) * kG + ns + ig] = tau;
         fracs[(n0 + q) * kG + ns + ig] = frac;
       }
@@ -300,25 +342,27 @@ int host_taumol(const void* fp_, const void* ip_, const void* tab_,
 
 }  // namespace
 
-extern "C" int fv3_taumol_lw_host_f32(const void* fp, const void* ip,
-                                      const void* tab, const void* meta,
-                                      void* fracs, void* tautot, long long N,
+extern "C" int fv3_taumol_lw_host_f32(Planes pl, const void* tab,
+                                      const void* meta, void* fracs,
+                                      void* tautot, long long N,
                                       double oneminus) {
-  return host_taumol<float>(fp, ip, tab, meta, fracs, tautot, N, oneminus);
+  return host_taumol<float>(pl, tab, meta, fracs, tautot, N, oneminus);
 }
 
-extern "C" int fv3_taumol_lw_host_f64(const void* fp, const void* ip,
-                                      const void* tab, const void* meta,
-                                      void* fracs, void* tautot, long long N,
+extern "C" int fv3_taumol_lw_host_f64(Planes pl, const void* tab,
+                                      const void* meta, void* fracs,
+                                      void* tautot, long long N,
                                       double oneminus) {
-  return host_taumol<double>(fp, ip, tab, meta, fracs, tautot, N, oneminus);
+  return host_taumol<double>(pl, tab, meta, fracs, tautot, N, oneminus);
 }
 """
 
 
 @functools.lru_cache(maxsize=None)
 def _host_library(build_dir):
-    """``HOST_PROGRAM`` around ``csrc/taumol_lw.cu``, built with g++."""
+    """``HOST_PROGRAM`` around ``csrc/taumol_lw.cu``, built with g++.  (The
+    kernel itself, its tiles and barriers, runs on the CPU in
+    ``tests/test_torch_kernel_emulation.py``.)"""
     gxx = shutil.which("g++")
     if gxx is None:
         return None
@@ -337,17 +381,17 @@ def _host_library(build_dir):
 def _host_taumol(lib_path, c, colamt, coldry, colbrd, wx, tauaer, T):
     lib = ctypes.CDLL(lib_path)
     flat, meta, _ = tc.pack_tables(T)
-    fp, ip = tc.pack_points(c, colamt, coldry, colbrd, wx, tauaer)
+    planes, keep = tc.pack_planes(c, colamt, coldry, colbrd, wx, tauaer,
+                                  flat)
     fracs = torch.empty(coldry.shape + (P.NGPT_LW,), dtype=flat.dtype)
     tautot = torch.empty_like(fracs)
     fn = getattr(lib, "fv3_taumol_lw_host_"
                  + {torch.float32: "f32", torch.float64: "f64"}[flat.dtype])
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
-                                           ctypes.c_double]
+    fn.argtypes = [tc.Planes] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
+                                                         ctypes.c_double]
     fn.restype = ctypes.c_int
-    err = fn(fp.data_ptr(), ip.data_ptr(), flat.data_ptr(), meta.data_ptr(),
-             fracs.data_ptr(), tautot.data_ptr(), coldry.numel(),
-             float(P.ONEMINUS))
+    err = fn(planes, flat.data_ptr(), meta.data_ptr(), fracs.data_ptr(),
+             tautot.data_ptr(), coldry.numel(), float(P.ONEMINUS))
     assert err == 0
     return fracs, tautot
 
@@ -404,32 +448,6 @@ def test_entry_flagship_mega_route_on_cpu():
 
 
 # ---------------------------------------------------------------- the card
-def _column_state(C, L, seed=0):
-    """Columns on the hybrid coordinate (z index 0 = model top) with
-    clouds in half the layers and co2-rich air in a third of them."""
-    from fv3net_torch.dycore.vertical import hybrid_coordinate
-
-    rng = np.random.RandomState(seed)
-    ak, bk = hybrid_coordinate(L)
-    pe = ak[None] + bk[None] * (1e5 + 3000 * rng.randn(C))[:, None]
-    pmid = 0.5 * (pe[:, 1:] + pe[:, :-1])
-    T = np.maximum(290 * (pmid / 1e5) ** 0.2, 200) + 3 * rng.randn(C, L)
-    lat = rng.uniform(-1.4, 1.4, C)
-    lon = rng.uniform(0, 6.28, C)
-    state = {
-        "air_temperature": T,
-        "pressure_thickness_of_atmospheric_layer": np.diff(pe, axis=1),
-        "specific_humidity": 0.02 * (pmid / 1e5) ** 3 * rng.rand(C, L) ** 2,
-        "cloud_water_mixing_ratio": 1e-4 * rng.rand(C, L) * (
-            rng.rand(C, L) > 0.5),
-        "surface_temperature": T[:, -1] + 1,
-        "latitude": lat,
-        "longitude": lon,
-        "land_sea_mask": (rng.rand(C) > 0.7).astype(np.float64),
-    }
-    return state, np.clip(np.cos(lat) * np.cos(lon), -0.3, 1)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_taumol_kernel_matches_plain_on_card(dtype):
@@ -447,7 +465,7 @@ def test_taumol_kernel_matches_plain_on_card(dtype):
         seen.append((args, out))
         return out
 
-    state, cosz = _column_state(1000, 32)
+    state, cosz = column_state(1000, 32)
     driver = tdrv.RRTMGDriver(tdrv.RRTMGConfig(), dtype=tdt, device="cuda",
                               lw_taumol="mega")
     before = tc.TAUMOL_LAUNCHES

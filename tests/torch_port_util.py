@@ -101,3 +101,30 @@ def assert_states_close(got, want, rtol, fields=None):
     bad = {k: d for k, d in diffs.items() if not d <= rtol}
     assert not bad, f"fields beyond rel {rtol}: {bad} (all: {diffs})"
     return diffs
+
+
+def column_state(C, L, seed=0):
+    """Radiation-driver inputs of C seeded columns of L levels on the
+    hybrid coordinate (z index 0 = model top), with clouds in half the
+    layers; returns ``(state, cosz)``."""
+    from fv3net_torch.dycore.vertical import hybrid_coordinate
+
+    rng = np.random.RandomState(seed)
+    ak, bk = hybrid_coordinate(L)
+    pe = ak[None] + bk[None] * (1e5 + 3000 * rng.randn(C))[:, None]
+    pmid = 0.5 * (pe[:, 1:] + pe[:, :-1])
+    T = np.maximum(290 * (pmid / 1e5) ** 0.2, 200) + 3 * rng.randn(C, L)
+    lat = rng.uniform(-1.4, 1.4, C)
+    lon = rng.uniform(0, 6.28, C)
+    state = {
+        "air_temperature": T,
+        "pressure_thickness_of_atmospheric_layer": np.diff(pe, axis=1),
+        "specific_humidity": 0.02 * (pmid / 1e5) ** 3 * rng.rand(C, L) ** 2,
+        "cloud_water_mixing_ratio": 1e-4 * rng.rand(C, L) * (
+            rng.rand(C, L) > 0.5),
+        "surface_temperature": T[:, -1] + 1,
+        "latitude": lat,
+        "longitude": lon,
+        "land_sea_mask": (rng.rand(C) > 0.7).astype(np.float64),
+    }
+    return state, np.clip(np.cos(lat) * np.cos(lon), -0.3, 1)
