@@ -67,7 +67,30 @@ Phases (any failure exits nonzero, and no result line is printed):
     [time, tile, y, x] and a [time, tile, z=79, y, x] variable) through
     ``coarsen_diagnostics(..., 8)`` on the card: shapes, one K5 launch
     per variable and time, every value against the plain block average,
-    area-weighted global means kept.
+    area-weighted global means kept;
+12. production main path: ``entry.production()`` -- C48, npz=32,
+    float32: slab ocean and sea ice, the "set" SST prescriber, RRTMG every
+    4th step and the dense ML stepper around the production dynamics
+    (kord 9 without the energy remap, so K1 remaps theta_v with iv=2) --
+    one warm-up, 5 timed chunks and one profiled chunk: ms per chunk,
+    SYPD, device busy and idle share, the ranges' device busy (prephysics,
+    dynamics, radiation, physics, ml) with the hand kernels in; gates:
+    every field finite, the exact launches of K1, K4 and K3 per chunk and
+    no K2, SST inside [200, 330] K, ice thickness >= 0, the chunk's
+    TOTAL_PRECIP >= 0 and the dry-air budget (DRY_MASS_BUDGET_RTOL);
+13. the production chunk, 2 float64 steps at C48 with radiation every
+    second step, with the kernels and with the plain versions: the
+    dycore fields, every surface field, TOTAL_PRECIP and the
+    chunk-accumulated water within 1e-8 of each field's scale;
+14. the production chunk's land variant (Noah soil on tile 0 under a
+    seeded subgrid orography): one chunk with phase 12's gates, soil
+    moisture inside [0, theta_sat] and the gravity-wave drag's launched
+    stress >= 0, and > 0 over the land.
+
+``--sw-columns PATH`` also saves, in phase 6, ``swrad``'s arguments on
+the 8 columns where the float32 SW heating parts most from float64 on
+the state after the ktable route's 3rd chunk (the input of
+``tests/test_torch_rrtmg.py``'s float32 SW test).
 
 Kernel times are device times (CUDA events around calls queued behind a
 sleep kernel, so that the device runs them back to back, or the
@@ -184,7 +207,9 @@ RAD_F32_FLUX_W_M2 = 2e-2
 RAD_F32_CONTROL_FACTOR = 2.0
 RAD_F32_ULPS = 4
 RAD_F32_FAULT_RATIO = 3.0
-RANGES = ("dynamics", "radiation", "physics", "ml")  # runtime/fused.py
+# the step's profiler ranges (runtime/fused.py; "prephysics" in the
+# production chunk only)
+RANGES = ("prephysics", "dynamics", "radiation", "physics", "ml")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 SLEEP_CYCLES_PER_S = 2e9  # torch.cuda._sleep cycles per second, at most
 # H100 SXM peak rates outside the tensor cores (NVIDIA's data sheet)
@@ -674,7 +699,8 @@ def phase_rrtmg(device):
         f"{ms['mega']:.1f} ms on the mega route (chunks in the order "
         f"{', '.join(RRTMG_SCHEDULE)}; the first of each is its warm-up)")
     for path in paths.values():
-        profile_chunk(path.label, path.step, path.state, *path.args)
+        profile_chunk(path.label,
+                      lambda p=path: p.step(p.state, *p.args))
     return paths, radiation_states
 
 
@@ -711,10 +737,11 @@ class RangeLaunches:
         self.mod.record_function = self.orig
 
 
-def profile_chunk(label, step, state, ml_params, sst, cosz):
-    """One chunk under torch.profiler: the device's busy share of the
-    wall time, the device time of each of the step's ranges and the
-    device time by op.
+def profile_chunk(label, run):
+    """One chunk, ``run()``, under torch.profiler: the device's busy share
+    of the wall time, the device time of each of the step's ranges and
+    the device time by op; returns the device busy ms by range, each
+    range's hand kernels in.
 
     A range's device time from the profiler counts the kernels of the
     PyTorch ops inside it but not the hand kernels, which are launched
@@ -730,7 +757,7 @@ def profile_chunk(label, step, state, ml_params, sst, cosz):
                              ProfilerActivity.CUDA]) as prof, \
             RangeLaunches() as in_range:
         t0 = time.perf_counter()
-        step(state, ml_params, sst, cosz)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
@@ -753,6 +780,8 @@ def profile_chunk(label, step, state, ml_params, sst, cosz):
     # the hand kernels by name, summed over their template instances, and
     # their device time by the range that launched them
     hand_us = dict.fromkeys(RANGES, 0.0)
+    reading = {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
+               "activities": n_kernels, "ranges": {}, "kernels": {}}
     for kname, count_name in HAND_KERNELS.items():
         mine = [e for e in device if kname in e.key]
         if not mine:
@@ -764,6 +793,7 @@ def profile_chunk(label, step, state, ml_params, sst, cosz):
             + ", ".join(f"{c[count_name]} in {r}"
                         for r, c in in_range.counts.items()
                         if c[count_name]))
+        reading["kernels"][count_name] = (n, us / 1e3)
         if launched != n:
             log(f"  ({kname}: {n} launches traced, {launched} counted in "
                 "the step's ranges: its share of each range is not exact)")
@@ -780,6 +810,7 @@ def profile_chunk(label, step, state, ml_params, sst, cosz):
         # the kernels of the PyTorch ops inside the range, and the hand
         # kernels it launched
         busy = getattr(e, key) + hand_us[name]
+        reading["ranges"][name] = busy / 1e3
         span_us = getattr(span[name], key) if name in span else float("nan")
         log(f"  range {name}: {e.count} calls, host "
             f"{e.cpu_time_total / 1e3:.1f} ms, device busy "
@@ -788,6 +819,7 @@ def profile_chunk(label, step, state, ml_params, sst, cosz):
             f"it), device span {span_us / 1e3:.1f} ms")
     for line in events.table(sort_by=self_key, row_limit=15).splitlines():
         log(f"  | {line}")
+    return reading
 
 
 def radiation_inputs(state, sst, cosz, lat):
@@ -870,18 +902,20 @@ class BFloat16Tables:
 
 
 class Capture:
-    """Wraps ``module.name`` to keep the arguments of its first call."""
+    """Wraps ``module.name`` to keep the arguments and the result of its
+    first call."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
         self.orig = getattr(module, name)
-        self.args, self.kwargs = None, None
+        self.args, self.kwargs, self.out = None, None, None
 
     def __enter__(self):
         def wrapped(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
             if self.args is None:
-                self.args, self.kwargs = args, kwargs
-            return self.orig(*args, **kwargs)
+                self.args, self.kwargs, self.out = args, kwargs, out
+            return out
 
         setattr(self.module, self.name, wrapped)
         return self
@@ -958,7 +992,60 @@ def radiation_differences(out, delp, where, absolute):
     return bad
 
 
-def phase_radiation(device, states, sst, cosz):
+SW_COLUMNS = 8  # columns kept by --sw-columns
+SW_ARGS = ("plyr", "plvl", "tlyr", "tlvl", "qlyr", "olyr", "gasvmr",
+           "clouds", "aerosols", "sfcalb", "delpin", "cosz")
+
+
+def dump_sw_columns(path, drivers, inputs, cosz, smi):
+    """The arguments of ``swrad`` (McICA draws included) in the float32
+    plain call and in the float64 control on ``inputs``, for the
+    SW_COLUMNS columns where the float32 SW heating parts most from the
+    float64 one, with both calls' outputs there, saved to ``path``
+    (.npz): the inputs of the CPU test of that error
+    (tests/test_torch_rrtmg.py)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    from fv3net_torch.physics.radiation.rrtmg import sw as rsw
+
+    when = datetime.datetime(2016, 7, 1)
+    calls = {}
+    for name in ("plain", "float64"):
+        with Capture(rsw, "swrad") as rec:
+            drivers[name](when, inputs, cosz=cosz)
+        torch.cuda.synchronize()
+        calls[name] = (rec.args, rec.kwargs, rec.out)
+    h32 = calls["plain"][2]["hswc"].double()
+    h64 = calls["float64"][2]["hswc"]
+    per_col = (h32 - h64).abs().max(dim=1).values * 86400.0
+    cols = per_col.argsort(descending=True)[:SW_COLUMNS]
+    out = {"columns": cols.cpu().numpy(), "card": np.array(smi)}
+    # the float64 call takes the float32 call's McICA draws (phase 6),
+    # so its rand2d is not kept
+    check(torch.equal(calls["plain"][0][13].double(), calls["float64"][0][13]),
+          "the float64 control drew other McICA uniforms")
+    for name, tag in (("plain", "f32"), ("float64", "f64")):
+        args, kwargs, res = calls[name]
+        kept = SW_ARGS + (("solcon", "rand2d") if tag == "f32" else
+                          ("solcon",))
+        for arg_name, x in zip(kept, args[:len(kept)]):
+            out[f"{tag}_{arg_name}"] = (
+                x[cols].cpu().numpy() if torch.is_tensor(x)
+                else np.array(x))
+        out[f"{tag}_iovrsw"] = np.array(kwargs["iovrsw"])
+        for key in ("hswc", "fsfcdc", "ftoauc"):
+            out[f"{tag}_out_{key}"] = res[key][cols].cpu().numpy()
+    out["nbase_hi"] = np.array(drivers["plain"].Tsw["nbase_hi"])
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **out)
+    log(f"  saved swrad's arguments of {SW_COLUMNS} columns to {path}: "
+        "float32 SW heating against float64 there "
+        + ", ".join(f"{per_col[c].item():.3e}" for c in cols) + " K/day")
+
+
+def phase_radiation(device, states, sst, cosz, sw_columns=None, smi=""):
     """One RRTMG call alone on both routes of the LW gas optics, on the
     last of ``states`` (by chunks before them); the float32 call against
     its plain version and controls on each of them.  Returns the
@@ -1069,6 +1156,18 @@ def phase_radiation(device, states, sst, cosz):
             out, delp = outputs(states[after])
         bad += radiation_differences(out, delp, f"after {after} chunks",
                                      absolute=last)
+    if sw_columns:
+        first = states[RADIATION_STATES_AFTER[0]]
+        T, delp, q, qc = radiation_inputs(first, sst, cosz, lat)[:4]
+        dump_sw_columns(sw_columns, drivers, {
+            "air_temperature": T,
+            "pressure_thickness_of_atmospheric_layer": delp,
+            "specific_humidity": q,
+            "cloud_water_mixing_ratio": qc,
+            "surface_temperature": sst,
+            "latitude": lat,
+            "longitude": torch.zeros_like(lat),
+        }, cosz, smi)
     # ``out`` and ``lw_call`` are now those of the last state
     lw_kwargs = {k: v for k, v in lw_call.kwargs.items() if k != "taumol"}
     ms = interleaved_ms(
@@ -1673,6 +1772,278 @@ K3_YARDSTICK = {"LW band 3 lower": (70, 9, 16, 2, 2, 3),
                 "LW band 3 upper": (236, 5, 16, 2, 2, 2)}
 
 
+# the production chunk (entry.production): one warm-up and this many
+# timed chunks, then one under the profiler
+PRODUCTION_TIMED_CHUNKS = 5
+# its kernels against its plain versions, within each field's scale
+# times the CPU chunk tests' bound (tests/test_torch_production.py
+# CHUNK_RTOL): a 2-step float64 chunk with a model that leaves the ML
+# limiter idle, and 1 step with one whose limiter acts (the next step's
+# remap parts states that differ only in the signs of the residues the
+# limiter leaves, as the reference's does)
+PRODUCTION_STEPS_VS_PLAIN = 2
+# the tendency scales of the batch that sets the dense model's output
+# scaler: the entry's (dQ2 ~1e-6 /s through the scaler's 1e-7 floor) and
+# the CPU stepper tests' (dQ2 large enough that the limiter acts)
+QUIET_DQ_SCALE = (1e-6, 1e-9)
+ACTING_DQ_SCALE = (1e-5, 3e-6)
+PRODUCTION_CHUNK_RTOL = 1e-8
+# the mass gate.  The ML humidity setter keeps each layer's dry air mass
+# and moves delp, so the air mass is not kept (2 float64 steps at C6 move
+# it by 7.4e-5); the physics moves water without moving delp, so the dry
+# air mass changes by the column's water change.  The gate is the
+# dry-air budget: the change of the global dry air mass less the chunk's
+# precipitation less evaporation (chunk_accumulated_*) less the change
+# of the cloud water mass, within the flagship's air-mass bound of the
+# dry air mass (the budget closes to 1e-16 in float64 on the CPU)
+DRY_MASS_BUDGET_RTOL = 1e-5
+SST_RANGE = (200.0, 330.0)  # K
+
+
+def production_masses(dycore, area):
+    """(dry air mass, cloud water mass) over the globe [kg], float64."""
+    import torch
+    from fv3net_torch.core.constants import GRAVITY
+
+    delp = dycore.delp.to(torch.float64)
+    q = dycore.tracers["sphum"].to(torch.float64)
+    qc = dycore.tracers["cloud_water"].to(torch.float64)
+    a = area.to(torch.float64)
+    return (((delp * (1.0 - q)).sum(1) * a).sum().item() / GRAVITY,
+            ((delp * qc).sum(1) * a).sum().item() / GRAVITY)
+
+
+def production_gates(label, before, out, area):
+    """Gates one production chunk's output ``out`` = (dycore, surface,
+    diags) from the dycore ``before``: every field finite, SST inside
+    SST_RANGE, ice thickness >= 0, the chunk's TOTAL_PRECIP >= 0, and the
+    dry-air budget (DRY_MASS_BUDGET_RTOL).  Returns the budget's
+    residual."""
+    import torch
+    from fv3net_torch.runtime import names
+
+    dycore, surface, diags = out
+    for group, tensors in (("state", fields(dycore)), ("surface", surface),
+                           ("diagnostic", diags)):
+        for name, x in tensors.items():
+            check(torch.isfinite(x).all().item(),
+                  f"{label}: non-finite {group} {name}")
+    sst = surface[names.SST]
+    lo, hi = sst.min().item(), sst.max().item()
+    check(SST_RANGE[0] <= lo and hi <= SST_RANGE[1],
+          f"{label}: SST {lo} .. {hi} K outside {SST_RANGE}")
+    check((surface["ice_thickness"] >= 0).all().item(),
+          f"{label}: negative ice thickness")
+    check((diags[names.TOTAL_PRECIP] >= 0).all().item(),
+          f"{label}: negative chunk TOTAL_PRECIP")
+    dry0, wc0 = production_masses(before, area)
+    dry1, wc1 = production_masses(dycore, area)
+    a = area.to(torch.float64)
+    p_minus_e = ((diags["chunk_accumulated_PRATEsfc"].double()
+                  - diags["chunk_accumulated_evaporation"].double())
+                 * a).sum().item()
+    residual = (dry1 - dry0 - p_minus_e - (wc1 - wc0)) / dry0
+    check(abs(residual) <= DRY_MASS_BUDGET_RTOL,
+          f"{label}: dry-air budget residual {residual:.3e} > "
+          f"{DRY_MASS_BUDGET_RTOL}")
+    log(f"  {label}: SST {lo:.2f} .. {hi:.2f} K, ice up to "
+        f"{surface['ice_thickness'].max().item():.4f} m, chunk "
+        f"TOTAL_PRECIP up to {diags[names.TOTAL_PRECIP].max().item():.3e} "
+        f"m; dry-air mass change {(dry1 - dry0) / dry0:.3e}, budget "
+        f"residual {residual:.3e}")
+    return residual
+
+
+def production_launches(steps, radiation_calls):
+    """Expected launches of a production chunk: K1 on every step's three
+    remaps (theta_v with iv=2, the winds, the tracers: remap_te is off),
+    K4 and K3 in every radiation call, no K2."""
+    return launches(remap_apply=steps * REMAPS_PER_STEP,
+                    weighted_select_dot=radiation_calls * SELECT_PER_CALL,
+                    spec_band_dot=radiation_calls * SPEC_PER_CALL)
+
+
+def run_production_chunk(label, chunk, args, area, expected):
+    """One production chunk from launch counts set to 0; gates the counts
+    read after it and its output.  Returns (output, seconds, counts)."""
+    import torch
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = chunk(*args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts == expected,
+          f"{label}: launches {counts}, expected {expected}")
+    production_gates(label, args[0], out, area)
+    log(f"  {label}: {dt * 1e3:.1f} ms, launches {counts}")
+    return out, dt, counts
+
+
+def phase_production(device):
+    """The production chunk at full width (entry.production: C48, npz=32,
+    float32, RRTMG every 4th step, slab ocean and sea ice, the "set" SST
+    prescriber, the dense ML stepper): a warm-up chunk, timed chunks and
+    one profiled chunk.  Returns its launches over the chunks run."""
+    import torch
+    from fv3net_torch import entry
+
+    t0 = time.perf_counter()
+    chunk, (dycore, surface, cosz, presc) = entry.production(
+        npx=NPX, npz=NPZ, chunk=CHUNK, device=device)
+    area = torch.tensor(entry.make_grid(NPX).area, device=device)
+    log(f"  built the production chunk in {time.perf_counter() - t0:.2f} s")
+    expected = production_launches(CHUNK, RADIATION_CALLS_PER_CHUNK)
+    total = launches()
+    wall = []
+    for i in range(1 + PRODUCTION_TIMED_CHUNKS):
+        label = (f"production chunk {i} "
+                 f"({'warm-up' if i == 0 else 'timed'})")
+        (dycore, surface, _), dt, counts = run_production_chunk(
+            label, chunk, (dycore, surface, cosz, presc), area, expected)
+        total = {k: v + counts[k] for k, v in total.items()}
+        if i:
+            wall.append(dt)
+    ms = statistics.median(wall) * 1e3
+    sypd = (CHUNK * DT / (ms / 1e3)) / 365.0
+    log(f"  production main path: {ms:.1f} ms per {CHUNK}-step chunk "
+        f"(median of {len(wall)}; {', '.join(f'{w * 1e3:.1f}' for w in wall)}"
+        f"), {sypd:.3f} SYPD; launches in {1 + len(wall)} chunks {total}")
+    reading = profile_chunk(
+        "production", lambda: chunk(dycore, surface, cosz, presc))
+    log("  production profiled chunk: wall "
+        f"{reading['wall_ms']:.1f} ms, device busy "
+        f"{reading['device_ms']:.1f} ms, idle share "
+        f"{100 * (1 - reading['device_ms'] / reading['wall_ms']):.1f}%, "
+        f"{reading['activities']} device activities; range device busy "
+        + ", ".join(f"{r} {v:.1f} ms" for r, v in reading["ranges"].items())
+        + "; hand kernels " + ", ".join(
+            f"{k} {n} launches {t:.3f} ms"
+            for k, (n, t) in reading["kernels"].items()))
+    return total
+
+
+def production_model(device, dtype, dq_scale):
+    """The production entry's seeded dense model (1 hidden layer of 16),
+    its output scaler fitted to tendencies of the scales ``dq_scale``."""
+    from fv3net_torch import entry
+
+    return entry.flagship_dense_model(NPZ, dtype, device, 0, hidden=(16,),
+                                      n=64, dq_scale=dq_scale)
+
+
+def quiet_production_model(device, dtype):
+    """The production entry's seeded dense model with its outputs scaled
+    by 1e-4 (its last layer), so that the ML limiter does not act: where
+    it acts it leaves q at +-1e-18, and the next step's kord-9 tracer
+    remap takes a layer for an extremum from the sign of q[k+1] - q[k]
+    between two such residues, which is the sign of roundoff (the CPU
+    chunk tests take the same scaling;
+    test_production_chunk_limiter_active_step_by_step shows the
+    reference's step doing so)."""
+    import torch
+
+    model = production_model(device, dtype, QUIET_DQ_SCALE)
+    with torch.no_grad():
+        model.layers[-1].weight.mul_(1e-4)
+        model.layers[-1].bias.mul_(1e-4)
+    return model
+
+
+def phase_production_vs_plain(device):
+    """Float64 production chunks at C48 with the kernels and with the
+    plain versions: 2 steps with radiation every second step (step 1
+    takes the cache) and the quiet model, then 1 step with a model whose
+    limiter acts (gated: some q left within 1e-15 of 0).
+    The dycore fields, every surface field, the chunk's TOTAL_PRECIP and
+    chunk_accumulated_* within PRODUCTION_CHUNK_RTOL of each field's
+    scale."""
+    import torch
+    from fv3net_torch import entry
+    from fv3net_torch.runtime import names
+
+    area = torch.tensor(entry.make_grid(NPX).area, device=device)
+    bad = []
+    for label, model, steps in (
+            ("float64 production chunk",
+             quiet_production_model(device, torch.float64),
+             PRODUCTION_STEPS_VS_PLAIN),
+            ("float64 production step, limiter acting",
+             production_model(device, torch.float64, ACTING_DQ_SCALE), 1)):
+        outs = {}
+        for impl in ("torch", "cuda"):
+            chunk, args = entry.production(
+                npx=NPX, npz=NPZ, chunk=steps, radiation_interval=2,
+                model=model, dtype=torch.float64, device=device, impl=impl)
+            expected = (launches() if impl == "torch" else
+                        production_launches(steps, 1))
+            outs[impl], _, _ = run_production_chunk(
+                f"{label} ({impl})", chunk, args, area, expected)
+        (kd, ks, kdiag), (pd, ps, pdiag) = outs["cuda"], outs["torch"]
+        if steps == 1:
+            residues = (pd.tracers["sphum"].abs() < 1e-15).sum().item()
+            log(f"  {label}: {residues} points of q within 1e-15 of 0")
+            check(residues > 0, f"{label}: the ML limiter did not act")
+        bad += _diffs(kd, pd, label, PRODUCTION_CHUNK_RTOL)
+        pairs = [(f"surface {k}", ks[k], ps[k]) for k in sorted(ps)]
+        pairs += [(k, kdiag[k], pdiag[k]) for k in sorted(pdiag)
+                  if k == names.TOTAL_PRECIP
+                  or k.startswith("chunk_accumulated_")]
+        check(set(ks) == set(ps) and set(kdiag) == set(pdiag),
+              f"{label}: the kernel and plain chunks return other keys")
+        for name, got, want in pairs:
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            rel = (err / scale if scale > 0
+                   else (0.0 if err == 0 else math.inf))
+            log(f"  {label} {name}: max|kernel-plain| {err:.3e} (scale "
+                f"{scale:.3e}, rel {rel:.3e})")
+            if not rel <= PRODUCTION_CHUNK_RTOL:
+                bad.append(f"{label} {name} rel {rel:.3e}")
+    check(not bad, f"production kernel and plain chunks part: {bad}")
+
+
+def phase_production_land(device):
+    """One chunk of the production chunk's land variant: the Noah soil
+    on tile 0 with a seeded subgrid orography there (so the step runs
+    the gravity-wave drag); the production gates, soil moisture inside
+    [0, theta_sat], and GWD's launched stress >= 0 everywhere and > 0
+    over the land."""
+    import numpy as np
+    import torch
+    from fv3net_torch import entry
+    from fv3net_torch.physics.soil import SoilParams
+
+    rng = np.random.RandomState(0)
+    mask = np.zeros((6, NPX, NPX))
+    mask[0] = 1.0
+    sgh = mask * (100.0 + 400.0 * rng.rand(6, NPX, NPX))  # m
+    chunk, args = entry.production(
+        npx=NPX, npz=NPZ, chunk=CHUNK, device=device, land_model="noah",
+        land_mask=mask, sgh=sgh)
+    area = torch.tensor(entry.make_grid(NPX).area, device=device)
+    (_, surface, diags), _, _ = run_production_chunk(
+        "land-variant chunk", chunk, args, area,
+        production_launches(CHUNK, RADIATION_CALLS_PER_CHUNK))
+    smc = surface["soil_moisture_layers"]
+    theta_sat = SoilParams().theta_sat
+    lo, hi = smc.min().item(), smc.max().item()
+    check(0.0 <= lo and hi <= theta_sat,
+          f"land variant: soil moisture {lo} .. {hi} outside "
+          f"[0, {theta_sat}]")
+    tau = diags["taugwd"]
+    land = torch.tensor(mask, device=device) > 0.5
+    check((tau >= 0).all().item(), "land variant: negative taugwd")
+    check((tau[land] > 0).all().item(),
+          "land variant: taugwd is 0 at a land point")
+    log(f"  land variant: soil moisture {lo:.4f} .. {hi:.4f} (theta_sat "
+        f"{theta_sat}), taugwd over land {tau[land].min().item():.3e} .. "
+        f"{tau[land].max().item():.3e} N/m2, over the ocean "
+        f"{tau[~land].max().item():.3e}")
+
+
 def k3_call(device, dtype, case, seed=1):
     """``(w_paths, s_paths, tab, nspa)`` of a seeded K3 call of
     ``K3_YARDSTICK[case]`` at the radiation's 442,368 points ([13,824, 32],
@@ -1938,6 +2309,10 @@ def main():
         help="build K1-K4 and time them on one yardstick (see "
              "kernel_times) instead of the smoke run")
     parser.add_argument(
+        "--sw-columns", metavar="PATH",
+        help="also save swrad's arguments on the columns where float32 SW "
+             "heating parts most from float64 (phase 6) to PATH (.npz)")
+    parser.add_argument(
         "--tree", default=os.path.dirname(os.path.abspath(__file__)),
         help="directory whose fv3net_torch is imported (default: this "
              "script's)")
@@ -1998,7 +2373,8 @@ def main():
     del paths
 
     log("phase 6: one RRTMG radiation call")
-    rec, k2_args, tables64 = phase_radiation(device, states, sst, cosz)
+    rec, k2_args, tables64 = phase_radiation(
+        device, states, sst, cosz, sw_columns=opts.sw_columns, smi=smi)
 
     log("phase 7: k-table kernels K4 and K3 against their plain versions")
     ktable_lines = phase_ktable(rec)
@@ -2016,6 +2392,16 @@ def main():
 
     log("phase 11: C384 -> C48 coarsening pipeline")
     counts_pipeline = phase_pipeline(device)
+
+    log("phase 12: production main path (slab ocean, sea ice, the SST "
+        "prescriber and the ML stepper around the RRTMG step)")
+    phase_production(device)
+
+    log("phase 13: production chunk, kernels against plain (float64)")
+    phase_production_vs_plain(device)
+
+    log("phase 14: production land variant (Noah soil, gravity-wave drag)")
+    phase_production_land(device)
 
     # each kernel's launches come from the run of the path it lies on
     counts = dict(counts, taumol_lw=counts_mega["taumol_lw"],

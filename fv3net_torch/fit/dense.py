@@ -7,12 +7,13 @@ trained by the reference package into this one.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
+from fv3net_torch.core.dataset import Dataset
 from fv3net_torch.fit import packer
 from fv3net_torch.fit.normalize import StandardScaler
 
@@ -76,6 +77,20 @@ class DenseModel(nn.Module):
         return y * self.y_std + self.y_mean
 
     apply_packed = forward  # the reference's name
+
+    @torch.no_grad()
+    def predict_arrays(
+        self, data: Dict[str, torch.Tensor]
+    ) -> Dict[str, torch.Tensor]:
+        """Named [sample(, z)] inputs -> named outputs (inference: no
+        autograd graph)."""
+        X, _ = packer.pack(data, self.input_variables)
+        return packer.unpack(self.apply_packed(X), self.output_info)
+
+    def predict(self, X: Dataset) -> Dataset:
+        """A Dataset of [sample(, z)] inputs -> one of the outputs."""
+        data = packer.dataset_to_samples(X, self.input_variables)
+        return packer.samples_to_dataset(self.predict_arrays(data))
 
 
 def params_from_jax(model, dtype=torch.float64, device=None) -> DenseModel:

@@ -8,6 +8,9 @@ from typing import Dict, List, Mapping, Sequence, Tuple
 
 import torch
 
+from fv3net_torch.core.dataset import Dataset
+from fv3net_torch.core.quantity import Quantity
+
 
 @dataclasses.dataclass
 class PackingInfo:
@@ -86,3 +89,17 @@ def unstack_columns(
     if stacked.ndim == 1:
         return stacked.reshape(t, ny, nx)
     raise ValueError(f"cannot unstack shape {tuple(stacked.shape)}")
+
+
+def dataset_to_samples(ds: Dataset,
+                       names: Sequence[str]) -> Dict[str, torch.Tensor]:
+    """The named variables of a Dataset of [sample(, z)] Quantities."""
+    return {n: ds[n].data for n in names}
+
+
+def samples_to_dataset(data: Mapping[str, torch.Tensor]) -> Dataset:
+    """[sample(, z)] tensors as a Dataset of Quantities."""
+    return Dataset({
+        name: Quantity(arr, ("sample",) if arr.ndim == 1 else ("sample", "z"))
+        for name, arr in data.items()
+    })

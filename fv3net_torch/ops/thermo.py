@@ -1,5 +1,5 @@
 """Column thermodynamics on tensors (port of the parts of
-``fv3net_tpu/ops/thermo.py`` the flagship slice calls).
+``fv3net_tpu/ops/thermo.py`` the port's slices call).
 
 The vertical axis is positional (default: last); level 0 is the model
 top.  Formulas and constants match the reference.
@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 import torch
 
 from fv3net_torch.core.constants import (
+    CP_AIR,
     CV_AIR,
     FREEZING_TEMPERATURE,
     GRAVITY,
@@ -85,6 +86,32 @@ def hydrostatic_dz(T, q, delp, toa_pressure: float = TOA_PRESSURE,
     dlogp = torch.diff(torch.log(pi), dim=axis)
     tv = virtual_temperature(T, q)
     return -dlogp * RDGAS * tv / GRAVITY
+
+
+def mass_integrate(field, delp, axis: int = -1):
+    """Mass-weighted vertical integral, sum(f * delp / g)."""
+    return torch.sum(field * delp / GRAVITY, dim=axis)
+
+
+def column_integrated_heating_from_isobaric_transition(dT_dt, delp,
+                                                      axis: int = -1):
+    """cp-weighted column heating, W/m^2."""
+    return CP_AIR * mass_integrate(dT_dt, delp, axis)
+
+
+def column_integrated_heating_from_isochoric_transition(dT_dt, delp,
+                                                       axis: int = -1):
+    """cv-weighted column heating, W/m^2."""
+    return CV_AIR * mass_integrate(dT_dt, delp, axis)
+
+
+def non_negative_sphum(sphum, dQ1, dQ2,
+                       dt: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scale (dQ1, dQ2) where the moistening would drive q negative."""
+    reduction_ratio = (-sphum) / (dt * dQ2)
+    ok = sphum + dQ2 * dt >= 0
+    return (torch.where(ok, dQ1, reduction_ratio * dQ1),
+            torch.where(ok, dQ2, reduction_ratio * dQ2))
 
 
 def update_moisture_tendency_to_ensure_non_negative_humidity(sphum, q2,

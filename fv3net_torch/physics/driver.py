@@ -5,15 +5,17 @@ Operates on the dycore state ([6, nz, ny, nx]); internally moves z last
 so every scheme is batched over all 6*ny*nx columns.  Diagnostics keep
 the reference's names (PRATEsfc, LHTFLsfc, ...).
 
-Ported: gray radiation or a ``radiation_fn`` override (the RRTMG band
-solvers reach the step that way, built by ``runtime/fused.py``), stratospheric
-eddy damping, Monin-Obukhov or bulk surface, K-profile or ramp PBL,
+Ported: gray radiation (with the sea-ice albedo blend) or a
+``radiation_fn`` override (the RRTMG band solvers reach the step that
+way, built by ``runtime/fused.py``, and take the land mask and ice
+fraction), stratospheric eddy damping, Monin-Obukhov or bulk surface
+with the land fraction and evaporation factor of the surface models,
+K-profile or ramp PBL, orographic gravity-wave drag (``sgh``),
 Betts-Miller or mass-flux deep convection with the shallow mass-flux
 stage, Zhao-Carr microphysics.  GFDL microphysics, the emulator hooks,
-orographic GWD (``sgh``), ozone and stratospheric water raise
-``NotImplementedError``; the production path's surface couplings (land,
-sea ice, bucket evaporation) and the reference's off-by-default switches
-(thermal top sponge, turning convection off) are not ported.
+ozone and stratospheric water raise ``NotImplementedError``; the
+reference's off-by-default switches (thermal top sponge, turning
+convection off) are not ported.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from fv3net_torch.dycore.state import (
 from fv3net_torch.ops import thermo
 from fv3net_torch.physics import convection as conv
 from fv3net_torch.physics import convection_mf as cmf
+from fv3net_torch.physics import gravity_wave_drag as gwd_mod
 from fv3net_torch.physics import microphysics as mp
 from fv3net_torch.physics import pbl as pbl_mod
 from fv3net_torch.physics import radiation_gray as rad
@@ -66,6 +69,10 @@ class PhysicsConfig:
     convection_scheme: str = "betts_miller"  # or "mass_flux"
     mass_flux: cmf.MassFluxParams = cmf.MassFluxParams()
     shallow: cmf.MassFluxParams = cmf.SHALLOW_PARAMS
+    # orographic gravity-wave drag, active where the caller passes a
+    # subgrid-orography field (physics_step's ``sgh``)
+    gwd: gwd_mod.GWDParams = gwd_mod.GWDParams()
+    use_gwd: bool = True
     stratospheric_h2o: bool = False  # True is not ported yet
     # stratospheric eddy damping toward the per-level global mean
     strat_eddy_damp_days: float = 1.0
@@ -98,21 +105,22 @@ def physics_step(
     microphysics_emulator=None,
     gscond_emulator=None,
     radiation_fn=None,
-    sgh=None,
+    sgh=None,  # [6, ny, nx] subgrid-orography std (m) enables GWD
+    evap_factor=None,  # [6, ny, nx] land evaporation efficiency
+    land_frac=None,  # [6, ny, nx] land fraction
+    ice_frac=None,  # [6, ny, nx] sea-ice fraction (albedo feedback)
 ) -> Tuple[DycoreState, Dict[str, torch.Tensor]]:
     """Apply one physics interval; returns (new_state, diagnostics).
 
     ``radiation_fn``: optional (T, delp, q, qc, t_surface, cos_zenith,
-    lat) -> (heating, diags) override of the gray scheme (the fused chunk
-    passes its cached radiation this way).  The emulator hooks and
-    ``sgh`` raise ``NotImplementedError``.
+    lat, o3=, land=, ice=) -> (heating, diags) override of the gray
+    scheme (the fused chunk passes its cached radiation this way).  The
+    emulator hooks raise ``NotImplementedError``.
     """
     if cfg.microphysics_scheme != "zhao_carr":
         raise _not_ported(f"microphysics_scheme={cfg.microphysics_scheme!r}")
     if microphysics_emulator is not None or gscond_emulator is not None:
         raise _not_ported("the microphysics emulator hooks")
-    if sgh is not None:
-        raise _not_ported("orographic gravity-wave drag (sgh)")
     if cfg.stratospheric_h2o:
         raise _not_ported("stratospheric_h2o (physics/h2ophys.py)")
     if "o3mr" in state.tracers:
@@ -127,6 +135,14 @@ def physics_step(
     t_surface = t_surface.to(dtype)
     cos_zenith = cos_zenith.to(dtype)
     lat = lat.to(dtype)
+    if sgh is not None:
+        sgh = sgh.to(dtype)
+    if evap_factor is not None:
+        evap_factor = evap_factor.to(dtype)
+    if land_frac is not None:
+        land_frac = land_frac.to(dtype)
+    if ice_frac is not None:
+        ice_frac = ice_frac.to(dtype)
 
     delp = _zlast(state.delp)
     pt = _zlast(state.pt)
@@ -142,11 +158,19 @@ def physics_step(
     # ---- radiation ------------------------------------------------------
     if radiation_fn is not None:
         heating, rad_diags = radiation_fn(
-            T, delp, q, qc, t_surface, cos_zenith, lat
+            T, delp, q, qc, t_surface, cos_zenith, lat, o3=None,
+            land=land_frac, ice=ice_frac,
         )
     else:
+        albedo = None
+        if ice_frac is not None:
+            # sea-ice albedo feedback: the broadband ice albedo blended
+            # over the icy fraction
+            albedo = (cfg.radiation.albedo
+                      + ice_frac * (0.60 - cfg.radiation.albedo))
         heating, rad_diags = rad.gray_radiation(
-            T, delp, t_surface, cos_zenith, lat, cfg.radiation
+            T, delp, t_surface, cos_zenith, lat, cfg.radiation,
+            albedo=albedo,
         )
     T = T + dt * heating
 
@@ -167,12 +191,13 @@ def physics_step(
     if cfg.surface_scheme == "monin_obukhov":
         fluxes = sl_mod.monin_obukhov_fluxes(
             T[..., -1], q[..., -1], pe[..., -1], delp[..., -1], speed,
-            t_surface, cfg.surface_layer,
+            t_surface, cfg.surface_layer, land_frac=land_frac,
+            evap_factor=evap_factor,
         )
     else:
         fluxes = sfc.bulk_surface_fluxes(
             T[..., -1], q[..., -1], pe[..., -1], delp[..., -1], speed,
-            t_surface, cfg.surface,
+            t_surface, cfg.surface, evap_factor=evap_factor,
         )
     mass_sfc = delp[..., -1] / GRAVITY
     T = T.clone()
@@ -214,6 +239,14 @@ def physics_step(
         pbl_mod.implicit_diffusion(wind[c], K_m, dz_if, dm, dt)
         for c in range(3)
     ])
+
+    # ---- orographic gravity-wave drag -----------------------------------
+    gwd_on = cfg.use_gwd and sgh is not None
+    if gwd_on:
+        dwind, tau_gwd = gwd_mod.orographic_gwd(
+            wind, T, delp, pmid, sgh, dt, cfg.gwd
+        )
+        wind = wind + dt * dwind
 
     # ---- moist convection -----------------------------------------------
     if cfg.convection_scheme == "mass_flux":
@@ -257,6 +290,8 @@ def physics_step(
     )
 
     diags = dict(rad_diags)
+    if gwd_on:
+        diags["taugwd"] = tau_gwd  # launched mountain-wave stress, N/m^2
     if hpbl is not None:
         diags["HPBLsfc"] = hpbl
     diags["PRATEsfc"] = precip + conv_precip

@@ -22,10 +22,13 @@ class SurfaceParams:
 def bulk_surface_fluxes(
     t_air, q_air, p_sfc, delp_sfc, wind_speed, t_surface,
     params: SurfaceParams = SurfaceParams(),
+    evap_factor=None,
 ) -> Dict[str, torch.Tensor]:
     """Sensible/latent heat fluxes and momentum drag over a saturated
     surface with constant exchange coefficients.  Returns LHTFLsfc,
-    SHTFLsfc [W/m^2], evaporation [kg/m^2/s] and drag_factor [1/s]."""
+    SHTFLsfc [W/m^2], evaporation [kg/m^2/s] and drag_factor [1/s].
+    ``evap_factor`` (the land models' beta) multiplies the
+    evaporation."""
     rho = p_sfc / (RDGAS * t_air)
     v = torch.clamp(wind_speed, min=params.gustiness)
     ch = params.drag_coefficient
@@ -35,6 +38,8 @@ def bulk_surface_fluxes(
         params.ocean_evaporation_factor
         * rho * ch * v * torch.clamp(qsat_s - q_air, min=0.0)
     )
+    if evap_factor is not None:
+        evap = evap * evap_factor
     lv = thermo.latent_heat_vaporization(t_surface)
     mass_sfc = delp_sfc / GRAVITY
     return {

@@ -3,8 +3,9 @@
 
 Businger-Dyer stability functions, a bulk-Richardson first guess, a fixed
 number of similarity iterations and Charnock ocean roughness closed
-against u*; elementwise over all columns.  Ocean surface only: the
-production path's land fraction and bucket evaporation are not ported.
+against u*; elementwise over all columns.  A land fraction blends in a
+fixed land roughness, and an evaporation factor (the land models'
+beta) scales the evaporation.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ ZVIR = RVGAS / RDGAS - 1.0  # ~0.608
 @dataclasses.dataclass(frozen=True)
 class SurfaceLayerParams:
     charnock: float = 0.014  # Charnock constant for ocean z0
+    z0_land: float = 0.1  # m, roughness over land (vegetated default)
     z0_min: float = 1e-5  # m, smooth-ocean floor
     z0_max: float = 1.0  # m
     gustiness: float = 1.0  # m/s floor on wind speed
@@ -53,10 +55,14 @@ def _psi_functions(zeta):
 def monin_obukhov_fluxes(
     t_air, q_air, p_sfc, delp_sfc, wind_speed, t_surface,
     params: SurfaceLayerParams = SurfaceLayerParams(),
+    land_frac=None,
+    evap_factor=None,
 ) -> Dict[str, torch.Tensor]:
     """Surface fluxes with Monin-Obukhov similarity: the
     ``bulk_surface_fluxes`` dict plus ``ustar`` [m/s], ``obukhov_inv``
-    [1/m], ``hpbl_flux`` (kinematic w'thv' [K m/s]) and ``z1`` [m]."""
+    [1/m], ``hpbl_flux`` (kinematic w'thv' [K m/s]) and ``z1`` [m].
+    ``land_frac`` [0, 1] blends the land roughness into the ocean's;
+    ``evap_factor`` multiplies the evaporation."""
     k = VONKARMAN
     rho = p_sfc / (RDGAS * t_air)
     v = torch.clamp(wind_speed, min=params.gustiness)
@@ -71,7 +77,12 @@ def monin_obukhov_fluxes(
     rib = GRAVITY * z1 * dthv / (0.5 * (tv_air + tv_sfc) * v * v)
     rib = torch.clamp(rib, -10.0, 0.2)
 
-    z0 = torch.full_like(v, 1e-4)  # smooth-ocean first guess (no land)
+    # neutral first guess: smooth ocean, the land roughness over land
+    # (without a land fraction the blends below are the ocean's values
+    # exactly, and are skipped)
+    z0 = torch.full_like(v, 1e-4)
+    if land_frac is not None:
+        z0 = z0 * (1.0 - land_frac) + params.z0_land * land_frac
     zeta = torch.where(rib < 0.0, rib * 2.0, rib / (1.0 - 5.0 * rib + 1e-6))
     zeta = torch.clamp(zeta, params.zeta_min, params.zeta_max)
 
@@ -88,10 +99,12 @@ def monin_obukhov_fluxes(
         )
         zeta = torch.clamp(z1 * lmo_inv, params.zeta_min, params.zeta_max)
         # Charnock closure over the ocean
-        z0 = torch.clamp(
+        z0_oc = torch.clamp(
             params.charnock * ustar * ustar / GRAVITY + 1.1e-5,
             params.z0_min, params.z0_max,
         )
+        z0 = (z0_oc if land_frac is None else
+              z0_oc * (1.0 - land_frac) + params.z0_land * land_frac)
 
     psi_m, psi_h = _psi_functions(zeta)
     ln_m = torch.log(z1 / z0)
@@ -107,6 +120,8 @@ def monin_obukhov_fluxes(
         params.ocean_evaporation_factor
         * rho * ch * v * torch.clamp(qsat_s - q_air, min=0.0)
     )
+    if evap_factor is not None:
+        evap = evap * evap_factor
     lv = thermo.latent_heat_vaporization(t_surface)
     mass_sfc = delp_sfc / GRAVITY
     wthv = ch * v * (-dthv) + ZVIR * 0.5 * (tv_air + tv_sfc) * (evap / rho)

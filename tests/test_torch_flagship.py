@@ -221,6 +221,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import fv3net_torch.physics.radiation.rrtmg.driver\n"
         "import fv3net_torch.physics.radiation.rrtmg.lw\n"
         "import fv3net_torch.physics.radiation.rrtmg.sw\n"
+        "from fv3net_torch.entry import production\n"
+        "import fv3net_torch.runtime.steppers.machine_learning\n"
         "for m in pkgutil.walk_packages(fv3net_torch.__path__, 'fv3net_torch.'):\n"
         "    __import__(m.name)\n"
         "bad = sorted(k for k in sys.modules\n"
@@ -228,7 +230,14 @@ def test_port_imports_neither_jax_nor_reference():
         "assert not bad, bad\n"
         "for name in ('core.zarrio', 'ops.coarsen', 'ops.coarsen_cuda',\n"
         "             'pipelines.coarsen_diagnostics',\n"
-        "             'physics.radiation.rrtmg.taumol_cuda'):\n"
+        "             'physics.radiation.rrtmg.taumol_cuda',\n"
+        "             'runtime.names', 'runtime.config',\n"
+        "             'physics.slab_ocean', 'physics.sea_ice',\n"
+        "             'physics.land', 'physics.soil',\n"
+        "             'physics.gravity_wave_drag', 'runtime.surface_step',\n"
+        "             'runtime.derived_state', 'runtime.tendency',\n"
+        "             'runtime.diagnostics.compute',\n"
+        "             'runtime.steppers.machine_learning'):\n"
         "    assert 'fv3net_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )

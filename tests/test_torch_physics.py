@@ -210,8 +210,8 @@ def test_unported_physics_options_raise():
     for cfg, kw in [
         (PhysicsConfig(microphysics_scheme="gfdl"), {}),
         (PhysicsConfig(stratospheric_h2o=True), {}),
-        (PhysicsConfig(), dict(sgh=_t(np.ones_like(sst)))),
         (PhysicsConfig(), dict(microphysics_emulator=lambda s: s)),
+        (PhysicsConfig(), dict(gscond_emulator=lambda s: s)),
     ]:
         with pytest.raises(NotImplementedError):
             physics_step(*args, cfg, **kw)

@@ -224,6 +224,81 @@ def test_unported_profiles_raise():
         tr.remap_ppm(st["pe1"], q, st["pe2"])
 
 
+def _to64(x):
+    """``x`` with every floating tensor in it (dicts and lists walked) in
+    float64."""
+    if isinstance(x, dict):
+        return {k: _to64(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to64(v) for v in x)
+    if torch.is_tensor(x) and x.is_floating_point():
+        return x.double()
+    return x
+
+
+def test_float32_error_at_km79_is_inherited():
+    """``chip_smoke.py``'s float32 K1 case at km=79 (its C48 edges from
+    seed 0, F=3 fields), rebuilt with numpy: the reference's float32
+    ``remap_apply`` (its XLA path) and the port's plain version, each
+    against the exact (float64) application of its own float32 search and
+    profile.  Both difference float32 prefix sums of the column mass, so
+    both err by ~1.2e-5 of scale (the plain version read 1.27e-5 on the
+    card): the port inherits the error, within a factor of 2 of the
+    reference's."""
+    _need_jax()
+    from fv3net_tpu.ops import remap as jr
+
+    from fv3net_torch.dycore.vertical import hybrid_coordinate
+    from fv3net_torch.grid.geometry import make_grid
+
+    npx, km, F = 48, 79, 3
+    rng = np.random.RandomState(0)
+    grid = make_grid(npx)
+    ak, bk = hybrid_coordinate(km)
+    ps = 1.0e5 + 1500.0 * np.cos(2 * grid.lat) * np.sin(grid.lon)
+    pe2 = ak + bk * ps[..., None]
+    pe1 = pe2.copy()
+    pe1[..., 1:-1] += 0.3 * np.diff(pe2, axis=-1)[..., :-1] * np.clip(
+        rng.randn(*ps.shape, km - 1), -2.5, 2.5)
+    pe1.sort(-1)
+    q = 250.0 + 30.0 * rng.rand(F, 6, npx, npx, km)
+
+    def error(search, q32, profile, got):
+        exact = tr.remap_apply_plain(_to64(search), q32.double(),
+                                     *_to64(profile))
+        return ((got.double() - exact).abs().max() / exact.abs().max()
+                ).item()
+
+    st = tr.banded_search(torch.tensor(pe1, dtype=torch.float32),
+                          torch.tensor(pe2, dtype=torch.float32), 2)
+    q32 = torch.tensor(q, dtype=torch.float32)
+    profile = tr.cs_profile(q32, st["dp1"], 1, 9)
+    port = error(st, q32, profile,
+                 tr.remap_apply_plain(st, q32, *profile))
+
+    def ref(a, b, qq):
+        s = jr.banded_search(a, b, 2)
+        return (s, jr.cs_profile(qq, s["dp1"], 1, 9),
+                jr.remap_apply(s, qq, iv=1, kord=9))
+
+    sj, pj, want = jax.jit(ref)(jnp.asarray(pe1, jnp.float32),
+                                jnp.asarray(pe2, jnp.float32),
+                                jnp.asarray(q, jnp.float32))
+
+    def t(x):
+        return torch.tensor(np.array(x))
+
+    search = {k: t(sj[k]) for k in ("p", "pe1", "pe2", "below", "dp1")}
+    search["offsets"] = [
+        {"L": np.array(o["L"]),
+         **{k: t(o[k]) for k in ("use", "wA", "wB", "wC")}}
+        for o in sj["offsets"]
+    ]
+    reference = error(search, q32, [t(x) for x in pj], t(want))
+    assert 5e-6 < reference < 2e-5, reference
+    assert 0.5 * reference <= port <= 2.0 * reference, (port, reference)
+
+
 def _hybrid_edges(n=48, km=32, seed=0):
     """The C{n} hybrid coordinate over a varying surface pressure (pe2)
     and its Lagrangian perturbation (pe1): layers as thick as the model's,
