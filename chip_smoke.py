@@ -85,7 +85,26 @@ Phases (any failure exits nonzero, and no result line is printed):
 14. the production chunk's land variant (Noah soil on tile 0 under a
     seeded subgrid orography): one chunk with phase 12's gates, soil
     moisture inside [0, theta_sat] and the gravity-wave drag's launched
-    stress >= 0, and > 0 over the land.
+    stress >= 0, and > 0 over the land;
+15. the segmented run (``runtime/segmented_run/api.py``) of the
+    production configuration as a run config (:func:`segment_config`:
+    C48, npz=32, RRTMG every 4th step, slab ocean and sea ice, the
+    namelist's dycore, phase 13's quiet dense model loaded from its
+    artifact directory, a zarr SST prescriber, zarr diagnostics and a
+    Fortran diagnostics file): ``api.create`` and two
+    ``api.append_segment`` calls of 2 chunks each, with each segment's
+    setup seconds, wall per chunk in ``run_segment``, SYPD and host
+    seconds by phase (``timing.phase_report``).  Gates: the production
+    path taken; every chunk's launches exact (K1 24, K4 88, K3 46, K2 0)
+    and phase 12's gates; the stores' rows and variables, the
+    interval-average rows against the every rows they cover (1e-6), the
+    RESTART's files; segment 1's RESTART read back and segment 2's first
+    chunk started from it, bit for bit; the two segments against one
+    segment of 4 chunks, bit for bit; a fresh loop's first chunk (under
+    the profiler: device busy by range, idle share) against
+    ``build_fused_production_chunk`` called directly on its inputs, bit
+    for bit; one float64 chunk of 2 steps through the loop, kernels
+    against plain, within 1e-8 of each field's scale.
 
 ``--sw-columns PATH`` also saves, in phase 6, ``swrad``'s arguments on
 the 8 columns where the float32 SW heating parts most from float64 on
@@ -2044,6 +2063,363 @@ def phase_production_land(device):
         f"{tau[~land].max().item():.3e}")
 
 
+# phase 15: the segmented run (runtime/segmented_run/api.py) at full
+# width: SEGMENT_CHUNKS chunks a segment, two appended segments
+SEGMENT_CHUNKS = 2
+SEGMENT_AVERAGE_S = 7200.0  # the interval-average file's window
+SEGMENT_SST_TIMES = 3  # time indices of the seeded SST store
+SEGMENT_EVERY = ("air_temperature", "specific_humidity", "eastward_wind",
+                 "surface_pressure")
+SEGMENT_AVERAGED = ("total_precipitation", "ULWRFtoa", "DSWRFsfc",
+                    "surface_pressure")
+SEGMENT_AVERAGE_RTOL = 1e-6  # an average row against its every rows
+SEGMENT_PHASES = ("setup", "loop_dispatch", "diag_observe", "scalar_flush",
+                  "restart_write")
+
+
+def segment_config(tmp, chunks=SEGMENT_CHUNKS):
+    """The production configuration as a run config: C48, npz=32, RRTMG
+    every 4th step, slab ocean and sea ice, the namelist's dycore
+    defaults (hord 4, kord 9, remap_te, d2_bg_k1/k2 0.12/0.06, tau 0.5 d
+    down to rf_cutoff 300 hPa); phase 13's quiet dense model (1 x 16,
+    seeded) in the reference's artifact format; a "set" prescriber of
+    ocean_surface_temperature from a seeded store of SEGMENT_SST_TIMES
+    times; an every file of state fields (zarr chunks of 2 times), an
+    interval-average file of the chunk's 2-D fields and one Fortran
+    diagnostics file."""
+    import numpy as np
+    import torch
+    from fv3net_torch.core import zarrio
+    from fv3net_torch.core.dataset import Dataset
+    from fv3net_torch.core.quantity import Quantity
+    from fv3net_torch.fit import io
+    from fv3net_torch.grid.geometry import make_grid
+
+    model_dir = os.path.join(tmp, "model")
+    if not os.path.isdir(model_dir):
+        io.dump(quiet_production_model("cpu", torch.float32), model_dir)
+        lat = make_grid(NPX).lat
+        rng = np.random.RandomState(0)
+        sst = ((300.15 - 30.0 * np.sin(lat) ** 2)[None]
+               + 0.5 * rng.rand(SEGMENT_SST_TIMES, 6, NPX, NPX))
+        zarrio.to_zarr(Dataset({"ocean_surface_temperature": Quantity(
+            sst.astype(np.float32), ("time", "tile", "y", "x"))}),
+            os.path.join(tmp, "sst.zarr"))
+    return {
+        "namelist": {"npx": NPX, "npz": NPZ, "radiation": "rrtmg",
+                     "slab_ocean": True, "sea_ice": True},
+        "fused_chunk_steps": CHUNK,
+        "radiation_interval_steps": 4,
+        "duration_seconds": chunks * CHUNK * DT,
+        "scikit_learn": {"model": [model_dir]},
+        "prephysics": [{"dataset": os.path.join(tmp, "sst.zarr"),
+                        "variables": ["ocean_surface_temperature"]}],
+        "diagnostics": [
+            {"name": "state_after_timestep.zarr",
+             "variables": list(SEGMENT_EVERY), "times": {"kind": "every"},
+             "chunks": {"time": 2}},
+            {"name": "surface_averages.zarr",
+             "variables": list(SEGMENT_AVERAGED),
+             "times": {"kind": "interval-average",
+                       "frequency": SEGMENT_AVERAGE_S}},
+        ],
+        "fortran_diagnostics": [
+            {"name": "atmos_dt_atmos.zarr", "times": {"kind": "every"},
+             "variables": [{"module_name": "dynamics",
+                            "field_name": "water_vapor_path",
+                            "output_name": "PWAT"}]},
+        ],
+    }
+
+
+class ChunkRecorder:
+    """While active, every chunk a TimeLoop runs is recorded: its inputs,
+    its output and the launches it made (counts set to 0 just before the
+    chunk, read just after), and the loops that ran them."""
+
+    def __init__(self):
+        from fv3net_torch.runtime import loop
+
+        self.cls, self.orig = loop.TimeLoop, loop.TimeLoop._chunk_fn
+        self.chunks, self.loops = [], []
+
+    def __enter__(self):
+        orig, rec = self.orig, self
+
+        def chunk_fn(loop, n_steps):
+            fn = orig(loop, n_steps)
+            if not rec.loops or rec.loops[-1] is not loop:
+                rec.loops.append(loop)
+
+            def run(*args):
+                reset_counts()
+                out = fn(*args)
+                rec.chunks.append((n_steps, args, out, read_counts()))
+                return out
+
+            return run
+
+        self.cls._chunk_fn = chunk_fn
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._chunk_fn = self.orig
+
+
+def state_tensors(state):
+    """name -> tensor of a ModelState, dycore and surface."""
+    from fv3net_torch.runtime import checkpoint
+
+    return checkpoint._state_arrays(state)
+
+
+def same_bits(got, want, label):
+    """Gate: the two states hold the same keys and equal tensors."""
+    import torch
+
+    a, b = state_tensors(got), state_tensors(want)
+    check(set(a) == set(b), f"{label}: keys {sorted(a)} against "
+          f"{sorted(b)}")
+    bad = [k for k in b if not torch.equal(a[k].to(b[k].device), b[k])]
+    check(not bad, f"{label}: not bit for bit in {bad}")
+    log(f"  {label}: bit for bit in all {len(b)} fields")
+
+
+def gate_segment(label, rec, area, expected):
+    """Gates the chunks of one recorded segment: the launches, the
+    production gates (finite, SST, ice, precipitation, dry-air budget).
+    Returns the launches summed."""
+    from fv3net_torch.runtime.metrics import GLOBAL_MEANS_KEY
+
+    total = launches()
+    for i, (n, args, out, counts) in enumerate(rec.chunks):
+        check(n == CHUNK, f"{label} chunk {i}: {n} steps")
+        check(counts == expected, f"{label} chunk {i}: launches {counts}, "
+              f"expected {expected}")
+        dycore, surface, diags = out
+        production_gates(f"{label} chunk {i}", args[0], (dycore, surface, {
+            k: q.data for k, q in diags.items() if k != GLOBAL_MEANS_KEY}),
+            area)
+        total = {k: v + counts[k] for k, v in total.items()}
+    return total
+
+
+def gate_stores(label, seg, chunks):
+    """Gates one segment's output: the zarr stores' rows and variables,
+    the interval-average rows against the every rows they cover, the
+    Fortran restart files."""
+    import numpy as np
+    from fv3net_torch.core import zarrio
+
+    every = zarrio.open_zarr(os.path.join(seg, "state_after_timestep.zarr"))
+    avg = zarrio.open_zarr(os.path.join(seg, "surface_averages.zarr"))
+    fortran = zarrio.open_zarr(os.path.join(seg, "atmos_dt_atmos.zarr"))
+    per_window = int(SEGMENT_AVERAGE_S // (CHUNK * DT))
+    for name, ds, want_vars, rows in (
+            ("every", every, SEGMENT_EVERY, chunks),
+            ("interval-average", avg, SEGMENT_AVERAGED,
+             chunks // per_window),
+            ("fortran", fortran, ("PWAT",), chunks)):
+        check(sorted(ds) == sorted(want_vars), f"{label} {name} store: "
+              f"variables {sorted(ds)}")
+        for k in want_vars:
+            check(ds[k].shape[0] == rows and np.isfinite(ds[k].values).all(),
+                  f"{label} {name} {k}: shape {ds[k].shape}, {rows} finite "
+                  "rows expected")
+    ps_every = every["surface_pressure"].values.astype(np.float64)
+    ps_avg = avg["surface_pressure"].values.astype(np.float64)
+    worst = 0.0
+    for w in range(ps_avg.shape[0]):
+        mean = ps_every[w * per_window:(w + 1) * per_window].mean(axis=0)
+        worst = max(worst, np.abs(ps_avg[w] - mean).max()
+                    / np.abs(mean).max())
+    check(worst <= SEGMENT_AVERAGE_RTOL, f"{label}: interval-average rows "
+          f"part from the mean of their every rows by {worst:.3e}")
+    restart = os.path.join(seg, "RESTART")
+    want_files = ["coupler.res", "restart.json", "state.npz"] + [
+        f"{c}.tile{t}.nc" for c in ("fv_core.res", "fv_tracer.res",
+                                    "fv_srf_wnd.res", "sfc_data")
+        for t in range(1, 7)]
+    missing = sorted(set(want_files) - set(os.listdir(restart)))
+    check(not missing, f"{label}: RESTART lacks {missing}")
+    log(f"  {label} stores: every {chunks} rows, interval-average "
+        f"{chunks // per_window} rows within {worst:.3e} of the mean of "
+        f"their every rows, fortran {chunks} rows; RESTART with "
+        f"{len(want_files)} files")
+
+
+def log_segment(label, report, chunks, seconds):
+    """Logs one segment's phase report, wall per chunk in run_segment and
+    SYPD; returns the wall per chunk (s)."""
+    for name in SEGMENT_PHASES:
+        check(name in report, f"{label}: no {name} in the phase report")
+    loop_s = sum(report[k]["total_seconds"] for k in
+                 ("loop_dispatch", "diag_observe", "scalar_flush"))
+    per_chunk = loop_s / chunks
+    log(f"  {label}: {seconds:.2f} s in all; setup "
+        f"{report['setup']['total_seconds']:.2f} s; wall per chunk in "
+        f"run_segment {per_chunk * 1e3:.1f} ms "
+        f"({CHUNK * DT / per_chunk / 365.0:.3f} SYPD); host seconds "
+        + ", ".join(f"{k} {report[k]['total_seconds']:.3f} "
+                    f"({report[k]['hits']} hits)"
+                    for k in SEGMENT_PHASES[1:])
+        + "; " + ", ".join(f"{k} {v:.0f}" for k, v in report.items()
+                           if not isinstance(v, dict)))
+    return per_chunk
+
+
+def phase_segmented_run(device):
+    """The segmented run (runtime/segmented_run/api.py) on the card at
+    C48: ``api.create`` and two ``api.append_segment`` calls of
+    SEGMENT_CHUNKS production chunks each, gated per chunk as phase 12
+    and per segment by its stores and RESTART; the first chunk of a fresh
+    TimeLoop (under the profiler) against build_fused_production_chunk
+    called directly on its inputs, bit for bit; segment 1's RESTART read
+    back bit for bit and segment 2 started from it; the two segments
+    against one segment of twice the chunks, bit for bit; and one float64
+    chunk of 2 steps through the loop, kernels against plain.  Returns
+    the launches of the appended segments."""
+    import logging
+    import tempfile
+
+    import torch
+    from fv3net_torch import entry
+    from fv3net_torch.runtime import checkpoint, names, timing
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.loop import TimeLoop
+    from fv3net_torch.runtime.segmented_run import api
+
+    area = torch.tensor(entry.make_grid(NPX).area, device=device)
+    expected = production_launches(CHUNK, RADIATION_CALLS_PER_CHUNK)
+    scalar_lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: scalar_lines.append(record.getMessage())
+    stats = logging.getLogger("statistics")
+    stats.addHandler(handler)
+    stats.setLevel(logging.INFO)
+    total = launches()
+    tmp = tempfile.mkdtemp(prefix="segmented_run_")
+    try:
+        url = os.path.join(tmp, "run")
+        api.create(url, segment_config(tmp))
+        segs, loops = [], []
+        for s in (1, 2):
+            with ChunkRecorder() as rec:
+                t0 = time.perf_counter()
+                segs.append(api.append_segment(url))
+                seconds = time.perf_counter() - t0
+            report = timing.phase_report()
+            label = f"segment {s}"
+            check(len(rec.loops) == 1, f"{label}: {len(rec.loops)} loops")
+            loop = rec.loops[0]
+            check(loop.fusable() and loop._production_features(),
+                  f"{label}: the production path was not taken")
+            check(len(rec.chunks) == SEGMENT_CHUNKS,
+                  f"{label}: {len(rec.chunks)} chunks")
+            counts = gate_segment(label, rec, area, expected)
+            total = {k: v + counts[k] for k, v in total.items()}
+            log_segment(label, report, SEGMENT_CHUNKS, seconds)
+            gate_stores(label, segs[-1], SEGMENT_CHUNKS)
+            if s == 1:
+                restart = os.path.join(segs[0], "RESTART")
+                state, t_end = checkpoint.load_state(restart)
+                same_bits(state, loop.state, "segment 1 RESTART read back")
+                check(t_end == loop.time, f"segment 1 RESTART time {t_end}")
+            else:
+                check(os.path.basename(segs[1])
+                      == t_end.strftime("%Y%m%d.%H%M%S"),
+                      f"segment 2 is {segs[1]}, not at {t_end}")
+                same_bits(model_state_of(rec.chunks[0][1]), state,
+                          "segment 2's first chunk from segment 1's RESTART")
+            loops.append(loop)
+            del rec
+        check(len(scalar_lines) == 2 * SEGMENT_CHUNKS,
+              f"{len(scalar_lines)} scalar log lines")
+        log(f"  scalar log: {len(scalar_lines)} lines, e.g. "
+            f"{scalar_lines[-1][:160]}...")
+        long_cfg = get_config(segment_config(tmp, 2 * SEGMENT_CHUNKS))
+        t0 = time.perf_counter()
+        long = api.run_segment(long_cfg, os.path.join(tmp, "long"))
+        log_segment(f"one segment of {2 * SEGMENT_CHUNKS} chunks",
+                    long.phase_report, 2 * SEGMENT_CHUNKS,
+                    time.perf_counter() - t0)
+        same_bits(loops[1].state, long.state,
+                  f"2 x {SEGMENT_CHUNKS} chunks against 1 x "
+                  f"{2 * SEGMENT_CHUNKS}")
+        del long, loops
+
+        # the loop adds nothing to the chunk; its first chunk profiled
+        loop = TimeLoop(get_config(segment_config(tmp, 1)))
+        dycore, surface, cosz, prescribed = loop.chunk_inputs(CHUNK)
+        surface = dict(surface, **{names.TOTAL_PRECIP: torch.zeros_like(
+            surface[names.TSFC])})
+        direct = loop.build_production_chunk(CHUNK)(dycore, surface, cosz,
+                                                    prescribed)
+        it = iter(loop)
+        reading = profile_chunk("segmented-run", lambda: next(it))
+        log("  segmented-run profiled chunk (the loop's, boundary "
+            f"diagnostics in): wall {reading['wall_ms']:.1f} ms, device busy "
+            f"{reading['device_ms']:.1f} ms, idle share "
+            f"{100 * (1 - reading['device_ms'] / reading['wall_ms']):.1f}%; "
+            "range device busy " + ", ".join(
+                f"{r} {v:.1f} ms" for r, v in reading["ranges"].items()))
+        same_bits(loop.state, model_state_of((direct[0], direct[1])),
+                  "the loop's first chunk against the chunk called directly")
+        del loop, direct, it
+
+        # float64, 1 chunk of 2 steps (radiation at step 0), kernels
+        # against plain through the loop
+        cfg64 = dict(segment_config(tmp, 1), fused_chunk_steps=2,
+                     duration_seconds=2 * DT, radiation_interval_steps=2,
+                     diagnostics=[], fortran_diagnostics=[])
+        outs = {}
+        for impl in ("torch", "cuda"):
+            loop = TimeLoop(get_config(cfg64), dtype=torch.float64,
+                            impl=impl)
+            reset_counts()
+            (_, diags), = list(loop)
+            counts = read_counts()
+            want = launches() if impl == "torch" else production_launches(2, 1)
+            check(counts == want, f"float64 loop chunk ({impl}): launches "
+                  f"{counts}, expected {want}")
+            outs[impl] = (loop.state, diags)
+        bad = []
+        (ks, kdiags), (ps, pdiags) = outs["cuda"], outs["torch"]
+        kt, pt = state_tensors(ks), state_tensors(ps)
+        pairs = [(k, kt[k], pt[k]) for k in sorted(pt)]
+        pairs += [(k, kdiags[k].data, pdiags[k].data)
+                  for k in (names.TOTAL_PRECIP, "ULWRFtoa", "DSWRFsfc")]
+        worst = 0.0
+        for name, got, want in pairs:
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            rel = err / scale if scale > 0 else (0.0 if err == 0 else
+                                                 math.inf)
+            worst = max(worst, rel)
+            if not rel <= PRODUCTION_CHUNK_RTOL:
+                bad.append(f"{name} rel {rel:.3e}")
+        check(not bad, f"float64 loop chunk, kernels against plain: {bad}")
+        log(f"  float64 loop chunk of 2 steps, kernels against plain: "
+            f"{len(pairs)} fields within {worst:.3e} of their scale (bound "
+            f"{PRODUCTION_CHUNK_RTOL})")
+    finally:
+        stats.removeHandler(handler)
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  segmented run: launches in the {2 * SEGMENT_CHUNKS} chunks of "
+        f"the appended segments {total}")
+    return total
+
+
+def model_state_of(args):
+    """The ModelState of a chunk's (dycore, surface, ...) arguments or
+    output."""
+    from fv3net_torch.runtime.derived_state import ModelState
+
+    return ModelState(dycore=args[0], surface=dict(args[1]))
+
+
 def k3_call(device, dtype, case, seed=1):
     """``(w_paths, s_paths, tab, nspa)`` of a seeded K3 call of
     ``K3_YARDSTICK[case]`` at the radiation's 442,368 points ([13,824, 32],
@@ -2402,6 +2778,10 @@ def main():
 
     log("phase 14: production land variant (Noah soil, gravity-wave drag)")
     phase_production_land(device)
+
+    log("phase 15: the segmented run (run_segment, append_segment) of the "
+        "production configuration")
+    phase_segmented_run(device)
 
     # each kernel's launches come from the run of the path it lies on
     counts = dict(counts, taumol_lw=counts_mega["taumol_lw"],

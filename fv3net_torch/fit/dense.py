@@ -1,12 +1,16 @@
 """Apply side of the dense (MLP) model (port of
 ``fv3net_tpu/fit/dense.py``): normalize, a ReLU MLP, denormalize.
 
-Training is not ported yet; :func:`params_from_jax` carries a model
-trained by the reference package into this one.
+Training is not ported yet: :meth:`DenseModel.load` reads a model that
+the reference package trained and dumped (its artifact format: a
+``name`` file, ``weights.npz`` and ``metadata.json``), and
+:func:`params_from_jax` carries one over in memory.
 """
 from __future__ import annotations
 
+import json
 import math
+import os
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -14,7 +18,7 @@ import torch
 from torch import nn
 
 from fv3net_torch.core.dataset import Dataset
-from fv3net_torch.fit import packer
+from fv3net_torch.fit import io, packer
 from fv3net_torch.fit.normalize import StandardScaler
 
 
@@ -35,6 +39,14 @@ def init_mlp_params(generator: torch.Generator, sizes: Sequence[int],
     return params
 
 
+def _output_limits_not_ported():
+    return NotImplementedError(
+        "output limits of the dense model are not ported to fv3net_torch "
+        "yet (ROADMAP.md Queue 1 item 9)"
+    )
+
+
+@io.register("dense")
 class DenseModel(nn.Module):
     """MLP on packed [sample, feature] tensors with standard normalization
     fused into the forward pass."""
@@ -92,16 +104,71 @@ class DenseModel(nn.Module):
         data = packer.dataset_to_samples(X, self.input_variables)
         return packer.samples_to_dataset(self.predict_arrays(data))
 
+    # -- serialization: the reference's artifact format ------------------
+    def dump(self, path: str) -> None:
+        """``weights.npz`` (``w{i}`` [n_in, n_out], ``b{i}``, the scalers)
+        and ``metadata.json``; :func:`fv3net_torch.fit.io.dump` adds the
+        ``name`` file."""
+        os.makedirs(path, exist_ok=True)
+
+        def n(x):
+            return x.detach().cpu().numpy()
+
+        flat = {}
+        for i, layer in enumerate(self.layers):
+            flat[f"w{i}"] = n(layer.weight).T
+            flat[f"b{i}"] = n(layer.bias)
+        for key in ("x_mean", "x_std", "y_mean", "y_std"):
+            flat[key] = n(getattr(self, key))
+        np.savez(os.path.join(path, "weights.npz"), **flat)
+
+        def info(i):
+            return {"names": list(i.names), "features": list(i.features)}
+
+        meta = {
+            "input_variables": self.input_variables,
+            "output_variables": self.output_variables,
+            "input_info": info(self.input_info),
+            "output_info": info(self.output_info),
+            "n_layers": len(self.layers),
+        }
+        with open(os.path.join(path, "metadata.json"), "w") as f:
+            json.dump(meta, f)
+
+    @classmethod
+    def load(cls, path: str) -> "DenseModel":
+        """The model in ``path``, on the CPU in the saved dtype."""
+        with open(os.path.join(path, "metadata.json")) as f:
+            meta = json.load(f)
+        if meta.get("output_limits"):
+            raise _output_limits_not_ported()
+        z = np.load(os.path.join(path, "weights.npz"))
+
+        def t(key):
+            return torch.tensor(z[key])
+
+        def info(d):
+            return packer.PackingInfo(list(d["names"]),
+                                      [int(f) for f in d["features"]])
+
+        return cls(
+            input_variables=meta["input_variables"],
+            output_variables=meta["output_variables"],
+            params=[{"w": t(f"w{i}"), "b": t(f"b{i}")}
+                    for i in range(meta["n_layers"])],
+            input_info=info(meta["input_info"]),
+            output_info=info(meta["output_info"]),
+            x_scaler=StandardScaler(t("x_mean"), t("x_std")),
+            y_scaler=StandardScaler(t("y_mean"), t("y_std")),
+        )
+
 
 def params_from_jax(model, dtype=torch.float64, device=None) -> DenseModel:
     """The port's :class:`DenseModel` computing what a reference-package
     ``DenseModel`` computes: its params, scalers and packing layouts are
     read with ``np.asarray`` (no jax import needed here)."""
     if getattr(model, "output_limits", None):
-        raise NotImplementedError(
-            "output limits of the dense model are not ported to "
-            "fv3net_torch yet"
-        )
+        raise _output_limits_not_ported()
 
     def t(x):
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)

@@ -2,21 +2,37 @@
 ``fv3net_tpu/runtime/diagnostics/compute.py``; reference:
 workflows/prognostic_c48_run/runtime/diagnostics/compute.py).
 
-So far only the non-negative-humidity limiter of the ML stepper with its
-change diagnostics; arrays are model-grid tensors [tile, nz, ny, nx]
-(column axis 1).
+``compute_diagnostics`` (column moistening, heating and mass tendency
+per stepper label), ``compute_ml_momentum_diagnostics`` (dQu/dQv column
+stresses), ``compute_baseline_diagnostics`` (water vapor path and
+physics precipitation), ``rename_diagnostics`` (the diagnostic-only ML
+mode) and the non-negative-humidity limiter of the ML stepper with its
+change diagnostics.  Arrays are model-grid tensors [tile, nz, ny, nx]
+(column axis 1), wrapped as Quantities.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Tuple
 
 import torch
 
 from fv3net_torch.core.quantity import Quantity
 from fv3net_torch.ops import thermo
+from fv3net_torch.runtime import names
 
 DIMS_3D = ("tile", "z", "y", "x")
 DIMS_2D = ("tile", "y", "x")
+
+# names zeroed (with a ``_diagnostic`` copy kept) when ML runs in
+# diagnostic-only mode (reference compute.py:273-292 rename_diagnostics)
+_ML_TENDENCY_DIAGS = (
+    "net_moistening_due_to_{label}",
+    "column_heating_due_to_{label}",
+    "net_heating_due_to_{label}",
+    "net_mass_tendency_due_to_{label}",
+    "column_integrated_dQu_stress",
+    "column_integrated_dQv_stress",
+)
 
 
 def _column_heating(dT_dt, delp, hydrostatic: bool):
@@ -27,6 +43,87 @@ def _column_heating(dT_dt, delp, hydrostatic: bool):
     return thermo.column_integrated_heating_from_isochoric_transition(
         dT_dt, delp, axis=1
     )
+
+
+def compute_diagnostics(
+    delp, tendencies: Mapping[str, Quantity], label: str, hydrostatic: bool
+) -> Dict[str, Quantity]:
+    """Column-integrated moistening/heating/mass diagnostics for one
+    stepper."""
+    zeros = torch.zeros_like(delp)
+    dQ1 = tendencies.get("dQ1")
+    dQ2 = tendencies.get("dQ2")
+    dT_dt = zeros if dQ1 is None else dQ1.data
+    dq_dt = zeros if dQ2 is None else dQ2.data
+    diags: Dict[str, Quantity] = {
+        f"net_moistening_due_to_{label}": Quantity(
+            thermo.mass_integrate(dq_dt, delp, axis=1), DIMS_2D, "kg/m^2/s"
+        ),
+        f"column_heating_due_to_{label}": Quantity(
+            _column_heating(dT_dt, delp, hydrostatic), DIMS_2D, "W/m^2"
+        ),
+    }
+    dQp = tendencies.get("dQp")
+    if dQp is not None:
+        diags[f"net_mass_tendency_due_to_{label}"] = Quantity(
+            thermo.mass_integrate(torch.ones_like(delp), dQp.data, axis=1),
+            DIMS_2D,
+            "kg/m^2/s",
+        )
+    return diags
+
+
+def compute_ml_momentum_diagnostics(
+    delp, tendencies: Mapping[str, Quantity]
+) -> Dict[str, Quantity]:
+    """Column-integrated wind stresses due to ML."""
+    out: Dict[str, Quantity] = {}
+    for key, stress_name in (
+        ("dQu", "column_integrated_dQu_stress"),
+        ("dQv", "column_integrated_dQv_stress"),
+    ):
+        tend = tendencies.get(key)
+        if tend is None:
+            continue
+        out[stress_name] = Quantity(
+            thermo.mass_integrate(tend.data, delp, axis=1), DIMS_2D, "Pa"
+        )
+    return out
+
+
+def compute_baseline_diagnostics(state) -> Dict[str, Quantity]:
+    """water_vapor_path [mm], and physics_precip [kg/m^2/s] where the
+    state holds the physics precipitation rate."""
+    delp = state[names.DELP].data
+    sphum = state[names.SPHUM].data
+    diags = {
+        "water_vapor_path": Quantity(
+            thermo.mass_integrate(sphum, delp, axis=1), DIMS_2D, "mm"
+        )
+    }
+    try:
+        precip = state[names.PHYSICS_PRECIP_RATE]
+    except KeyError:
+        precip = None
+    if precip is not None:
+        diags["physics_precip"] = Quantity(precip.data, DIMS_2D, "kg/m^2/s")
+    return diags
+
+
+def rename_diagnostics(
+    diags: Dict[str, Quantity], label: str = "machine_learning"
+) -> None:
+    """Postfix ML output names with ``_diagnostic`` and zero the
+    originals, in place (the diagnostic-only ML mode: predictions are
+    recorded, and the zeroed originals keep downstream budgets such as
+    the precipitation sum unperturbed)."""
+    for template in _ML_TENDENCY_DIAGS:
+        name = template.format(label=label)
+        q = diags.get(name)
+        if q is None:
+            continue
+        diags[f"{name}_diagnostic"] = q
+        diags[name] = Quantity(torch.zeros_like(q.data), q.dims, q.units)
 
 
 def limit_sphum_tendency(

@@ -336,6 +336,11 @@ def build_fused_production_chunk(
         surface_coupling_factors,
     )
 
+    if getattr(ml_stepper, "diagnostic_only", False):
+        raise ValueError(
+            "a diagnostic-only ML stepper records its predictions without "
+            "applying them; it runs on the TimeLoop's per-step path only"
+        )
     for kind in prephysics_kinds:
         if kind not in ("set", "tend"):
             raise ValueError(f"prephysics kind must be 'set' or 'tend'; "

@@ -69,11 +69,16 @@ class PureMLStepper:
     label = "machine_learning"
 
     def __init__(self, model, timestep: float, hydrostatic: bool = False,
-                 mse_conserving_limiter: bool = True):
+                 mse_conserving_limiter: bool = True,
+                 diagnostic_only: bool = False):
         self.model = model
         self.timestep = timestep
         self.hydrostatic = hydrostatic
         self.mse_conserving_limiter = mse_conserving_limiter
+        # the config's diagnostic_ml (or online: false): the TimeLoop's
+        # per-step path records the predictions and applies nothing, and
+        # such a stepper never runs in a fused chunk
+        self.diagnostic_only = diagnostic_only
 
     def __call__(self, time, state: DerivedState):
         prediction = predict(self.model, state)

@@ -223,6 +223,9 @@ def test_port_imports_neither_jax_nor_reference():
         "import fv3net_torch.physics.radiation.rrtmg.sw\n"
         "from fv3net_torch.entry import production\n"
         "import fv3net_torch.runtime.steppers.machine_learning\n"
+        "import fv3net_torch.runtime.segmented_run.api\n"
+        "import fv3net_torch.runtime.segmented_run.cli\n"
+        "import fv3net_torch.runtime.loop\n"
         "for m in pkgutil.walk_packages(fv3net_torch.__path__, 'fv3net_torch.'):\n"
         "    __import__(m.name)\n"
         "bad = sorted(k for k in sys.modules\n"
@@ -237,7 +240,12 @@ def test_port_imports_neither_jax_nor_reference():
         "             'physics.gravity_wave_drag', 'runtime.surface_step',\n"
         "             'runtime.derived_state', 'runtime.tendency',\n"
         "             'runtime.diagnostics.compute',\n"
-        "             'runtime.steppers.machine_learning'):\n"
+        "             'runtime.steppers.machine_learning',\n"
+        "             'runtime.loop', 'runtime.checkpoint',\n"
+        "             'runtime.diagnostics.manager', 'runtime.metrics',\n"
+        "             'runtime.segmented_run.api',\n"
+        "             'runtime.segmented_run.cli', 'fit.io',\n"
+        "             'core.netcdfio', 'loaders.batches'):\n"
         "    assert 'fv3net_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )
