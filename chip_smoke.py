@@ -9,7 +9,8 @@ Phases (any failure exits nonzero, and no result line is printed):
    card's name and power limit and the torch / CUDA versions;
 2. build: compiles the port's four CUDA sources for sm_90a from this
    checkout, one ``nvcc`` each, all at once: ``remap_apply.cu`` (K1),
-   ``ktable.cu`` (K4 and K3), ``taumol_lw.cu`` (K2) and ``wavg.cu`` (K5),
+   ``ktable.cu`` (K4 and K3, float32, float64 and bfloat16 instances),
+   ``taumol_lw.cu`` (K2) and ``wavg.cu`` (K5),
    with nvcc's register and spill lines and how K3 and K2 launch (points
    per tile, shared memory, blocks an SM holds);
 3. K1 against its plain PyTorch version on the card on the dycore
@@ -38,7 +39,10 @@ Phases (any failure exits nonzero, and no result line is printed):
    heating rate and flux parts by at most twice what float32 itself errs
    there, the bfloat16 control by at least 3 times what the kernels do,
    and on the last state within absolute bounds; one LW call alone on
-   each route;
+   each route; then every K4 and K3 call of that float32 call against
+   its plain version value by value, within the two versions' own
+   float32 summation roundoff, the bfloat16-table control at least 10
+   times farther on every call;
 7. K4 and K3 against their plain versions on every call that radiation
    call made, all of each kernel's calls timed together beside the sum of
    their bounds, then, on four of its calls (K4 on ``selfref_all`` and
@@ -104,7 +108,30 @@ Phases (any failure exits nonzero, and no result line is printed):
     the profiler: device busy by range, idle share) against
     ``build_fused_production_chunk`` called directly on its inputs, bit
     for bit; one float64 chunk of 2 steps through the loop, kernels
-    against plain, within 1e-8 of each field's scale.
+    against plain, within 1e-8 of each field's scale;
+16. the RRTMG options: the flagship chunk with the reference's
+    accelerator radiation settings (bf16 storage, SW daylight
+    compression: ``flagship(rrtmg_options=BF16_OPTIONS)``) in turns with
+    the default chunk, one warm-up and 5 timed each, and one profiled:
+    ms per chunk, SYPD, device busy, idle share, the radiation range;
+    launches exact per chunk by kernel and by instance (K4/K3 float32 or
+    bfloat16); every K4 and K3 call of one bf16 radiation call on phase
+    6's state against its plain bfloat16 version, bit for bit, timed
+    with ``embedding_bag`` on bf16 as the yardstick; that call's bf16
+    storage against float32 storage within the reference's bounds (root
+    mean square), daylight compression on against off, the lookup-table
+    transmittances against the direct exponentials within the
+    reference's quantization bounds; a C96 call in 16,384-column blocks
+    against the unblocked call (the reference's bounds) and a C192 call
+    in blocks, with each call's time and peak memory;
+17. the dycore options: the JW06 baroclinic wave
+    (``dycore/testcases.py``) at C48 through 8 steps under the
+    reference's ``DycoreConfig()`` (advection order 2), order 1 and
+    order 4 with kord 7 (ppm_profile into K1): finite fields, air-mass
+    drift, exact K1 launches, ms per 8 steps; one float64 step of each,
+    kernels against plain, within 1e-10 of each field's scale; K1
+    against plain on ppm_profile's profiles at kord 4-7 and on the
+    ``iv=-2`` profile with a surface value.
 
 ``--sw-columns PATH`` also saves, in phase 6, ``swrad``'s arguments on
 the 8 columns where the float32 SW heating parts most from float64 on
@@ -134,10 +161,14 @@ path's largest shape, ``bound_ms`` its bound; ``path_ms`` is the device
 time of all of the kernel's calls in one pass of its path (K1: a dycore
 step's three calls; K4, K3: one radiation call's; K2: its one call on the
 mega route; K5: the pipeline's two calls of a time index) and
-``path_bound_ms`` the sum of their bounds.  The script imports nothing of
+``path_bound_ms`` the sum of their bounds.  ``weighted_select_dot_bf16``
+and ``spec_band_dot_bf16`` are K4's and K3's bfloat16 instances, their
+launches from phase 16's bf16 chunks, their bound at 2 bytes a bfloat16
+value.  The script imports nothing of
 jax or of ``fv3net_tpu``.
 """
 import concurrent.futures
+import gc
 import json
 import math
 import os
@@ -584,6 +615,9 @@ def reset_counts():
     remap_cuda.LAUNCHES = 0
     ktable_cuda.SELECT_LAUNCHES = 0
     ktable_cuda.SPEC_LAUNCHES = 0
+    ktable_cuda.SELECT_BY_DTYPE = dict.fromkeys(ktable_cuda.SELECT_BY_DTYPE,
+                                                0)
+    ktable_cuda.SPEC_BY_DTYPE = dict.fromkeys(ktable_cuda.SPEC_BY_DTYPE, 0)
     taumol_cuda.TAUMOL_LAUNCHES = 0
     coarsen_cuda.WAVG_LAUNCHES = 0
 
@@ -614,6 +648,10 @@ class Path:
         self.counts = launches()
         self.wall = []  # seconds of the chunks after the first (warm-up)
         self.chunks = 0
+        # K4's and K3's launches a chunk by instance, where gated
+        # (read_instance_counts), and their sums
+        self.per_instance = None
+        self.instance_totals = {}
 
     def chunk(self):
         """One chunk from counts set to 0; gates the counts read after it
@@ -631,6 +669,12 @@ class Path:
         i, label = self.chunks, self.label
         check(counts == self.per_chunk, f"{label} chunk {i}: launches "
               f"{counts}, expected {self.per_chunk}")
+        if self.per_instance is not None:
+            inst = read_instance_counts()
+            check(inst == self.per_instance, f"{label} chunk {i}: launches "
+                  f"by instance {inst}, expected {self.per_instance}")
+            self.instance_totals = {k: self.instance_totals.get(k, 0) + v
+                                    for k, v in inst.items()}
         for name, x in fields(self.state).items():
             check(torch.isfinite(x).all().item(),
                   f"{label} chunk {i}: non-finite {name}")
@@ -2676,6 +2720,589 @@ def kernel_times(device, reps=30):
     return out
 
 
+# ---------------------------------------------------------------- phase 6b
+# each K4 and K3 call of phase 6's float32 radiation call, the kernel
+# against the plain version on the same float32 inputs, value by value
+# within the two versions' own float32 summation roundoff: each rounding
+# (K4: the plain version's K products and K-1 sums and the kernel's K
+# fused multiply-adds; K3: per path and stencil position 2 kw + 1 and
+# kw + 1 of them) errs by at most half an ulp (RAD_SUM_ULPS) of the sum
+# of the terms' magnitudes.  The bfloat16-table control (the plain
+# version on tables rounded to bfloat16) must part by at least
+# RAD_SUM_FAULT_RATIO times what the kernel does on every call
+RAD_SUM_ULPS = 0.5
+RAD_SUM_FAULT_RATIO = 10.0
+
+
+def phase_radiation_summation(rec):
+    """K4 and K3 against their plain versions on every recorded float32
+    call of one radiation call, each value within the summation roundoff
+    of its terms (see RAD_SUM_ULPS), beside the bfloat16-table control;
+    returns (the largest kernel reading in units of its bound, the least
+    control-to-kernel ratio)."""
+    import torch
+    from fv3net_torch.ops import ktable
+
+    eps = torch.finfo(torch.float32).eps
+    worst, margin, bad = 0.0, math.inf, []
+
+    def rounded(tab):
+        return tab.to(torch.bfloat16).to(tab.dtype)
+
+    def absolute(pairs):
+        return [(i, None if w is None else w.abs()) for i, w in pairs]
+
+    for name, calls in (("weighted_select_dot", rec.select),
+                        ("spec_band_dot", rec.spec)):
+        for i, (a, out) in enumerate(calls):
+            if name == "weighted_select_dot":
+                terms, tab = a
+                want = ktable.weighted_select_dot_plain(terms, tab)
+                control = ktable.weighted_select_dot_plain(terms,
+                                                           rounded(tab))
+                mag = ktable.weighted_select_dot_plain(absolute(terms),
+                                                       tab.abs())
+                n_round = 3 * len(terms) - 1
+            else:
+                w_paths, s_paths, tab, nspa = a
+                want = ktable.spec_band_dot_plain(w_paths, s_paths, tab, nspa)
+                control = ktable.spec_band_dot_plain(w_paths, s_paths,
+                                                     rounded(tab), nspa)
+                mag = ktable.spec_band_dot_plain(
+                    [absolute(p) for p in w_paths],
+                    [absolute(p) for p in s_paths], tab.abs(), nspa)
+                n_round = len(w_paths) * len(s_paths[0]) * (
+                    3 * len(w_paths[0]) + 2)
+            finite = torch.isfinite(want)
+            d_k = torch.where(finite, (out - want).abs(), 0.0)
+            d_c = torch.where(finite, (control - want).abs(), 0.0)
+            allowed = RAD_SUM_ULPS * n_round * eps * torch.where(
+                finite, mag, 0.0)
+            reading = (d_k / allowed.clamp(min=torch.finfo(
+                torch.float32).tiny)).max().item()
+            ratio = (d_c.max() / d_k.max()).item() if d_k.max() > 0 \
+                else math.inf
+            worst, margin = max(worst, reading), min(margin, ratio)
+            if not reading <= 1.0:
+                bad.append(f"{name} call {i}: {reading:.3g} x its bound")
+            if not ratio >= RAD_SUM_FAULT_RATIO:
+                bad.append(f"{name} call {i}: bfloat16-table control "
+                           f"{ratio:.3g} x the kernel's")
+        log(f"  {name}: {len(calls)} float32 calls, each value of the "
+            f"kernel within its summation roundoff of plain")
+    log(f"  float32 radiation call, K4/K3 against plain value by value: at "
+        f"most {worst:.3g} of the summation-roundoff bound; the "
+        f"bfloat16-table control parts by at least {margin:.3g} times the "
+        f"kernels' reading on every call (needed {RAD_SUM_FAULT_RATIO})")
+    check(not bad, f"K4/K3 against plain beyond their summation roundoff: "
+          f"{bad[:8]}")
+    return worst, margin
+
+
+def driver_inputs(rad_args, lat):
+    """RRTMGDriver's state dict from ``radiation_inputs``'s tuple."""
+    import torch
+
+    T, delp, q, qc, sst = rad_args[:5]
+    return {"air_temperature": T,
+            "pressure_thickness_of_atmospheric_layer": delp,
+            "specific_humidity": q, "cloud_water_mixing_ratio": qc,
+            "surface_temperature": sst, "latitude": lat,
+            "longitude": torch.zeros_like(lat)}
+
+
+# ---------------------------------------------------------------- phase 16
+# the reference's radiation settings on its accelerator: bf16 storage and
+# SW daylight compression (fv3net_tpu rrtmg lw.py _sdt, sw.py
+# _compress_daylight_default)
+BF16_OPTIONS = {"storage_dtype": "bfloat16", "compress_daylight": True}
+# the default and the bf16 chunks in turns (each one's first is its
+# warm-up, then 5 timed)
+OPTIONS_SCHEDULE = ("default", "bf16", "bf16", "default", "default", "bf16",
+                    "bf16", "default", "default", "bf16", "bf16", "default")
+# K4 per radiation call under bf16 storage, by instance: the LW Planck
+# fractions (12 calls) and 1-D minors (1) and the SW band 24 Rayleigh lerp
+# (1) take their two rows alone, as the reference (lw.py _lerp_taken): 14
+# more; the solar source's 7 lerps read float32 tables (the reference's
+# are exact gathers)
+SOLAR_SOURCE_LERPS = 7
+SELECT_BF16_PER_CALL = SELECT_PER_CALL + 14 - SOLAR_SOURCE_LERPS
+# K3 per radiation call under bf16 storage: a call a path (LW: 2 paths a
+# band, 9 lower and 3 upper bands; SW: 1 path, 8 + 3 bands)
+SPEC_BF16_PER_CALL = 2 * (9 + 3) + (8 + 3)
+# the reference's bounds of bf16 storage against float32 storage
+# (tests/test_rrtmg.py, the max over its 8 test columns, which the CPU
+# test holds the port to on those columns): fluxes W/m2, heating K/day.
+# Here they bound the root mean square over the C48 values: the largest
+# difference of 13,824 columns runs past them (a bfloat16 Planck or
+# solar source errs by up to 2^-9 of 460 or 1000 W/m2 at the surface,
+# and the thin top layers turn a flux error into heating), as the
+# reference's own bf16 storage does (1.02 W/m2 against its float32 on
+# 20 of the CPU test's columns); the max is logged
+BF16_FLUX_W_M2, BF16_HEATING_K_DAY = 1.0, 0.5
+# the lookup tables against the direct exponentials: the reference's
+# quantization bounds (tests/test_rrtmg_oracle.py), (rtol, atol W/m2)
+LUT_TOL = {"longwave": (5e-4, 0.2), "shortwave": (1e-3, 0.5)}
+# blocked against unblocked: the reference's bounds (tests/test_rrtmg.py):
+# fluxes W/m2, heating K/s
+COLUMN_BLOCK = 16384
+BLOCK_FLUX_W_M2, BLOCK_HEATING_K_S = 0.01, 1e-6
+# the cubes of the blocking cases: C96 blocked and unblocked, C192
+# blocked only (an unblocked C192 call's planes outgrow the card)
+BLOCKED_CUBES = (96, 192)
+# columns of the call with the reference's options together in blocks
+# of 8
+SMALL_COLUMNS = 60
+# compression on against off: the solved columns' arithmetic is their
+# own, but a sum over the g-points of [C, G] planes may take its terms in
+# another order at another C; a flux may part by COMPRESS_FLUX_W_M2 (8
+# float32 ulps of 1361 W/m2) and a heating rate by what two such fluxes
+# make over the thinnest layer
+COMPRESS_FLUX_W_M2 = 8 * 1.2e-7 * 1361.0
+
+
+def options_path(device, label, rrtmg_options):
+    """The RRTMG flagship chunk with ``rrtmg_options``, expecting its
+    launches by kernel and by instance."""
+    import torch
+    from fv3net_torch import entry
+
+    step, (state, ml_params, sst, cosz) = entry.flagship(
+        npx=NPX, npz=NPZ, chunk=CHUNK, device=device,
+        rrtmg_options=rrtmg_options)
+    area = torch.tensor(entry.make_grid(NPX).area, device=device)
+    calls = RADIATION_CALLS_PER_CHUNK
+    if rrtmg_options:
+        sel = {"bf16": calls * SELECT_BF16_PER_CALL,
+               "f32": calls * SOLAR_SOURCE_LERPS}
+        spec = {"bf16": calls * SPEC_BF16_PER_CALL}
+    else:
+        sel = {"f32": calls * SELECT_PER_CALL}
+        spec = {"f32": calls * SPEC_PER_CALL}
+    per_chunk = launches(remap_apply=CHUNK * REMAPS_PER_STEP,
+                         weighted_select_dot=sum(sel.values()),
+                         spec_band_dot=sum(spec.values()))
+    path = Path(label, step, state, (ml_params, sst, cosz), area, per_chunk)
+    path.per_instance = instance_counts(sel, spec)
+    return path
+
+
+def instance_counts(sel=None, spec=None):
+    out = {}
+    for kernel, by in (("weighted_select_dot", sel or {}),
+                       ("spec_band_dot", spec or {})):
+        for sfx in ("f32", "f64", "bf16"):
+            out[f"{kernel}_{sfx}"] = by.get(sfx, 0)
+    return out
+
+
+def read_instance_counts():
+    from fv3net_torch.ops import ktable_cuda
+
+    return instance_counts(ktable_cuda.SELECT_BY_DTYPE,
+                           ktable_cuda.SPEC_BY_DTYPE)
+
+
+def rrtmg_drivers(device, **options):
+    """RRTMGDriver of the flagship's radiation config with ``options``."""
+    from fv3net_torch.physics import PhysicsConfig
+    from fv3net_torch.physics.radiation.rrtmg.driver import (
+        RRTMGConfig,
+        RRTMGDriver,
+    )
+
+    return RRTMGDriver(RRTMGConfig(
+        solcon=1368.22 * PhysicsConfig().solcon_scale, **options),
+        device=device)
+
+
+def output_diffs(a, b, rms=False):
+    """{key: max |a - b|} over the driver's heating rates (K/day) and
+    fluxes (W/m2); ``rms``: the root mean square over the values
+    instead."""
+    out = {}
+    for key in sorted(a):
+        d = a[key].double() - b[key].double()
+        d = (d.square().mean().sqrt() if rms else d.abs().max()).item()
+        if "_flux_" in key:
+            out[key] = d
+        elif "heating" in key or "tendency" in key:
+            out[key] = 86400.0 * d
+    return out
+
+
+def columns_inputs(device, npx, seed=7):
+    """Radiation-driver inputs on a C``npx`` cube at NPZ levels: the
+    flagship's resting moist start, seeded clouds in a fifth of the
+    layers, the aquaplanet SST and cosz = cos(lat) cos(lon)."""
+    import numpy as np
+    import torch
+    from fv3net_torch.dycore.state import init_state
+    from fv3net_torch.grid.geometry import make_grid
+    from fv3net_torch.runtime.fused import aquaplanet_sst
+
+    grid = make_grid(npx)
+    state, _, _ = init_state(grid, NPZ, dtype=torch.float32, device=device,
+                             perturbation=2.0)
+    lat = torch.tensor(grid.lat, dtype=torch.float32, device=device)
+    cosz = torch.tensor(np.cos(grid.lat) * np.cos(grid.lon),
+                        dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    shape = state.delp.shape
+    qc = 1e-4 * torch.rand(shape, generator=gen, device=device) * (
+        torch.rand(shape, generator=gen, device=device) > 0.8)
+    state.tracers["cloud_water"] = qc
+    sst = aquaplanet_sst(lat)
+    args = radiation_inputs(state, sst, cosz, lat)
+    return driver_inputs(args, lat), cosz
+
+
+def memory_call(label, driver, inputs, cosz):
+    """One driver call from a reset peak: (outputs, seconds, peak bytes)."""
+    import datetime
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = driver(datetime.datetime(2016, 7, 1), inputs, cosz=cosz)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for key, x in out.items():
+        check(torch.isfinite(x).all().item(), f"{label}: non-finite {key}")
+    log(f"  {label}: {dt * 1e3:.1f} ms, peak memory {peak / 2**30:.2f} GiB "
+        f"({(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} "
+        "GiB held before the call)")
+    return out, dt, peak
+
+
+def phase_rrtmg_options(device, state6, sst, cosz):
+    """The reference's accelerator radiation settings and the other RRTMG
+    options: the flagship chunk with bf16 storage and daylight compression
+    in turns with the default chunk; K4 and K3 in bfloat16 against their
+    plain versions on every call of one bf16 radiation call on phase 6's
+    state; that call against float32 storage; compression on against off;
+    the lookup tables against the direct exponentials; a C96 call blocked
+    against unblocked and a C192 call blocked, with their peak memory.
+    Returns the two bf16 kernel lines and the readings."""
+    import datetime
+
+    import torch
+    from fv3net_torch.grid.geometry import make_grid
+    from fv3net_torch.physics import PhysicsConfig
+    from fv3net_torch.physics.radiation.rrtmg import params as P
+    from fv3net_torch.runtime import fused
+
+    readings = {}
+    paths = {"default": options_path(device, "rrtmg-f32", None),
+             "bf16": options_path(device, "rrtmg-bf16", BF16_OPTIONS)}
+    for name in OPTIONS_SCHEDULE:
+        paths[name].chunk()
+    for name, path in paths.items():
+        ms = path.summary()
+        readings[name] = {"ms": ms,
+                          "sypd": (CHUNK * DT / (ms / 1e3)) / 365.0,
+                          "instances": path.instance_totals}
+        log(f"  {path.label}: launches by instance in {path.chunks} chunks "
+            f"{path.instance_totals}")
+        prof = profile_chunk(path.label, lambda p=path: p.step(p.state,
+                                                               *p.args))
+        readings[name]["profile"] = prof
+        log(f"  {path.label} profiled chunk: device busy "
+            f"{prof['device_ms']:.1f} ms of {prof['wall_ms']:.1f} ms wall "
+            f"({100 * (1 - prof['device_ms'] / prof['wall_ms']):.1f}% idle);"
+            f" radiation range {prof['ranges'].get('radiation', 0.0):.1f} ms")
+    bf16_launches = {
+        k: paths["bf16"].instance_totals[f"{k}_bf16"]
+        for k in ("weighted_select_dot", "spec_band_dot")}
+    del paths
+
+    # one bf16 radiation call on phase 6's state: every K4/K3 call against
+    # its plain bf16 version, bit for bit
+    lat = torch.tensor(make_grid(NPX).lat, dtype=torch.float32,
+                       device=device)
+    rad_bf16 = fused._build_radiation_fn(
+        PhysicsConfig(radiation_scheme="rrtmg"), device, torch.float32,
+        rrtmg_options=BF16_OPTIONS)
+    args = radiation_inputs(state6, sst, cosz, lat)
+    reset_counts()
+    with Recorder() as rec:
+        rad_bf16(*args)
+    torch.cuda.synchronize()
+    inst = read_instance_counts()
+    check(inst == instance_counts(
+        {"bf16": SELECT_BF16_PER_CALL, "f32": SOLAR_SOURCE_LERPS},
+        {"bf16": SPEC_BF16_PER_CALL}),
+        f"one bf16 radiation call: launches by instance {inst}")
+    lines = phase_ktable_bf16(rec)
+
+    # the bf16 call against the float32 call; compression; lookup tables
+    inputs = driver_inputs(args, lat)
+    when = datetime.datetime(2016, 7, 1)
+    f32 = rrtmg_drivers(device)
+    base = f32(when, inputs, cosz=cosz)
+    dmin_mb = args[1].min().item() / 100.0
+    checks = (
+        ("bf16 storage against float32 storage",
+         dict(storage_dtype="bfloat16"), True,
+         lambda key: BF16_FLUX_W_M2 if "_flux_" in key
+         else BF16_HEATING_K_DAY),
+        ("compression on against off", dict(compress_daylight=True), False,
+         lambda key: COMPRESS_FLUX_W_M2 if "_flux_" in key else
+         86400.0 * 2 * COMPRESS_FLUX_W_M2 * P.HEATFAC / dmin_mb),
+    )
+    for label, options, rms, limit in checks:
+        other = rrtmg_drivers(device, **options)(when, inputs, cosz=cosz)
+        d = output_diffs(other, base, rms=rms)
+        d_max = output_diffs(other, base)
+        readings[label] = {"gated": d, "max": d_max}
+        worst = {k: v for k, v in d.items() if not v <= limit(k)}
+        for key, v in d.items():
+            what = "rms" if rms else "max"
+            log(f"  {label}: {key} {what} {v:.3e} (bound {limit(key):.3e})"
+                + (f", max {d_max[key]:.3e}" if rms else ""))
+        check(not worst, f"{label}: beyond the bound {worst}")
+    tables = rrtmg_drivers(device, fast_exp=False)(when, inputs, cosz=cosz)
+    bad = []
+    for key in sorted(base):
+        if "_flux_" not in key:
+            continue
+        rtol, atol = LUT_TOL["longwave" if "longwave" in key
+                             else "shortwave"]
+        err = (tables[key].double() - base[key].double()).abs()
+        excess = (err - (atol + rtol * base[key].double().abs())).max()
+        log(f"  lookup tables against direct exponentials: {key} "
+            f"{err.max().item():.3e} W/m2 (rtol {rtol}, atol {atol})")
+        if excess.item() > 0:
+            bad.append(key)
+    check(not bad, f"lookup tables beyond the reference's quantization "
+          f"bounds: {bad}")
+    # the reference's options together, on the first SMALL_COLUMNS columns
+    # in blocks of 8 (a ragged last block), against the same call
+    # unblocked
+    def first(x):  # the first SMALL_COLUMNS of the [6, 48, 48] columns
+        return x.flatten(0, 2)[:SMALL_COLUMNS]
+
+    few = {k: first(v) for k, v in inputs.items()}
+    options = dict(fast_exp=False, storage_dtype="bfloat16")
+    d = output_diffs(
+        rrtmg_drivers(device, column_block=8, **options)(
+            when, few, cosz=first(cosz)),
+        rrtmg_drivers(device, **options)(when, few, cosz=first(cosz)))
+    bad = {k: v for k, v in d.items()
+           if not v <= (BLOCK_FLUX_W_M2 if "_flux_" in k
+                        else 86400.0 * BLOCK_HEATING_K_S)}
+    log(f"  RRTMGConfig(fast_exp=False, column_block=8, storage_dtype="
+        f"'bfloat16') on {SMALL_COLUMNS} columns against unblocked: max "
+        f"{max(d.values()):.3e}")
+    check(not bad, f"the options together, blocked against unblocked: {bad}")
+    del base, tables, rec, rad_bf16, f32
+
+    # column blocking at C96 and C192, from the memory the earlier phases
+    # released
+    gc.collect()
+    torch.cuda.empty_cache()
+    c96, c192 = BLOCKED_CUBES
+    inputs96, cosz96 = columns_inputs(device, c96)
+    whole, t_whole, m_whole = memory_call(
+        f"C{c96} call unblocked ({6 * c96 * c96} columns)",
+        rrtmg_drivers(device), inputs96, cosz96)
+    blocked, t_blk, m_blk = memory_call(
+        f"C{c96} call in {COLUMN_BLOCK}-column blocks",
+        rrtmg_drivers(device, column_block=COLUMN_BLOCK), inputs96, cosz96)
+    d = output_diffs(blocked, whole)
+    bad = {k: v for k, v in d.items()
+           if not v <= (BLOCK_FLUX_W_M2 if "_flux_" in k
+                        else 86400.0 * BLOCK_HEATING_K_S)}
+    log(f"  C{c96} blocked against unblocked: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in d.items()))
+    check(not bad, f"C{c96} blocked against unblocked: {bad}")
+    readings["C96"] = {"unblocked_s": t_whole, "unblocked_peak": m_whole,
+                       "blocked_s": t_blk, "blocked_peak": m_blk,
+                       "max_diff": d}
+    del whole, blocked, inputs96, cosz96
+    inputs192, cosz192 = columns_inputs(device, c192)
+    out192, t192, m192 = memory_call(
+        f"C{c192} call in {COLUMN_BLOCK}-column blocks "
+        f"({6 * c192 * c192} columns)",
+        rrtmg_drivers(device, column_block=COLUMN_BLOCK), inputs192,
+        cosz192)
+    readings["C192"] = {"blocked_s": t192, "blocked_peak": m192}
+    del out192, inputs192, cosz192
+    torch.cuda.empty_cache()
+    return lines, bf16_launches, readings
+
+
+def phase_ktable_bf16(rec, reps=20):
+    """K4's and K3's bfloat16 instances against their plain versions on
+    every recorded bf16 call of one radiation call, bit for bit; all of
+    them timed together (the path), and the largest call of each timed
+    against its plain version and ``embedding_bag`` on the same bf16
+    inputs.  Returns the two kernel lines."""
+    import torch
+    from fv3net_torch.ops import ktable_cuda
+
+    lines = {}
+    for name, calls, plain, cost, kernel, tab_of, pick in (
+            ("weighted_select_dot", rec.select, _select_plain, _select_cost,
+             ktable_cuda.weighted_select_dot_cuda, lambda a: a[1],
+             lambda a: tuple(a[1].shape) == (70, 54)),
+            ("spec_band_dot", rec.spec, _spec_plain, _spec_cost,
+             ktable_cuda.spec_band_dot_cuda, lambda a: a[2],
+             lambda a: tuple(a[2].shape) == (70, 9 * 16))):
+        mine = [(a, out) for a, out in calls
+                if tab_of(a).dtype == torch.bfloat16]
+        check(mine, f"{name}: no bfloat16 call recorded")
+        path_bound, worst = 0.0, 0.0
+        for i, (a, out) in enumerate(mine):
+            want = plain(*a)
+            check(out.dtype == want.dtype, f"{name} bf16 call {i}: dtype "
+                  f"{out.dtype}, plain {want.dtype}")
+            err, scale = max_diff(out.float(), want.float(),
+                                  f"{name} bf16 call {i}")
+            finite = torch.isfinite(want)
+            check(torch.equal(torch.where(finite, out, 0),
+                              torch.where(finite, want, 0)),
+                  f"{name} bf16 call {i} (tab {tuple(tab_of(a).shape)}): "
+                  f"kernel and plain differ, max {err} (scale {scale})")
+            worst = max(worst, err)
+            moved, flops = cost(*a, out) if len(a) == 2 else cost(a, out)
+            path_bound += bound(moved, flops, "float32")[0]
+
+        def run_path(mine=mine, kernel=kernel):
+            for a, _ in mine:
+                kernel(*a)
+
+        path_ms = device_ms({"path": run_path}, 4, warmup=1)["path"]
+        a = next(a for a, _ in mine if pick(a))
+        lib = (_embedding_bag_select(*a) if len(a) == 2
+               else _embedding_bag_spec(*a))
+        got = kernel(*a)
+        lib_err = max_diff(lib().float(), got.float(),
+                           f"embedding_bag bf16 {name}")[0]
+        ms = device_ms({"plain": lambda: plain(*a),
+                        "kernel": lambda: kernel(*a), "library": lib}, reps)
+        moved, flops = cost(*a, got) if len(a) == 2 else cost(a, got)
+        bound_ms, by = bound(moved, flops, "float32")
+        log(f"  {name} bfloat16: {len(mine)} calls of one bf16 radiation "
+            f"call equal to plain bit for bit; all of them {path_ms:.4f} ms "
+            f"of device time against a bound of {path_bound:.4f} ms; on "
+            f"{tuple(tab_of(a).shape)}: kernel {ms['kernel']:.4f} ms, plain "
+            f"{ms['plain']:.4f} ms, embedding_bag {ms['library']:.4f} ms "
+            f"(max|diff| {lib_err:.3e}); {moved} bytes moved (2 B a bfloat16"
+            f" value), {flops} flops, bound {bound_ms:.4f} ms ({by}, "
+            f"{100 * bound_ms / ms['kernel']:.1f}% of it)")
+        lines[name] = {"max_abs_err": worst, "ms": ms["kernel"],
+                       "plain_ms": ms["plain"], "bound_ms": bound_ms,
+                       "bound_by": by, "library_ms": ms["library"],
+                       "path_ms": path_ms, "path_bound_ms": path_bound}
+    return lines
+
+
+# ---------------------------------------------------------------- phase 17
+# JW06 at C48 through the dycore options: the reference's DycoreConfig()
+# (advection order 2), order 1, and PPM with kord 7 (ppm_profile into K1)
+DYCORE_OPTIONS = {"DycoreConfig()": {}, "order 1": {"advection_order": 1},
+                  "order 4, kord 7": {"advection_order": 4, "kord": 7}}
+DYCORE_STEPS = 8
+DYCORE_F64_RTOL = 1e-10  # one float64 step, kernels against plain
+
+
+def phase_dycore_options(device, reps=10):
+    """The JW06 baroclinic wave (dycore/testcases.py) at C48 through 8
+    steps of each of DYCORE_OPTIONS (finite, air-mass drift, exact K1
+    launches, ms), one float64 step of each with the kernels against the
+    plain versions, and K1 against plain on ppm_profile's profiles at
+    kord 4-7 and on the iv=-2 profile with a surface value.  Returns the
+    ms per 8 steps by option."""
+    import torch
+    from fv3net_torch.dycore import testcases
+    from fv3net_torch.dycore.core import (
+        DycoreConfig,
+        GridArrays,
+        dynamics_step,
+    )
+    from fv3net_torch.grid.geometry import make_grid
+    from fv3net_torch.ops import remap as rm
+    from fv3net_torch.ops import remap_cuda
+
+    grid = make_grid(NPX)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        g = GridArrays.from_grid(grid, dtype=dtype, device=device)
+        state0, ak, bk = testcases.baroclinic_wave_state(
+            grid, NPZ, dtype=dtype, device=device)
+        ak = torch.tensor(ak, dtype=dtype, device=device)
+        bk = torch.tensor(bk, dtype=dtype, device=device)
+        area = torch.tensor(grid.area, device=device)
+        for label, kw in DYCORE_OPTIONS.items():
+            cfg = DycoreConfig(**kw)
+            if dtype == torch.float64:
+                got = dynamics_step(state0, g, ak, bk, cfg)
+                want = dynamics_step(state0, g, ak, bk, cfg, impl="torch")
+                torch.cuda.synchronize()
+                bad = _diffs(got, want, f"JW06 {label} float64 step",
+                             DYCORE_F64_RTOL)
+                check(not bad, f"JW06 {label}: kernels against plain {bad}")
+                continue
+            state = state0
+            m0 = air_mass(state, area)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DYCORE_STEPS):
+                state = dynamics_step(state, g, ak, bk, cfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            check(counts == launches(
+                remap_apply=DYCORE_STEPS * REMAPS_PER_STEP),
+                f"JW06 {label}: launches {counts}")
+            for name, x in fields(state).items():
+                check(torch.isfinite(x).all().item(),
+                      f"JW06 {label}: non-finite {name}")
+            drift = abs(air_mass(state, area) - m0) / m0
+            check(drift <= 1e-5, f"JW06 {label}: air-mass drift {drift}")
+            wind = state.wind.abs().max().item()
+            log(f"  JW06 {label}: {DYCORE_STEPS} steps in {ms:.1f} ms "
+                f"(the first call in), air-mass drift {drift:.3e}, max "
+                f"|wind| {wind:.2f} m/s, launches {counts}")
+            out[label] = {"ms": ms, "drift": drift}
+
+    # K1 on the kord <= 7 profiles and the iv=-2 one
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        search, q = remap_inputs(device, dtype, 3)[:2]
+        rtol = F32_RTOL if dtype == torch.float32 else F64_RTOL
+        cases = [(f"ppm_profile kord {k}", rm.ppm_profile(
+            q, search["dp1"], 1, k)) for k in (4, 5, 6, 7)]
+        w = q - q.mean()
+        qs = w[..., -1] * 0.5
+        cases.append(("cs_profile iv=-2 with qs", (w,) + rm.cs_profile(
+            w, search["dp1"], -2, 9, qs=qs)))
+        for label, prof in cases:
+            field = prof[0] if len(prof) == 4 else q
+            al, ar, a6 = prof[-3:]
+            a = (search, field.contiguous(), al.contiguous(),
+                 ar.contiguous(), a6.contiguous())
+            before = remap_cuda.LAUNCHES
+            got = remap_cuda.remap_apply_cuda(*a)
+            torch.cuda.synchronize()
+            check(remap_cuda.LAUNCHES == before + 1, f"K1 {label}: no launch")
+            want = rm.remap_apply_plain(*a)
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            log(f"  K1 on {label} ({name}): max|kernel-plain| {err:.3e} "
+                f"(scale {scale:.3e}, rtol {rtol})")
+            check(err <= rtol * scale, f"K1 on {label} {name}: {err} > "
+                  f"{rtol} * {scale}")
+    return out
+
+
 def main():
     import argparse
 
@@ -2752,6 +3379,10 @@ def main():
     rec, k2_args, tables64 = phase_radiation(
         device, states, sst, cosz, sw_columns=opts.sw_columns, smi=smi)
 
+    log("phase 6 (continued): K4/K3 of that radiation call against plain "
+        "within their summation roundoff")
+    phase_radiation_summation(rec)
+
     log("phase 7: k-table kernels K4 and K3 against their plain versions")
     ktable_lines = phase_ktable(rec)
     del rec, states
@@ -2783,10 +3414,25 @@ def main():
         "production configuration")
     phase_segmented_run(device)
 
+    log("phase 16: the RRTMG options (bf16 storage with K4/K3 in bfloat16, "
+        "daylight compression, lookup tables, column blocking)")
+    t16 = time.perf_counter()
+    bf16_lines, bf16_launches, _ = phase_rrtmg_options(device, state, sst,
+                                                       cosz)
+    log(f"  phase 16 in {time.perf_counter() - t16:.1f} s")
+
+    log("phase 17: the dycore options on the JW06 baroclinic wave (C48)")
+    t17 = time.perf_counter()
+    phase_dycore_options(device)
+    log(f"  phase 17 in {time.perf_counter() - t17:.1f} s")
+
     # each kernel's launches come from the run of the path it lies on
     counts = dict(counts, taumol_lw=counts_mega["taumol_lw"],
                   weighted_block_average=counts_pipeline[
-                      "weighted_block_average"])
+                      "weighted_block_average"],
+                  weighted_select_dot_bf16=bf16_launches[
+                      "weighted_select_dot"],
+                  spec_band_dot_bf16=bf16_launches["spec_band_dot"])
     common = {
         "remap_apply": {"source": "fv3net_torch/csrc/remap_apply.cu",
                         "replaces": "fv3net_tpu/ops/pallas_remap.py:58",
@@ -2808,6 +3454,16 @@ def main():
             "source": "fv3net_torch/csrc/wavg.cu",
             "replaces": "fv3net_tpu/ops/pallas_kernels.py:25",
             **wavg_line},
+        # the bfloat16 instances, their launches from phase 16's bf16
+        # chunks
+        "weighted_select_dot_bf16": {
+            "source": "fv3net_torch/csrc/ktable.cu",
+            "replaces": "fv3net_tpu/ops/pallas_ktable.py:35",
+            **bf16_lines["weighted_select_dot"]},
+        "spec_band_dot_bf16": {
+            "source": "fv3net_torch/csrc/ktable.cu",
+            "replaces": "fv3net_tpu/ops/pallas_ktable.py:97",
+            **bf16_lines["spec_band_dot"]},
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": v["source"],

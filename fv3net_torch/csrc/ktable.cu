@@ -74,8 +74,11 @@
 // the table in shared memory 0.090-0.108 ms (2-3 blocks an SM), two
 // outputs through the cache 0.082-0.083 ms (6 blocks an SM).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 // The K4 terms as the wrapper packs them (ops/ktable_cuda.py::SelectTerms),
 // passed by value.
@@ -89,15 +92,52 @@ struct SelectTerms {
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+template <typename T>
+constexpr bool kIsBf16 = std::is_same<T, bf16>::value;
+
+// the type a product and a sum are taken in: float for bfloat16 storage
+template <typename T>
+struct Acc {
+  using type = T;
+};
+template <>
+struct Acc<bf16> {
+  using type = float;
+};
+__device__ __forceinline__ float to_acc(float x) { return x; }
+__device__ __forceinline__ double to_acc(double x) { return x; }
+__device__ __forceinline__ float to_acc(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void put(float* o, float a) { *o = a; }
+__device__ __forceinline__ void put(double* o, double a) { *o = a; }
+__device__ __forceinline__ void put(bf16* o, float a) {
+  *o = __float2bfloat16_rn(a);
+}
+// x rounded to bfloat16 and back
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// K3's output type: float32 for bfloat16 tables
+template <typename T>
+struct SpecOut {
+  using type = T;
+};
+template <>
+struct SpecOut<bf16> {
+  using type = float;
+};
+
 constexpr int kSelectThreads = 256;
 constexpr int kSelectTileValues = 8192;  // outputs per tile, about
 constexpr int kSelectSmem = 48 * 1024;   // bytes of (row, weight) per tile
 
-// a term's clamped row offset r * G and its weight, at one point
+// a term's clamped row offset r * G and its weight, at one point (a
+// bfloat16 weight held as the float it is)
 template <typename T>
 struct SelectPair {
   int row;
-  T w;
+  typename Acc<T>::type w;
 };
 
 template <typename T>
@@ -105,6 +145,7 @@ __global__ void __launch_bounds__(kSelectThreads) weighted_select_kernel(
     const SelectTerms terms, const T* __restrict__ tab, T* __restrict__ out,
     long long N, int R, int G, int P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  using A = typename Acc<T>::type;
   const int K = terms.n_terms;
   SelectPair<T>* s_pair = reinterpret_cast<SelectPair<T>*>(smem_raw);
   const long long n0 = (long long)blockIdx.x * P;
@@ -118,7 +159,7 @@ __global__ void __launch_bounds__(kSelectThreads) weighted_select_kernel(
     for (int i = threadIdx.x; i < np; i += blockDim.x) {
       long long r = wide ? __ldg(id64 + i) : (long long)__ldg(id32 + i);
       r = r < 0 ? 0 : (r >= R ? R - 1 : r);
-      s_pair[k * P + i] = {(int)r * G, wk ? __ldg(wk + n0 + i) : T(1)};
+      s_pair[k * P + i] = {(int)r * G, wk ? to_acc(__ldg(wk + n0 + i)) : A(1)};
     }
   }
   __syncthreads();
@@ -130,12 +171,12 @@ __global__ void __launch_bounds__(kSelectThreads) weighted_select_kernel(
   const int dn = blockDim.x / G, dg = blockDim.x - dn * G;
   int n = threadIdx.x / G, g = threadIdx.x - n * G;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    T acc = T(0);
+    A acc = A(0);
     for (int k = 0; k < K; ++k) {
       const SelectPair<T> pr = s_pair[k * P + n];
-      acc += pr.w * __ldg(tab + pr.row + g);
+      acc += pr.w * to_acc(__ldg(tab + pr.row + g));
     }
-    o[e] = acc;
+    put(o + e, acc);
     n += dn;
     g += dg;
     if (g >= G) {
@@ -168,6 +209,10 @@ template <>
 struct Vec<double, 2> {
   using type = double2;
 };
+template <>
+struct Vec<bf16, 2> {
+  using type = __nv_bfloat162;
+};
 __device__ __forceinline__ float lane(float x, int) { return x; }
 __device__ __forceinline__ double lane(double x, int) { return x; }
 __device__ __forceinline__ float lane(float2 x, int j) {
@@ -175,6 +220,12 @@ __device__ __forceinline__ float lane(float2 x, int j) {
 }
 __device__ __forceinline__ double lane(double2 x, int j) {
   return j ? x.y : x.x;
+}
+__device__ __forceinline__ float lane(bf16 x, int) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float lane(__nv_bfloat162 x, int j) {
+  return j ? __high2float(x) : __low2float(x);
 }
 __device__ __forceinline__ void set(float* o, const float* a) { *o = a[0]; }
 __device__ __forceinline__ void set(double* o, const double* a) {
@@ -186,6 +237,12 @@ __device__ __forceinline__ void set(float2* o, const float* a) {
 __device__ __forceinline__ void set(double2* o, const double* a) {
   *o = make_double2(a[0], a[1]);
 }
+__device__ __forceinline__ void set(bf16* o, const float* a) {
+  *o = __float2bfloat16_rn(a[0]);
+}
+__device__ __forceinline__ void set(__nv_bfloat162* o, const float* a) {
+  *o = __floats2bfloat162_rn(a[0], a[1]);
+}
 
 constexpr int kSpecThreads = 256;
 constexpr int kSpecTileValues = 4096;  // outputs per tile, about
@@ -194,10 +251,12 @@ constexpr int kSpecMaxBase = 4;        // base pairs per path (kw)
 
 template <typename T, int kVec>
 __global__ void __launch_bounds__(kSpecThreads) spec_band_kernel(
-    const SelectTerms terms, const T* __restrict__ tab, T* __restrict__ out,
+    const SelectTerms terms, const T* __restrict__ tab,
+    typename SpecOut<T>::type* __restrict__ out,
     long long N, int n_paths, int kw, int st, int nbase, int nspa, int ng,
     int P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  using A = typename Acc<T>::type;
   const int K = terms.n_terms;  // n_paths * (kw + st)
   const int n_base = n_paths * kw;
   const int row_len = nspa * ng;
@@ -219,7 +278,8 @@ __global__ void __launch_bounds__(kSpecThreads) spec_band_kernel(
       for (int i = threadIdx.x; i < np; i += blockDim.x) {
         long long r = wide ? __ldg(id64 + i) : (long long)__ldg(id32 + i);
         r = r < 0 ? 0 : (r > hi ? hi : r);
-        s_pair[k * P + i] = {(int)r * step, wk ? __ldg(wk + n0 + i) : T(1)};
+        s_pair[k * P + i] = {(int)r * step,
+                             wk ? to_acc(__ldg(wk + n0 + i)) : A(1)};
       }
     }
     __syncthreads();
@@ -227,19 +287,20 @@ __global__ void __launch_bounds__(kSpecThreads) spec_band_kernel(
     // a thread takes kVec neighbouring outputs of a point (ng is a
     // multiple of kVec), its table reads kVec wide
     using V = typename Vec<T, kVec>::type;
-    V* o = reinterpret_cast<V*>(out + n0 * ng);
+    using VO = typename Vec<typename SpecOut<T>::type, kVec>::type;
+    VO* o = reinterpret_cast<VO*>(out + n0 * ng);
     const int nv = ng / kVec;  // a point's vectors
     const int total = np * nv;
     const int dn = blockDim.x / nv, dh = blockDim.x - dn * nv;
     int n = threadIdx.x / nv, h = threadIdx.x - n * nv;
     for (int e = threadIdx.x; e < total; e += blockDim.x) {
       const int g = kVec * h;
-      T acc[kVec];
+      A acc[kVec];
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) acc[j] = T(0);
+      for (int j = 0; j < kVec; ++j) acc[j] = A(0);
       for (int p = 0; p < n_paths; ++p) {
         int row[kSpecMaxBase];
-        T ww[kSpecMaxBase];
+        A ww[kSpecMaxBase];
 #pragma unroll
         for (int k = 0; k < kSpecMaxBase; ++k) {
           if (k < kw) {
@@ -251,9 +312,9 @@ __global__ void __launch_bounds__(kSpecThreads) spec_band_kernel(
         for (int s = 0; s < st; ++s) {
           const SelectPair<T> ps = s_pair[(n_base + p * st + s) * P + n];
           const T* ts = tab + ps.row;
-          T a[kVec];
+          A a[kVec];
 #pragma unroll
-          for (int j = 0; j < kVec; ++j) a[j] = T(0);
+          for (int j = 0; j < kVec; ++j) a[j] = A(0);
 #pragma unroll
           for (int k = 0; k < kSpecMaxBase; ++k) {
             if (k < kw) {
@@ -265,7 +326,12 @@ __global__ void __launch_bounds__(kSpecThreads) spec_band_kernel(
             }
           }
 #pragma unroll
-          for (int j = 0; j < kVec; ++j) acc[j] = mad(ps.w, a[j], acc[j]);
+          for (int j = 0; j < kVec; ++j) {
+            if constexpr (kIsBf16<T>)
+              acc[j] = __fadd_rn(acc[j], round_bf16(ps.w * round_bf16(a[j])));
+            else
+              acc[j] = mad(ps.w, a[j], acc[j]);
+          }
         }
       }
       set(o + e, acc);
@@ -358,8 +424,8 @@ int launch_spec(SelectTerms terms, const void* tab, void* out, long long N,
                                (size_t)tab % (2 * sizeof(T)) == 0);
   kernel<<<blocks, kSpecThreads, plan.smem,
            static_cast<cudaStream_t>(stream)>>>(
-      terms, (const T*)tab, (T*)out, N, n_paths, kw, st, nbase, nspa, ng,
-      plan.P);
+      terms, (const T*)tab, (typename SpecOut<T>::type*)out, N, n_paths, kw,
+      st, nbase, nspa, ng, plan.P);
   return (int)cudaGetLastError();
 }
 
@@ -375,6 +441,12 @@ extern "C" int fv3_ktable_select_f64(SelectTerms terms, const void* tab,
                                      void* out, long long N, int R, int G,
                                      void* stream) {
   return launch_select<double>(terms, tab, out, N, R, G, stream);
+}
+
+extern "C" int fv3_ktable_select_bf16(SelectTerms terms, const void* tab,
+                                      void* out, long long N, int R, int G,
+                                      void* stream) {
+  return launch_select<bf16>(terms, tab, out, N, R, G, stream);
 }
 
 extern "C" int fv3_ktable_spec_f32(SelectTerms terms, const void* tab,
@@ -393,14 +465,24 @@ extern "C" int fv3_ktable_spec_f64(SelectTerms terms, const void* tab,
                              nspa, ng, stream);
 }
 
-// K3's plan for a call of K terms with ng outputs a point: points per
-// tile, the shared bytes of a block and the blocks a SM holds
+extern "C" int fv3_ktable_spec_bf16(SelectTerms terms, const void* tab,
+                                    void* out, long long N, int n_paths,
+                                    int kw, int st, int nbase, int nspa,
+                                    int ng, void* stream) {
+  return launch_spec<bf16>(terms, tab, out, N, n_paths, kw, st, nbase, nspa,
+                           ng, stream);
+}
+
+// K3's plan for a call of K terms with ng outputs a point in the dtype
+// `dtype` names (0 float32, 1 float64, 2 bfloat16): points per tile, the
+// shared bytes of a block and the blocks a SM holds
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-extern "C" int fv3_ktable_spec_plan(int f64, int K, int ng, int* P,
+extern "C" int fv3_ktable_spec_plan(int dtype, int K, int ng, int* P,
                                     long long* smem, int* per_sm) {
   SpecPlan plan;
-  const int err = f64 ? plan_spec<double>(K, ng, &plan)
-                      : plan_spec<float>(K, ng, &plan);
+  const int err = dtype == 1   ? plan_spec<double>(K, ng, &plan)
+                  : dtype == 2 ? plan_spec<bf16>(K, ng, &plan)
+                               : plan_spec<float>(K, ng, &plan);
   if (err != 0) return err;
   *P = plan.P;
   *smem = (long long)plan.smem;

@@ -8,8 +8,9 @@ components, the Simmons-Burridge hydrostatic pressure-gradient force,
 del-2 and divergence damping, and a PPM remap back to the hybrid
 coordinate every dynamics interval.
 
-Ported: the hydrostatic core with ``advection_order=4`` (the flagship's).
-Nonhydrostatic runs and advection orders 1 and 2 raise
+Ported: the hydrostatic core at every advection order of the reference:
+1 (first-order upwind), 2 (monotone van Leer / minmod MUSCL face values)
+and 4 (PPM, the flagship's).  Nonhydrostatic runs raise
 ``NotImplementedError``.  The substep loop is a Python loop.
 """
 from __future__ import annotations
@@ -147,8 +148,9 @@ class DycoreConfig:
     # remap total energy (cp Tv + phi + K) instead of theta_v and recover
     # Tv hydrostatically (FV3's te_map)
     remap_te: bool = False
-    # 4 = PPM with CW84 monotonization and Courant-integrated face fluxes
-    # (the only order ported); 1 and 2 raise NotImplementedError
+    # 1 = first-order upwind, 2 = monotone 2nd-order (van Leer / minmod
+    # MUSCL), 4 = PPM with CW84 monotonization and Courant-integrated
+    # face fluxes
     advection_order: int = 2
     hydrostatic: bool = True
     tau_rayleigh: float = 0.0  # days; 0 disables the Rayleigh sponge
@@ -166,11 +168,9 @@ def _check_supported(cfg: DycoreConfig, state: DycoreState = None):
             "the nonhydrostatic core (dycore/nonhydro.py) is not ported to "
             "fv3net_torch yet"
         )
-    if cfg.advection_order != 4:
-        raise NotImplementedError(
-            f"advection_order={cfg.advection_order} is not ported to "
-            "fv3net_torch yet; the flagship uses 4 (PPM)"
-        )
+    if cfg.advection_order not in (1, 2, 4):
+        raise ValueError(f"advection_order must be 1, 2 or 4, got "
+                         f"{cfg.advection_order}")
 
 
 def _edge_normal_wind(wind_ext, g: GridArrays):
@@ -228,6 +228,37 @@ def _project_tangent(wind, khat):
     """Remove the radial component: wind [3, 6, nz, n, n]."""
     radial = (wind * khat[:, :, None]).sum(dim=0)
     return wind - radial[None] * khat[:, :, None]
+
+
+def _upwind(vn, left, right):
+    return torch.where(vn > 0, left, right)
+
+
+def _minmod(a, b):
+    return torch.where(a * b > 0.0,
+                       torch.where(torch.abs(a) < torch.abs(b), a, b), 0.0)
+
+
+def _face_values_2nd(q_ext2, vn_y, vn_x):
+    """Monotone 2nd-order (van Leer / minmod MUSCL) upwind face values
+    from an h=2 extended array [6, nz, n+4, n+4]."""
+    # y-edges (faces between (j, i-1) and (j, i)), i_edge = 0..n
+    qm = q_ext2[..., 2:-2, 0:-3]
+    ql = q_ext2[..., 2:-2, 1:-2]
+    qr = q_ext2[..., 2:-2, 2:-1]
+    qp = q_ext2[..., 2:-2, 3:]
+    slope_l = _minmod(ql - qm, qr - ql)
+    slope_r = _minmod(qr - ql, qp - qr)
+    qy = torch.where(vn_y > 0, ql + 0.5 * slope_l, qr - 0.5 * slope_r)
+    # x-edges
+    qm = q_ext2[..., 0:-3, 2:-2]
+    ql = q_ext2[..., 1:-2, 2:-2]
+    qr = q_ext2[..., 2:-1, 2:-2]
+    qp = q_ext2[..., 3:, 2:-2]
+    slope_l = _minmod(ql - qm, qr - ql)
+    slope_r = _minmod(qr - ql, qp - qr)
+    qx = torch.where(vn_x > 0, ql + 0.5 * slope_l, qr - 0.5 * slope_r)
+    return qy, qx
 
 
 def _cross(a, b):
@@ -311,7 +342,8 @@ def _level_coef(nz, base, k1, k2, like):
 def _substep(state: DycoreState, g: GridArrays, cfg: DycoreConfig,
              dt: float):
     delp, pt, wind, tracers = state.delp, state.pt, state.wind, state.tracers
-    h = 3  # PPM stencil depth
+    order = cfg.advection_order
+    h = {1: 1, 2: 2, 4: 3}[order]  # the face stencil's depth
 
     # ---- one batched halo exchange for every transported field ---------
     names = list(tracers)
@@ -328,13 +360,22 @@ def _substep(state: DycoreState, g: GridArrays, cfg: DycoreConfig,
                      h - 1: wind_e.shape[-1] - (h - 1)]
 
     vn_y, vn_x = _edge_normal_wind(wind_e1, g)
-    cy = vn_y * dt / g.dist_y[:, None]
-    cx = vn_x * dt / g.dist_x[:, None]
+    if order == 4:
+        cy = vn_y * dt / g.dist_y[:, None]
+        cx = vn_x * dt / g.dist_x[:, None]
+
+    def faces(q_ext):
+        if order == 4:
+            return _face_values_ppm(q_ext, cy, cx)
+        if order == 2:
+            return _face_values_2nd(q_ext, vn_y, vn_x)
+        return (_upwind(vn_y, q_ext[..., 1:-1, :-1], q_ext[..., 1:-1, 1:]),
+                _upwind(vn_x, q_ext[..., :-1, 1:-1], q_ext[..., 1:, 1:-1]))
 
     # ---- mass fluxes ----------------------------------------------------
     ly = g.edge_len_y[:, None]
     lx = g.edge_len_x[:, None]
-    dply, dplx = _face_values_ppm(delp_e, cy, cx)
+    dply, dplx = faces(delp_e)
     fy_m = vn_y * ly * dply
     fx_m = vn_x * lx * dplx
     div_m = _divergence(fy_m, fx_m, g.area[:, None])
@@ -342,7 +383,7 @@ def _substep(state: DycoreState, g: GridArrays, cfg: DycoreConfig,
 
     # ---- consistent scalar transport -----------------------------------
     def transport(q_ext, q_c):
-        qy, qx = _face_values_ppm(q_ext, cy, cx)
+        qy, qx = faces(q_ext)
         div_q = _divergence(fy_m * qy, fx_m * qx, g.area[:, None])
         return (q_c * delp - dt * div_q) / delp_new
 

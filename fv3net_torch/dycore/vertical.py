@@ -59,8 +59,8 @@ def remap_column_fields(
     """
     if search is None:
         if window is None or pe2.shape[-1] != pe1.shape[-1]:
-            # the one-shot remap_ppm path: raises NotImplementedError
-            return _remap.remap_ppm(pe1, pt, pe2, kord=kord)
+            return _remap_one_shot(pe1, pe2, pt, wind_xyz, tracers, kord,
+                                   window, impl)
         search = _remap.banded_search(pe1, pe2, window)
     pt2 = (
         None if pt is None
@@ -74,6 +74,25 @@ def remap_column_fields(
         search, torch.stack([tracers[n] for n in names]), iv=0, kord=kord,
         impl=impl,
     )
+    wind2 = tuple(wind2_stack[c] for c in range(len(wind_xyz)))
+    tracers2 = {n: tr2_stack[i] for i, n in enumerate(names)}
+    return pt2, wind2, tracers2
+
+
+def _remap_one_shot(pe1, pe2, pt, wind_xyz, tracers, kord, window, impl):
+    """:func:`remap_column_fields` through the one-shot
+    :func:`~fv3net_torch.ops.remap.remap_ppm` (a target grid of another
+    size, or no window), as the reference remaps without a search."""
+    pt2 = (None if pt is None else
+           _remap.remap_ppm(pe1, pt, pe2, iv=2, kord=kord, window=window,
+                            impl=impl))
+    wind2_stack = _remap.remap_ppm(pe1[None], torch.stack(tuple(wind_xyz)),
+                                   pe2[None], iv=-1, kord=kord,
+                                   window=window, impl=impl)
+    names = list(tracers)
+    tr2_stack = _remap.remap_ppm(
+        pe1[None], torch.stack([tracers[n] for n in names]), pe2[None],
+        iv=0, kord=kord, window=window, impl=impl)
     wind2 = tuple(wind2_stack[c] for c in range(len(wind_xyz)))
     tracers2 = {n: tr2_stack[i] for i, n in enumerate(names)}
     return pt2, wind2, tracers2

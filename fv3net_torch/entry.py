@@ -77,7 +77,8 @@ def flagship_dense_model(npz: int, dtype=torch.float32, device=None,
 def flagship(npx: int = 48, npz: int = 32, radiation: str = "rrtmg",
              chunk: int = 8, radiation_interval: int = 4,
              dtype=torch.float32, device="cuda", seed: int = 0,
-             impl: str = None, lw_taumol: str = "ktable"):
+             impl: str = None, lw_taumol: str = "ktable",
+             rrtmg_options: dict = None):
     """The flagship hybrid configuration: PPM dynamics, GFS-style column
     physics with RRTMG LW+SW (or ``radiation="gray"``) every
     ``radiation_interval`` steps, and the in-step dense ML correction.
@@ -87,7 +88,10 @@ def flagship(npx: int = 48, npz: int = 32, radiation: str = "rrtmg",
     the kernels' versions, the vertical remap and the k-table selections
     (None: the CUDA kernels on a CUDA device).  RRTMG computes in
     ``dtype``; ``lw_taumol`` routes its LW gas optics: "ktable" through
-    the k-table selections, "mega" through the one-launch kernel.
+    the k-table selections, "mega" through the one-launch kernel;
+    ``rrtmg_options`` sets fields of its ``RRTMGConfig`` (for example
+    the reference's accelerator settings, ``storage_dtype="bfloat16"``
+    and ``compress_daylight=True``).
     """
     grid = make_grid(npx)
     g = GridArrays.from_grid(grid, dtype=dtype, device=device)
@@ -104,11 +108,12 @@ def flagship(npx: int = 48, npz: int = 32, radiation: str = "rrtmg",
         step = build_fused_multi_step(
             g, akt, bkt, FLAGSHIP_DYCORE, phys_cfg, ml_apply,
             n_steps=chunk, radiation_interval=radiation_interval, impl=impl,
-            lw_taumol=lw_taumol,
+            lw_taumol=lw_taumol, rrtmg_options=rrtmg_options,
         )
     else:
         step = build_fused_step(g, akt, bkt, FLAGSHIP_DYCORE, phys_cfg,
-                                ml_apply, impl=impl, lw_taumol=lw_taumol)
+                                ml_apply, impl=impl, lw_taumol=lw_taumol,
+                                rrtmg_options=rrtmg_options)
     sst = aquaplanet_sst(g.lat)
     cosz = torch.tensor(np.cos(grid.lat) * np.cos(grid.lon), dtype=dtype,
                         device=device)

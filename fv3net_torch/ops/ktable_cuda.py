@@ -6,6 +6,12 @@ K4 (:func:`weighted_select_dot_cuda`) replaces the TPU kernel
 their plain PyTorch versions are in :mod:`fv3net_torch.ops.ktable`, whose
 dispatchers call these wrappers on CUDA tensors.
 
+Each has float32, float64 and bfloat16 instances; the bfloat16 ones (the
+RRTMG bf16 storage mode) take bfloat16 tables and weights and sum in
+float32: K4 rounds its output to bfloat16 once, K3 rounds where the
+reference stores (each interpolated row and stencil product) and returns
+float32 (see :func:`fv3net_torch.ops.ktable.spec_band_dot_plain`).
+
 Both take their (ids, weight) terms as the caller holds them: up to
 ``MAX_TERMS`` pairs, ids int32 or int64, a weight of the table's dtype or
 None (weight 1), packed by :func:`pack_terms` into a :class:`SelectTerms`
@@ -18,8 +24,10 @@ first use (nothing is built when this module is imported).  There is no
 fallback: a missing compiler, a failed build or a failed launch raises.
 
 ``SELECT_LAUNCHES`` and ``SPEC_LAUNCHES`` count the K4 and K3 launches of
-this process; a run resets them to 0 and reads them to show that its
-k-table selections went through the kernels.  With ``CHECK_RANGES`` set,
+this process, and ``SELECT_BY_DTYPE`` / ``SPEC_BY_DTYPE`` the same
+launches by instance ("f32", "f64", "bf16"); a run resets them to 0 and
+reads them to show that its k-table selections went through the
+kernels.  With ``CHECK_RANGES`` set,
 the wrappers also check (with a device synchronisation) that every id, as
 the caller passed it, is inside its table; the kernels clamp ids either
 way.  The LW gas optics pass some ids outside on purpose and leave them to
@@ -43,11 +51,16 @@ SOURCE = "ktable.cu"
 MAX_TERMS = 16  # the (ids, weight) pairs one K4 or K3 call takes
 MAX_BASE = 4  # K3's base pairs per path
 
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.bfloat16: "bf16"}
 SELECT_LAUNCHES = 0
 SPEC_LAUNCHES = 0
+SELECT_BY_DTYPE = dict.fromkeys(_SUFFIX.values(), 0)
+SPEC_BY_DTYPE = dict.fromkeys(_SUFFIX.values(), 0)
 CHECK_RANGES = False
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# the dtype codes of fv3_ktable_spec_plan
+_PLAN_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
 def build() -> cuda_build.BuildInfo:
@@ -86,8 +99,8 @@ def _library() -> ctypes.CDLL:
 
 def _check_table(kernel: str, tab: torch.Tensor):
     if tab.dtype not in _SUFFIX:
-        raise TypeError(f"{kernel} kernel takes float32 or float64 tables, "
-                        f"got {tab.dtype}")
+        raise TypeError(f"{kernel} kernel takes float32, float64 or "
+                        f"bfloat16 tables, got {tab.dtype}")
     if tab.ndim != 2:
         raise ValueError(f"{kernel} kernel: tab must be 2-D, got shape "
                          f"{tuple(tab.shape)}")
@@ -165,8 +178,8 @@ def weighted_select_dot_cuda(terms, tab: torch.Tensor) -> torch.Tensor:
     """K4: ``out[...] = sum_k w_k[...] * tab[ids_k[...]]``.
 
     terms: (ids, w) pairs as :func:`pack_terms` takes them; tab [R, G]
-    float32 or float64, contiguous, on a CUDA device.  Returns
-    [*lead, G]."""
+    float32, float64 or bfloat16, contiguous, on a CUDA device.  Returns
+    [*lead, G] in the table's dtype."""
     global SELECT_LAUNCHES
     kernel = "weighted_select_dot"
     _check_table(kernel, tab)
@@ -184,6 +197,7 @@ def weighted_select_dot_cuda(terms, tab: torch.Tensor) -> torch.Tensor:
         err = fn(struct, tab.data_ptr(), out.data_ptr(), N, R, G, stream)
     _raise_on(kernel, err)
     SELECT_LAUNCHES += 1
+    SELECT_BY_DTYPE[_SUFFIX[tab.dtype]] += 1
     return out
 
 
@@ -218,8 +232,9 @@ def spec_band_dot_cuda(w_paths, s_paths, tab: torch.Tensor,
 
     w_paths: per path its (base row, weight) pairs; s_paths: per path its
     (stencil position, weight) pairs, as :func:`pack_spec_terms` takes
-    them; tab [nbase, nspa*ng] float32 or float64, contiguous, on a CUDA
-    device.  Returns [*lead, ng]."""
+    them; tab [nbase, nspa*ng] float32, float64 or bfloat16, contiguous,
+    on a CUDA device.  Returns [*lead, ng] in the table's dtype (float32
+    for a bfloat16 table)."""
     global SPEC_LAUNCHES
     kernel = "spec_band_dot"
     _check_table(kernel, tab)
@@ -236,7 +251,8 @@ def spec_band_dot_cuda(w_paths, s_paths, tab: torch.Tensor,
     for p, path in enumerate(s_paths):
         for k, (ids, _) in enumerate(path):
             _check_range(kernel, f"stencil ids {k} of path {p}", ids, nspa)
-    out = torch.empty(lead + (ng,), dtype=tab.dtype, device=tab.device)
+    out_dtype = torch.float32 if tab.dtype == torch.bfloat16 else tab.dtype
+    out = torch.empty(lead + (ng,), dtype=out_dtype, device=tab.device)
     N = math.prod(lead)
     if N == 0:
         return out
@@ -247,6 +263,7 @@ def spec_band_dot_cuda(w_paths, s_paths, tab: torch.Tensor,
                  nbase, nspa, ng, stream)
     _raise_on(kernel, err)
     SPEC_LAUNCHES += 1
+    SPEC_BY_DTYPE[_SUFFIX[tab.dtype]] += 1
     return out
 
 
@@ -254,10 +271,11 @@ def spec_plan(dtype: torch.dtype, n_terms: int, ng: int) -> dict:
     """How K3 launches on the current card for a call of ``n_terms`` terms
     and ``ng`` outputs a point in ``dtype``: points per tile, a block's
     shared bytes and the blocks an SM holds
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  A bfloat16 call
+    keeps its weights in shared memory as float32, as the float32 one."""
     P, per_sm, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
     err = _library().fv3_ktable_spec_plan(
-        int(dtype == torch.float64), n_terms, ng, ctypes.byref(P),
+        _PLAN_CODE[dtype], n_terms, ng, ctypes.byref(P),
         ctypes.byref(smem), ctypes.byref(per_sm))
     _raise_on("spec_band_dot", err)
     return {"points_per_tile": P.value, "smem_bytes": smem.value,

@@ -1,10 +1,12 @@
 """Cubed-sphere halo exchange on one device (port of
 ``fv3net_tpu/parallel/halo.py``).
 
-Two forms:
+Three forms:
 
 - :func:`halo_append_numpy`: host-side float64-exact append over static
   gather tables, used to build geometry tables;
+- :func:`halo_append_gather`: the same gather tables on tensors (the
+  reference's gather-table form);
 - :func:`halo_append`: the static-slice form (``halo_append_concat`` in
   the reference) on tensors.  Every neighbour block is a slice, flip or
   transpose of the neighbour tile, assembled with ``torch.cat``.
@@ -14,7 +16,7 @@ south/north rows across the full extended width (twice), so the 8 cube
 corners receive third-tile data.  Vector fields are exchanged
 componentwise with no rotation: winds are 3-D Cartesian.
 
-The gather-table and multi-device forms are not ported yet.
+The multi-device forms are not ported yet.
 """
 from __future__ import annotations
 
@@ -170,6 +172,41 @@ def halo_append_numpy(field: np.ndarray, h: int) -> np.ndarray:
     return ext.reshape(
         (NUM_TILES,) + tuple(lead_shape) + (n + 2 * h, n + 2 * h)
     )
+
+
+def halo_append_gather(field: torch.Tensor, h: int,
+                       tables: HaloTables = None) -> torch.Tensor:
+    """Halo append over the gather tables on tensors (the reference's
+    gather-table form; :func:`halo_append` is the static-slice one).
+    field [6, ..., n, n] -> [6, ..., n+2h, n+2h]."""
+    n = field.shape[-1]
+    if field.shape[-2] != n:
+        raise ValueError(f"expected square tiles, got {tuple(field.shape)}")
+    if tables is None:
+        tables = _cached_tables(n, h)
+    dev = field.device
+    lead_shape = tuple(field.shape[1:-2])
+    B = int(np.prod(lead_shape)) if lead_shape else 1
+    f = field.reshape(NUM_TILES, B, n, n)
+
+    def ix(a):
+        return torch.as_tensor(a, dtype=torch.long, device=dev)
+
+    b = torch.arange(B, device=dev)[None, :, None, None]
+    # phase A: west/east halo blocks [6, B, n, 2h]
+    we = f[ix(tables.we_tile)[:, None], b, ix(tables.we_j)[:, None],
+           ix(tables.we_i)[:, None]]
+    ext = field.new_zeros((NUM_TILES, B, n + 2 * h, n + 2 * h))
+    ext[:, :, h: h + n, h: h + n] = f
+    ext[:, :, h: h + n, ix(tables.we_dst_i)] = we
+    # phase B, twice: south/north rows over the extended width; corner
+    # cells whose source is a neighbour's own halo fill on the second pass
+    sn_tile, sn_j, sn_i = (ix(tables.sn_tile)[:, None], ix(tables.sn_j)[:, None],
+                           ix(tables.sn_i)[:, None])
+    dst = ix(tables.sn_dst_j)
+    for _ in range(2):
+        ext[:, :, dst, :] = ext[sn_tile, b, sn_j, sn_i]
+    return ext.reshape((NUM_TILES,) + lead_shape + (n + 2 * h, n + 2 * h))
 
 
 def _oriented_block(src, ne: int, rev: bool, h: int, west_or_south: bool,

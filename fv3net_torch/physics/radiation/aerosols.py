@@ -156,7 +156,7 @@ def component_mixing(land_frac, lat, month: float = 6.5) -> torch.Tensor:
 
 def _rh_weights(rh) -> Tuple[torch.Tensor, torch.Tensor]:
     """The RH class below each value and the linear weight of the class
-    above it: (idx [...] long, frac [...])."""
+    above it: (idx [...] long, frac [...]), in the input precision."""
     levs = torch.as_tensor(RHLEV, dtype=rh.dtype, device=rh.device)
     rhc = rh.clamp(0.0, float(RHLEV[-1]))
     idx = torch.searchsorted(levs, rhc.contiguous(), right=True) - 1
@@ -169,19 +169,31 @@ def _rh_weights(rh) -> Tuple[torch.Tensor, torch.Tensor]:
 def setaer(plyr_hpa, delz_km, rh, land_frac, lat,
            tables: Dict[str, np.ndarray], nbands_sw: int,
            clim: AerosolClimatology = AerosolClimatology(),
-           month: float = 6.5):
+           month: float = 6.5, storage=None):
     """Aerosol optical properties for every layer and band.
 
     Args ([C, L] surface-first like the RRTMG drivers, land_frac/lat
     [C]): layer pressure (hPa), geometric thickness (km), relative
     humidity (0-1).  Returns (aer_sw [C, L, nbands_sw, 3], aer_lw
     [C, L, nb_lw, 3], aerodp [C, len(SPECIES)+1]): the (tau, ssa, asy)
-    triples and the per-species column AOD diagnostic."""
+    triples and the per-species column AOD diagnostic.
+
+    ``storage`` bfloat16 (the RRTMG bf16 storage mode): the tables, the
+    mixing ratios, the RH weights and every [C, L, nb] plane are held
+    and combined in bfloat16, as the reference does, so (tau, ssa, asy)
+    come back in bfloat16; the column AOD sums are taken in float32."""
     dtype, dev = plyr_hpa.dtype, plyr_hpa.device
+    st = storage or dtype
+    acc = torch.float32 if st == torch.bfloat16 else st
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
-                               device=dev)
+                               device=dev).to(st)
+
+    def k(x):
+        """A constant of the formulas: in the stored dtype when there is
+        one (the reference rounds its Python constants to it)."""
+        return x if st == dtype else torch.tensor(x, dtype=st, device=dev)
 
     z_agl = zscan.cumsum(delz_km, axis=-1) - 0.5 * delz_km  # [C, L] km
     in_mix = z_agl <= clim.mixing_layer_km
@@ -191,16 +203,23 @@ def setaer(plyr_hpa, delz_km, rh, land_frac, lat,
     in_freetrop = (~in_mix) & (~in_transport) & (~in_strat)
     in_strat = in_strat & (~in_upper)
 
-    m_mix = component_mixing(land_frac, lat, month).to(dtype)  # [C, 6]
+    m_mix = component_mixing(land_frac, lat, month).to(st)  # [C, 6]
     idx, frac = _rh_weights(rh)
+    # the lerp weights as the reference's weight matrix holds them
+    w1 = frac.to(st)[..., None, None]
+    w0 = 1.0 - w1
 
     extrhi, scarhi = t(tables["extrhi"]), t(tables["scarhi"])
     ssarhi, asyrhi = t(tables["ssarhi"]), t(tables["asyrhi"])
 
     def rh_interp(name):  # [NRH, 3, nb] -> [C, L, 3, nb]
         tab = t(tables[name])
-        f = frac[..., None, None]
-        return tab[idx] * (1.0 - f) + tab[idx + 1] * f
+        if st == dtype:
+            f = frac[..., None, None]
+            return tab[idx] * (1.0 - f) + tab[idx + 1] * f
+        # the stored lerp: one rounding of the float32 sum
+        return (tab[idx].to(acc) * w0.to(acc)
+                + tab[idx + 1].to(acc) * w1.to(acc)).to(st)
 
     ext_d = rh_interp("extrhd")
     sca_d = rh_interp("scarhd")
@@ -222,14 +241,14 @@ def setaer(plyr_hpa, delz_km, rh, land_frac, lat,
     ext1, sca1, ssa1n, asy1n = aggregate(m1)
 
     # domain 3: the reference's fixed WMO free-troposphere mix
-    c3 = (0.17e-3, 0.4, 0.59983)  # inso, soot, waso
+    c3 = tuple(map(k, (0.17e-3, 0.4, 0.59983)))  # inso, soot, waso
     ext3 = c3[0] * extrhi[0] + c3[1] * extrhi[1] + c3[2] * ext_d[..., 0, :]
     sca3 = c3[0] * scarhi[0] + c3[1] * scarhi[1] + c3[2] * sca_d[..., 0, :]
     ssa3n = (c3[0] * ssarhi[0] * extrhi[0] + c3[1] * ssarhi[1] * extrhi[1]
              + c3[2] * (ssa_d * ext_d)[..., 0, :])
     asy3n = (c3[0] * asyrhi[0] * scarhi[0] + c3[1] * asyrhi[1] * scarhi[1]
              + c3[2] * (asy_d * sca_d)[..., 0, :])
-    denn_ft = 0.0078  # calibrated: free-troposphere AOD ~ 0.01-0.02
+    denn_ft = k(0.0078)  # calibrated: free-troposphere AOD ~ 0.01-0.02
 
     # domain 2: mineral transport (pure minm component)
     ext2 = extrhi[2][None, None]
@@ -238,10 +257,11 @@ def setaer(plyr_hpa, delz_km, rh, land_frac, lat,
     asy2n = (asyrhi[2] * scarhi[2])[None, None]
     m_minm = m_mix[:, None, 2:3]
 
-    dz = delz_km[..., None].to(dtype)
-    tau1 = torch.where(in_mix[..., None], ext1 * clim.denn_mixing * dz, 0.0)
+    dz = delz_km[..., None].to(st)
+    denn_mix, denn_tr = k(clim.denn_mixing), k(clim.denn_transport)
+    tau1 = torch.where(in_mix[..., None], ext1 * denn_mix * dz, 0.0)
     tau2 = torch.where(in_transport[..., None],
-                       ext2 * m_minm * clim.denn_transport * dz, 0.0)
+                       ext2 * m_minm * denn_tr * dz, 0.0)
     tau3 = torch.where(in_freetrop[..., None], ext3 * denn_ft * dz, 0.0)
     extstra = t(tables["extstra"])
     tau4 = torch.where(in_strat[..., None], extstra[None, None] * dz, 0.0)
@@ -251,9 +271,9 @@ def setaer(plyr_hpa, delz_km, rh, land_frac, lat,
         return (n / d.clamp(min=1e-30)).clamp(0.0, 1.0)
 
     nb = tau.shape[-1]
-    is_sw = (torch.arange(nb, device=dev) < nbands_sw).to(dtype)[None, None]
-    ssa_dom4 = 0.99 * is_sw + 0.5 * (1.0 - is_sw)
-    asy_dom4 = 0.696 * is_sw + 0.3 * (1.0 - is_sw)
+    is_sw = (torch.arange(nb, device=dev) < nbands_sw).to(st)[None, None]
+    ssa_dom4 = k(0.99) * is_sw + k(0.5) * (1.0 - is_sw)
+    asy_dom4 = k(0.696) * is_sw + k(0.3) * (1.0 - is_sw)
 
     def sel(field1, field2, field3, field4):
         out = torch.where(in_mix[..., None], field1, field4)
@@ -275,10 +295,10 @@ def setaer(plyr_hpa, delz_km, rh, land_frac, lat,
         [extrhi[:, b550].expand(rh.shape + (N_RHI,)), ext_d[..., b550]],
         dim=-1,
     )
-    m3c = t([c3[0], c3[1], 0.0, c3[2], 0.0, 0.0])
-    coeff = (m1 * clim.denn_mixing * in_mix[..., None]
+    m3c = t([0.17e-3, 0.4, 0.0, 0.59983, 0.0, 0.0])
+    coeff = (m1 * denn_mix * in_mix[..., None]
              + m3c * denn_ft * in_freetrop[..., None])
-    col = (coeff * exts550 * dz).sum(dim=1)  # [C, 6]
+    col = (coeff * exts550 * dz).sum(dim=1, dtype=acc)  # [C, 6]
     spc = []
     for s in range(len(SPECIES)):
         tot = torch.zeros_like(col[..., 0])
@@ -287,8 +307,8 @@ def setaer(plyr_hpa, delz_km, rh, land_frac, lat,
                 tot = tot + col[..., ci]
         spc.append(tot)
     # mineral transport counts as dust; stratosphere as sulfate
-    spc[0] = spc[0] + tau2[..., b550].sum(dim=1)
-    spc[3] = spc[3] + tau4[..., b550].sum(dim=1)
-    total = tau[..., b550].sum(dim=1)
+    spc[0] = spc[0] + tau2[..., b550].sum(dim=1, dtype=acc)
+    spc[3] = spc[3] + tau4[..., b550].sum(dim=1, dtype=acc)
+    total = tau[..., b550].sum(dim=1, dtype=acc)
     aerodp = torch.stack(spc + [total], dim=-1)
     return aer_sw, aer_lw, aerodp

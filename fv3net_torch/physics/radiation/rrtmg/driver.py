@@ -6,6 +6,16 @@ fluxes and heating rates.  K-tables default to the documented-shape
 synthetic set made from a seed (:mod:`.tables`); pass ``lw_tables`` /
 ``sw_tables`` dicts (reference netCDF layout) to run with real data.
 
+Options (:class:`RRTMGConfig`, every field of the reference's with its
+meaning): ``storage_dtype`` (the bf16 storage mode of the big planes,
+K4 and K3 in bfloat16), ``fast_exp`` (False: the lookup-table
+transmittances), ``column_block`` (LW and SW over blocks of columns, so
+that a C96+ call fits the card) and, the port's own switch,
+``compress_daylight`` (SW on the daylit columns only).  The port's
+defaults are float32 storage, no blocking and no compression; the
+reference picks bfloat16 storage, daylight compression and 16384-column
+blocks by backend on its accelerator.
+
 McICA draws: :meth:`RRTMGDriver.draw_mcica` gives the uniforms of one
 call.  By default it draws them with a ``torch.Generator`` on the
 driver's device, seeded from ``(mcica_seed, fold)`` where ``fold`` is
@@ -65,13 +75,55 @@ class RRTMGConfig:
     mcica_seed: int = 42
     solcon: float = 1368.22
     # direct exponentials in the transfer (the reference package's
-    # production default); False (the lookup tables) is not ported
+    # production default); False takes the reference's quantized lookup
+    # tables (LW transmittances and tau transitions, SW exp(-tau))
     fast_exp: bool = True
-    # column blocking is not ported: None or 0 runs every column at once
+    # the reference's MXU precision tier of the selection contractions,
+    # validated as the reference validates it ("default", "high",
+    # "highest"); no effect here: the hand kernels compute at full
+    # precision, the reference's "highest"
+    matmul_precision: str = "high"
+    # the reference's solver-scan unroll (None or an int); validated, no
+    # effect here (a knob of the TPU's scans)
+    scan_unroll: Optional[int] = None
+    # storage dtype of the big [C, L, G]-class planes: None or "float32"
+    # (the port's default), "bfloat16", or "auto" (bfloat16 on a CUDA
+    # device, float32 on the CPU: the reference's auto); aliases as the
+    # reference's ("f32", "none", "bf16", "").  Per driver; a float64
+    # driver is never degraded.  Under bfloat16 the k-table selections
+    # run K4 and K3 in bfloat16, tautot/fracs/taug/taur, the SW partial
+    # reflectances and the aerosol optics are stored in bfloat16, the
+    # rest is float32
+    storage_dtype: Optional[str] = None
+    # column blocking: None or 0 runs every column at once; > 0 runs LW
+    # and SW over blocks of that many columns (the last one ragged), so
+    # that the [C, L, G] planes scale with the block.  The reference's
+    # divisor choice for None (_column_block_default) is not reproduced
     column_block: Optional[int] = None
     # lower bound on layer pressures (mb) that bounds the upper-
     # atmosphere base rows (lw.nbase_hi_for); None = the model top
     min_pressure_mb: Optional[float] = None
+    # SW on the daylit columns only (swrad's compress_daylight), packed
+    # within each column block: False (default), True, or None for the
+    # reference's auto (on for a CUDA device, off on the CPU)
+    compress_daylight: Optional[bool] = False
+
+
+_MATMUL_PRECISIONS = ("default", "high", "highest")
+
+
+def _check_config(config: RRTMGConfig):
+    """The reference's validation of the fields the port takes without
+    effect, and the block size."""
+    if config.matmul_precision not in _MATMUL_PRECISIONS:
+        raise ValueError(
+            f"matmul_precision must be one of {sorted(_MATMUL_PRECISIONS)}, "
+            f"got {config.matmul_precision!r}")
+    if config.scan_unroll is not None:
+        int(config.scan_unroll)
+    if config.column_block is not None and config.column_block < 0:
+        raise ValueError(f"column_block must be None or >= 0, got "
+                         f"{config.column_block}")
 
 
 class RRTMGDriver:
@@ -82,7 +134,9 @@ class RRTMGDriver:
     ``impl`` picks the k-table selections' version (None: the CUDA
     kernels on a CUDA device, the plain versions on the CPU);
     ``lw_taumol`` the route of the LW gas optics ("ktable": the k-table
-    selections, "mega": the one-launch kernel K2, see ``lw.lwrad``)."""
+    selections, "mega": the one-launch kernel K2, see ``lw.lwrad``; not
+    under bfloat16 storage).  ``storage`` is the resolved
+    ``config.storage_dtype`` (None: the compute dtype)."""
 
     def __init__(self, config: RRTMGConfig = RRTMGConfig(),
                  lw_tables: Optional[Dict] = None,
@@ -92,21 +146,19 @@ class RRTMGDriver:
         if lw_taumol not in ("ktable", "mega"):
             raise ValueError(
                 f"lw_taumol must be 'ktable' or 'mega'; got {lw_taumol!r}")
-        if not config.fast_exp:
-            raise NotImplementedError(
-                "RRTMGConfig.fast_exp=False (the lookup-table "
-                "transmittances) is not ported to fv3net_torch yet"
-            )
-        if config.column_block:
-            raise NotImplementedError(
-                "RRTMGConfig.column_block > 0 (column blocking) is not "
-                "ported to fv3net_torch yet"
-            )
+        _check_config(config)
         self.config = config
         self.dtype = dtype
         # resolved ("cuda" -> "cuda:<current>") so that it compares equal
         # to the device of a tensor placed there
         self.device = torch.empty(0, device=device).device
+        self.storage = rlw.resolve_storage(config.storage_dtype, dtype,
+                                           self.device)
+        if lw_taumol == "mega" and self.storage is not None:
+            raise NotImplementedError(
+                "lw_taumol='mega' under bfloat16 storage: K2 has no "
+                "bfloat16 instance (ROADMAP Queue 2, 'K2 under bf16 "
+                "storage')")
         self.impl = impl
         self.lw_taumol = lw_taumol
         min_p = (config.min_pressure_mb if config.min_pressure_mb is not None
@@ -277,7 +329,7 @@ class RRTMGDriver:
             month = time.month + (time.day - 1) / 30.5
             aer_sw, aer_lw, aerodp = aer_mod.setaer(
                 plyr, delz_km, rh, land, lat, self.Taer, P.NBANDS_SW,
-                month=month,
+                month=month, storage=self.storage,
             )
         elif cfg.iaer:
             aer_lw = self._aerosols(plyr, delp, land, P.NBANDS_LW, True)
@@ -288,11 +340,26 @@ class RRTMGDriver:
             aer_sw = torch.zeros((ncol, nz, P.NBANDS_SW, 3), dtype=dt,
                                  device=dev)
 
-        lw_out = rlw.lwrad(
-            plyr, plvl, T, tlvl, q, o3, gasvmr, clouds, aer_lw, sfemis, tsfc,
-            delp, rand_lw, self.Tlw, iovrlw=cfg.iovr, fast_exp=cfg.fast_exp,
-            impl=self.impl, taumol=self.lw_taumol,
-        )
+        blk = cfg.column_block or 0
+
+        def blocked(fn, args):
+            """fn over blocks of ``blk`` columns (the last one ragged),
+            its outputs concatenated; one call when blocking is off."""
+            if not blk or blk >= ncol:
+                return fn(*args)
+            outs = [fn(*(a[i:i + blk] for a in args))
+                    for i in range(0, ncol, blk)]
+            return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+        def lw_call(*a):
+            return rlw.lwrad(
+                *a, self.Tlw, iovrlw=cfg.iovr, fast_exp=cfg.fast_exp,
+                impl=self.impl, taumol=self.lw_taumol, storage=self.storage,
+            )
+
+        lw_out = blocked(lw_call, (plyr, plvl, T, tlvl, q, o3, gasvmr,
+                                   clouds, aer_lw, sfemis, tsfc, delp,
+                                   rand_lw))
 
         # broadband dir/dif albedo -> (nir-bm, nir-df, vis-bm, vis-df)
         alb_dir_b, alb_dif_b = optics.surface_albedo(cosz, land,
@@ -315,11 +382,18 @@ class RRTMGDriver:
         if cfg.isol:
             # orbit-modulated solar constant (Spencer (a/r)^2)
             s0 = cfg.solcon * zenith.solar_distance_factor(days)
-        sw_out = rsw.swrad(
-            plyr, plvl, T, tlvl, q, o3, gasvmr, clouds, aer_sw, sfcalb,
-            delp, cosz, s0, rand_sw, self.Tsw, iovrsw=cfg.iovr,
-            fast_exp=cfg.fast_exp, impl=self.impl,
-        )
+        def sw_call(*a):
+            # daylight compression packs within each block
+            return rsw.swrad(
+                *a[:12], s0, a[12], self.Tsw, iovrsw=cfg.iovr,
+                fast_exp=cfg.fast_exp, impl=self.impl,
+                compress_daylight=cfg.compress_daylight,
+                storage=self.storage,
+            )
+
+        sw_out = blocked(sw_call, (plyr, plvl, T, tlvl, q, o3, gasvmr,
+                                   clouds, aer_sw, sfcalb, delp, cosz,
+                                   rand_sw))
 
         def resh(x, flip=False):
             if flip:

@@ -19,9 +19,17 @@ kernel instead (K2, :mod:`.taumol_cuda`), whose plain version is
 :func:`taumol_lw_plain`.
 
 The transfer evaluates each layer's transmittances and sources for all
-layers at once and runs the two recurrences as Python loops over L.
-Only the direct-exponential transmittances are ported (``fast_exp``);
-the reference's quantized lookup tables raise ``NotImplementedError``.
+layers at once and runs the two recurrences as Python loops over L, with
+direct exponentials (``fast_exp=True``) or the reference's quantized
+lookup tables (``fast_exp=False``, :func:`make_rt_tables`).
+
+``storage=torch.bfloat16`` is the reference's bf16 storage mode of a
+float32 call: the k-table selections read bfloat16 tables with bfloat16
+weights and round their outputs to bfloat16 (K4 and K3 in bfloat16), and
+the gas optics' [C, L, G] outputs (tautot, fracs) are stored in bfloat16;
+index math, interpolation weights, the transfer and the flux sums stay in
+float32.  :func:`resolve_storage` names the storage dtypes; a float64 call
+is never degraded.
 """
 from __future__ import annotations
 
@@ -82,6 +90,70 @@ def _flat_tab(tab: np.ndarray, nspa: int, nbase: int) -> np.ndarray:
     """[nbase, nspa*ng]: the K3 table layout of one band."""
     t = _reshape_base(tab, nspa, nbase)
     return t.reshape(nbase, nspa * t.shape[-1])
+
+
+# ------------------------------------------------------------------ storage
+# the reference's names of its storage dtypes (lw.py _STORAGE_NAMES);
+# "auto" resolves per device in resolve_storage
+STORAGE_NAMES = {
+    "auto": "auto", "": "auto",
+    "float32": None, "f32": None, "none": None,
+    "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+}
+
+
+def resolve_storage(name, dtype, device) -> Optional[torch.dtype]:
+    """The storage dtype of a call's big planes from ``name`` (a key of
+    :data:`STORAGE_NAMES`, None for float32, or a torch dtype): None to
+    store them in the compute ``dtype``, or ``torch.bfloat16``.  "auto"
+    is bfloat16 on a CUDA device and float32 on the CPU, as the
+    reference's auto is on an accelerator and on the CPU.  Only a float32
+    computation is stored in bfloat16: float64 is never degraded."""
+    st = name
+    if isinstance(name, str):
+        key = name.lower()
+        if key not in STORAGE_NAMES:
+            raise ValueError("storage_dtype must be auto, float32 or "
+                             f"bfloat16, got {name!r}")
+        st = STORAGE_NAMES[key]
+    if st == "auto":
+        st = (torch.bfloat16 if torch.device(device).type == "cuda"
+              else None)
+    if st in (None, torch.float32):
+        return None
+    if st != torch.bfloat16:
+        raise ValueError(f"storage_dtype must be auto, float32 or bfloat16, "
+                         f"got {name!r}")
+    return st if dtype == torch.float32 else None
+
+
+def _cast_tree(x, dtype):
+    if isinstance(x, dict):
+        return {k: _cast_tree(v, dtype) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_cast_tree(v, dtype) for v in x]
+    if torch.is_tensor(x) and x.is_floating_point():
+        return x.to(dtype)
+    return x
+
+
+def stored_tables(T: Dict, storage: Optional[torch.dtype]) -> Dict:
+    """The table dict the k-table selections of a call read: ``T`` itself,
+    or (``storage`` bfloat16) a copy of its float tensors in bfloat16,
+    made on the first call and kept in ``T`` (as ``taumol_cuda.pack_tables``
+    keeps its packing), the derived entries (keys from "_") left out."""
+    if storage is None:
+        return T
+    key = f"_stored_{storage}"
+    if key not in T:
+        T[key] = _cast_tree({k: v for k, v in T.items()
+                             if not k.startswith("_")}, storage)
+    return T[key]
+
+
+def _upcast(x: torch.Tensor) -> torch.Tensor:
+    """A bfloat16-stored tensor in float32 (others as they are)."""
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 # ------------------------------------------------------------------ tables
@@ -149,10 +221,17 @@ def prep_lw_tables(lwdict: Dict, dtype=torch.float64, device=None,
 
 
 # ------------------------------------------------------------------ helpers
+def _as_table(w, tab):
+    """A weight in the table's dtype (bfloat16 for a stored table)."""
+    return w if w is None or w.dtype == tab.dtype else w.to(tab.dtype)
+
+
 def _weighted_rows(tab, terms, impl=None):
     """``sum_k w_k * tab[clip(id_k)]``: one K4 selection (both versions
-    clamp the ids)."""
-    return ktable.weighted_select_dot(terms, tab, impl)
+    clamp the ids).  On a bfloat16 table the weights are rounded to
+    bfloat16 and the bfloat16 result is returned in float32."""
+    return _upcast(ktable.weighted_select_dot(
+        [(ids, _as_table(w, tab)) for ids, w in terms], tab, impl))
 
 
 def _take(tab, ids, impl=None):
@@ -191,9 +270,21 @@ def _self_for_all(c, selfref_all, forref_all, impl=None):
     return tauself, taufor
 
 
+def _lerp_taken(tab, index, fint, impl=None):
+    """``t0 + f * (t1 - t0)`` of the rows i and i+1, each fetched alone:
+    on a bfloat16 table the reference's form of these lerps (two stored
+    rows and their difference in bfloat16, the lerp in float32; two K4
+    calls), else :func:`_lerp_rows` (one)."""
+    if tab.dtype != torch.bfloat16:
+        return _lerp_rows(tab, index, fint, impl)
+    t0 = ktable.weighted_select_dot([(index, None)], tab, impl)
+    t1 = ktable.weighted_select_dot([(index + 1, None)], tab, impl)
+    return t0.float() + fint[..., None] * (t1 - t0).float()
+
+
 def _minor1(tab, c, impl=None):
     """1-D minor-gas temperature interpolation -> [C, L, ng]."""
-    return _lerp_rows(tab, c["indminor"] - 1, c["minorfrac"], impl)
+    return _lerp_taken(tab, c["indminor"] - 1, c["minorfrac"], impl)
 
 
 def _minor2(tab, jm, fm, c, impl=None):
@@ -216,7 +307,7 @@ def _minor2(tab, jm, fm, c, impl=None):
 
 def _frac2(fracT, jpl, fpl, impl=None):
     """Planck fractions interpolated over the species parameter."""
-    return _lerp_rows(fracT, jpl, fpl, impl)
+    return _lerp_taken(fracT, jpl, fpl, impl)
 
 
 def _base_pairs(base, fac_a, fac_b, nbase):
@@ -227,7 +318,7 @@ def _base_pairs(base, fac_a, fac_b, nbase):
 
 def _merged_single(tab, pairs, impl=None):
     """Single-key-species tables of a group of bands, [.., sum_ng]."""
-    return ktable.weighted_select_dot(pairs, tab, impl)
+    return _weighted_rows(tab, pairs, impl)
 
 
 def _stencil3_terms(specparm, fs, js):
@@ -266,7 +357,20 @@ def _stencil2_terms(fs, js, nspb):
 
 def _tau_spec(tab_flat, nspa, groups, impl=None):
     """sum_p scale_p * (species stencil of the base-row selection) of one
-    band: one K3 call.  groups: (base pairs, stencil pairs, scale)."""
+    band: one K3 call.  groups: (base pairs, stencil pairs, scale).
+
+    On a bfloat16 table (the bf16 storage mode) each path is its own K3
+    call with its weights in bfloat16 and its scale applied after, in
+    float32, as the reference scales its bfloat16-stored stencil sums."""
+    if tab_flat.dtype == torch.bfloat16:
+        out = None
+        for pbase, stencil, scale in groups:
+            t = scale[..., None] * ktable.spec_band_dot(
+                [[(r, _as_table(w, tab_flat)) for r, w in pbase]],
+                [[(pos, _as_table(w, tab_flat)) for pos, w in stencil]],
+                tab_flat, nspa, impl)
+            out = t if out is None else out + t
+        return out
     w_paths = [pbase for pbase, _, _ in groups]
     s_paths = [[(pos, scale * w) for pos, w in stencil]
                for _, stencil, scale in groups]
@@ -304,13 +408,14 @@ def _planck_interp(planck, t, impl=None):
     the 1-K lerp as one two-row selection."""
     ind = torch.trunc(t - 159.0).clamp(1.0, 180.0).long()
     tfr = t - torch.trunc(t)
-    return ktable.weighted_select_dot(
-        [(ind - 1, 1.0 - tfr), (ind, tfr)], planck, impl
-    )
+    if planck.dtype == torch.bfloat16:
+        # the reference's stored weights: 1 - f taken in bfloat16
+        tfr = tfr.to(planck.dtype)
+    return _weighted_rows(planck, [(ind - 1, 1.0 - tfr), (ind, tfr)], impl)
 
 
 def setcoef_lw(pavel, tavel, tz, stemp, h2ovmr, colamt, coldry, colbrd, T,
-               impl=None):
+               impl=None, storage=None):
     """Interpolation indices and factors (reference radlw_main.py:
     2268-2530).  Inputs [C, L] (tz [C, L+1], stemp [C]); returns a dict of
     [C, L] coefficients plus the Planck sources pklay/pklev
@@ -319,7 +424,8 @@ def setcoef_lw(pavel, tavel, tz, stemp, h2ovmr, colamt, coldry, colbrd, T,
     chi = T["chi_mls"]
     L = tavel.shape[1]
     t_all = torch.cat([stemp[:, None], tavel, tz], dim=1)
-    pk = _planck_interp(T["planck"], t_all, impl)  # [C, 2L+2, nbands]
+    pk = _planck_interp(stored_tables(T, storage)["planck"], t_all,
+                        impl)  # [C, 2L+2, nbands]
     pklay = pk[:, : L + 1].transpose(1, 2)
     pklev = pk[:, L + 1:].transpose(1, 2)
 
@@ -392,14 +498,19 @@ def setcoef_lw(pavel, tavel, tz, stemp, h2ovmr, colamt, coldry, colbrd, T,
 
 
 # ------------------------------------------------------------------ taumol
-def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
+def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None,
+              storage=None):
     """Gas optical depth + Planck fractions for all 140 g-points.
 
     c: setcoef_lw output (plus "pavel"); colamt [C,L,7], wx [C,L,4],
-    tauaer [C,L,nbands].  Returns (fracs, tautot), each [C, L, ngptlw].
-    12 K3 calls (9 lower, 3 upper species-interpolated bands)."""
+    tauaer [C,L,nbands].  Returns (fracs, tautot), each [C, L, ngptlw],
+    in ``storage`` (None: the compute dtype).  12 K3 calls (9 lower, 3
+    upper species-interpolated bands); with ``storage`` bfloat16 every
+    selection reads the bfloat16 tables (:func:`stored_tables`)."""
     chi = T["chi_mls"]
     B = T["bands"]
+    Ts = stored_tables(T, storage)
+    BS = Ts["bands"]
     tropo = c["tropo"][..., None]
     jp = c["jp"]  # 1-based
     taus = []
@@ -420,20 +531,20 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
     PBL1 = _base_pairs(base1, c["fac01"], c["fac11"], NBASE_LO)
     PBH0 = _base_pairs(baseU0, c["fac00"], c["fac10"], NBH)
     PBH1 = _base_pairs(baseU1, c["fac01"], c["fac11"], NBH)
-    A1_lo = _merged_single(T["mtab_lo1"], PBL0 + PBL1, impl)
-    A1_hi = _merged_single(T["mtab_hi1"], PBH0 + PBH1, impl)
+    A1_lo = _merged_single(Ts["mtab_lo1"], PBL0 + PBL1, impl)
+    A1_hi = _merged_single(Ts["mtab_hi1"], PBH0 + PBH1, impl)
     sl1 = g_offsets(_SINGLE_LO, P.NG_LW)
     sh1 = g_offsets(_SINGLE_HI, P.NG_LW)
 
     tauself_all, taufor_all = _self_for_all(
-        c, T["selfref_all"], T["forref_all"], impl
+        c, Ts["selfref_all"], Ts["forref_all"], impl
     )
 
     def self_for(b):
         sl = slice(P.NS_LW[b], P.NS_LW[b] + P.NG_LW[b])
         return tauself_all[..., sl], taufor_all[..., sl]
 
-    minor1_all = _minor1(T["minor1_all"], c, impl)
+    minor1_all = _minor1(Ts["minor1_all"], c, impl)
     m1_sl = {}
     off = 0
     for i, k in _MINOR1_KEYS:
@@ -451,22 +562,22 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
 
     def tau_spec_lo(i, sc, sp, fs, js, sc1, sp1, fs1, js1):
         return _tau_spec(
-            T["flat_lo"][i], 9,
+            Ts["flat_lo"][i], 9,
             [(PBL0, _stencil3_terms(sp, fs, js), sc),
              (PBL1, _stencil3_terms(sp1, fs1, js1), sc1)], impl,
         )
 
     def tau_spec_hi(i, scU, fsU, jsU, scU1, fsU1, jsU1):
         return _tau_spec(
-            T["flat_hi"][i], 5,
+            Ts["flat_hi"][i], 5,
             [(PBH0, _stencil2_terms(fsU, jsU, 5), scU),
              (PBH1, _stencil2_terms(fsU1, jsU1, 5), scU1)], impl,
         )
 
     # reference amounts at the jp and jp+1 rows (the reference indexes
     # chi_mls with the 1-based jp as a 0-based row)
-    chi_jp = _chirow(T["chi_rows"], jp, impl)
-    chi_jp1 = _chirow(T["chi_rows"], jp + 1, impl)
+    chi_jp = _chirow(Ts["chi_rows"], jp, impl)
+    chi_jp1 = _chirow(Ts["chi_rows"], jp + 1, impl)
     rfrate = c["rfrate"]
     pavel = c["pavel"]
     h2o, co2, o3 = colamt[..., 0], colamt[..., 1], colamt[..., 2]
@@ -498,6 +609,7 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
 
     # ---- band 3: h2o+co2, minor n2o (both) ---------------------------
     bt = B[2]
+    bs = BS[2]
     refrat_pl_a = chi[0, 8] / chi[1, 8]
     refrat_pl_b = chi[0, 12] / chi[1, 12]
     refrat_m_a = chi[0, 2] / chi[1, 2]
@@ -512,23 +624,24 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
         ratn2o > 1.5, (0.5 + (ratn2o - 0.5) ** 0.65) * ref_n2o, n2o
     )
     tauself, taufor = self_for(2)
-    absn2o = _minor2(bt["ka_mn2o"], jmn2o, fmn2o, c, impl)
+    absn2o = _minor2(bs["ka_mn2o"], jmn2o, fmn2o, c, impl)
     lower = (tau_spec_lo(2, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor + adjcoln2o[..., None] * absn2o)
-    fr_lo = _frac2(bt["fracrefa"], jpl_, fpl, impl)
+    fr_lo = _frac2(bs["fracrefa"], jpl_, fpl, impl)
     scU, _, jsU, fsU = _spec(h2o, co2, rfrate[..., 0, 0], 4.0)
     scU1, _, jsU1, fsU1 = _spec(h2o, co2, rfrate[..., 0, 1], 4.0)
     jmn2oU, fmn2oU = _jpl(h2o, co2, refrat_m_b, mult=4.0)
     jplU, fplU = _jpl(h2o, co2, refrat_pl_b, mult=4.0)
-    absn2oU = _minor2(bt["kb_mn2o"], jmn2oU, fmn2oU, c, impl)
+    absn2oU = _minor2(bs["kb_mn2o"], jmn2oU, fmn2oU, c, impl)
     upper = (tau_spec_hi(2, scU, fsU, jsU, scU1, fsU1, jsU1)
              + taufor + adjcoln2o[..., None] * absn2oU)
-    fr_hi = _frac2(bt["fracrefb"], jplU, fplU, impl)
+    fr_hi = _frac2(bs["fracrefb"], jplU, fplU, impl)
     taus.append(combine(lower, upper))
     fracs_all.append(combine(fr_lo, fr_hi))
 
     # ---- band 4: h2o+co2 lower / o3+co2 upper ------------------------
     bt = B[3]
+    bs = BS[3]
     refrat_pl_a = chi[0, 10] / chi[1, 10]
     refrat_pl_b = chi[2, 12] / chi[1, 12]
     sc, sp, js, fs = _spec(h2o, co2, rfrate[..., 0, 0])
@@ -537,18 +650,19 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
     tauself, taufor = self_for(3)
     lower = (tau_spec_lo(3, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor)
-    fr_lo = _frac2(bt["fracrefa"], jpl_, fpl, impl)
+    fr_lo = _frac2(bs["fracrefa"], jpl_, fpl, impl)
     scU, _, jsU, fsU = _spec(o3, co2, rfrate[..., 5, 0], 4.0)
     scU1, _, jsU1, fsU1 = _spec(o3, co2, rfrate[..., 5, 1], 4.0)
     jplU, fplU = _jpl(o3, co2, refrat_pl_b, mult=4.0)
     upper = tau_spec_hi(3, scU, fsU, jsU, scU1, fsU1, jsU1)
     upper = upper * bt["co2adj"]  # stratospheric co2 adjustment
-    fr_hi = _frac2(bt["fracrefb"], jplU, fplU, impl)
+    fr_hi = _frac2(bs["fracrefb"], jplU, fplU, impl)
     taus.append(combine(lower, upper))
     fracs_all.append(combine(fr_lo, fr_hi))
 
     # ---- band 5: h2o+co2 lower (minor o3, ccl4) / o3+co2 upper -------
     bt = B[4]
+    bs = BS[4]
     refrat_pl_a = chi[0, 4] / chi[1, 4]
     refrat_pl_b = chi[2, 42] / chi[1, 42]
     refrat_m_a = chi[0, 6] / chi[1, 6]
@@ -557,16 +671,16 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
     jmo3, fmo3 = _jpl(h2o, co2, refrat_m_a)
     jpl_, fpl = _jpl(h2o, co2, refrat_pl_a)
     tauself, taufor = self_for(4)
-    abso3 = _minor2(bt["ka_mo3"], jmo3, fmo3, c, impl)
+    abso3 = _minor2(bs["ka_mo3"], jmo3, fmo3, c, impl)
     ccl4 = wx[..., 0:1] * bt["ccl4"]
     lower = (tau_spec_lo(4, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor + abso3 * o3[..., None] + ccl4)
-    fr_lo = _frac2(bt["fracrefa"], jpl_, fpl, impl)
+    fr_lo = _frac2(bs["fracrefa"], jpl_, fpl, impl)
     scU, _, jsU, fsU = _spec(o3, co2, rfrate[..., 5, 0], 4.0)
     scU1, _, jsU1, fsU1 = _spec(o3, co2, rfrate[..., 5, 1], 4.0)
     jplU, fplU = _jpl(o3, co2, refrat_pl_b, mult=4.0)
     upper = tau_spec_hi(4, scU, fsU, jsU, scU1, fsU1, jsU1) + ccl4
-    fr_hi = _frac2(bt["fracrefb"], jplU, fplU, impl)
+    fr_hi = _frac2(bs["fracrefb"], jplU, fplU, impl)
     taus.append(combine(lower, upper))
     fracs_all.append(combine(fr_lo, fr_hi))
 
@@ -586,6 +700,7 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
 
     # ---- band 7: h2o+o3 lower (minor co2) / o3 upper (minor co2) -----
     bt = B[6]
+    bs = BS[6]
     refrat_pl_a = chi[0, 2] / chi[2, 2]
     refrat_m_a = chi[0, 2] / chi[2, 2]
     sc, sp, js, fs = _spec(h2o, o3, rfrate[..., 1, 0])
@@ -598,10 +713,10 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
         ratco2_lo > 3.0, (3.0 + (ratco2_lo - 3.0) ** 0.79) * ref_co2, co2
     )
     tauself, taufor = self_for(6)
-    absco2_lo = _minor2(bt["ka_mco2"], jmco2, fmco2, c, impl)
+    absco2_lo = _minor2(bs["ka_mco2"], jmco2, fmco2, c, impl)
     lower = (tau_spec_lo(6, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor + adjco2_lo[..., None] * absco2_lo)
-    fr_lo = _frac2(bt["fracrefa"], jpl_, fpl, impl)
+    fr_lo = _frac2(bs["fracrefa"], jpl_, fpl, impl)
     adjco2_hi = torch.where(
         ratco2_lo > 3.0, (2.0 + (ratco2_lo - 2.0) ** 0.79) * ref_co2, co2
     )
@@ -631,6 +746,7 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
 
     # ---- band 9: h2o+ch4 lower (minor n2o) / ch4 upper (minor n2o) ---
     bt = B[8]
+    bs = BS[8]
     refrat_pl_a = chi[0, 8] / chi[5, 8]
     refrat_m_a = chi[0, 2] / chi[5, 2]
     sc, sp, js, fs = _spec(h2o, ch4, rfrate[..., 3, 0])
@@ -638,10 +754,10 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
     jmn2o, fmn2o = _jpl(h2o, ch4, refrat_m_a)
     jpl_, fpl = _jpl(h2o, ch4, refrat_pl_a)
     tauself, taufor = self_for(8)
-    absn2o = _minor2(bt["ka_mn2o"], jmn2o, fmn2o, c, impl)
+    absn2o = _minor2(bs["ka_mn2o"], jmn2o, fmn2o, c, impl)
     lower = (tau_spec_lo(8, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor + adjcoln2o[..., None] * absn2o)
-    fr_lo = _frac2(bt["fracrefa"], jpl_, fpl, impl)
+    fr_lo = _frac2(bs["fracrefa"], jpl_, fpl, impl)
     upper = (tau_single_hi(8, ch4)
              + adjcoln2o[..., None] * minor1(8, "kb_mn2o"))
     taus.append(combine(lower, upper))
@@ -668,6 +784,7 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
 
     # ---- band 12: h2o+co2 lower / nothing upper ----------------------
     bt = B[11]
+    bs = BS[11]
     refrat_pl_a = chi[0, 9] / chi[1, 9]
     sc, sp, js, fs = _spec(h2o, co2, rfrate[..., 0, 0])
     sc1, sp1, js1, fs1 = _spec(h2o, co2, rfrate[..., 0, 1])
@@ -681,12 +798,13 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
     tauself, taufor = self_for(11)
     lower = (tau_spec_lo(11, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor)
-    fr_lo = _frac2(bt["fracrefa"], jpl_, fpl, impl)
+    fr_lo = _frac2(bs["fracrefa"], jpl_, fpl, impl)
     taus.append(combine(lower, torch.zeros_like(lower)))
     fracs_all.append(combine(fr_lo, torch.zeros_like(fr_lo)))
 
     # ---- band 13: h2o+n2o lower (minors co2,co) / o3-minor upper -----
     bt = B[12]
+    bs = BS[12]
     refrat_pl_a = chi[0, 4] / chi[3, 4]
     refrat_m_a = chi[0, 0] / chi[3, 0]
     refrat_m_a3 = chi[0, 2] / chi[3, 2]
@@ -701,12 +819,12 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
         co2,
     )
     tauself, taufor = self_for(12)
-    absco2 = _minor2(bt["ka_mco2"], jmco2, fmco2, c, impl)
-    absco = _minor2(bt["ka_mco"], jmco, fmco, c, impl)
+    absco2 = _minor2(bs["ka_mco2"], jmco2, fmco2, c, impl)
+    absco = _minor2(bs["ka_mco"], jmco, fmco, c, impl)
     lower = (tau_spec_lo(12, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor + adjcolco2[..., None] * absco2
              + colamt[..., 6:7] * absco)
-    fr_lo = _frac2(bt["fracrefa"], jpl_, fpl, impl)
+    fr_lo = _frac2(bs["fracrefa"], jpl_, fpl, impl)
     upper = o3[..., None] * minor1(12, "kb_mo3")
     taus.append(combine(lower, upper))
     fracs_all.append(combine(fr_lo, bcast1(bt["fracrefb"])))
@@ -721,6 +839,7 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
 
     # ---- band 15: n2o+co2 lower (minor n2) / nothing upper -----------
     bt = B[14]
+    bs = BS[14]
     refrat_pl_a = chi[3, 0] / chi[1, 0]
     refrat_m_a = chi[3, 0] / chi[1, 0]
     sc, sp, js, fs = _spec(n2o, co2, rfrate[..., 4, 0])
@@ -729,15 +848,16 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
     jpl_, fpl = _jpl(n2o, co2, refrat_pl_a)
     scalen2 = (colbrd * c["scaleminor"])[..., None]
     tauself, taufor = self_for(14)
-    taun2 = scalen2 * _minor2(bt["ka_mn2"], jmn2, fmn2, c, impl)
+    taun2 = scalen2 * _minor2(bs["ka_mn2"], jmn2, fmn2, c, impl)
     lower = (tau_spec_lo(14, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor + taun2)
-    fr_lo = _frac2(bt["fracrefa"], jpl_, fpl, impl)
+    fr_lo = _frac2(bs["fracrefa"], jpl_, fpl, impl)
     taus.append(combine(lower, torch.zeros_like(lower)))
     fracs_all.append(combine(fr_lo, torch.zeros_like(fr_lo)))
 
     # ---- band 16: h2o+ch4 lower / ch4 upper --------------------------
     bt = B[15]
+    bs = BS[15]
     refrat_pl_a = chi[0, 5] / chi[5, 5]
     sc, sp, js, fs = _spec(h2o, ch4, rfrate[..., 3, 0])
     sc1, sp1, js1, fs1 = _spec(h2o, ch4, rfrate[..., 3, 1])
@@ -745,7 +865,7 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
     tauself, taufor = self_for(15)
     lower = (tau_spec_lo(15, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor)
-    fr_lo = _frac2(bt["fracrefa"], jpl_, fpl, impl)
+    fr_lo = _frac2(bs["fracrefa"], jpl_, fpl, impl)
     # nspb=0 quirk: the flat upper rows collapse to 0 (fac00/fac01) and 1
     # (fac10/fac11) for every layer
     upper = ch4[..., None] * (
@@ -755,10 +875,14 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
     taus.append(combine(lower, upper))
     fracs_all.append(combine(fr_lo, bcast1(bt["fracrefb"])))
 
+    # the two [C, L, ngptlw] outputs in the storage dtype, each band's
+    # aerosol tau added in the compute dtype first (as the reference)
+    st = storage or tauaer.dtype
     tautot = torch.cat(
-        [t + tauaer[..., i:i + 1] for i, t in enumerate(taus)], dim=-1
+        [(t + tauaer[..., i:i + 1]).to(st) for i, t in enumerate(taus)],
+        dim=-1,
     )
-    fracs = torch.cat(fracs_all, dim=-1)
+    fracs = torch.cat([f.to(st) for f in fracs_all], dim=-1)
     return fracs, tautot
 
 
@@ -803,13 +927,15 @@ def mcica_walk(rand, cldf, ngpt: int, iovr: int = 1):
 
 def cldprop_lw(cfrac, clwp, relw, ciwp, reiw, cda1, cda2, cda3, cda4, rand,
                T, iovrlw: int = 1, ilwcliq: int = 1, ilwcice: int = 3,
-               impl=None):
+               impl=None, storage=None):
     """Cloud optical depth per band + McICA per-g binary cloud masks.
 
     cfrac..cda4: [C, L] (k=0 at the surface); rand: [C, ngptlw*L]
     uniforms ordered g-major like the reference's rand2d.  Returns
-    (cldfmc [C, L, ngpt] int8, taucld [C, L, nbands])."""
+    (cldfmc [C, L, ngpt] int8, taucld [C, L, nbands]).  With ``storage``
+    bfloat16 the optics lerps read the bfloat16 tables."""
     dtype = cfrac.dtype
+    Ts = stored_tables(T, storage)
     cloudy_lay = cfrac > P.CLDMIN
     tauran = P.ABSRAIN * cda1
     tausnw = torch.where(
@@ -823,7 +949,7 @@ def cldprop_lw(cfrac, clwp, relw, ciwp, reiw, cda1, cda2, cda3, cda4, rand,
         index = torch.trunc(factor).clamp(1.0, 57.0).long() - 1
         fint = factor - (index + 1).to(dtype)
         tauliq = (clwp[..., None]
-                  * _lerp_rows(T["absliq1"], index, fint, impl)).clamp(min=0.0)
+                  * _lerp_rows(Ts["absliq1"], index, fint, impl)).clamp(min=0.0)
         tauliq = torch.where((clwp > 0.0)[..., None], tauliq, 0.0)
     else:
         tauliq = zeros_b
@@ -833,7 +959,7 @@ def cldprop_lw(cfrac, clwp, relw, ciwp, reiw, cda1, cda2, cda3, cda4, rand,
         index = torch.trunc(factor).clamp(1.0, 45.0).long() - 1
         fint = factor - (index + 1).to(dtype)
         tauice = (ciwp[..., None]
-                  * _lerp_rows(T["absice3"], index, fint, impl)).clamp(min=0.0)
+                  * _lerp_rows(Ts["absice3"], index, fint, impl)).clamp(min=0.0)
         tauice = torch.where((ciwp > 0.0)[..., None], tauice, 0.0)
     else:
         tauice = zeros_b
@@ -844,20 +970,45 @@ def cldprop_lw(cfrac, clwp, relw, ciwp, reiw, cda1, cda2, cda3, cda4, rand,
 
 
 # ------------------------------------------------------------------ rtrnmc
+def make_rt_tables(dtype, device=None):
+    """The reference's transmittance / tau-transition lookup tables
+    (tau_tbl, exp_tbl, tfn_tbl), each [NTBL + 2] (reference
+    radlw_main.py:1373-1400, ``fv3net_tpu``'s ``_make_rt_tables``)."""
+    ntbl = P.NTBL
+    i = np.arange(1, ntbl)
+    tfn = i / (ntbl - i)
+    tau = P.BPADE * tfn
+    explimit = int(np.floor(-np.log(np.finfo(float).tiny)))
+    exp_t = np.where(tau >= explimit, 1e-20,
+                     np.exp(-np.minimum(tau, explimit)))
+    tfn_t = np.where(tau < 0.06, tau / 6.0,
+                     1.0 - 2.0 * ((1.0 / tau) - (exp_t / (1.0 - exp_t))))
+    tabs = (np.concatenate([[0.0], tau, [1.0e10]]),
+            np.concatenate([[1.0], exp_t, [1e-20]]),
+            np.concatenate([[0.0], tfn_t, [1.0]]))
+    return tuple(torch.as_tensor(t, dtype=dtype, device=device)
+                 for t in tabs)
+
+
+def _rt_index(od):
+    """The lookup-table row of optical depths ``od`` (>= 0)."""
+    return torch.trunc(P.NTBL * (od / (P.BPADE + od)) + 0.5).clamp(
+        0, P.NTBL).long()
+
+
 def rtrnmc_lw(semiss, delp, cldfmc, taucld, tautot, pklay, pklev, fracs,
               secdif, fast_exp: bool = True):
     """McICA radiative transfer (reference radlw_main.py:3381-3717).
 
     semiss/secdif [C, nbands]; delp [C, L] (mb); cldfmc/tautot/fracs
-    [C, L, ngpt]; taucld [C, L, nbands]; pklay/pklev [C, nbands, L+1]
-    (index 0 = surface).  Returns (totuflux, totdflux, htr, totuclfl,
-    totdclfl, htrcl): fluxes [C, L+1], heating [C, L] in K/s.  Only the
-    direct exponentials (``fast_exp=True``) are ported."""
-    if not fast_exp:
-        raise NotImplementedError(
-            "rtrnmc_lw(fast_exp=False) (the lookup-table transmittances) "
-            "is not ported to fv3net_torch yet"
-        )
+    [C, L, ngpt] (tautot and fracs may be stored in bfloat16: the
+    transfer runs in float32 then); taucld [C, L, nbands];
+    pklay/pklev [C, nbands, L+1] (index 0 = surface).  Returns
+    (totuflux, totdflux, htr, totuclfl, totdclfl, htrcl): fluxes
+    [C, L+1], heating [C, L] in K/s.  ``fast_exp``: direct exponentials;
+    False takes the transmittances and tau transitions from the
+    reference's quantized tables (:func:`make_rt_tables`)."""
+    tautot, fracs = _upcast(tautot), _upcast(fracs)
     dtype = tautot.dtype
     C, L, G = tautot.shape
     ngb = torch.as_tensor(P.NGB_LW, device=tautot.device)
@@ -873,9 +1024,17 @@ def rtrnmc_lw(semiss, delp, cldfmc, taucld, tautot, pklay, pklev, fracs,
     cldf = cldfmc.to(dtype)
     od = (secdif_g * tautot).clamp(min=0.0)
     small = od <= 0.06
-    trng_big = torch.exp(-od.clamp(max=500.0))
-    tfn_big = 1.0 - 2.0 * (1.0 / od.clamp(min=0.06)
-                           - trng_big / (1.0 - trng_big).clamp(min=1e-30))
+    if fast_exp:
+        trng_big = torch.exp(-od.clamp(max=500.0))
+        tfn_big = 1.0 - 2.0 * (1.0 / od.clamp(min=0.06)
+                               - trng_big / (1.0 - trng_big).clamp(min=1e-30))
+        odepth = od
+    else:
+        tau_tbl, exp_tbl, tfn_tbl = make_rt_tables(dtype, tautot.device)
+        itgas = _rt_index(od)
+        trng_big = exp_tbl[itgas]
+        tfn_big = tfn_tbl[itgas]
+        odepth = torch.where(small, od, tau_tbl[itgas])
     atrgas = torch.where(small, od - 0.5 * od * od, 1.0 - trng_big)
     trng = torch.where(small, 1.0 - atrgas, trng_big)
     gasfac = torch.where(small, rec_6 * od, tfn_big)
@@ -889,11 +1048,16 @@ def rtrnmc_lw(semiss, delp, cldfmc, taucld, tautot, pklay, pklev, fracs,
     cloudy = cldf >= P.EPS
     odcld = secdif_g * bexp(taucld)
     efclrfr = 1.0 - (1.0 - torch.exp(-odcld)) * cldf
-    odtot = od + odcld
+    odtot = odepth + odcld
     small_t = odtot < 0.06
-    exp_t = torch.exp(-odtot.clamp(max=500.0))
-    tfn_t = 1.0 - 2.0 * (1.0 / odtot.clamp(min=0.06)
-                         - exp_t / (1.0 - exp_t).clamp(min=1e-30))
+    if fast_exp:
+        exp_t = torch.exp(-odtot.clamp(max=500.0))
+        tfn_t = 1.0 - 2.0 * (1.0 / odtot.clamp(min=0.06)
+                             - exp_t / (1.0 - exp_t).clamp(min=1e-30))
+    else:
+        ittot = _rt_index(odtot)
+        exp_t = exp_tbl[ittot]
+        tfn_t = tfn_tbl[ittot]
     totfac = torch.where(small_t, rec_6 * odtot, tfn_t)
     atrtot = torch.where(small_t, odtot - 0.5 * odtot * odtot, 1.0 - exp_t)
     totsrcd = fracs * (blay + dplnkd * totfac) * atrtot
@@ -949,7 +1113,8 @@ def rtrnmc_lw(semiss, delp, cldfmc, taucld, tautot, pklay, pklev, fracs,
 def lwrad(plyr, plvl, tlyr, tlvl, qlyr, olyr, gasvmr, clouds, aerosols,
           sfemis, sfgtmp, delpin, rand2d, T, iovrlw: int = 1,
           ilwrgas: int = 1, ilwcliq: int = 1, fast_exp: bool = True,
-          impl=None, taumol: str = "ktable") -> Dict[str, torch.Tensor]:
+          impl=None, taumol: str = "ktable",
+          storage=None) -> Dict[str, torch.Tensor]:
     """Batched LW driver (reference radlw_main.py:1459-2268 semantics).
 
     Inputs [C, L] layer / [C, L+1] level, k=0 at the surface; gasvmr
@@ -958,15 +1123,19 @@ def lwrad(plyr, plvl, tlyr, tlvl, qlyr, olyr, gasvmr, clouds, aerosols,
 
     ``taumol`` routes the gas optics: "ktable" through the k-table
     selections (12 K3 and 27 K4 calls), "mega" through the one-launch
-    kernel K2 (:func:`taumol_lw_mega`)."""
+    kernel K2 (:func:`taumol_lw_mega`).  ``fast_exp=False`` takes the
+    transfer's lookup tables.  ``storage``: the storage dtype of the big
+    planes (a name or dtype, see :func:`resolve_storage`; None is the
+    compute dtype)."""
     if taumol not in ("ktable", "mega"):
         raise ValueError(f"taumol must be 'ktable' or 'mega'; got {taumol!r}")
-    if not fast_exp:
-        raise NotImplementedError(
-            "lwrad(fast_exp=False) (the lookup-table transmittances) is "
-            "not ported to fv3net_torch yet"
-        )
     dtype = plyr.dtype
+    storage = resolve_storage(storage, dtype, plyr.device)
+    if taumol == "mega" and storage is not None:
+        raise NotImplementedError(
+            "lwrad(taumol='mega') under bfloat16 storage: K2 has no "
+            "bfloat16 instance (ROADMAP Queue 2, 'K2 under bf16 storage')"
+        )
     tem1 = 100.0 * P.CON_G
     tem2 = 1.0e-20 * 1.0e3 * P.CON_AVGD
 
@@ -1017,15 +1186,18 @@ def lwrad(plyr, plvl, tlyr, tlvl, qlyr, olyr, gasvmr, clouds, aerosols,
     ) * torch.ones((1, P.NBANDS_LW), dtype=dtype, device=plyr.device)
 
     c = setcoef_lw(plyr, tlyr, tlvl, sfgtmp, h2ovmr, colamt, coldry,
-                   colbrd, T, impl)
+                   colbrd, T, impl, storage)
     c["pavel"] = plyr
     cldfmc, taucld = cldprop_lw(
         *[clouds[..., i] for i in range(9)], rand2d, T, iovrlw=iovrlw,
-        ilwcliq=ilwcliq, impl=impl,
+        ilwcliq=ilwcliq, impl=impl, storage=storage,
     )
-    gas_optics = taumol_lw_mega if taumol == "mega" else taumol_lw
-    fracs, tautot = gas_optics(c, colamt, coldry, colbrd, wx, tauaer, T,
-                               impl)
+    if taumol == "mega":
+        fracs, tautot = taumol_lw_mega(c, colamt, coldry, colbrd, wx,
+                                       tauaer, T, impl)
+    else:
+        fracs, tautot = taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T,
+                                  impl, storage)
     totuflux, totdflux, htr, totuclfl, totdclfl, htrcl = rtrnmc_lw(
         semiss, delpin, cldfmc, taucld, tautot, c["pklay"], c["pklev"],
         fracs, secdif, fast_exp=fast_exp,

@@ -11,9 +11,14 @@ troposphere split as a mask, every k-table fetch a weighted row selection
 through :mod:`fv3net_torch.ops.ktable` (K3 for the species-interpolated
 major-gas taus, K4 for the rest).  The two-stream properties of every
 layer are evaluated at once and the two vrtqdr recurrences run as Python
-loops over L.  Only the full-width path (``compress_daylight=False``) and
-the direct exponentials (``fast_exp=True``) are ported; the others raise
-``NotImplementedError``.
+loops over L, with direct exponentials (``fast_exp=True``) or the
+reference's quantized exponential table (``fast_exp=False``).
+
+``swrad(compress_daylight=True)`` solves only the daylit columns, packed
+by a top-K of cosz, and expands the result back (:func:`daylight_k`).
+``storage=torch.bfloat16`` is the reference's bf16 storage mode (see
+:mod:`.lw`): bfloat16 selections, taug/taur and the upward pass's
+partial reflectances stored in bfloat16, the rest in float32.
 """
 from __future__ import annotations
 
@@ -28,16 +33,13 @@ from fv3net_torch.physics.radiation.rrtmg import params as P
 _OD_LO = 0.06
 _EPS1 = 1.0e-8
 _ZCRIT = 0.9999995
+_NTBMX = 10000
 
 _SPEC_LO = (0, 1, 2, 3, 5, 6, 8, 12)  # nspa=9 lower bands
 _SINGLE_LO = (4, 7, 9, 11, 13)
 _SPEC_HI = (1, 5, 12)  # nspb=5 upper bands
 _SINGLE_HI = (0, 2, 3, 4, 6, 8, 11, 13)
 _SELFFOR = (0, 1, 2, 3, 4, 5, 6, 7, 8, 13)  # bands with continuum tables
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to fv3net_torch yet")
 
 
 def prep_sw_tables(swdict: Dict, dtype=torch.float32, device=None,
@@ -183,14 +185,17 @@ def _sfluxzen(c, colamt, T, impl=None):
     return torch.cat(pieces, dim=1)
 
 
-def taumol_sw(c, colamt, colmol, T, impl=None):
+def taumol_sw(c, colamt, colmol, T, impl=None, storage=None):
     """Gas + Rayleigh optical depths for all 112 g-points.  Returns
-    (sfluxzen [C, G], taug [C, L, G], taur [C, L, G]).
+    (sfluxzen [C, G], taug [C, L, G], taur [C, L, G]), taug and taur in
+    ``storage`` (None: the compute dtype).
 
     The SW species stencil is shared by the two pressure paths, so each
     species-interpolated band is one K3 call over the four base pairs:
-    11 K3 calls (8 lower, 3 upper)."""
+    11 K3 calls (8 lower, 3 upper).  With ``storage`` bfloat16 every
+    selection but the solar source's reads the bfloat16 tables."""
     B = [T[f"radsw_kgb{16 + b}"] for b in range(P.NBANDS_SW)]
+    Ts = rlw.stored_tables(T, storage)
     strrat = T["strrat"]
     tropo = c["tropo"][..., None]
     h2o, co2, o3 = colamt[..., 0], colamt[..., 1], colamt[..., 2]
@@ -217,8 +222,8 @@ def taumol_sw(c, colamt, colmol, T, impl=None):
            + rlw._base_pairs(base1, c["fac01"], c["fac11"], rlw.NBASE_LO))
     PBH = (rlw._base_pairs(baseU0, c["fac00"], c["fac10"], NBH)
            + rlw._base_pairs(baseU1, c["fac01"], c["fac11"], NBH))
-    A1_lo = rlw._merged_single(T["mtab_lo1"], PBL, impl)
-    A1_hi = rlw._merged_single(T["mtab_hi1"], PBH, impl)
+    A1_lo = rlw._merged_single(Ts["mtab_lo1"], PBL, impl)
+    A1_hi = rlw._merged_single(Ts["mtab_hi1"], PBH, impl)
     sl1 = rlw.g_offsets(_SINGLE_LO, P.NG_SW)
     sh1 = rlw.g_offsets(_SINGLE_HI, P.NG_SW)
 
@@ -232,12 +237,12 @@ def taumol_sw(c, colamt, colmol, T, impl=None):
     sfac, sfrac = c["selffac"], c["selffrac"]
     ffac, ffrac = c["forfac"], c["forfrac"]
     tauself_all = rlw._weighted_rows(
-        T["selfref_all"],
+        Ts["selfref_all"],
         [(inds, h2o_col * (sfac * (1.0 - sfrac))),
          (inds + 1, h2o_col * (sfac * sfrac))], impl,
     )
     taufor_all = rlw._weighted_rows(
-        T["forref_all"],
+        Ts["forref_all"],
         [(indf, h2o_col * (ffac * (1.0 - ffrac))),
          (indf + 1, h2o_col * (ffac * ffrac))], impl,
     )
@@ -247,13 +252,13 @@ def taumol_sw(c, colamt, colmol, T, impl=None):
 
     def tau_spec_lo(i, sc, js, fs):
         return rlw._tau_spec(
-            T["flat_lo"][i], 9, [(PBL, rlw._stencil2_terms(fs, js, 9), sc)],
+            Ts["flat_lo"][i], 9, [(PBL, rlw._stencil2_terms(fs, js, 9), sc)],
             impl,
         )
 
     def tau_spec_hi(i, sc, js, fs):
         return rlw._tau_spec(
-            T["flat_hi"][i], 5, [(PBH, rlw._stencil2_terms(fs, js, 5), sc)],
+            Ts["flat_hi"][i], 5, [(PBH, rlw._stencil2_terms(fs, js, 5), sc)],
             impl,
         )
 
@@ -333,9 +338,9 @@ def taumol_sw(c, colamt, colmol, T, impl=None):
         tau_single_hi(8, o2) + o3[..., None] * bt["abso3b"],
     ))
     # rayleigh: the lower atmosphere interpolates over the species
-    ra = bt["rayla"].T  # [9, ng]
+    ra = Ts["radsw_kgb24"]["rayla"].T  # [9, ng]
     js0 = (js - 1).clamp(0, ra.shape[0] - 2)
-    ray_lo = colmol[..., None] * rlw._lerp_rows(ra, js0, fs, impl)
+    ray_lo = colmol[..., None] * rlw._lerp_taken(ra, js0, fs, impl)
     raylt.append(combine(ray_lo, ray_vec(bt["raylb"])))
 
     # band 25: h2o lower / nothing; o3 both
@@ -370,19 +375,22 @@ def taumol_sw(c, colamt, colmol, T, impl=None):
     ))
     raylt.append(ray_const(bt["rayl"], P.NG_SW[13]))
 
-    taug = torch.cat(taus, dim=-1)
-    taur = torch.cat(raylt, dim=-1)
+    st = storage or colmol.dtype
+    taug = torch.cat([t.to(st) for t in taus], dim=-1)
+    taur = torch.cat([r.to(st) for r in raylt], dim=-1)
     return _sfluxzen(c, colamt, T, impl), taug, taur
 
 
 # ------------------------------------------------------------------ clouds
 def cldprop_sw(cfrac, cliqp, reliq, cicep, reice, cdat1, cdat2, cdat3,
                cdat4, rand, T, iovrsw: int = 1, iswcliq: int = 1,
-               iswcice: int = 3, impl=None):
+               iswcice: int = 3, impl=None, storage=None):
     """Band cloud optical properties + McICA masks (reference
     radsw_main.py:842-1180).  Returns (cldfmc [C, L, ngpt] int8, taucw,
-    ssacw, asycw [C, L, nbdsw])."""
+    ssacw, asycw [C, L, nbdsw]).  With ``storage`` bfloat16 the optics
+    lerps read the bfloat16 tables."""
     dtype = cfrac.dtype
+    Ts = rlw.stored_tables(T, storage)
     cloudy = cfrac > P.FTINY
     dgesnw = 1.0315 * cdat4
     tauran = cdat1 * T["a0r"]
@@ -416,8 +424,8 @@ def cldprop_sw(cfrac, cliqp, reliq, cicep, reice, cdat1, cdat2, cdat3,
     index = torch.trunc(factor).clamp(1.0, 57.0).long() - 1
     fint = factor - (index + 1).to(dtype)
     liq = "2" if iswcliq == 2 else "1"
-    tab = torch.cat([T[f"extliq{liq}"], T[f"ssaliq{liq}"],
-                     T[f"asyliq{liq}"]], dim=-1)
+    tab = torch.cat([Ts[f"extliq{liq}"], Ts[f"ssaliq{liq}"],
+                     Ts[f"asyliq{liq}"]], dim=-1)
     tauliq, ssaliq, asyliq = optics(tab, index, fint, cliqp)
 
     # ice (Fu 1998, iswcice=3)
@@ -425,7 +433,7 @@ def cldprop_sw(cfrac, cliqp, reliq, cicep, reice, cdat1, cdat2, cdat3,
     factor = (dgeice - 2.0) / 3.0
     index = torch.trunc(factor).clamp(1.0, 45.0).long() - 1
     fint = factor - (index + 1).to(dtype)
-    tab = torch.cat([T["extice3"], T["ssaice3"], T["asyice3"]], dim=-1)
+    tab = torch.cat([Ts["extice3"], Ts["ssaice3"], Ts["asyice3"]], dim=-1)
     tauice, ssaice, asyice = optics(tab, index, fint, cicep)
 
     mask = cloudy[..., None]
@@ -438,10 +446,27 @@ def cldprop_sw(cfrac, cliqp, reliq, cicep, reice, cdat1, cdat2, cdat3,
 
 
 # ------------------------------------------------------------------ spcvrtm
-def _lut(x):
-    """exp(-x) with the reference's small-depth series."""
+def exp_table(dtype, device=None) -> torch.Tensor:
+    """The reference's quantized exp(-tau) table [_NTBMX + 1] (its
+    ``_exp_tbl``)."""
+    i = np.arange(_NTBMX + 1, dtype=np.float64)
+    tfn = np.where(i < _NTBMX, i / np.maximum(_NTBMX - i, 1), 0.0)
+    tbl = np.exp(-P.BPADE * tfn)
+    tbl[_NTBMX] = 1.0e-20
+    return torch.as_tensor(tbl, dtype=dtype, device=device)
+
+
+def _lut(x, exp_tbl=None):
+    """exp(-x) with the reference's small-depth series, the rest direct
+    (``exp_tbl`` None) or from the quantized table."""
     x = x.clamp(max=500.0)
-    return torch.where(x <= _OD_LO, 1.0 - x + 0.5 * x * x, torch.exp(-x))
+    if exp_tbl is None:
+        big = torch.exp(-x)
+    else:
+        itind = torch.trunc(x / (P.BPADE + x) * _NTBMX + 0.5).clamp(
+            0, _NTBMX).long()
+        big = exp_tbl[itind]
+    return torch.where(x <= _OD_LO, 1.0 - x + 0.5 * x * x, big)
 
 
 def _nonzero(x):
@@ -454,9 +479,10 @@ def _nonzero(x):
     return torch.where(x < torch.finfo(x.dtype).tiny, 1e-30, x)
 
 
-def _twostream(ztau0, zssa0, zasy0, cosz, sntz, iswmode=2):
+def _twostream(ztau0, zssa0, zasy0, cosz, sntz, iswmode=2, exp_tbl=None):
     """Delta-scaled two-stream layer reflectance/transmittance (reference
-    radsw_main.py:279-424), elementwise over broadcastable inputs.
+    radsw_main.py:279-424), elementwise over broadcastable inputs; the
+    exponentials direct, or from ``exp_tbl`` (:func:`exp_table`).
     Returns (zrefb, zrefd, ztrab, ztrad, zexp3 scaled-beam-T, zexp4
     unscaled-beam-T)."""
     ztau0 = ztau0.clamp(min=P.FTINY)
@@ -488,7 +514,7 @@ def _twostream(ztau0, zssa0, zasy0, cosz, sntz, iswmode=2):
     # conservative-scattering branch
     za1c = zgam1 * cosz - zgam3
     za2c = zgam1 * ztau1
-    zb2 = _lut(ztau1 * sntz)
+    zb2 = _lut(ztau1 * sntz, exp_tbl)
     zrefb_c = ((za2c - za1c * (1.0 - zb2)) / (1.0 + za2c)).clamp(0.0, 1.0)
     ztrab_c = (1.0 - zrefb_c).clamp(0.0, 1.0)
     zrefd_c = (za2c / (1.0 + za2c)).clamp(0.0, 1.0)
@@ -516,9 +542,9 @@ def _twostream(ztau0, zssa0, zasy0, cosz, sntz, iswmode=2):
     zt2 = zrm1 * (za1n - zrkg4)
     zt3 = zrk2 * (zgam4 + za1n * cosz)
 
-    zexm1 = _nonzero(_lut(zrk * ztau1))
+    zexm1 = _nonzero(_lut(zrk * ztau1, exp_tbl))
     zexp1 = 1.0 / zexm1
-    zexm2 = _nonzero(_lut(ztau1 * sntz))
+    zexm2 = _nonzero(_lut(ztau1 * sntz, exp_tbl))
     zexp2 = 1.0 / zexm2
     ze1r45 = zr4 * zexp1 + zr5 * zexm1
     degenerate = (ze1r45 >= -_EPS1) & (ze1r45 <= _EPS1)
@@ -542,8 +568,8 @@ def _twostream(ztau0, zssa0, zasy0, cosz, sntz, iswmode=2):
     zrefd = torch.where(conserv, zrefd_c, zrefd_n)
     ztrab = torch.where(conserv, ztrab_c, ztrab_n)
     ztrad = torch.where(conserv, ztrad_c, ztrad_n)
-    zexp3 = _lut(ztau1 * sntz)  # scaled direct-beam transmittance
-    zexp4 = _lut(ztau0 * sntz)  # unscaled
+    zexp3 = _lut(ztau1 * sntz, exp_tbl)  # scaled direct-beam transmittance
+    zexp4 = _lut(ztau0 * sntz, exp_tbl)  # unscaled
     return zrefb, zrefd, ztrab, ztrad, zexp3, zexp4
 
 
@@ -554,7 +580,7 @@ def _recip(d):
 
 def spcvrtm_sw(ssolar, cosz, albbm, albdf, sfluxzen, cldfmc, taug, taur,
                tauae, ssaae, asyae, taucw, ssacw, asycw, iswmode=2,
-               fast_exp: bool = True):
+               fast_exp: bool = True, storage=None):
     """McICA two-stream solver over all g-points (reference
     radsw_main.py:86-753), batched [C, L, G].
 
@@ -563,10 +589,14 @@ def spcvrtm_sw(ssolar, cosz, albbm, albdf, sfluxzen, cldfmc, taug, taur,
     upward pass accumulates the partial reflectances level by level, the
     downward pass the transmittances and the per-level flux sums, both
     as loops over L; the unified top step with carry (1, 0, 1) matches
-    the reference's explicit TOA initialization."""
-    if not fast_exp:
-        raise _not_ported("spcvrtm_sw(fast_exp=False) (the lookup-table "
-                          "exponentials)")
+    the reference's explicit TOA initialization.  ``fast_exp=False``
+    takes the exponentials from the quantized table.  taug/taur may be
+    stored in bfloat16 (the solve runs in float32 then); with ``storage``
+    bfloat16 the partial reflectances the downward pass reads are
+    rounded to it, as the reference stores them (the recurrence itself
+    carries float32)."""
+    taug, taur, tauae, ssaae, asyae = map(rlw._upcast, (taug, taur, tauae,
+                                                     ssaae, asyae))
     dtype = taug.dtype
     C, L, G = taug.shape
     dev = taug.device
@@ -599,9 +629,10 @@ def spcvrtm_sw(ssolar, cosz, albbm, albdf, sfluxzen, cldfmc, taug, taur,
     ztau0 = (taur + taug + taua_g).clamp(min=P.FTINY)
     zssa0 = taur + taua_g * ssaa_g
     zasy0 = asya_g * ssaa_g * taua_g
-    clr = _twostream(ztau0, zssa0, zasy0, coszb, sntz, iswmode)
+    exp_tbl = None if fast_exp else exp_table(dtype, dev)
+    clr = _twostream(ztau0, zssa0, zasy0, coszb, sntz, iswmode, exp_tbl)
     tot = _twostream(ztau0 + bexp(taucw), zssa0 + bexp(ssacw),
-                     zasy0 + bexp(asycw), coszb, sntz, iswmode)
+                     zasy0 + bexp(asycw), coszb, sntz, iswmode, exp_tbl)
     cloudy = cldf > P.FTINY
     tot = tuple(torch.where(cloudy, t, c_) for t, c_ in zip(tot, clr))
     del cldf, cloudy
@@ -619,6 +650,10 @@ def spcvrtm_sw(ssolar, cosz, albbm, albdf, sfluxzen, cldfmc, taug, taur,
     for k in range(L):
         rup_c.append(up_step(*rup_c[-1], clr, k))
         rup_t.append(up_step(*rup_t[-1], tot, k))
+
+    def stored(pair):  # the levels 0..L-1 the downward pass reads
+        return pair if storage is None else tuple(
+            x.to(storage).to(dtype) for x in pair)
 
     # ---- downward pass, j = L-1 .. 0 ---------------------------------
     def down_step(tdn, rdnd, tdbt, tdbt0, q, j):
@@ -647,8 +682,8 @@ def spcvrtm_sw(ssolar, cosz, albbm, albdf, sfluxzen, cldfmc, taug, taur,
     for j in range(L - 1, -1, -1):
         car_c = down_step(*car_c, clr, j)
         car_t = down_step(*car_t, tot, j)
-        zfu_c, zfd_c = combine(*car_c[:3], *rup_c[j])
-        zfu_t, zfd_t = combine(*car_t[:3], *rup_t[j])
+        zfu_c, zfd_c = combine(*car_c[:3], *stored(rup_c[j]))
+        zfu_t, zfd_t = combine(*car_t[:3], *stored(rup_t[j]))
         fu0[j] = (zfu_c * zsolar).sum(-1)
         fd0[j] = (zfd_c * zsolar).sum(-1)
         fuc[j] = (zfu_t * zsolar).sum(-1)
@@ -698,23 +733,62 @@ def spcvrtm_sw(ssolar, cosz, albbm, albdf, sfluxzen, cldfmc, taug, taur,
 
 
 # ------------------------------------------------------------------ swrad
+def daylight_k(ncol: int) -> int:
+    """The reference's daylit-column budget (its ``_daylight_k``): 9/16
+    of the columns, rounded up to a multiple of 8 (half the sphere is
+    lit, plus a margin at the terminator)."""
+    k = -(-ncol * 9 // 16)
+    return min(ncol, -(-k // 8) * 8)
+
+
 def swrad(plyr, plvl, tlyr, tlvl, qlyr, olyr, gasvmr, clouds, aerosols,
           sfcalb, delpin, cosz, solcon, rand2d, T, iovrsw: int = 1,
           iswrgas: int = 1, iswcliq: int = 1, iswmode: int = 2,
-          fast_exp: bool = True, compress_daylight: bool = False,
-          impl=None) -> Dict[str, torch.Tensor]:
+          fast_exp: bool = True, compress_daylight=False,
+          impl=None, storage=None) -> Dict[str, torch.Tensor]:
     """Batched SW driver (reference radsw_main.py:1981-2690 semantics).
 
     Layer arrays [C, L], k=0 at the surface; sfcalb [C, 4] = (nir-beam,
     nir-diff, uvvis-beam, uvvis-diff); gasvmr [C, L, 10]; clouds
     [C, L, 9]; aerosols [C, L, nbdsw, 3]; cosz [C] (columns with
-    cosz <= 1e-4 get zero fluxes); rand2d [C, ngptsw*nlay]."""
+    cosz <= 1e-4 get zero fluxes); rand2d [C, ngptsw*nlay].
+
+    ``compress_daylight``: solve only the K columns of largest cosz (an
+    argsort and a row gather) and expand the result back, the others
+    taking the zero fluxes of the night mask (K = :func:`daylight_k`, or
+    more when more columns are lit: the reference's fixed K would zero
+    the lit columns past it).  Every column's arithmetic is its own, so
+    the solved columns agree with the full-width call.  None is the
+    reference's auto: on for a CUDA tensor (one device), off on the CPU.
+    ``fast_exp=False`` takes the quantized exponential table;
+    ``storage`` as :func:`.lw.lwrad`."""
+    if compress_daylight is None:
+        compress_daylight = cosz.is_cuda
+    ncol = cosz.shape[0]
     if compress_daylight:
-        raise _not_ported("swrad(compress_daylight=True) (the daylit-"
-                          "column packing)")
-    if not fast_exp:
-        raise _not_ported("swrad(fast_exp=False) (the lookup-table "
-                          "exponentials)")
+        nday = int((cosz > 0.0001).sum())
+        kday = min(ncol, max(daylight_k(ncol), -(-nday // 8) * 8))
+        if kday < ncol:
+            order = torch.argsort(-cosz, stable=True)
+            keep = order[:kday]
+
+            def take(a):
+                return a.index_select(0, keep)
+
+            small = swrad(
+                *map(take, (plyr, plvl, tlyr, tlvl, qlyr, olyr, gasvmr,
+                            clouds, aerosols, sfcalb, delpin, cosz)),
+                solcon, take(rand2d), T, iovrsw=iovrsw, iswrgas=iswrgas,
+                iswcliq=iswcliq, iswmode=iswmode, fast_exp=fast_exp,
+                compress_daylight=False, impl=impl, storage=storage,
+            )
+
+            def expand(v):
+                out = v.new_zeros((ncol,) + tuple(v.shape[1:]))
+                return out.index_copy_(0, keep, v)
+
+            return {k: expand(v) for k, v in small.items()}
+    storage = rlw.resolve_storage(storage, plyr.dtype, plyr.device)
     day = cosz > 0.0001
     cosz_safe = torch.where(day, cosz, 1.0)
     ssolar = torch.where(day, (solcon / P.S0_SW) * cosz_safe, 0.0)
@@ -739,16 +813,16 @@ def swrad(plyr, plvl, tlyr, tlvl, qlyr, olyr, gasvmr, clouds, aerosols,
 
     c = setcoef_sw(plyr, tlyr, h2ovmr, T)
     c["colh2o"] = colamt[..., 0]
-    sfluxzen, taug, taur = taumol_sw(c, colamt, colmol, T, impl)
+    sfluxzen, taug, taur = taumol_sw(c, colamt, colmol, T, impl, storage)
     cldfmc, taucw, ssacw, asycw = cldprop_sw(
         *[clouds[..., i] for i in range(9)], rand2d, T, iovrsw=iovrsw,
-        iswcliq=iswcliq, impl=impl,
+        iswcliq=iswcliq, impl=impl, storage=storage,
     )
     out = spcvrtm_sw(
         ssolar, cosz_safe, sfcalb[:, 0::2], sfcalb[:, 1::2], sfluxzen,
         cldfmc, taug, taur, aerosols[..., 0], aerosols[..., 1],
         aerosols[..., 2], taucw, ssacw, asycw, iswmode=iswmode,
-        fast_exp=fast_exp,
+        fast_exp=fast_exp, storage=storage,
     )
     rfdelp = P.HEATFAC / delpin
     fnetc = out["flxdc"] - out["flxuc"]

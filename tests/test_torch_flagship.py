@@ -245,7 +245,8 @@ def test_port_imports_neither_jax_nor_reference():
         "             'runtime.diagnostics.manager', 'runtime.metrics',\n"
         "             'runtime.segmented_run.api',\n"
         "             'runtime.segmented_run.cli', 'fit.io',\n"
-        "             'core.netcdfio', 'loaders.batches'):\n"
+        "             'core.netcdfio', 'loaders.batches',\n"
+        "             'physics.radiation.rrtmg.io', 'dycore.testcases'):\n"
         "    assert 'fv3net_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )

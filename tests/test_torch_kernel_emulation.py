@@ -15,7 +15,10 @@ K3's tiles of points in persistent blocks with two outputs a thread, K2's
 tiles with their output rows in shared
 memory, its band groups between barriers and its 16-byte stores.  (K2
 stores its rows with plain vector stores, so the emulation needs no
-stand-in for a bulk copy.)
+stand-in for a bulk copy.)  ``BF16_EMULATION`` stands in for
+``cuda_bf16.h``: a 16-bit ``__nv_bfloat16`` and its pair, float
+conversions that round to nearest even, and the rounded float multiply
+and add, so that K4's and K3's bfloat16 instances build and run here too.
 """
 import ctypes
 import functools
@@ -146,6 +149,38 @@ void emu_launch(unsigned grid, unsigned block, size_t, void*, F fn) {
 }
 """
 
+BF16_EMULATION = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+
+struct __nv_bfloat16 { unsigned short bits; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+
+inline float __bfloat162float(__nv_bfloat16 b) {
+  uint32_t u = uint32_t(b.bits) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+// round to nearest, ties to even (NaN kept quiet)
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u)
+    return {(unsigned short)((u >> 16) | 0x40u)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {(unsigned short)(u >> 16)};
+}
+inline float __low2float(__nv_bfloat162 v) { return __bfloat162float(v.x); }
+inline float __high2float(__nv_bfloat162 v) { return __bfloat162float(v.y); }
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+"""
+
 DYNAMIC_SMEM = "extern __shared__ __align__(16) unsigned char smem_raw[];"
 
 
@@ -186,6 +221,7 @@ def _emulated(source: str, tmp: str, flags: tuple = ()) -> ctypes.CDLL:
     tmp = Path(tmp)
     (tmp / "include").mkdir(exist_ok=True)
     (tmp / "include" / "cuda_runtime.h").write_text(EMULATION)
+    (tmp / "include" / "cuda_bf16.h").write_text(BF16_EMULATION)
     cc = tmp / (source + ".cc")
     cc.write_text(_rewrite_launches((cuda_build.CSRC / source).read_text()))
     lib = tmp / f"lib{source}.so"
@@ -261,15 +297,20 @@ def test_remap_kernel_source_matches_plain(emulated, km, window, dtype):
     assert ((m2 - m1).abs() <= rtol * scale[:, 1:]).all()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
+TORCH_DTYPE = {"float32": torch.float32, "float64": torch.float64,
+               "bfloat16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
 @pytest.mark.parametrize("K,G,N", [(1, 1, 13001), (2, 7, 2003),
                                    (4, 54, 1001), (16, 140, 77), (3, 16, 0)])
 def test_select_kernel_source_matches_plain(emulated, K, G, N, dtype):
     """K4 over tiles of points (several, the last a part), K terms with
     int32 and int64 ids (out of range too), None weights and a broadcast
-    id term, against the plain version."""
-    tdt = {"float32": torch.float32, "float64": torch.float64}[dtype]
-    rtol = {"float32": 2e-6, "float64": 1e-13}[dtype]
+    id term, against the plain version; the bfloat16 instance bit for
+    bit."""
+    tdt = TORCH_DTYPE[dtype]
+    rtol = {"float32": 2e-6, "float64": 1e-13, "bfloat16": 0.0}[dtype]
     rng = np.random.default_rng(K * 100 + G)
     R = 13
     tab = torch.tensor(rng.standard_normal((R, G)), dtype=tdt)
@@ -283,7 +324,7 @@ def test_select_kernel_source_matches_plain(emulated, K, G, N, dtype):
         terms[1] = (terms[1][0][:1], terms[1][1])  # broadcast over N
     struct, keep, lead = ktable_cuda.pack_terms(terms, tab)
     fn = getattr(emulated("ktable.cu"), "fv3_ktable_select_"
-                 + ("f32" if dtype == "float32" else "f64"))
+                 + ktable_cuda._SUFFIX[tdt])
     fn.argtypes = [ktable_cuda.SelectTerms, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p]
@@ -291,7 +332,10 @@ def test_select_kernel_source_matches_plain(emulated, K, G, N, dtype):
     assert fn(struct, tab.data_ptr(), got.data_ptr(), N, R, G, None) == 0
     want = ktable.weighted_select_dot_plain(terms, tab)
     assert got.shape == want.shape == (N, G)
-    if N:
+    assert got.dtype == want.dtype == tdt
+    if N and dtype == "bfloat16":
+        assert torch.equal(got, want)
+    elif N:
         assert (got - want).abs().max() <= rtol * want.abs().max()
 
 
@@ -305,17 +349,18 @@ K3_EMULATION_CASES = [(2, 2, 3, 70, 9, 16, 700), (2, 2, 2, 236, 5, 16, 300),
 
 
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
 @pytest.mark.parametrize("case", K3_EMULATION_CASES)
 def test_spec_kernel_source_matches_plain(emulated, case, dtype, offset):
     """K3 over persistent blocks walking tiles of points (the last a
     part), its terms by pointer with int32 and int64 ids (out of range
     too), a weight of 1 (None) and a broadcast term, two outputs a thread
     (even ng, an aligned table) or one (odd ng, or a table one value past
-    an aligned address), against the plain version."""
+    an aligned address), against the plain version; the bfloat16
+    instance bit for bit."""
     n_paths, kw, st, nbase, nspa, ng, N = case
-    tdt = {"float32": torch.float32, "float64": torch.float64}[dtype]
-    rtol = {"float32": 2e-6, "float64": 1e-13}[dtype]
+    tdt = TORCH_DTYPE[dtype]
+    rtol = {"float32": 2e-6, "float64": 1e-13, "bfloat16": 0.0}[dtype]
     rng = np.random.default_rng(sum(case))
     buf = torch.tensor(rng.random(offset + nbase * nspa * ng), dtype=tdt)
     tab = buf[offset:].view(nbase, nspa * ng)
@@ -337,25 +382,29 @@ def test_spec_kernel_source_matches_plain(emulated, case, dtype, offset):
     terms = ([t for p in w_paths for t in p] + [t for p in s_paths for t in p])
     struct, keep, lead = ktable_cuda.pack_terms(terms, tab, "spec_band_dot")
     lib = emulated("ktable.cu")
-    fn = getattr(lib, "fv3_ktable_spec_" + ("f32" if dtype == "float32"
-                                             else "f64"))
+    fn = getattr(lib, "fv3_ktable_spec_" + ktable_cuda._SUFFIX[tdt])
     fn.argtypes = [ktable_cuda.SelectTerms, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
-    got = torch.full(lead + (ng,), float("nan"), dtype=tdt)
+    # a bfloat16 table's band tau comes back in float32
+    out_dt = torch.float32 if tdt == torch.bfloat16 else tdt
+    got = torch.full(lead + (ng,), float("nan"), dtype=out_dt)
     assert fn(struct, tab.data_ptr(), got.data_ptr(), N, n_paths, kw, st,
               nbase, nspa, ng, None) == 0
     want = ktable.spec_band_dot_plain(w_paths, s_paths, tab, nspa)
     assert got.shape == want.shape == (N, ng)
-    if N:
+    assert got.dtype == want.dtype == out_dt
+    if N and dtype == "bfloat16":
+        assert torch.equal(got, want)
+    elif N:
         assert (got - want).abs().max() <= rtol * want.abs().max()
     # the launch plan: about 4,096 outputs a tile, the pairs within 48 KB
     i32 = ctypes.c_int
     P, per_sm, smem = i32(), i32(), ctypes.c_longlong()
     assert lib.fv3_ktable_spec_plan(
-        int(dtype == "float64"), len(terms), ng, ctypes.byref(P),
+        ktable_cuda._PLAN_CODE[tdt], len(terms), ng, ctypes.byref(P),
         ctypes.byref(smem), ctypes.byref(per_sm)) == 0
-    pair = 8 if dtype == "float32" else 16
+    pair = 16 if dtype == "float64" else 8  # a bfloat16 weight as float
     assert P.value == min(-(-4096 // ng), 48 * 1024 // (len(terms) * pair))
     assert smem.value == len(terms) * P.value * pair
 

@@ -21,7 +21,8 @@ except ImportError:  # the card's machine has no jax
 
 from fv3net_torch.ops import ktable, ktable_cuda
 
-TORCH = {"float64": torch.float64, "float32": torch.float32}
+TORCH = {"float64": torch.float64, "float32": torch.float32,
+         "bfloat16": torch.bfloat16}
 # the plain versions sum the same products in another order than the
 # one-hot matmuls (f32: the reference's own bound, tests/test_pallas_ktable)
 RTOL = {"float32": 2e-6, "float64": 1e-12}
@@ -327,10 +328,11 @@ def test_check_ranges_sees_ids_as_the_caller_passed_them(monkeypatch, on):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
 def test_weighted_select_kernel_matches_plain_on_card(dtype):
     """K4 on the card against the plain version on the same CUDA inputs,
-    at the reference test's shapes and at a C48 selfref_all call."""
+    at the reference test's shapes and at a C48 selfref_all call; the
+    bfloat16 instance bit for bit."""
     dev = _cuda()
     tdt = TORCH[dtype]
     for shape in K4_SHAPES + [(10, 140, 2, 13824 * 32)]:
@@ -342,14 +344,18 @@ def test_weighted_select_kernel_matches_plain_on_card(dtype):
         assert ktable_cuda.SELECT_LAUNCHES == before + 1
         want = ktable.weighted_select_dot(tterms, _t(tab, tdt, dev),
                                           impl="torch")
+        if dtype == "bfloat16":  # the plain version's roundings exactly
+            assert got.dtype == want.dtype and torch.equal(got, want)
+            continue
         err = (got - want).abs().max().item()
         assert err <= RTOL[dtype] * want.abs().max().item(), (shape, err)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
 def test_spec_band_kernel_matches_plain_on_card(dtype):
-    """K3 on the card against the plain version, at both band shapes."""
+    """K3 on the card against the plain version, at both band shapes; the
+    bfloat16 instance bit for bit."""
     dev = _cuda()
     tdt = TORCH[dtype]
     for case, shape in sorted(K3_SHAPES.items()):
@@ -362,6 +368,9 @@ def test_spec_band_kernel_matches_plain_on_card(dtype):
         assert ktable_cuda.SPEC_LAUNCHES == before + 1
         want = ktable.spec_band_dot(*paths, _t(tab, tdt, dev), shape[2],
                                     impl="torch")
+        if dtype == "bfloat16":  # the plain version's roundings exactly
+            assert got.dtype == want.dtype and torch.equal(got, want)
+            continue
         err = (got - want).abs().max().item()
         assert err <= RTOL[dtype] * want.abs().max().item(), (case, err)
 

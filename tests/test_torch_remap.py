@@ -213,15 +213,30 @@ def test_cpu_tensor_takes_plain_path_and_cuda_impl_raises():
 
 
 def test_unported_profiles_raise():
+    """The profiles this test once held to a raise are ported: kord 7
+    (ppm_profile), iv=-2 with a surface value (cs_profile) and the
+    one-shot remap_ppm each remap as the reference does, to float64
+    roundoff (tests/test_torch_dycore_options.py holds every kord and iv
+    against it)."""
+    _need_jax()
+    from fv3net_tpu.ops import remap as jr
+
     pe1, pe2, rng = _edges(shape=(2,))
     st = tr.banded_search(torch.tensor(pe1), torch.tensor(pe2), 2)
-    q = torch.tensor(_field(rng, pe1.shape[:-1], 32, None, 1))
-    with pytest.raises(NotImplementedError):
-        tr.remap_apply(st, q, iv=1, kord=7)
-    with pytest.raises(NotImplementedError):
-        tr.remap_apply(st, q, iv=-2, kord=9)
-    with pytest.raises(NotImplementedError):
-        tr.remap_ppm(st["pe1"], q, st["pe2"])
+    q = _field(rng, pe1.shape[:-1], 32, None, 1)
+    qs = rng.randn(2)
+    sj = jr.banded_search(jnp.asarray(pe1), jnp.asarray(pe2), 2)
+    for got, want in (
+        (tr.remap_apply(st, torch.tensor(q), iv=1, kord=7),
+         jr.remap_apply(sj, jnp.asarray(q), iv=1, kord=7, use_pallas=False)),
+        (tr.remap_apply(st, torch.tensor(q), iv=-2, kord=9,
+                        qs=torch.tensor(qs)),
+         jr.remap_apply(sj, jnp.asarray(q), iv=-2, kord=9, use_pallas=False,
+                        qs=jnp.asarray(qs))),
+        (tr.remap_ppm(st["pe1"], torch.tensor(q), st["pe2"]),
+         jr.remap_ppm(jnp.asarray(pe1), jnp.asarray(q), jnp.asarray(pe2))),
+    ):
+        assert _scale_diff(got.numpy(), want) <= F64_RTOL
 
 
 def _to64(x):

@@ -228,20 +228,53 @@ def test_taumol_sw_matches_reference(route):
 
 
 def test_unported_options_raise():
+    """The one RRTMG option still unported raises: the LW megakernel (K2)
+    under bf16 storage.  The options this test once held to a raise run
+    (tests/test_torch_rrtmg_options.py holds them against the reference):
+    daylight compression equals the full-width call here (4 columns, all
+    solved), the lookup tables part from the direct exponentials within
+    the reference's quantization bounds, and a driver takes
+    ``fast_exp=False`` and a column block."""
     args, solcon, rand2d = _sw_inputs()
     targs = [torch.tensor(x) for x in args]
     T = tsw.prep_sw_tables(ttab.make_sw_tables(seed=1), dtype=torch.float64)
-    for kw in (dict(compress_daylight=True), dict(fast_exp=False)):
-        with pytest.raises(NotImplementedError):
-            tsw.swrad(*targs, solcon, torch.tensor(rand2d), T, **kw)
+    full = tsw.swrad(*targs, solcon, torch.tensor(rand2d), T)
+    packed = tsw.swrad(*targs, solcon, torch.tensor(rand2d), T,
+                       compress_daylight=True)
+    tables = tsw.swrad(*targs, solcon, torch.tensor(rand2d), T,
+                       fast_exp=False)
+    for k in SW_KEYS:
+        assert torch.equal(full[k], packed[k]), k
+        if not k.startswith("h"):
+            np.testing.assert_allclose(tables[k], full[k], rtol=1e-3,
+                                       atol=0.5, err_msg=k)
     Tl = tlw.prep_lw_tables(ttab.make_lw_tables(seed=0))
-    with pytest.raises(NotImplementedError):
-        tlw.lwrad(*[torch.tensor(x) for x in _lw_inputs()], Tl,
-                  fast_exp=False)
-    for cfg in (tdrv.RRTMGConfig(fast_exp=False),
-                tdrv.RRTMGConfig(column_block=4096)):
-        with pytest.raises(NotImplementedError):
-            tdrv.RRTMGDriver(cfg)
+    lw_args = [torch.tensor(x) for x in _lw_inputs()]
+    lw_fast = tlw.lwrad(*lw_args, Tl)
+    lw_tables = tlw.lwrad(*lw_args, Tl, fast_exp=False)
+    for k in LW_KEYS[2:]:
+        np.testing.assert_allclose(lw_tables[k], lw_fast[k], rtol=5e-4,
+                                   atol=0.2, err_msg=k)
+    with pytest.raises(NotImplementedError, match="K2 under bf16"):
+        tlw.lwrad(*[x.float() for x in lw_args],
+                  tlw.prep_lw_tables(ttab.make_lw_tables(seed=0),
+                                     torch.float32),
+                  taumol="mega", storage="bfloat16")
+    with pytest.raises(NotImplementedError, match="K2 under bf16"):
+        tdrv.RRTMGDriver(tdrv.RRTMGConfig(storage_dtype="bfloat16"),
+                         device="cpu", lw_taumol="mega")
+    state, cosz = driver_state(C=6, L=8)
+    when = datetime.datetime(2016, 7, 1)
+    outs = [tdrv.RRTMGDriver(cfg, dtype=torch.float64, device="cpu")(
+        when, {k: torch.tensor(v) for k, v in state.items()},
+        cosz=torch.tensor(cosz))
+        for cfg in (tdrv.RRTMGConfig(fast_exp=False),
+                    tdrv.RRTMGConfig(fast_exp=False, column_block=4096),
+                    tdrv.RRTMGConfig(fast_exp=False, column_block=4))]
+    for k in outs[0]:
+        assert torch.equal(outs[0][k], outs[1][k]), k
+        err = (outs[0][k] - outs[2][k]).abs().max()
+        assert err <= 1e-12 * outs[0][k].abs().max(), k
 
 
 # ------------------------------------------------ float32 SW on the card
