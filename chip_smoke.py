@@ -131,7 +131,32 @@ Phases (any failure exits nonzero, and no result line is printed):
     drift, exact K1 launches, ms per 8 steps; one float64 step of each,
     kernels against plain, within 1e-10 of each field's scale; K1
     against plain on ppm_profile's profiles at kord 4-7 and on the
-    ``iv=-2`` profile with a surface value.
+    ``iv=-2`` profile with a surface value;
+18. K2 under bf16 storage: the flagship chunk with the reference's
+    accelerator radiation settings on the mega route
+    (``flagship(lw_taumol="mega", rrtmg_options=BF16_OPTIONS)``: K2's
+    bfloat16 instance) in turns with the same settings on the ktable
+    route, one warm-up and 3 timed each, the mega route's chunk profiled
+    beside phase 16's profiled chunk of the ktable route (the same
+    configuration): launches exact by kernel and by instance, ms per
+    chunk, SYPD, device busy, the radiation range, idle share; K2's
+    bfloat16 instance against its plain
+    version on the arguments of one bf16 radiation call on phase 6's
+    state, value by value (at most 1 bfloat16 ulp, the share of differing
+    values printed), with its device time beside the plain version, the
+    ktable route's bf16 gas optics and its bound;
+19. the FV3GFS-style C48 namelist through the segmented run: phase 15's
+    configuration with ``fv_core_nml`` (hydrostatic false, n_split 3),
+    ``gfs_physics_nml`` (imp_physics 11: GFDL microphysics),
+    ``prognostic_ozone`` and ``stratospheric_h2o``, from a moist JW06
+    restart; two ``append_segment`` segments of 2 chunks, each chunk's
+    launches exact (K1 4 a step: w with the winds, o3mr and the GFDL
+    species with the tracers, delz as specific volume), phase 12's gates
+    (the dry-air budget over all condensates), w and delz finite, delz >
+    0, the GFDL scheme making condensate; 2 x 2 chunks against 1 x 4 bit
+    for bit; a fresh loop's chunk profiled; the device time and
+    activities of the sedimentation loop and the acoustic solve; one
+    float64 chunk of 2 steps, kernels against plain, within 1e-8.
 
 ``--sw-columns PATH`` also saves, in phase 6, ``swrad``'s arguments on
 the 8 columns where the float32 SW heating parts most from float64 on
@@ -164,8 +189,9 @@ mega route; K5: the pipeline's two calls of a time index) and
 ``path_bound_ms`` the sum of their bounds.  ``weighted_select_dot_bf16``
 and ``spec_band_dot_bf16`` are K4's and K3's bfloat16 instances, their
 launches from phase 16's bf16 chunks, their bound at 2 bytes a bfloat16
-value.  The script imports nothing of
-jax or of ``fv3net_tpu``.
+value; ``taumol_lw_bf16`` is K2's bfloat16 instance, its launches from
+phase 18's mega-route bf16 chunks, its bound at 2 bytes a bfloat16
+output.  The script imports nothing of jax or of ``fv3net_tpu``.
 """
 import concurrent.futures
 import gc
@@ -595,6 +621,8 @@ def air_mass(state, area):
 def fields(state):
     out = {"delp": state.delp, "pt": state.pt, "wind": state.wind}
     out.update(state.tracers)
+    if state.w is not None:  # the nonhydrostatic prognostics
+        out.update(w=state.w, delz=state.delz)
     return out
 
 
@@ -619,6 +647,8 @@ def reset_counts():
                                                 0)
     ktable_cuda.SPEC_BY_DTYPE = dict.fromkeys(ktable_cuda.SPEC_BY_DTYPE, 0)
     taumol_cuda.TAUMOL_LAUNCHES = 0
+    taumol_cuda.LAUNCHES_BY_INSTANCE = dict.fromkeys(
+        taumol_cuda.LAUNCHES_BY_INSTANCE, 0)
     coarsen_cuda.WAVG_LAUNCHES = 0
 
 
@@ -1584,7 +1614,7 @@ def phase_step_vs_plain(device, state):
     check(not bad, f"kernel and plain paths part: {bad}")
 
 
-def phase_taumol(k2_args, tables64, reps=10):
+def phase_taumol(k2_args, tables64, reps=3):
     """K2 against its plain version on the arguments of one radiation
     call of the main path, float32 and float64; returns its kernel-line
     numbers (float32)."""
@@ -1857,20 +1887,30 @@ PRODUCTION_CHUNK_RTOL = 1e-8
 # air mass changes by the column's water change.  The gate is the
 # dry-air budget: the change of the global dry air mass less the chunk's
 # precipitation less evaporation (chunk_accumulated_*) less the change
-# of the cloud water mass, within the flagship's air-mass bound of the
-# dry air mass (the budget closes to 1e-16 in float64 on the CPU)
+# of the condensate mass, within the flagship's air-mass bound of the
+# dry air mass (the budget closes to 1e-16 in float64 on the CPU).  The
+# namelist of phase 19 adds stratospheric water by design (h2ophys: a
+# relaxation of a few ppmv over 100 days, above 100 hPa only), which a
+# 2-hour chunk turns into a change of the dry air mass far inside the
+# bound
 DRY_MASS_BUDGET_RTOL = 1e-5
 SST_RANGE = (200.0, 330.0)  # K
 
 
+# the condensates a state may carry: cloud water (the liquid in GFDL
+# mode) and the GFDL scheme's four others
+CONDENSATES = ("cloud_water", "ice_wat", "rainwat", "snowwat", "graupel")
+
+
 def production_masses(dycore, area):
-    """(dry air mass, cloud water mass) over the globe [kg], float64."""
+    """(dry air mass, condensate mass) over the globe [kg], float64."""
     import torch
     from fv3net_torch.core.constants import GRAVITY
 
     delp = dycore.delp.to(torch.float64)
     q = dycore.tracers["sphum"].to(torch.float64)
-    qc = dycore.tracers["cloud_water"].to(torch.float64)
+    qc = sum(dycore.tracers[k].to(torch.float64) for k in CONDENSATES
+             if k in dycore.tracers)
     a = area.to(torch.float64)
     return (((delp * (1.0 - q)).sum(1) * a).sum().item() / GRAVITY,
             ((delp * qc).sum(1) * a).sum().item() / GRAVITY)
@@ -1899,6 +1939,9 @@ def production_gates(label, before, out, area):
           f"{label}: negative ice thickness")
     check((diags[names.TOTAL_PRECIP] >= 0).all().item(),
           f"{label}: negative chunk TOTAL_PRECIP")
+    if dycore.delz is not None:
+        check((dycore.delz > 0).all().item(),
+              f"{label}: a layer of thickness delz <= 0")
     dry0, wc0 = production_masses(before, area)
     dry1, wc1 = production_masses(dycore, area)
     a = area.to(torch.float64)
@@ -2887,10 +2930,11 @@ def options_path(device, label, rrtmg_options):
     return path
 
 
-def instance_counts(sel=None, spec=None):
+def instance_counts(sel=None, spec=None, taumol=None):
     out = {}
     for kernel, by in (("weighted_select_dot", sel or {}),
-                       ("spec_band_dot", spec or {})):
+                       ("spec_band_dot", spec or {}),
+                       ("taumol_lw", taumol or {})):
         for sfx in ("f32", "f64", "bf16"):
             out[f"{kernel}_{sfx}"] = by.get(sfx, 0)
     return out
@@ -2898,9 +2942,11 @@ def instance_counts(sel=None, spec=None):
 
 def read_instance_counts():
     from fv3net_torch.ops import ktable_cuda
+    from fv3net_torch.physics.radiation.rrtmg import taumol_cuda
 
     return instance_counts(ktable_cuda.SELECT_BY_DTYPE,
-                           ktable_cuda.SPEC_BY_DTYPE)
+                           ktable_cuda.SPEC_BY_DTYPE,
+                           taumol_cuda.LAUNCHES_BY_INSTANCE)
 
 
 def rrtmg_drivers(device, **options):
@@ -3303,6 +3349,448 @@ def phase_dycore_options(device, reps=10):
     return out
 
 
+# ---------------------------------------------------------------- phase 18
+# K2's bfloat16 instance against its plain version: bit for bit, except
+# where a float32 operation the card takes its own way (the pow of the
+# gas-amount adjustments) moves a sum across a bfloat16 rounding tie: then
+# by one bfloat16 ulp at most
+K2_BF16_ULPS = 1
+# the mega and the ktable route under BF16_OPTIONS in turns (each one's
+# first is its warm-up, then 3 timed)
+MEGA_BF16_SCHEDULE = ("ktable", "mega", "mega", "ktable", "ktable", "mega",
+                      "mega", "ktable")
+# K4 calls of the LW gas optics under bf16 storage (its 27 of float32, the
+# 13 lerps of two rows taken alone: 12 Planck fractions, the 1-D minors)
+# and K3 calls (2 paths a band, 9 lower and 3 upper bands): K2 takes them
+TAUMOL_SELECT_BF16 = 27 + 13
+TAUMOL_SPEC_BF16 = 2 * (9 + 3)
+
+
+def mega_bf16_path(device):
+    """The flagship chunk with BF16_OPTIONS on the mega route: K2's
+    bfloat16 instance once a radiation call."""
+    import torch
+    from fv3net_torch import entry
+
+    step, (state, ml_params, sst, cosz) = entry.flagship(
+        npx=NPX, npz=NPZ, chunk=CHUNK, device=device, lw_taumol="mega",
+        rrtmg_options=BF16_OPTIONS)
+    area = torch.tensor(entry.make_grid(NPX).area, device=device)
+    calls = RADIATION_CALLS_PER_CHUNK
+    sel = {"bf16": calls * (SELECT_BF16_PER_CALL - TAUMOL_SELECT_BF16),
+           "f32": calls * SOLAR_SOURCE_LERPS}
+    spec = {"bf16": calls * (SPEC_BF16_PER_CALL - TAUMOL_SPEC_BF16)}
+    per_chunk = launches(remap_apply=CHUNK * REMAPS_PER_STEP,
+                         weighted_select_dot=sum(sel.values()),
+                         spec_band_dot=sum(spec.values()),
+                         taumol_lw=calls)
+    path = Path("rrtmg-mega-bf16", step, state, (ml_params, sst, cosz),
+                area, per_chunk)
+    path.per_instance = instance_counts(sel, spec, {"bf16": calls})
+    return path
+
+
+def bf16_ulps(got, want):
+    """Per value, the bfloat16 ulps between two bfloat16 tensors of the
+    same sign (their bit patterns as integers)."""
+    import torch
+
+    return (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+
+
+def phase_taumol_bf16(device, state6, sst, cosz, ktable_profile, reps=2):
+    """K2 under the reference's accelerator radiation settings: the mega
+    route's bf16 chunk in turns with the ktable route's (launches by
+    instance, ms per chunk, SYPD; one profiled chunk of the mega route:
+    device busy, the radiation range, idle share, beside phase 16's
+    profiled chunk of the ktable route, ``ktable_profile``, the same
+    configuration in the same call); then K2's bfloat16 instance against
+    its plain version on the arguments of one bf16 radiation call on phase
+    6's state, value by value, timed beside the plain version, the
+    ktable route's bf16 gas optics and its bound.  Returns its kernel line
+    and its launches on the mega route's chunks."""
+    import torch
+    from fv3net_torch.grid.geometry import make_grid
+    from fv3net_torch.physics import PhysicsConfig
+    from fv3net_torch.physics.radiation.rrtmg import lw as rlw
+    from fv3net_torch.physics.radiation.rrtmg import taumol_cuda
+    from fv3net_torch.runtime import fused
+
+    paths = {"ktable": options_path(device, "rrtmg-bf16", BF16_OPTIONS),
+             "mega": mega_bf16_path(device)}
+    for name in MEGA_BF16_SCHEDULE:
+        paths[name].chunk()
+    for name, path in paths.items():
+        ms = path.summary()
+        log(f"  {path.label}: launches by instance in {path.chunks} chunks "
+            f"{path.instance_totals}")
+        prof = (ktable_profile if name == "ktable" else profile_chunk(
+            path.label, lambda p=path: p.step(p.state, *p.args)))
+        log(f"  {path.label} profiled chunk"
+            f"{' (phase 16)' if name == 'ktable' else ''}: wall "
+            f"{prof['wall_ms']:.1f} ms, "
+            f"device busy {prof['device_ms']:.1f} ms "
+            f"({100 * (1 - prof['device_ms'] / prof['wall_ms']):.1f}% idle),"
+            f" {prof['activities']} device activities; radiation range "
+            f"{prof['ranges'].get('radiation', 0.0):.1f} ms; median chunk "
+            f"{ms:.1f} ms")
+    mega_launches = paths["mega"].instance_totals["taumol_lw_bf16"]
+    del paths
+
+    # K2's bf16 call of one radiation call on phase 6's state
+    lat = torch.tensor(make_grid(NPX).lat, dtype=torch.float32,
+                       device=device)
+    rad = fused._build_radiation_fn(
+        PhysicsConfig(radiation_scheme="rrtmg"), device, torch.float32,
+        lw_taumol="mega", rrtmg_options=BF16_OPTIONS)
+    seen = []
+    orig = taumol_cuda.taumol_lw_cuda
+
+    def captured(*a):
+        out = orig(*a)
+        seen.append((a, out))
+        return out
+
+    taumol_cuda.taumol_lw_cuda = captured
+    try:
+        rad(*radiation_inputs(state6, sst, cosz, lat))
+    finally:
+        taumol_cuda.taumol_lw_cuda = orig
+    torch.cuda.synchronize()
+    check(len(seen) == 1, f"one bf16 radiation call made {len(seen)} K2 "
+          "calls")
+    args, got = seen[0]
+    check(args[7] == torch.bfloat16, f"K2 storage {args[7]}")
+    want = rlw.taumol_lw_plain(*args[:7], storage=torch.bfloat16)
+    errs = {}
+    for name, g, w in zip(("fracs", "tautot"), got, want):
+        check(g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape,
+              f"K2 bf16 {name}: {g.dtype} {tuple(g.shape)} against plain "
+              f"{w.dtype} {tuple(w.shape)}")
+        finite = torch.isfinite(w.float())
+        check(torch.equal(finite, torch.isfinite(g.float())),
+              f"K2 bf16 {name}: non-finite at other points than plain")
+        ulps = torch.where(finite, bf16_ulps(g, w), 0)
+        share = (ulps > 0).float().mean().item()
+        worst = ulps.max().item()
+        err = (g.float() - w.float()).nan_to_num().abs().max().item()
+        errs[name] = err
+        log(f"  K2 bf16 {name}: {share:.3e} of the values differ from plain,"
+            f" by at most {worst} bfloat16 ulp (max|diff| {err:.3e})")
+        check(worst <= K2_BF16_ULPS, f"K2 bf16 {name}: {worst} ulps from "
+              f"plain > {K2_BF16_ULPS}")
+    c, colamt, coldry, colbrd, wx, tauaer, T = args[:7]
+    flat, meta, _ = taumol_cuda.pack_tables(T)
+    flat_bf16 = taumol_cuda.stored_flat(T)
+    planes, keep = taumol_cuda.pack_planes(c, colamt, coldry, colbrd, wx,
+                                           tauaer, flat)
+    lead = tuple(coldry.shape)
+    N = math.prod(lead)
+    dev = device_ms({
+        "plain": lambda: rlw.taumol_lw_plain(*args[:7],
+                                             storage=torch.bfloat16),
+        "kernel": lambda: taumol_cuda.taumol_lw_cuda(*args),
+        "launch": lambda keep=keep: taumol_cuda.taumol_lw_launch(
+            planes, flat, meta, lead, flat_bf16),
+        "ktable": lambda: rlw.taumol_lw(*args[:7], storage=torch.bfloat16),
+    }, reps)
+    # the point planes at their own widths (the aerosol taus bfloat16),
+    # the tables read once in float32 and in bfloat16, both bfloat16
+    # outputs written once (2 B a value); ~2,000 flops per point
+    point_bytes = sum(nbytes(x) for x in (colamt, coldry, colbrd, wx,
+                                          tauaer, c["rfrate"]))
+    point_bytes += sum(nbytes(c[k]) for k in taumol_cuda.FLOAT_PLANES[:12])
+    point_bytes += sum(nbytes(c[k]) for k in taumol_cuda.INT_PLANES)
+    moved = point_bytes + nbytes(flat, flat_bf16, meta, *got)
+    bound_ms, by = bound(moved, 2000 * N, "float32")
+    log(f"  K2 bf16: N={N} points; device time wrapper {dev['kernel']:.3f} "
+        f"ms, the launch alone {dev['launch']:.3f} ms, plain "
+        f"{dev['plain']:.3f} ms, the ktable route's bf16 gas optics "
+        f"{dev['ktable']:.3f} ms; {moved} bytes moved ({point_bytes} in the "
+        f"point planes, {nbytes(flat, flat_bf16, meta)} in the tables, "
+        f"{nbytes(*got)} out at 2 B a value), bound {bound_ms:.4f} ms ({by},"
+        f" {100 * bound_ms / dev['kernel']:.1f}% of it); its path, the one "
+        "call of a radiation call on the mega route: the same")
+    line = {"max_abs_err": max(errs.values()), "ms": dev["kernel"],
+            "plain_ms": dev["plain"], "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None, "path_ms": dev["kernel"],
+            "path_bound_ms": bound_ms}
+    return line, mega_launches
+
+
+# ---------------------------------------------------------------- phase 19
+# the FV3GFS-style C48 namelist (Fortran-shaped, lowered by
+# runtime/config.py): the nonhydrostatic core at the smallest n_split the
+# acoustic CFL check takes at C48 (2 raises), GFDL microphysics
+# (imp_physics 11), prognostic ozone and stratospheric water, on the
+# production configuration of phase 15
+NAMELIST_N_SPLIT = 3
+# K1 a step: the winds with w (one call), the tracers with o3mr and the
+# four GFDL species (one call), the total energy and delz as specific
+# volume
+NAMELIST_REMAPS_PER_STEP = 4
+# GFDL subcycles a physics call (the sedimentation runs in each)
+GFDL_SUBCYCLES = 2
+
+
+# the start: the JW06 jet (dycore/testcases.py; 288 K at the ground, a
+# cold upper troposphere and its surface geopotential) moistened to
+# NAMELIST_RH of saturation below 300 hPa, so that the GFDL scheme makes
+# liquid and ice from the first step
+NAMELIST_RH = 0.9
+
+
+def namelist_initial_conditions(tmp):
+    """A ``state.npz`` restart in ``tmp/ic`` (float64, made on the CPU)
+    of the moist JW06 state over the aquaplanet SST."""
+    import datetime
+
+    import torch
+    from fv3net_torch.dycore import testcases
+    from fv3net_torch.dycore.state import (
+        temperature_from_theta_v,
+        theta_v_from_temperature,
+    )
+    from fv3net_torch.grid.geometry import make_grid
+    from fv3net_torch.ops import thermo
+    from fv3net_torch.runtime import checkpoint, names
+    from fv3net_torch.runtime.derived_state import ModelState
+    from fv3net_torch.runtime.fused import aquaplanet_sst
+
+    path = os.path.join(tmp, "ic")
+    if os.path.isdir(path):
+        return path
+    grid = make_grid(NPX)
+    state, _, _ = testcases.baroclinic_wave_state(
+        grid, NPZ, dtype=torch.float64, device="cpu")
+    delp = state.delp.movedim(1, -1)
+    pmid = thermo.pressure_at_midpoint_log(delp).movedim(-1, 1)
+    T = temperature_from_theta_v(state.pt, pmid, state.tracers["sphum"])
+    es = thermo.saturation_pressure(T)
+    qsat = 0.622 * es / (pmid - 0.378 * es)
+    q = torch.where(pmid > 3.0e4, NAMELIST_RH * qsat.clamp(max=0.02), 1e-6)
+    state.tracers["sphum"] = q
+    state.pt = theta_v_from_temperature(T, pmid, q)
+    lat = torch.tensor(grid.lat, dtype=torch.float64)
+    sst = aquaplanet_sst(lat)
+    checkpoint.save_state(ModelState(dycore=state, surface={
+        names.TSFC: sst, names.SST: sst.clone(),
+        names.MASK: torch.zeros_like(sst)}),
+        datetime.datetime(2016, 8, 1), path)
+    return path
+
+
+def namelist_config(tmp, chunks=SEGMENT_CHUNKS):
+    """Phase 15's run config with the namelist's sections in place of its
+    flat grid and radiation keys, from the moist JW06 start."""
+    cfg = segment_config(tmp, chunks)
+    cfg["initial_conditions"] = namelist_initial_conditions(tmp)
+    flat = {k: v for k, v in cfg["namelist"].items()
+            if k not in ("npx", "npz", "radiation")}
+    cfg["namelist"] = dict(
+        flat,
+        fv_core_nml={"npx": NPX + 1, "npz": NPZ,
+                     "n_split": NAMELIST_N_SPLIT, "hydrostatic": False},
+        coupler_nml={"dt_atmos": DT},
+        gfs_physics_nml={"imp_physics": 11, "fhswr": 4 * DT},
+        prognostic_ozone=True,
+        stratospheric_h2o=True,
+    )
+    return cfg
+
+
+def device_activities(fn):
+    """The device activities (kernels, copies) of one call of ``fn`` under
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(events[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    return sum(e.count for e in events
+               if getattr(e, key) > 0 and e.self_cpu_time_total == 0)
+
+
+def phase_namelist_run(device):
+    """The namelist's segmented run at C48: ``api.create`` and two
+    ``api.append_segment`` calls of SEGMENT_CHUNKS chunks, each chunk's
+    launches exact (K1 4 a step; K4 and K3 in every radiation call; no
+    K2) with phase 12's gates, w and delz finite and delz > 0; the
+    segments against one segment of twice the chunks, bit for bit; a
+    fresh loop's first chunk profiled; the launches and device time the
+    GFDL sedimentation loop and the batched tridiagonal solve add; one
+    float64 chunk of 2 steps, kernels against plain."""
+    import tempfile
+
+    import torch
+    from fv3net_torch import entry
+    from fv3net_torch.dycore import nonhydro
+    from fv3net_torch.physics import microphysics_gfdl
+    from fv3net_torch.runtime import names, timing
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.loop import TimeLoop
+    from fv3net_torch.runtime.segmented_run import api
+
+    area = torch.tensor(entry.make_grid(NPX).area, device=device)
+    calls = RADIATION_CALLS_PER_CHUNK
+    expected = launches(remap_apply=CHUNK * NAMELIST_REMAPS_PER_STEP,
+                        weighted_select_dot=calls * SELECT_PER_CALL,
+                        spec_band_dot=calls * SPEC_PER_CALL)
+    log(f"  predicted launches a chunk: {expected}")
+    total = launches()
+    tmp = tempfile.mkdtemp(prefix="namelist_run_")
+    try:
+        url = os.path.join(tmp, "run")
+        api.create(url, namelist_config(tmp))
+        loops = []
+        for s in (1, 2):
+            with ChunkRecorder() as rec:
+                t0 = time.perf_counter()
+                seg = api.append_segment(url)
+                seconds = time.perf_counter() - t0
+            report = timing.phase_report()
+            label = f"namelist segment {s}"
+            loop = rec.loops[0]
+            cfg = loop._dyn_cfg
+            check(loop.fusable() and loop._production_features()
+                  and not cfg.hydrostatic
+                  and cfg.n_split == NAMELIST_N_SPLIT
+                  and loop._phys_cfg.microphysics_scheme == "gfdl"
+                  and loop._phys_cfg.stratospheric_h2o
+                  and loop._phys_cfg.radiation_scheme == "rrtmg",
+                  f"{label}: the namelist's production path was not taken")
+            tracers = loop.state.dycore.tracers
+            check({"o3mr", *microphysics_gfdl.GFDL_TRACER_NAMES}
+                  <= set(tracers), f"{label}: tracers {sorted(tracers)}")
+            check(len(rec.chunks) == SEGMENT_CHUNKS,
+                  f"{label}: {len(rec.chunks)} chunks")
+            counts = gate_segment(label, rec, area, expected)
+            total = {k: v + counts[k] for k, v in total.items()}
+            log_segment(label, report, SEGMENT_CHUNKS, seconds)
+            gate_stores(label, seg, SEGMENT_CHUNKS)
+            d = loop.state.dycore
+            check(any(tracers[k].max().item() > 0 for k in
+                      microphysics_gfdl.GFDL_TRACER_NAMES),
+                  f"{label}: the GFDL scheme made no ice, rain, snow or "
+                  "graupel")
+            log(f"  {label}: |w| up to {d.w.abs().max().item():.3e} m/s, "
+                f"delz {d.delz.min().item():.1f} .. "
+                f"{d.delz.max().item():.1f} m, o3mr up to "
+                f"{tracers['o3mr'].max().item():.3e}, "
+                + ", ".join(f"{k} up to {tracers[k].max().item():.3e}"
+                            for k in microphysics_gfdl.GFDL_TRACER_NAMES))
+            loops.append(loop)
+            del rec
+        long = api.run_segment(
+            get_config(namelist_config(tmp, 2 * SEGMENT_CHUNKS)),
+            os.path.join(tmp, "long"))
+        same_bits(loops[1].state, long.state,
+                  f"namelist: 2 x {SEGMENT_CHUNKS} chunks against 1 x "
+                  f"{2 * SEGMENT_CHUNKS}")
+        del long, loops
+
+        loop = TimeLoop(get_config(namelist_config(tmp, 1)))
+        it = iter(loop)
+        reading = profile_chunk("namelist", lambda: next(it))
+        log("  namelist profiled chunk (the loop's): wall "
+            f"{reading['wall_ms']:.1f} ms, device busy "
+            f"{reading['device_ms']:.1f} ms, idle share "
+            f"{100 * (1 - reading['device_ms'] / reading['wall_ms']):.1f}%, "
+            f"{reading['activities']} device activities; range device busy "
+            + ", ".join(f"{r} {v:.1f} ms"
+                        for r, v in reading["ranges"].items()))
+
+        # what the sedimentation loop and the tridiagonal solve add, at
+        # the chunk's shapes
+        d = loop.state.dycore
+        zl = d.delp.movedim(1, -1)
+        species = tuple(d.tracers[k].movedim(1, -1)
+                        for k in microphysics_gfdl.GFDL_TRACER_NAMES)
+        vts = tuple(torch.full_like(zl, v) for v in (0.5, 5.0, 1.0, 3.0))
+        dz = 8.0 * zl / 100.0
+        dt_sub = DT / NAMELIST_N_SPLIT
+        a = torch.full_like(d.delp.movedim(1, 0), -0.1)
+        calls = {
+            "sedimentation": lambda: microphysics_gfdl._sediment(
+                species, vts, dz, zl / 9.8, DT / GFDL_SUBCYCLES),
+            "acoustic solve": lambda: nonhydro.vertical_solver(
+                d.w, d.delz, d.delp, d.pt, dt_sub, loop._dyn_cfg.ptop),
+            "dense solve": lambda: nonhydro._tridiag_solve(a, 1.0 - 2 * a,
+                                                           a, a),
+        }
+        ms = device_ms(calls, 5)
+        per_chunk = {"sedimentation": GFDL_SUBCYCLES * CHUNK,
+                     "acoustic solve": NAMELIST_N_SPLIT * CHUNK,
+                     "dense solve": NAMELIST_N_SPLIT * CHUNK}
+        for name, fn in calls.items():
+            n = device_activities(fn)
+            log(f"  {name}: {n} device activities (profiler) and "
+                f"{ms[name]:.3f} ms of device time a call, {per_chunk[name]} "
+                f"calls a chunk: {n * per_chunk[name]} activities, "
+                f"{ms[name] * per_chunk[name]:.1f} ms")
+        log(f"  (the sedimentation of the 4 GFDL species stacked over "
+            f"{NPZ} levels; the acoustic solve of one substep, its dense "
+            f"solve of {d.delp[0, 0].numel() * 6} [{NPZ}, {NPZ}] systems "
+            "inside it)")
+        del loop, it
+
+        # float64, 1 chunk of 2 steps (radiation at step 0), kernels
+        # against plain through the loop
+        cfg64 = dict(namelist_config(tmp, 1), fused_chunk_steps=2,
+                     duration_seconds=2 * DT, radiation_interval_steps=2,
+                     diagnostics=[], fortran_diagnostics=[])
+        outs = {}
+        for impl in ("torch", "cuda"):
+            loop = TimeLoop(get_config(cfg64), dtype=torch.float64,
+                            impl=impl)
+            reset_counts()
+            (_, diags), = list(loop)
+            counts = read_counts()
+            want = launches() if impl == "torch" else launches(
+                remap_apply=2 * NAMELIST_REMAPS_PER_STEP,
+                weighted_select_dot=SELECT_PER_CALL,
+                spec_band_dot=SPEC_PER_CALL)
+            check(counts == want, f"float64 namelist chunk ({impl}): "
+                  f"launches {counts}, expected {want}")
+            outs[impl] = (loop.state, diags)
+        (ks, kdiags), (ps, pdiags) = outs["cuda"], outs["torch"]
+        kt, pt = state_tensors(ks), state_tensors(ps)
+        pairs = [(k, kt[k], pt[k]) for k in sorted(pt)]
+        pairs += [(k, kdiags[k].data, pdiags[k].data)
+                  for k in (names.TOTAL_PRECIP, "ULWRFtoa", "DSWRFsfc")]
+        bad, worst = [], 0.0
+        for name, got, want in pairs:
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            rel = err / scale if scale > 0 else (0.0 if err == 0 else
+                                                 math.inf)
+            worst = max(worst, rel)
+            if not rel <= PRODUCTION_CHUNK_RTOL:
+                bad.append(f"{name} rel {rel:.3e}")
+        check({"w", "delz", "tracer_o3mr", "tracer_graupel"} <= set(pt),
+              f"float64 namelist chunk: fields {sorted(pt)}")
+        check(not bad, f"float64 namelist chunk, kernels against plain: "
+              f"{bad}")
+        log(f"  float64 namelist chunk of 2 steps, kernels against plain: "
+            f"{len(pairs)} fields within {worst:.3e} of their scale (bound "
+            f"{PRODUCTION_CHUNK_RTOL})")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  namelist run: launches in the {2 * SEGMENT_CHUNKS} chunks of the "
+        f"appended segments {total}")
+    return total
+
+
 def main():
     import argparse
 
@@ -3341,6 +3829,10 @@ def main():
           f"fv3net_torch came from {fv3net_torch.__file__}, not {tree}")
     device = torch.device(DEVICE)
     t_start = time.perf_counter()
+
+    def phase(text):
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase {text}")
+
     if opts.kernel_times:
         from fv3net_torch.ops import ktable_cuda, remap_cuda
         from fv3net_torch.physics.radiation.rrtmg import taumol_cuda
@@ -3357,17 +3849,17 @@ def main():
                           "device": smi}), flush=True)
         return 0
 
-    log("phase 2: build")
+    phase("2: build")
     build_kernels()
     log_plans()
 
-    log("phase 3: remap kernel K1 against its plain version")
+    phase("3: remap kernel K1 against its plain version")
     remap_line = phase_remap_kernel(device)
 
-    log("phase 4: gray main path")
+    phase("4: gray main path")
     phase_gray(device)
 
-    log("phase 5: RRTMG main path, LW gas optics through K4/K3 and "
+    phase("5: RRTMG main path, LW gas optics through K4/K3 and "
         "through K2")
     paths, states = phase_rrtmg(device)
     state = states[RADIATION_STATES_AFTER[-1]]
@@ -3375,56 +3867,71 @@ def main():
     _, sst, cosz = paths["ktable"].args
     del paths
 
-    log("phase 6: one RRTMG radiation call")
+    phase("6: one RRTMG radiation call")
     rec, k2_args, tables64 = phase_radiation(
         device, states, sst, cosz, sw_columns=opts.sw_columns, smi=smi)
 
-    log("phase 6 (continued): K4/K3 of that radiation call against plain "
+    phase("6 (continued): K4/K3 of that radiation call against plain "
         "within their summation roundoff")
     phase_radiation_summation(rec)
 
-    log("phase 7: k-table kernels K4 and K3 against their plain versions")
+    phase("7: k-table kernels K4 and K3 against their plain versions")
     ktable_lines = phase_ktable(rec)
     del rec, states
 
-    log("phase 8: one step, kernels against plain")
+    phase("8: one step, kernels against plain")
     phase_step_vs_plain(device, state)
 
-    log("phase 9: LW gas-optics kernel K2 against its plain version")
+    phase("9: LW gas-optics kernel K2 against its plain version")
     taumol_line = phase_taumol(k2_args, tables64)
     del k2_args, tables64
 
-    log("phase 10: block-average kernel K5 against its plain version")
+    phase("10: block-average kernel K5 against its plain version")
     wavg_line = phase_wavg(device)
 
-    log("phase 11: C384 -> C48 coarsening pipeline")
+    phase("11: C384 -> C48 coarsening pipeline")
     counts_pipeline = phase_pipeline(device)
 
-    log("phase 12: production main path (slab ocean, sea ice, the SST "
+    phase("12: production main path (slab ocean, sea ice, the SST "
         "prescriber and the ML stepper around the RRTMG step)")
     phase_production(device)
 
-    log("phase 13: production chunk, kernels against plain (float64)")
+    phase("13: production chunk, kernels against plain (float64)")
     phase_production_vs_plain(device)
 
-    log("phase 14: production land variant (Noah soil, gravity-wave drag)")
+    phase("14: production land variant (Noah soil, gravity-wave drag)")
     phase_production_land(device)
 
-    log("phase 15: the segmented run (run_segment, append_segment) of the "
+    phase("15: the segmented run (run_segment, append_segment) of the "
         "production configuration")
     phase_segmented_run(device)
 
-    log("phase 16: the RRTMG options (bf16 storage with K4/K3 in bfloat16, "
+    phase("16: the RRTMG options (bf16 storage with K4/K3 in bfloat16, "
         "daylight compression, lookup tables, column blocking)")
     t16 = time.perf_counter()
-    bf16_lines, bf16_launches, _ = phase_rrtmg_options(device, state, sst,
+    bf16_lines, bf16_launches, options = phase_rrtmg_options(device, state,
+                                                             sst,
                                                        cosz)
     log(f"  phase 16 in {time.perf_counter() - t16:.1f} s")
 
-    log("phase 17: the dycore options on the JW06 baroclinic wave (C48)")
+    phase("17: the dycore options on the JW06 baroclinic wave (C48)")
     t17 = time.perf_counter()
     phase_dycore_options(device)
     log(f"  phase 17 in {time.perf_counter() - t17:.1f} s")
+
+    phase("18: K2 under bf16 storage (the mega route with the "
+        "reference's accelerator radiation settings)")
+    t18 = time.perf_counter()
+    taumol_bf16_line, taumol_bf16_launches = phase_taumol_bf16(
+        device, state, sst, cosz, options["bf16"]["profile"])
+    log(f"  phase 18 in {time.perf_counter() - t18:.1f} s")
+
+    phase("19: the FV3GFS-style C48 namelist (nonhydrostatic, GFDL "
+        "microphysics, prognostic ozone, stratospheric water) through the "
+        "segmented run")
+    t19 = time.perf_counter()
+    phase_namelist_run(device)
+    log(f"  phase 19 in {time.perf_counter() - t19:.1f} s")
 
     # each kernel's launches come from the run of the path it lies on
     counts = dict(counts, taumol_lw=counts_mega["taumol_lw"],
@@ -3432,7 +3939,8 @@ def main():
                       "weighted_block_average"],
                   weighted_select_dot_bf16=bf16_launches[
                       "weighted_select_dot"],
-                  spec_band_dot_bf16=bf16_launches["spec_band_dot"])
+                  spec_band_dot_bf16=bf16_launches["spec_band_dot"],
+                  taumol_lw_bf16=taumol_bf16_launches)
     common = {
         "remap_apply": {"source": "fv3net_torch/csrc/remap_apply.cu",
                         "replaces": "fv3net_tpu/ops/pallas_remap.py:58",
@@ -3464,6 +3972,13 @@ def main():
             "source": "fv3net_torch/csrc/ktable.cu",
             "replaces": "fv3net_tpu/ops/pallas_ktable.py:97",
             **bf16_lines["spec_band_dot"]},
+        # K2's bfloat16 instance, its launches from phase 18's mega-route
+        # bf16 chunks
+        "taumol_lw_bf16": {
+            "source": "fv3net_torch/csrc/taumol_lw.cu",
+            "replaces": "fv3net_tpu/physics/radiation/rrtmg/"
+                        "pallas_taumol.py:73",
+            **taumol_bf16_line},
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": v["source"],

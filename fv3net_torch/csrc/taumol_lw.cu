@@ -57,6 +57,18 @@
 // warps an SM holds grew: 12 warps 2.87 ms, 24 2.13, 36 1.89, 48 1.78
 // (640 threads a block, 60 warps, spill registers and read 1.94).
 //
+// The bfloat16 instance (the RRTMG bf16 storage mode, T float) is the
+// reference's megakernel under its bf16 storage: phase 1 as above, with
+// the stencil weights kept apart from their path scales; phase 2
+// (eval_point_bf16) reads the table rows the reference selects in
+// bfloat16 from a bfloat16 copy of the tables, sums each selection in
+// float32 and rounds it once (a software round to nearest even), and the
+// tile's rows go out as bfloat16, 8 a 16-byte store.  It moves 0.35 GB per
+// C48 call (outputs at 2 B a value) and, like the float32 instance, is
+// held back by latency, not bytes: 2.70-2.79 ms a launch on an NVIDIA H100
+// 80GB HBM3 at 700 W (chip_smoke.py phase 18), 1.5x the float32
+// instance, whose rounding work per g-point it repeats.
+//
 // The source is compiled without fused multiply-adds (-fmad=false), so
 // the integer parts of the species parameters, which pick table rows, are
 // those of the plain version's separate multiply and add.
@@ -68,6 +80,7 @@
 // plain version where there is no card.
 
 #include <math.h>
+#include <string.h>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -80,7 +93,8 @@
 
 // The point planes as the wrapper packs them (taumol_cuda.py::Planes),
 // passed by value: plane k's value at point n is f[k][n * fs[k]], in the
-// tables' type; the index planes hold int32, int64 or bool (iw bytes).
+// compute type or (fw[k] == 2, the bfloat16 instance's aerosol taus)
+// bfloat16; the index planes hold int32, int64 or bool (iw bytes).
 constexpr int kFloatPlanes = 53;  // F_* below
 constexpr int kIndexPlanes = 7;   // I_* below
 struct Planes {
@@ -89,6 +103,7 @@ struct Planes {
   long long fs[kFloatPlanes];
   long long is[kIndexPlanes];
   int iw[kIndexPlanes];
+  int fw[kFloatPlanes];
 };
 
 namespace {
@@ -161,7 +176,10 @@ struct Common {
 // one band of a point
 template <typename T>
 struct BandRec {
-  T sw[6];      // stencil weights times the path's scale, path-major
+  T sw[6];      // stencil weights times the path's scale, path-major (the
+                // bfloat16 instance: the weights alone, rounded, by
+                // ascending position)
+  T sc[2];      // the bfloat16 instance: each path's scale
   T mscale[3];  // minor-gas column factors
   T mfm[2];     // bilinear minors' species weight
   T corr;       // pressure correction (1 where the band has none)
@@ -174,6 +192,54 @@ struct BandRec {
 
 FV3_DEV int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// bfloat16 <-> float as torch and XLA convert: a bfloat16 is the high half
+// of a float, and a float rounds to the nearest bfloat16, ties to even
+FV3_DEV float bf16_to_float(unsigned short h) {
+  const unsigned int u = (unsigned int)h << 16;
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+
+FV3_DEV unsigned short float_to_bf16(float f) {
+  unsigned int u;
+  memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u)  // NaN: quiet, sign kept
+    return (unsigned short)((u >> 16) | 0x40u);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return (unsigned short)(u >> 16);
+}
+
+FV3_DEV float round_bf16(float f) { return bf16_to_float(float_to_bf16(f)); }
+
+// the bfloat16 instance's stencil of one path, n points (lw.py::
+// _tau_spec_mega): the weights rounded to bfloat16; a position met again
+// takes the bfloat16 sum of its weights in the order the terms come (the
+// later entry keeps weight 0); then the entries by ascending position, the
+// order of the reference's float32 sum
+template <typename T>
+FV3_DEV void stencil_bf16(int n, int* pos, T* w) {
+  for (int k = 0; k < n; ++k) w[k] = round_bf16(w[k]);
+  for (int k = 1; k < n; ++k) {
+    for (int m = 0; m < k; ++m) {
+      if (pos[m] == pos[k] && w[k] != T(0)) {
+        w[m] = round_bf16(w[m] + w[k]);
+        w[k] = T(0);
+      }
+    }
+  }
+  for (int k = 1; k < n; ++k) {
+    for (int m = k; m > 0 && pos[m - 1] > pos[m]; --m) {
+      const int tp = pos[m];
+      pos[m] = pos[m - 1];
+      pos[m - 1] = tp;
+      const T tw = w[m];
+      w[m] = w[m - 1];
+      w[m - 1] = tw;
+    }
+  }
 }
 
 // truncation toward zero; NaN gives 0, as the card's conversion does
@@ -215,8 +281,8 @@ FV3_DEV Spec<T> spec(T a, T b, T rate, T mult, T om) {
 }
 
 // lw.py::_stencil3_terms, with its where(... == 0) forms, times the
-// path's scale
-template <typename T>
+// path's scale (H, the bfloat16 instance: see stencil_bf16)
+template <typename T, bool H>
 FV3_DEV void stencil3(const Spec<T>& s, BandRec<T>& r, int path) {
   const bool lo = s.parm < T(0.125);
   const bool hi = s.parm > T(0.875);
@@ -240,18 +306,33 @@ FV3_DEV void stencil3(const Spec<T>& s, BandRec<T>& r, int path) {
   r.pos[o] = clampi(j + d0, 0, 8);
   r.pos[o + 1] = clampi(j + 1 - d0, 0, 8);
   r.pos[o + 2] = clampi(j + (hi ? -1 : 2), 0, 8);
+  if (H) {
+    r.sw[o] = fk0;
+    r.sw[o + 1] = fk1;
+    r.sw[o + 2] = fk2;
+    r.sc[path] = s.comb;
+    stencil_bf16(3, r.pos + o, r.sw + o);
+    return;
+  }
   r.sw[o] = s.comb * fk0;
   r.sw[o + 1] = s.comb * fk1;
   r.sw[o + 2] = s.comb * fk2;
 }
 
 // lw.py::_stencil2_terms (5 upper species rows), times the path's scale
-template <typename T>
+template <typename T, bool H>
 FV3_DEV void stencil2(const Spec<T>& s, BandRec<T>& r, int path) {
   const int j = s.js - 1;
   const int o = path * 3;
   r.pos[o] = clampi(j, 0, 4);
   r.pos[o + 1] = clampi(j + 1, 0, 4);
+  if (H) {
+    r.sw[o] = T(1) - s.fs;
+    r.sw[o + 1] = s.fs;
+    r.sc[path] = s.comb;
+    stencil_bf16(2, r.pos + o, r.sw + o);
+    return;
+  }
   r.sw[o] = s.comb * (T(1) - s.fs);
   r.sw[o + 1] = s.comb * s.fs;
 }
@@ -267,7 +348,11 @@ FV3_DEV T adjust(T col, T ref, T thresh, T add, T expo) {
 // float plane k at point n
 template <typename T>
 FV3_DEV T plane(const Planes& pl, int k, long long n) {
-  return FV3_LDG(static_cast<const T*>(pl.f[k]) + n * pl.fs[k]);
+  const long long o = n * pl.fs[k];
+  if (pl.fw[k] == 2)
+    return (T)bf16_to_float(
+        FV3_LDG(static_cast<const unsigned short*>(pl.f[k]) + o));
+  return FV3_LDG(static_cast<const T*>(pl.f[k]) + o);
 }
 
 // index plane k at point n
@@ -347,21 +432,27 @@ FV3_DEV void common_point(const Planes& pl, const int* meta, long long n,
   c.imc = clampi(im, 0, kNI - 2);
 }
 
-// phase 1: band b of one point in its atmosphere (lw.py:472-753)
-template <typename T>
+// phase 1: band b of one point in its atmosphere (lw.py:472-753); H, the
+// bfloat16 instance, reads the reference amounts from the bfloat16 copy of
+// the tables, tabh, and keeps the stencil weights apart from their scales
+template <typename T, bool H = false>
 FV3_DEV void band_point(int b, const Point<T>& p, const Common<T>& c,
-                        const T* __restrict__ tab, const int* meta, T om,
-                        BandRec<T>& r) {
+                        const T* __restrict__ tab,
+                        const unsigned short* __restrict__ tabh,
+                        const int* meta, T om, BandRec<T>& r) {
   const T* refrat = tab + meta[M_REFRAT];
   // chi_mls rows [59, 7]; the 1-based jp is used as a 0-based row
-  const T* chi_jp = tab + meta[M_CHI] + clampi(p.jp, 0, 58) * 7;
-  const T* chi_jp1 = tab + meta[M_CHI] + clampi(p.jp + 1, 0, 58) * 7;
+  auto chi = [&](int row, int gas) -> T {
+    const int i = meta[M_CHI] + clampi(row, 0, 58) * 7 + gas;
+    return H ? (T)bf16_to_float(FV3_LDG(tabh + i)) : FV3_LDG(tab + i);
+  };
   const T h2o = p.col[0], co2 = p.col[1], o3 = p.col[2], n2o = p.col[3],
           ch4 = p.col[4];
   const bool up = c.upper != 0;
   const T one = T(1);
 
   r.ns = 0;
+  r.sc[0] = r.sc[1] = T(0);
   r.corr = one;
   r.fpl = T(0);
   r.fj[0] = r.fj[1] = 0;
@@ -376,13 +467,13 @@ FV3_DEV void band_point(int b, const Point<T>& p, const Common<T>& c,
   // species-interpolated major gases: rate m of the lower (9 rows, 3-point
   // stencil) or upper (5 rows, 2-point stencil) atmosphere
   auto lower_pair = [&](T a, T bb, int m) {
-    stencil3(spec(a, bb, p.rf[2 * m], T(8), om), r, 0);
-    stencil3(spec(a, bb, p.rf[2 * m + 1], T(8), om), r, 1);
+    stencil3<T, H>(spec(a, bb, p.rf[2 * m], T(8), om), r, 0);
+    stencil3<T, H>(spec(a, bb, p.rf[2 * m + 1], T(8), om), r, 1);
     r.ns = 3;
   };
   auto upper_pair = [&](T a, T bb, int m) {
-    stencil2(spec(a, bb, p.rf[2 * m], T(4), om), r, 0);
-    stencil2(spec(a, bb, p.rf[2 * m + 1], T(4), om), r, 1);
+    stencil2<T, H>(spec(a, bb, p.rf[2 * m], T(4), om), r, 0);
+    stencil2<T, H>(spec(a, bb, p.rf[2 * m + 1], T(4), om), r, 1);
     r.ns = 2;
   };
   auto single = [&](T col) {
@@ -406,8 +497,7 @@ FV3_DEV void band_point(int b, const Point<T>& p, const Common<T>& c,
     r.mbase[k] = clampi(trunc_int(sm), 0, nj - 2) * kNI + c.imc;
   };
   auto adjcoln2o = [&]() {
-    return adjust(n2o, p.coldry * FV3_LDG(chi_jp + 3), T(1.5), T(0.5),
-                  T(0.65));
+    return adjust(n2o, p.coldry * chi(p.jp, 3), T(1.5), T(0.5), T(0.65));
   };
 
   switch (b) {
@@ -459,12 +549,12 @@ FV3_DEV void band_point(int b, const Point<T>& p, const Common<T>& c,
     case 5:  // band 6: h2o (minor co2); cfc11, cfc12
       if (!up) {
         single(h2o);
-        r.mscale[0] = adjust(co2, p.coldry * FV3_LDG(chi_jp1 + 1), T(3),
-                             T(2), T(0.77));
+        r.mscale[0] = adjust(co2, p.coldry * chi(p.jp + 1, 1), T(3), T(2),
+                             T(0.77));
       }
       break;
     case 6: {  // band 7: h2o + o3 (minor co2) / o3 (minor co2)
-      const T ref = p.coldry * FV3_LDG(chi_jp + 1);
+      const T ref = p.coldry * chi(p.jp, 1);
       if (up) {
         single(o3);
         r.mscale[0] = adjust(co2, ref, T(3), T(2), T(0.79));
@@ -477,7 +567,7 @@ FV3_DEV void band_point(int b, const Point<T>& p, const Common<T>& c,
       break;
     }
     case 7: {  // band 8: h2o (minors co2, o3, n2o) / o3 (minors co2, n2o)
-      const T adj = adjust(co2, p.coldry * FV3_LDG(chi_jp + 1), T(3), T(2),
+      const T adj = adjust(co2, p.coldry * chi(p.jp, 1), T(3), T(2),
                            T(0.65));
       r.mscale[0] = adj;
       if (up) {
@@ -644,6 +734,121 @@ FV3_DEV void eval_point(int b, int ig, const Common<T>& c,
   }
 }
 
+// phase 2 of the bfloat16 instance (lw.py::taumol_lw_plain under bfloat16
+// storage, the reference's megakernel under its bf16 storage): the float32
+// sums of eval_point, rounded to bfloat16 where the megakernel rounds.
+// tabh is the bfloat16 copy of the tables: every table row the reference
+// selects by a one-hot product is read there and each selection's float32
+// sum (its products exact) is rounded once; the interpolated species rows
+// are rounded before the stencil sums them; the constants it reads in
+// float32 (halocarbons, co2adj, Planck vectors, band 16's two rows) come
+// from tab.  Outputs are bfloat16 values held in floats.
+FV3_DEV void eval_point_bf16(int b, int ig, const Common<float>& c,
+                             const BandRec<float>& r,
+                             const float* __restrict__ tab,
+                             const unsigned short* __restrict__ tabh,
+                             const int* meta, const Planes& pl, long long n,
+                             float& tau, float& frac) {
+  auto h = [&](int i) { return bf16_to_float(FV3_LDG(tabh + i)); };
+  const int* d = meta + M_DESC + (b * 2 + c.upper) * kDesc;
+  const int g = meta[M_NS + b] + ig;
+  float acc = 0.0f;
+
+  const int major = d[D_MAJOR];
+  if (major == 2) {  // band 16 upper: rows 0 and 1 in float32
+    const float* t = tab + d[D_MOFF] + ig;
+    acc = r.sw[0] * ((c.fac[0] + c.fac[2]) * FV3_LDG(t) +
+                     (c.fac[1] + c.fac[3]) * FV3_LDG(t + d[D_MROW]));
+  } else if (major == 1 && r.ns == 1) {  // one selection of 4 rows
+    const int t = d[D_MOFF] + ig;
+    const int rowlen = d[D_MROW];
+    float s4 = round_bf16(c.fac[0]) * h(t + c.row[0] * rowlen);
+    for (int k = 1; k < 4; ++k)
+      s4 = s4 + round_bf16(c.fac[k]) * h(t + c.row[k] * rowlen);
+    acc = r.sw[0] * round_bf16(s4);
+  } else if (major == 1) {  // species stencil of two pressure paths
+    const int t = d[D_MOFF] + ig;
+    const int rowlen = d[D_MROW];
+    const int step = d[D_MPOS];
+    for (int path = 0; path < 2; ++path) {
+      const float wa = round_bf16(c.fac[2 * path]);
+      const float wb = round_bf16(c.fac[2 * path + 1]);
+      const int ta = t + c.row[2 * path] * rowlen;
+      const int tb = t + c.row[2 * path + 1] * rowlen;
+      float sum = 0.0f;
+      for (int s = 0; s < r.ns; ++s) {
+        const int off = r.pos[path * 3 + s] * step;
+        const float a = round_bf16(wa * h(ta + off) + wb * h(tb + off));
+        sum = sum + r.sw[path * 3 + s] * a;
+      }
+      const float term = r.sc[path] * sum;
+      acc = path == 0 ? term : acc + term;
+    }
+  }
+  if (d[D_SELF]) {
+    const int t = meta[M_SELF] + g;
+    acc = acc + round_bf16(round_bf16(c.selfw[0]) * h(t + c.selfi[0] * kG) +
+                           round_bf16(c.selfw[1]) * h(t + c.selfi[1] * kG));
+  }
+  if (d[D_FOR]) {
+    const int t = meta[M_FOR] + g;
+    acc = acc + round_bf16(round_bf16(c.forw[0]) * h(t + c.fori[0] * kG) +
+                           round_bf16(c.forw[1]) * h(t + c.fori[1] * kG));
+  }
+  const int n_minor = d[D_NMINOR];
+  int slot = 0;
+  for (int k = 0; k < n_minor; ++k) {
+    const int* m = d + D_MINOR + 3 * k;
+    const int t = m[1] + ig;
+    const int rowlen = m[2];
+    float v;
+    if (m[0] == 1) {  // two rows fetched alone, lerped in float32
+      const float h0 = h(t + c.m1i[0] * rowlen);
+      const float h1 = h(t + c.m1i[1] * rowlen);
+      v = h0 + c.mf * round_bf16(h1 - h0);
+    } else {  // one selection of 4 rows, by ascending row
+      const float fm = r.mfm[slot];
+      const float fm1 = 1.0f - fm;
+      const float mf1 = 1.0f - c.mf;
+      const int tb = t + r.mbase[slot] * rowlen;
+      ++slot;
+      float sv = round_bf16(fm1 * mf1) * h(tb);
+      sv = sv + round_bf16(fm1 * c.mf) * h(tb + rowlen);
+      sv = sv + round_bf16(fm * mf1) * h(tb + kNI * rowlen);
+      sv = sv + round_bf16(fm * c.mf) * h(tb + (kNI + 1) * rowlen);
+      v = round_bf16(sv);
+    }
+    acc = acc + r.mscale[k] * v;
+  }
+  const int n_halo = d[D_NHALO];
+  if (n_halo) {
+    float hv = plane<float>(pl, F_WX + d[D_HALO], n) *
+               FV3_LDG(tab + d[D_HALO + 1] + ig);
+    if (n_halo > 1) {
+      hv = hv + plane<float>(pl, F_WX + d[D_HALO + 2], n) *
+                    FV3_LDG(tab + d[D_HALO + 3] + ig);
+    }
+    acc = acc + hv;
+  }
+  acc = r.corr * acc;
+  const int co2adj = d[D_CO2ADJ];
+  if (co2adj >= 0) acc = acc * FV3_LDG(tab + co2adj + ig);
+  tau = round_bf16(acc + plane<float>(pl, F_TAUAER + b, n));
+
+  const int fkind = d[D_FRAC];
+  if (fkind == 0) {
+    frac = 0.0f;
+  } else if (fkind == 1) {
+    frac = round_bf16(FV3_LDG(tab + d[D_FOFF] + ig));
+  } else {
+    const int ng = meta[M_NG + b];
+    const int t = d[D_FOFF] + ig;
+    const float h0 = h(t + r.fj[0] * ng);
+    const float h1 = h(t + r.fj[1] * ng);
+    frac = round_bf16(h0 + r.fpl * round_bf16(h1 - h0));
+  }
+}
+
 #ifdef __CUDACC__
 
 // a block's threads, and the bands a phase-1 round takes (a warp each)
@@ -668,11 +873,14 @@ struct Tile {
   int meta[kMeta];
 };
 
-template <typename T>
+// H: the bfloat16 instance (T float, tabh the bfloat16 copy of the tables,
+// bfloat16 outputs); else tabh is unused and the outputs are T
+template <typename T, bool H>
 __global__ void __launch_bounds__(Shape<T>::threads, Shape<T>::min_blocks)
 taumol_lw_kernel(const Planes planes, const T* __restrict__ tab,
-                 const int* __restrict__ meta, T* __restrict__ fracs,
-                 T* __restrict__ tautot, long long N, T om) {
+                 const unsigned short* __restrict__ tabh,
+                 const int* __restrict__ meta, void* __restrict__ fracs,
+                 void* __restrict__ tautot, long long N, T om) {
   constexpr int kGroup = Shape<T>::group;
   constexpr int kThreads = Shape<T>::threads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -693,8 +901,8 @@ taumol_lw_kernel(const Planes planes, const T* __restrict__ tab,
       __syncthreads();  // the points are loaded; the last group is read
       const int q1 = tid % kP, slot1 = tid / kP;
       if (slot1 < kGroup && q1 < np)
-        band_point(b0 + slot1, s.pt[q1], s.c[q1], tab, s.meta, om,
-                   s.rec[slot1][q1]);
+        band_point<T, H>(b0 + slot1, s.pt[q1], s.c[q1], tab, tabh, s.meta,
+                         om, s.rec[slot1][q1]);
       __syncthreads();
       // phase 2 over (band, point, g) of the group: band slot k's outputs
       // are [end[k-1], end[k])
@@ -720,48 +928,82 @@ taumol_lw_kernel(const Planes planes, const T* __restrict__ tab,
         const int q = u / ng;
         const int ig = u - q * ng;
         const int o = q * kG + s.meta[M_NS + b] + ig;
-        eval_point(b, ig, s.c[q], s.rec[slot][q], tab, s.meta, s.planes,
-                   n0 + q, s.tau[o], s.frac[o]);
+        if constexpr (H) {
+          eval_point_bf16(b, ig, s.c[q], s.rec[slot][q], tab, tabh, s.meta,
+                          s.planes, n0 + q, s.tau[o], s.frac[o]);
+        } else {
+          eval_point(b, ig, s.c[q], s.rec[slot][q], tab, s.meta, s.planes,
+                     n0 + q, s.tau[o], s.frac[o]);
+        }
       }
     }
     __syncthreads();
     // the tile's rows are one contiguous range of each output
-    const int n_vec = np * kG * (int)sizeof(T) / 16;
-    const float4* tau_v = reinterpret_cast<const float4*>(s.tau);
-    const float4* frac_v = reinterpret_cast<const float4*>(s.frac);
-    float4* tau_o = reinterpret_cast<float4*>(tautot + n0 * kG);
-    float4* frac_o = reinterpret_cast<float4*>(fracs + n0 * kG);
-    for (int v = tid; v < n_vec; v += kThreads) {
-      tau_o[v] = tau_v[v];
-      frac_o[v] = frac_v[v];
+    if constexpr (H) {
+      // 8 bfloat16 values a 16-byte store, then the odd tile's last 4
+      const int n_el = np * kG;
+      const int n_vec = n_el / 8;
+      unsigned short* tau_o =
+          static_cast<unsigned short*>(tautot) + n0 * kG;
+      unsigned short* frac_o = static_cast<unsigned short*>(fracs) + n0 * kG;
+      for (int v = tid; v < n_vec; v += kThreads) {
+        unsigned short ht[8], hf[8];
+        for (int k = 0; k < 8; ++k) {
+          ht[k] = float_to_bf16(s.tau[8 * v + k]);
+          hf[k] = float_to_bf16(s.frac[8 * v + k]);
+        }
+        float4 vt, vf;
+        memcpy(&vt, ht, 16);
+        memcpy(&vf, hf, 16);
+        reinterpret_cast<float4*>(tau_o)[v] = vt;
+        reinterpret_cast<float4*>(frac_o)[v] = vf;
+      }
+      for (int e = 8 * n_vec + tid; e < n_el; e += kThreads) {
+        tau_o[e] = float_to_bf16(s.tau[e]);
+        frac_o[e] = float_to_bf16(s.frac[e]);
+      }
+    } else {
+      const int n_vec = np * kG * (int)sizeof(T) / 16;
+      const float4* tau_v = reinterpret_cast<const float4*>(s.tau);
+      const float4* frac_v = reinterpret_cast<const float4*>(s.frac);
+      float4* tau_o = reinterpret_cast<float4*>(static_cast<T*>(tautot) +
+                                                n0 * kG);
+      float4* frac_o = reinterpret_cast<float4*>(static_cast<T*>(fracs) +
+                                                 n0 * kG);
+      for (int v = tid; v < n_vec; v += kThreads) {
+        tau_o[v] = tau_v[v];
+        frac_o[v] = frac_v[v];
+      }
     }
   }
 }
 
-// blocks a SM holds of the kernel for T, with its shared memory opted in
-template <typename T>
+// blocks a SM holds of the kernel for (T, H), with its shared memory opted
+// in
+template <typename T, bool H>
 int taumol_blocks_per_sm(int* per_sm) {
   const size_t smem = sizeof(Tile<T>);
   cudaError_t err = cudaFuncSetAttribute(
-      taumol_lw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      taumol_lw_kernel<T, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, taumol_lw_kernel<T>, Shape<T>::threads, smem);
+      per_sm, taumol_lw_kernel<T, H>, Shape<T>::threads, smem);
   if (err != cudaSuccess) return (int)err;
   return *per_sm < 1 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
-template <typename T>
-int launch_taumol(Planes planes, const void* tab, const void* meta,
-                  void* fracs, void* tautot, long long N, double oneminus,
-                  void* stream) {
+template <typename T, bool H>
+int launch_taumol(Planes planes, const void* tab, const void* tabh,
+                  const void* meta, void* fracs, void* tautot, long long N,
+                  double oneminus, void* stream) {
   if (N == 0) return 0;
   // 16-byte stores of the tile rows
   if (N < 0 || ((size_t)fracs | (size_t)tautot) % 16)
     return (int)cudaErrorInvalidValue;
+  if (H && tabh == nullptr) return (int)cudaErrorInvalidValue;
   int per_sm = 0, device = 0, sms = 0;
-  int err = taumol_blocks_per_sm<T>(&per_sm);
+  int err = taumol_blocks_per_sm<T, H>(&per_sm);
   if (err != 0) return err;
   cudaError_t cerr;
   if ((cerr = cudaGetDevice(&device)) != cudaSuccess) return (int)cerr;
@@ -771,10 +1013,10 @@ int launch_taumol(Planes planes, const void* tab, const void* meta,
   const long long resident = (long long)sms * per_sm;
   const unsigned int blocks =
       (unsigned int)(tiles < resident ? tiles : resident);
-  taumol_lw_kernel<T><<<blocks, Shape<T>::threads, sizeof(Tile<T>),
-                        static_cast<cudaStream_t>(stream)>>>(
-      planes, (const T*)tab, (const int*)meta, (T*)fracs, (T*)tautot, N,
-      (T)oneminus);
+  taumol_lw_kernel<T, H><<<blocks, Shape<T>::threads, sizeof(Tile<T>),
+                           static_cast<cudaStream_t>(stream)>>>(
+      planes, (const T*)tab, (const unsigned short*)tabh, (const int*)meta,
+      fracs, tautot, N, (T)oneminus);
   return (int)cudaGetLastError();
 }
 
@@ -787,26 +1029,38 @@ int launch_taumol(Planes planes, const void* tab, const void* meta,
 extern "C" int fv3_taumol_lw_f32(Planes planes, const void* tab,
                                  const void* meta, void* fracs, void* tautot,
                                  long long N, double oneminus, void* stream) {
-  return launch_taumol<float>(planes, tab, meta, fracs, tautot, N, oneminus,
-                              stream);
+  return launch_taumol<float, false>(planes, tab, nullptr, meta, fracs,
+                                     tautot, N, oneminus, stream);
 }
 
 extern "C" int fv3_taumol_lw_f64(Planes planes, const void* tab,
                                  const void* meta, void* fracs, void* tautot,
                                  long long N, double oneminus, void* stream) {
-  return launch_taumol<double>(planes, tab, meta, fracs, tautot, N, oneminus,
-                               stream);
+  return launch_taumol<double, false>(planes, tab, nullptr, meta, fracs,
+                                      tautot, N, oneminus, stream);
+}
+
+// the bfloat16 instance: tab the float32 tables, tabh their bfloat16 copy
+// (the same layout), bfloat16 outputs
+extern "C" int fv3_taumol_lw_bf16(Planes planes, const void* tab,
+                                  const void* tabh, const void* meta,
+                                  void* fracs, void* tautot, long long N,
+                                  double oneminus, void* stream) {
+  return launch_taumol<float, true>(planes, tab, tabh, meta, fracs, tautot,
+                                    N, oneminus, stream);
 }
 
 // a block's shared bytes, threads and the blocks a SM holds of the kernel
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-extern "C" int fv3_taumol_lw_plan(int f64, long long* smem, int* threads,
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); kind 0 float32, 1
+// float64, 2 bfloat16
+extern "C" int fv3_taumol_lw_plan(int kind, long long* smem, int* threads,
                                   int* per_sm) {
-  *smem = f64 ? (long long)sizeof(Tile<double>)
-              : (long long)sizeof(Tile<float>);
-  *threads = f64 ? Shape<double>::threads : Shape<float>::threads;
-  return f64 ? taumol_blocks_per_sm<double>(per_sm)
-             : taumol_blocks_per_sm<float>(per_sm);
+  *smem = kind == 1 ? (long long)sizeof(Tile<double>)
+                    : (long long)sizeof(Tile<float>);
+  *threads = kind == 1 ? Shape<double>::threads : Shape<float>::threads;
+  if (kind == 1) return taumol_blocks_per_sm<double, false>(per_sm);
+  return kind == 2 ? taumol_blocks_per_sm<float, true>(per_sm)
+                   : taumol_blocks_per_sm<float, false>(per_sm);
 }
 
 #endif

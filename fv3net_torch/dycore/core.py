@@ -1,4 +1,4 @@
-"""Hydrostatic vertically-Lagrangian dynamics step (port of
+"""Vertically-Lagrangian dynamics step (port of
 ``fv3net_tpu/dycore/core.py``).
 
 A-grid finite volume on the gnomonic cubed sphere: Green-Gauss edge sums
@@ -8,10 +8,13 @@ components, the Simmons-Burridge hydrostatic pressure-gradient force,
 del-2 and divergence damping, and a PPM remap back to the hybrid
 coordinate every dynamics interval.
 
-Ported: the hydrostatic core at every advection order of the reference:
-1 (first-order upwind), 2 (monotone van Leer / minmod MUSCL face values)
-and 4 (PPM, the flagship's).  Nonhydrostatic runs raise
-``NotImplementedError``.  The substep loop is a Python loop.
+Ported: every advection order of the reference: 1 (first-order upwind),
+2 (monotone van Leer / minmod MUSCL face values) and 4 (PPM, the
+flagship's); the hydrostatic core and the nonhydrostatic one
+(``hydrostatic=False``: prognostic w and delz transported with the
+state, the full-pressure geopotential in the pressure-gradient force, a
+vertical acoustic solve each substep, ``dycore/nonhydro.py``, and w and
+delz through the remap).  The substep loop is a Python loop.
 """
 from __future__ import annotations
 
@@ -22,12 +25,13 @@ import torch
 
 from fv3net_torch.core.constants import (
     CP_AIR,
+    GRAVITY,
     KAPPA,
     RDGAS,
     REFERENCE_SURFACE_PRESSURE,
     TOA_PRESSURE,
 )
-from fv3net_torch.dycore import vertical
+from fv3net_torch.dycore import nonhydro, vertical
 from fv3net_torch.dycore.state import DycoreState
 from fv3net_torch.grid.geometry import Grid
 from fv3net_torch.ops import remap as _rm
@@ -160,14 +164,7 @@ class DycoreConfig:
     d2_bg_k2: float = 0.0
 
 
-def _check_supported(cfg: DycoreConfig, state: DycoreState = None):
-    if not cfg.hydrostatic or (
-        state is not None and (state.w is not None or state.delz is not None)
-    ):
-        raise NotImplementedError(
-            "the nonhydrostatic core (dycore/nonhydro.py) is not ported to "
-            "fv3net_torch yet"
-        )
+def _check_supported(cfg: DycoreConfig):
     if cfg.advection_order not in (1, 2, 4):
         raise ValueError(f"advection_order must be 1, 2 or 4, got "
                          f"{cfg.advection_order}")
@@ -350,12 +347,17 @@ def _substep(state: DycoreState, g: GridArrays, cfg: DycoreConfig,
     fields = [delp, pt] + [tracers[k] for k in names] + [
         wind[c] for c in range(3)
     ]
+    if not cfg.hydrostatic:
+        fields += [state.w, state.delz]
     ext_all = halo_append(torch.stack(fields, dim=1), h)
     delp_e = ext_all[:, 0]
     pt_e = ext_all[:, 1]
     tr_e = {k: ext_all[:, 2 + i] for i, k in enumerate(names)}
     iw = 2 + len(names)
     wind_e = ext_all[:, iw: iw + 3].movedim(1, 0)
+    if not cfg.hydrostatic:
+        w_e = ext_all[:, iw + 3]
+        delz_e = ext_all[:, iw + 4]
     wind_e1 = wind_e[..., h - 1: wind_e.shape[-2] - (h - 1),
                      h - 1: wind_e.shape[-1] - (h - 1)]
 
@@ -390,6 +392,14 @@ def _substep(state: DycoreState, g: GridArrays, cfg: DycoreConfig,
     pt_new = transport(pt_e, pt)
     tracers_new = {k: transport(tr_e[k], tracers[k]) for k in tracers}
     wind_adv = torch.stack([transport(wind_e[c], wind[c]) for c in range(3)])
+    if not cfg.hydrostatic:
+        # w is mass-weighted; delz is advected in flux form with the
+        # volume flux, so horizontal convergence compresses the layer
+        w_adv = transport(w_e, state.w)
+        dzy, dzx = faces(delz_e)
+        delz_adv = state.delz - dt * _divergence(
+            vn_y * ly * dzy, vn_x * lx * dzx, g.area[:, None]
+        )
 
     # ---- pressure-gradient force on the NEW mass field ------------------
     pe = torch.cat(
@@ -402,14 +412,30 @@ def _substep(state: DycoreState, g: GridArrays, cfg: DycoreConfig,
     lnpe = torch.log(pe)
     dlnp = lnpe[:, 1:] - lnpe[:, :-1]
     pmid = delp_new / dlnp
-    tv = pt_new * (pmid / REFERENCE_SURFACE_PRESSURE) ** KAPPA
-    # geopotential: integrate hydrostatically from the surface upward
-    dphi = RDGAS * tv * dlnp
-    phi_below = zscan.suffix_sum_strict(dphi, axis=1) + state.phis[:, None]
-    phi_mid = phi_below + RDGAS * tv * (lnpe[:, 1:] - torch.log(pmid))
+    if cfg.hydrostatic:
+        tv = pt_new * (pmid / REFERENCE_SURFACE_PRESSURE) ** KAPPA
+        # geopotential: integrate hydrostatically from the surface upward
+        dphi = RDGAS * tv * dlnp
+        phi_below = (zscan.suffix_sum_strict(dphi, axis=1)
+                     + state.phis[:, None])
+        phi_mid = phi_below + RDGAS * tv * (lnpe[:, 1:] - torch.log(pmid))
+        p_for_pgf = pmid
+    else:
+        # full-pressure PGF along the Lagrangian layers: phi from the
+        # geometric thicknesses, p from the equation of state, the
+        # midpoint at the hydrostatic log-pressure fraction (so that a
+        # resting atmosphere over terrain stays at rest)
+        p_full = nonhydro.full_pressure(delp_new, pt_new, delz_adv)
+        dphi = GRAVITY * delz_adv
+        phi_below = (zscan.suffix_sum_strict(dphi, axis=1)
+                     + state.phis[:, None])
+        f_mid = (lnpe[:, 1:] - torch.log(pmid)) / dlnp
+        phi_mid = phi_below + dphi * f_mid
+        tv = p_full * GRAVITY * delz_adv / (delp_new * RDGAS)  # p/(rho R)
+        p_for_pgf = p_full
 
     # ---- one batched halo for every PGF/damping stencil input -----------
-    halo_fields = [phi_mid, torch.log(pmid)]
+    halo_fields = [phi_mid, torch.log(p_for_pgf)]
     div_damp_on = (
         cfg.divergence_damp_coef > 0.0
         or cfg.d2_bg_k1 > 0.0
@@ -465,9 +491,24 @@ def _substep(state: DycoreState, g: GridArrays, cfg: DycoreConfig,
         ) ** KAPPA
 
     wind_new = _project_tangent(wind_new, g.khat)
+
+    # ---- vertical acoustic step (nonhydrostatic only) -------------------
+    w_new = delz_new = None
+    if not cfg.hydrostatic:
+        if cfg.diff_coef > 0.0:
+            w_e1 = w_e[..., h - 1: w_e.shape[-2] - (h - 1),
+                       h - 1: w_e.shape[-1] - (h - 1)]
+            w_adv = w_adv + dt * _del2(w_e1, g, nu)
+        # material lower boundary over terrain: w_s = u . grad(z_s)
+        grad_zs = _lsq_gradient(halo_append(state.phis[:, None], 1),
+                                g)[:, :, 0] / GRAVITY
+        w_surf = (wind_new[:, :, -1] * grad_zs).sum(dim=0)
+        w_new, delz_new = nonhydro.vertical_solver(
+            w_adv, delz_adv, delp_new, pt_new, dt, cfg.ptop, w_surf=w_surf
+        )
     return DycoreState(
         delp=delp_new, pt=pt_new, wind=wind_new, tracers=tracers_new,
-        phis=state.phis,
+        phis=state.phis, w=w_new, delz=delz_new,
     )
 
 
@@ -484,24 +525,46 @@ def _column_te(pe, tv, ke, phis):
 
 
 def _remap_total_energy(state, pe1, pe2, wind2, cfg, zlast, search,
-                        impl=None):
-    """FV3's energy-conserving temperature remap (hydrostatic te_map):
-    remap column total energy, then recover Tv on the new layers by the
-    upward sweep Tv_k = (te_k - K_k - phi_below_k) / (cp + R/2 dlnp_k).
-    Returns theta_v on the target layers (z-last)."""
+                        impl=None, delz2=None):
+    """FV3's energy-conserving temperature remap (te_map): remap column
+    total energy, then recover Tv on the new layers.  Hydrostatic: phi
+    from R Tv dlnp and the upward sweep Tv_k = (te_k - K_k - phi_below_k)
+    / (cp + R/2 dlnp_k).  Nonhydrostatic (``delz2`` given): phi is
+    geometric (g dz), so Tv = (te - K - phi_mid) / cp directly.  ``wind2``
+    holds w after the three winds when nonhydrostatic.  Returns theta_v
+    on the target layers (z-last)."""
     delp1 = zlast(state.delp)
     lnpe1 = torch.log(pe1)
     dlnp1 = lnpe1[..., 1:] - lnpe1[..., :-1]
     pmid1 = delp1 / dlnp1
     tv1 = zlast(state.pt) * (pmid1 / REFERENCE_SURFACE_PRESSURE) ** KAPPA
     ke1 = 0.5 * sum(zlast(state.wind[c]) ** 2 for c in range(3))
-    te1, _ = _column_te(pe1, tv1, ke1, state.phis)
+    if state.w is not None:
+        ke1 = ke1 + 0.5 * zlast(state.w) ** 2
+    nonhydrostatic = state.delz is not None
+    if nonhydrostatic:
+        dphi1 = GRAVITY * zlast(state.delz)
+        phi_below1 = (zscan.suffix_sum_strict(dphi1, axis=-1)
+                      + state.phis[..., None])
+        # the hydrostatic-fraction midpoint of the nonhydrostatic PGF
+        f1 = (lnpe1[..., 1:] - torch.log(pmid1)) / dlnp1
+        te1 = CP_AIR * tv1 + phi_below1 + dphi1 * f1 + ke1
+    else:
+        te1, _ = _column_te(pe1, tv1, ke1, state.phis)
     te2 = _rm.remap_apply(search, te1, iv=1, kord=cfg.kord, impl=impl)
 
     lnpe2 = torch.log(pe2)
     dlnp2 = lnpe2[..., 1:] - lnpe2[..., :-1]
     pmid2 = (pe2[..., 1:] - pe2[..., :-1]) / dlnp2
     ke2 = 0.5 * sum(w ** 2 for w in wind2)
+
+    if nonhydrostatic:
+        dphi2 = GRAVITY * delz2
+        phi_below2 = (zscan.suffix_sum_strict(dphi2, axis=-1)
+                      + state.phis[..., None])
+        f2 = (lnpe2[..., 1:] - torch.log(pmid2)) / dlnp2
+        tv2 = (te2 - ke2 - phi_below2 - dphi2 * f2) / CP_AIR
+        return tv2 / (pmid2 / REFERENCE_SURFACE_PRESSURE) ** KAPPA
 
     # upward sweep from the surface layer (z index 0 = top)
     nz = te2.shape[-1]
@@ -539,20 +602,35 @@ def _remap_to_hybrid(state: DycoreState, ak, bk, cfg: DycoreConfig,
     pe2 = ak + bk * ps[..., None]
     # ONE banded layer search feeds every remapped field
     search = _rm.banded_search(pe1, pe2, window=2)
-    pt2, wind2, tracers2 = vertical.remap_column_fields(
+    # w remaps with the winds' profile (iv=-1), in the same call
+    components = tuple(zlast(state.wind[c]) for c in range(3))
+    if state.w is not None:
+        components = components + (zlast(state.w),)
+    pt2, comp2, tracers2 = vertical.remap_column_fields(
         pe1,
         pe2,
         # remap_te recomputes theta from the energy remap
         None if cfg.remap_te else zlast(state.pt),
-        tuple(zlast(state.wind[c]) for c in range(3)),
+        components,
         {k: zlast(v) for k, v in state.tracers.items()},
         kord=cfg.kord,
         search=search,
         impl=impl,
     )
+    wind2 = comp2[:3]
+    dz2 = None
+    if state.w is not None:
+        # delz remaps as mass-weighted specific volume (dz per unit dpi):
+        # conserving its mass integral conserves the column height
+        dp1 = pe1[..., 1:] - pe1[..., :-1]
+        sv2 = _rm.remap_apply(search, zlast(state.delz) / dp1, iv=1,
+                              kord=cfg.kord, impl=impl)
+        dz2 = sv2 * (pe2[..., 1:] - pe2[..., :-1])
     if cfg.remap_te:
-        pt2 = _remap_total_energy(state, pe1, pe2, wind2, cfg, zlast,
-                                  search=search, impl=impl)
+        # comp2 holds the remapped w when nonhydrostatic: its kinetic
+        # energy counts on the target layers
+        pt2 = _remap_total_energy(state, pe1, pe2, comp2, cfg, zlast,
+                                  search=search, impl=impl, delz2=dz2)
     return DycoreState(
         delp=zmid(pe2[..., 1:] - pe2[..., :-1]),
         pt=zmid(pt2),
@@ -562,6 +640,8 @@ def _remap_to_hybrid(state: DycoreState, ak, bk, cfg: DycoreConfig,
         tracers={k: torch.clamp(zmid(v), min=0.0)
                  for k, v in tracers2.items()},
         phis=state.phis,
+        w=None if state.w is None else zmid(comp2[3]),
+        delz=None if dz2 is None else zmid(dz2),
     )
 
 
@@ -588,15 +668,33 @@ def _rayleigh_damp(state: DycoreState, cfg: DycoreConfig, dt: float):
     fac = 1.0 / (1.0 + rf)
     wind = state.wind * fac[None]
     dke = 0.5 * (1.0 - fac ** 2) * (state.wind ** 2).sum(dim=0)
+    w = state.w
+    if w is not None:
+        dke = dke + 0.5 * (1.0 - fac ** 2) * w ** 2
+        w = w * fac
     exner = (pmid / REFERENCE_SURFACE_PRESSURE) ** KAPPA
     pt = state.pt + dke / (CP_AIR * exner)
-    return dataclasses.replace(state, wind=wind, pt=pt)
+    return dataclasses.replace(state, wind=wind, pt=pt, w=w)
 
 
 def validate_acoustic_cfl(g: GridArrays, cfg: DycoreConfig) -> None:
-    """The acoustic CFL check matters only to the nonhydrostatic core,
-    which is not ported."""
+    """Nonhydrostatic runs carry horizontal sound waves explicitly, so the
+    substep must satisfy c_s * dt_sub <= 0.75 dx_min (the vertical is
+    implicit).  Raises ValueError naming the smallest stable ``n_split``,
+    as the reference does."""
     _check_supported(cfg)
+    if cfg.hydrostatic:
+        return
+    c_s = 350.0  # sound speed bound, m/s
+    dx_min = float(torch.minimum(g.dist_x.min(), g.dist_y.min()))
+    dt_sub = cfg.dt / cfg.n_split
+    if c_s * dt_sub > 0.75 * dx_min:
+        need = int(np.ceil(c_s * cfg.dt / (0.75 * dx_min)))
+        raise ValueError(
+            f"nonhydrostatic acoustic CFL violated: c_s*dt/n_split = "
+            f"{c_s * dt_sub:.0f} m > 0.75*dx_min = {0.75 * dx_min:.0f} m; "
+            f"use n_split >= {need} (got {cfg.n_split})"
+        )
 
 
 def dynamics_step(
@@ -606,7 +704,10 @@ def dynamics_step(
     """One full dynamics interval: n_split Lagrangian substeps + vertical
     remap.  ``impl`` selects the remap application (None: the CUDA kernel
     on CUDA tensors, the plain version on CPU tensors)."""
-    _check_supported(cfg, state)
+    _check_supported(cfg)
+    if not cfg.hydrostatic and state.w is None:
+        raise ValueError("a nonhydrostatic step needs w and delz in the "
+                         "state (dycore.add_nonhydrostatic_fields)")
     dt_sub = cfg.dt / cfg.n_split
     for _ in range(cfg.n_split):
         state = _substep(state, g, cfg, dt_sub)

@@ -2,8 +2,9 @@
 ``fv3net_tpu/dycore/state.py``).
 
 Layout: [tile=6, nz, ny, nx] for 3-D fields; the horizontal wind is a 3-D
-Cartesian tangent vector [3, 6, nz, ny, nx].  The port runs the
-hydrostatic core only, so ``w`` and ``delz`` stay None.
+Cartesian tangent vector [3, 6, nz, ny, nx].  ``w`` and ``delz`` are the
+nonhydrostatic core's prognostics (``dycore/nonhydro.py``), None in a
+hydrostatic run.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from fv3net_torch.grid.geometry import Grid
 
 @dataclasses.dataclass
 class DycoreState:
-    """Prognostic state of the hydrostatic core.
+    """Prognostic state of the dynamical core.
 
     Attributes:
         delp: layer pressure thickness [6, nz, ny, nx], Pa
@@ -35,7 +36,11 @@ class DycoreState:
         tracers: name -> [6, nz, ny, nx] mixing ratios (kg/kg); always
             includes "sphum"
         phis: surface geopotential [6, ny, nx], m^2/s^2
-        w, delz: nonhydrostatic prognostics; None (not ported yet)
+        w: layer-centred vertical velocity [6, nz, ny, nx], m/s (positive
+            up); None in hydrostatic runs
+        delz: geometric layer thickness [6, nz, ny, nx], m (positive,
+            unlike FV3's negative-delz convention); present together
+            with ``w`` iff the core is nonhydrostatic
     """
 
     delp: torch.Tensor
@@ -45,6 +50,19 @@ class DycoreState:
     phis: torch.Tensor
     w: Optional[torch.Tensor] = None
     delz: Optional[torch.Tensor] = None
+
+
+def add_nonhydrostatic_fields(state: DycoreState,
+                              ptop: float = TOA_PRESSURE) -> DycoreState:
+    """Attach the nonhydrostatic prognostics (w = 0, hydrostatically
+    balanced delz) to a hydrostatic state."""
+    from fv3net_torch.dycore import nonhydro
+
+    return dataclasses.replace(
+        state,
+        w=torch.zeros_like(state.delp),
+        delz=nonhydro.hydrostatic_delz(state.delp, state.pt, ptop),
+    )
 
 
 def temperature_from_theta_v(pt, pmid, sphum):
@@ -117,35 +135,34 @@ def _get(src, name):
 def state_from_numpy(src, dtype=torch.float64, device=None) -> DycoreState:
     """Build a :class:`DycoreState` from numpy-convertible arrays.
 
-    ``src``: a dict with keys delp, pt, wind, tracers (dict), phis, or any
-    object with those attributes (for example the reference package's
-    state, whose arrays ``np.asarray`` converts).
+    ``src``: a dict with keys delp, pt, wind, tracers (dict), phis and,
+    for a nonhydrostatic state, w and delz, or any object with those
+    attributes (for example the reference package's state, whose arrays
+    ``np.asarray`` converts).
     """
     def t(x):
-        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+        return None if x is None else torch.tensor(
+            np.asarray(x), dtype=dtype, device=device)
 
-    for name in ("w", "delz"):
-        value = src.get(name) if isinstance(src, dict) else getattr(
-            src, name, None
-        )
-        if value is not None:
-            raise NotImplementedError(
-                "nonhydrostatic state (w/delz) is not ported to "
-                "fv3net_torch yet"
-            )
+    def opt(name):
+        return src.get(name) if isinstance(src, dict) else getattr(
+            src, name, None)
+
     return DycoreState(
         delp=t(_get(src, "delp")),
         pt=t(_get(src, "pt")),
         wind=t(_get(src, "wind")),
         tracers={k: t(v) for k, v in _get(src, "tracers").items()},
         phis=t(_get(src, "phis")),
+        w=t(opt("w")),
+        delz=t(opt("delz")),
     )
 
 
 def state_to_numpy(state: DycoreState) -> dict:
     """The inverse of :func:`state_from_numpy`: a dict of numpy arrays."""
     def n(x):
-        return x.detach().cpu().numpy()
+        return None if x is None else x.detach().cpu().numpy()
 
     return {
         "delp": n(state.delp),
@@ -153,4 +170,6 @@ def state_to_numpy(state: DycoreState) -> dict:
         "wind": n(state.wind),
         "tracers": {k: n(v) for k, v in state.tracers.items()},
         "phis": n(state.phis),
+        "w": n(state.w),
+        "delz": n(state.delz),
     }

@@ -12,10 +12,14 @@ fraction), stratospheric eddy damping, Monin-Obukhov or bulk surface
 with the land fraction and evaporation factor of the surface models,
 K-profile or ramp PBL, orographic gravity-wave drag (``sgh``),
 Betts-Miller or mass-flux deep convection with the shallow mass-flux
-stage, Zhao-Carr microphysics.  GFDL microphysics, the emulator hooks,
-ozone and stratospheric water raise ``NotImplementedError``; the
-reference's off-by-default switches (thermal top sponge, turning
-convection off) are not ported.
+stage, Zhao-Carr or GFDL six-category microphysics (with the
+liquid + ice radiation condensate), stratospheric water
+(``stratospheric_h2o``), linearized ozone photochemistry (an ``o3mr``
+tracer, also handed to the radiation) and the nonhydrostatic state
+(w passes through; delz expands with the layer's virtual temperature).
+The microphysics emulator hooks raise ``NotImplementedError`` (ROADMAP
+Queue 1 item 6); the reference's off-by-default switches (thermal top
+sponge, turning convection off) are not ported.
 """
 from __future__ import annotations
 
@@ -39,7 +43,10 @@ from fv3net_torch.ops import thermo
 from fv3net_torch.physics import convection as conv
 from fv3net_torch.physics import convection_mf as cmf
 from fv3net_torch.physics import gravity_wave_drag as gwd_mod
+from fv3net_torch.physics import h2ophys as h2o_mod
 from fv3net_torch.physics import microphysics as mp
+from fv3net_torch.physics import microphysics_gfdl as mp_gfdl
+from fv3net_torch.physics import ozone as o3_mod
 from fv3net_torch.physics import pbl as pbl_mod
 from fv3net_torch.physics import radiation_gray as rad
 from fv3net_torch.physics import surface as sfc
@@ -48,8 +55,7 @@ from fv3net_torch.physics import surface_layer as sl_mod
 
 @dataclasses.dataclass(frozen=True)
 class PhysicsConfig:
-    """The reference's defaults for the ported schemes; selecting an
-    unported scheme raises in :func:`physics_step`."""
+    """The reference's defaults for the ported schemes."""
 
     ptop: float = 300.0
     # "gray" (computed here) or "rrtmg" (the band solvers of
@@ -64,7 +70,10 @@ class PhysicsConfig:
     surface_layer: sl_mod.SurfaceLayerParams = sl_mod.SurfaceLayerParams()
     kprofile: pbl_mod.KProfileParams = pbl_mod.KProfileParams()
     microphysics: mp.MicrophysicsParams = mp.MicrophysicsParams()
-    microphysics_scheme: str = "zhao_carr"  # "gfdl" is not ported yet
+    # "zhao_carr" or "gfdl" (six categories; the state carries the
+    # ice_wat/rainwat/snowwat/graupel tracers)
+    microphysics_scheme: str = "zhao_carr"
+    gfdl_mp: mp_gfdl.GFDLMPParams = mp_gfdl.GFDLMPParams()
     convection: conv.ConvectionParams = conv.ConvectionParams()
     convection_scheme: str = "betts_miller"  # or "mass_flux"
     mass_flux: cmf.MassFluxParams = cmf.MassFluxParams()
@@ -73,7 +82,9 @@ class PhysicsConfig:
     # subgrid-orography field (physics_step's ``sgh``)
     gwd: gwd_mod.GWDParams = gwd_mod.GWDParams()
     use_gwd: bool = True
-    stratospheric_h2o: bool = False  # True is not ported yet
+    # stratospheric methane-oxidation water source (physics/h2ophys.py);
+    # off by default: it adds water mass
+    stratospheric_h2o: bool = False
     # stratospheric eddy damping toward the per-level global mean
     strat_eddy_damp_days: float = 1.0
     strat_eddy_damp_pa: float = 25000.0
@@ -92,7 +103,8 @@ def _zmid(x):
 
 
 def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to fv3net_torch yet")
+    return NotImplementedError(f"{what} is not ported to fv3net_torch yet "
+                               "(ROADMAP.md Queue 1 item 6)")
 
 
 def physics_step(
@@ -117,14 +129,11 @@ def physics_step(
     scheme (the fused chunk passes its cached radiation this way).  The
     emulator hooks raise ``NotImplementedError``.
     """
-    if cfg.microphysics_scheme != "zhao_carr":
-        raise _not_ported(f"microphysics_scheme={cfg.microphysics_scheme!r}")
+    if cfg.microphysics_scheme not in ("zhao_carr", "gfdl"):
+        raise ValueError(f"microphysics_scheme must be 'zhao_carr' or "
+                         f"'gfdl', got {cfg.microphysics_scheme!r}")
     if microphysics_emulator is not None or gscond_emulator is not None:
-        raise _not_ported("the microphysics emulator hooks")
-    if cfg.stratospheric_h2o:
-        raise _not_ported("stratospheric_h2o (physics/h2ophys.py)")
-    if "o3mr" in state.tracers:
-        raise _not_ported("ozone photochemistry (physics/ozone.py)")
+        raise _not_ported("the microphysics emulator hooks (emulation/)")
     if radiation_fn is None and cfg.radiation_scheme != "gray":
         raise ValueError(
             f"radiation_scheme={cfg.radiation_scheme!r} needs a radiation_fn "
@@ -150,6 +159,20 @@ def physics_step(
     qc = _zlast(state.tracers["cloud_water"])
     wind = torch.stack([_zlast(state.wind[c]) for c in range(3)])
 
+    gfdl_mode = cfg.microphysics_scheme == "gfdl"
+    if gfdl_mode:
+        # six-category mode: "cloud_water" is the liquid species (GFS
+        # liq_wat) and the four other condensates are in the state
+        missing = [k for k in mp_gfdl.GFDL_TRACER_NAMES
+                   if k not in state.tracers]
+        if missing:
+            raise ValueError(
+                "microphysics_scheme='gfdl' needs tracers "
+                f"{mp_gfdl.GFDL_TRACER_NAMES}, missing {missing} "
+                "(see runtime config: microphysics namelist key)")
+        qi_g, qr_g, qs_g, qg_g = (_zlast(state.tracers[k])
+                                  for k in mp_gfdl.GFDL_TRACER_NAMES)
+
     pe = thermo.pressure_at_interface(delp, toa_pressure=cfg.ptop)
     pmid = thermo.pressure_at_midpoint_log(delp, toa_pressure=cfg.ptop)
     T = temperature_from_theta_v(pt, pmid, q)
@@ -157,8 +180,12 @@ def physics_step(
 
     # ---- radiation ------------------------------------------------------
     if radiation_fn is not None:
+        o3_rad = (_zlast(state.tracers["o3mr"])
+                  if "o3mr" in state.tracers else None)
+        # six-category mode: the radiation's condensate is liquid + ice
+        qc_rad = qc + qi_g if gfdl_mode else qc
         heating, rad_diags = radiation_fn(
-            T, delp, q, qc, t_surface, cos_zenith, lat, o3=None,
+            T, delp, q, qc_rad, t_surface, cos_zenith, lat, o3=o3_rad,
             land=land_frac, ice=ice_frac,
         )
     else:
@@ -268,25 +295,59 @@ def physics_step(
     wind = wind + dwind_sh
 
     # ---- microphysics ---------------------------------------------------
-    T, q, qc, precip, snow = mp.microphysics_step(
-        T, q, qc, pmid, delp, dt, cfg.microphysics
-    )
+    if gfdl_mode:
+        (T, q, qc, qi_g, qr_g, qs_g, qg_g, rain_g, frozen_g
+         ) = mp_gfdl.gfdl_microphysics_step(
+            T, q, qc, qi_g, qr_g, qs_g, qg_g, pmid, delp, dt, cfg.gfdl_mp)
+        precip = rain_g + frozen_g
+        snow = frozen_g
+    else:
+        T, q, qc, precip, snow = mp.microphysics_step(
+            T, q, qc, pmid, delp, dt, cfg.microphysics
+        )
 
-    extra_tracers = {
-        k: v for k, v in state.tracers.items()
-        if k not in ("sphum", "cloud_water")
-    }
+    # ---- stratospheric methane-oxidation water (GFS h2o_phys) -----------
+    if cfg.stratospheric_h2o:
+        q = q + dt * h2o_mod.h2o_tendency(q, pmid)
+
+    # ---- linearized ozone photochemistry --------------------------------
+    skip = {"sphum", "cloud_water"}
+    if gfdl_mode:
+        skip.update(mp_gfdl.GFDL_TRACER_NAMES)
+    extra_tracers = {k: v for k, v in state.tracers.items() if k not in skip}
+    if "o3mr" in extra_tracers:
+        o3 = _zlast(extra_tracers["o3mr"])
+        do3 = o3_mod.ozone_tendency(o3, pmid, lat)
+        extra_tracers["o3mr"] = _zmid(torch.clamp(o3 + dt * do3, min=0.0))
+
     pt_new = theta_v_from_temperature(T, pmid, q)
+    delz_new = state.delz
+    if state.delz is not None:
+        # physics heats at constant pressure: the layer expands by the
+        # virtual-temperature ratio, so that the nonhydrostatic pressure
+        # perturbation does not jump at the physics boundary
+        tv_ratio = (thermo.virtual_temperature(T, q)
+                    / thermo.virtual_temperature(T0, q0))
+        delz_new = state.delz * _zmid(tv_ratio)
+    gfdl_tracers = {}
+    if gfdl_mode:
+        gfdl_tracers = {k: _zmid(v) for k, v in zip(
+            mp_gfdl.GFDL_TRACER_NAMES, (qi_g, qr_g, qs_g, qg_g))}
     new_state = DycoreState(
         delp=state.delp,
         pt=_zmid(pt_new),
         wind=torch.stack([_zmid(wind[c]) for c in range(3)]),
+        # other tracers (o3mr, ...) pass through: the dycore transports
+        # every tracer of the dict
         tracers={
             **extra_tracers,
             "sphum": _zmid(q),
             "cloud_water": _zmid(qc),
+            **gfdl_tracers,
         },
         phis=state.phis,
+        w=state.w,
+        delz=delz_new,
     )
 
     diags = dict(rad_diags)

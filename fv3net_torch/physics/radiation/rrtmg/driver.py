@@ -134,9 +134,9 @@ class RRTMGDriver:
     ``impl`` picks the k-table selections' version (None: the CUDA
     kernels on a CUDA device, the plain versions on the CPU);
     ``lw_taumol`` the route of the LW gas optics ("ktable": the k-table
-    selections, "mega": the one-launch kernel K2, see ``lw.lwrad``; not
-    under bfloat16 storage).  ``storage`` is the resolved
-    ``config.storage_dtype`` (None: the compute dtype)."""
+    selections, "mega": the one-launch kernel K2, see ``lw.lwrad``; its
+    bfloat16 instance under bfloat16 storage).  ``storage`` is the
+    resolved ``config.storage_dtype`` (None: the compute dtype)."""
 
     def __init__(self, config: RRTMGConfig = RRTMGConfig(),
                  lw_tables: Optional[Dict] = None,
@@ -154,11 +154,6 @@ class RRTMGDriver:
         self.device = torch.empty(0, device=device).device
         self.storage = rlw.resolve_storage(config.storage_dtype, dtype,
                                            self.device)
-        if lw_taumol == "mega" and self.storage is not None:
-            raise NotImplementedError(
-                "lw_taumol='mega' under bfloat16 storage: K2 has no "
-                "bfloat16 instance (ROADMAP Queue 2, 'K2 under bf16 "
-                "storage')")
         self.impl = impl
         self.lw_taumol = lw_taumol
         min_p = (config.min_pressure_mb if config.min_pressure_mb is not None

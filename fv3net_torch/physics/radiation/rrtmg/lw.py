@@ -15,8 +15,9 @@ of each band through ``spec_band_dot`` (K3), every other fetch through
 CUDA kernels on CUDA tensors, the plain versions on CPU tensors).
 
 ``lwrad(taumol="mega")`` takes the whole of the gas optics through one
-kernel instead (K2, :mod:`.taumol_cuda`), whose plain version is
-:func:`taumol_lw_plain`.
+kernel instead (K2, :mod:`.taumol_cuda`; under bfloat16 storage its
+bfloat16 instance, which rounds where the reference's megakernel rounds),
+whose plain version is :func:`taumol_lw_plain`.
 
 The transfer evaluates each layer's transmittances and sources for all
 layers at once and runs the two recurrences as Python loops over L, with
@@ -287,9 +288,12 @@ def _minor1(tab, c, impl=None):
     return _lerp_taken(tab, c["indminor"] - 1, c["minorfrac"], impl)
 
 
-def _minor2(tab, jm, fm, c, impl=None):
+def _minor2(tab, jm, fm, c, impl=None, mega=False):
     """Bilinear (species x temperature) minor interpolation of a
-    [nj, ni, ng] table as one selection over its [nj*ni] rows."""
+    [nj, ni, ng] table as one selection over its [nj*ni] rows.  ``mega``
+    takes the four rows in ascending order, as the reference's
+    megakernel sums its one-hot contraction (a bfloat16 table rounds the
+    sum, so its order shows)."""
     nj, ni = tab.shape[0], tab.shape[1]
     jmc = jm.clamp(0, nj - 2)
     imc = (c["indminor"] - 1).clamp(0, ni - 2)
@@ -297,12 +301,11 @@ def _minor2(tab, jm, fm, c, impl=None):
     fm1 = 1.0 - fm
     mf = c["minorfrac"]
     mf1 = 1.0 - mf
-    return _weighted_rows(
-        tab.reshape(nj * ni, tab.shape[-1]),
-        [(base, fm1 * mf1), (base + ni, fm * mf1),
-         (base + 1, fm1 * mf), (base + ni + 1, fm * mf)],
-        impl,
-    )
+    terms = [(base, fm1 * mf1), (base + ni, fm * mf1),
+             (base + 1, fm1 * mf), (base + ni + 1, fm * mf)]
+    if mega:
+        terms = [terms[0], terms[2], terms[1], terms[3]]
+    return _weighted_rows(tab.reshape(nj * ni, tab.shape[-1]), terms, impl)
 
 
 def _frac2(fracT, jpl, fpl, impl=None):
@@ -355,13 +358,46 @@ def _stencil2_terms(fs, js, nspb):
             ((j + 1).clamp(0, nspb - 1), fs)]
 
 
-def _tau_spec(tab_flat, nspa, groups, impl=None):
+def _tau_spec_mega(tab_flat, nspa, groups):
+    """:func:`_tau_spec` on a bfloat16 table as the reference's megakernel
+    computes it (its ``_contract_flat``): per path, each species row of
+    the base-row selection rounded once to bfloat16, the stencil weights
+    in bfloat16 (summed in bfloat16 where two positions meet), and
+    ``sum_s S[s] * A[s]`` in float32 in ascending ``s`` with the products
+    exact (the k-table route rounds each product to bfloat16), times the
+    path's scale in float32."""
+    ng = tab_flat.shape[1] // nspa
+    bf16 = torch.bfloat16
+    out = None
+    for pbase, stencil, scale in groups:
+        rows = ktable.weighted_select_dot_plain(
+            [(r, w.to(bf16)) for r, w in pbase], tab_flat)
+        S = torch.zeros(scale.shape + (nspa,), dtype=bf16,
+                        device=scale.device)
+        for pos, w in stencil:
+            onehot = torch.nn.functional.one_hot(pos, nspa).to(bf16)
+            S = S + onehot * w.to(bf16)[..., None]
+        acc = None
+        for s in range(nspa):
+            row = rows[..., s * ng:(s + 1) * ng].float()
+            term = S[..., s:s + 1].float() * row
+            acc = term if acc is None else acc + term
+        t = scale[..., None] * acc
+        out = t if out is None else out + t
+    return out
+
+
+def _tau_spec(tab_flat, nspa, groups, impl=None, mega=False):
     """sum_p scale_p * (species stencil of the base-row selection) of one
     band: one K3 call.  groups: (base pairs, stencil pairs, scale).
 
     On a bfloat16 table (the bf16 storage mode) each path is its own K3
     call with its weights in bfloat16 and its scale applied after, in
-    float32, as the reference scales its bfloat16-stored stencil sums."""
+    float32, as the reference scales its bfloat16-stored stencil sums;
+    ``mega`` takes the megakernel's form instead (:func:`_tau_spec_mega`,
+    gathers only)."""
+    if tab_flat.dtype == torch.bfloat16 and mega:
+        return _tau_spec_mega(tab_flat, nspa, groups)
     if tab_flat.dtype == torch.bfloat16:
         out = None
         for pbase, stencil, scale in groups:
@@ -499,14 +535,20 @@ def setcoef_lw(pavel, tavel, tz, stemp, h2ovmr, colamt, coldry, colbrd, T,
 
 # ------------------------------------------------------------------ taumol
 def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None,
-              storage=None):
+              storage=None, mega=False):
     """Gas optical depth + Planck fractions for all 140 g-points.
 
     c: setcoef_lw output (plus "pavel"); colamt [C,L,7], wx [C,L,4],
     tauaer [C,L,nbands].  Returns (fracs, tautot), each [C, L, ngptlw],
     in ``storage`` (None: the compute dtype).  12 K3 calls (9 lower, 3
     upper species-interpolated bands); with ``storage`` bfloat16 every
-    selection reads the bfloat16 tables (:func:`stored_tables`)."""
+    selection reads the bfloat16 tables (:func:`stored_tables`).
+
+    ``mega`` (with ``storage`` bfloat16 only) rounds where the
+    reference's megakernel rounds, which differs from its k-table route
+    in the species taus and the order of the bilinear minors' sums
+    (:func:`_tau_spec_mega`, :func:`_minor2`); it is K2's bfloat16 form."""
+    mega = mega and storage == torch.bfloat16
     chi = T["chi_mls"]
     B = T["bands"]
     Ts = stored_tables(T, storage)
@@ -564,14 +606,14 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None,
         return _tau_spec(
             Ts["flat_lo"][i], 9,
             [(PBL0, _stencil3_terms(sp, fs, js), sc),
-             (PBL1, _stencil3_terms(sp1, fs1, js1), sc1)], impl,
+             (PBL1, _stencil3_terms(sp1, fs1, js1), sc1)], impl, mega,
         )
 
     def tau_spec_hi(i, scU, fsU, jsU, scU1, fsU1, jsU1):
         return _tau_spec(
             Ts["flat_hi"][i], 5,
             [(PBH0, _stencil2_terms(fsU, jsU, 5), scU),
-             (PBH1, _stencil2_terms(fsU1, jsU1, 5), scU1)], impl,
+             (PBH1, _stencil2_terms(fsU1, jsU1, 5), scU1)], impl, mega,
         )
 
     # reference amounts at the jp and jp+1 rows (the reference indexes
@@ -624,7 +666,7 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None,
         ratn2o > 1.5, (0.5 + (ratn2o - 0.5) ** 0.65) * ref_n2o, n2o
     )
     tauself, taufor = self_for(2)
-    absn2o = _minor2(bs["ka_mn2o"], jmn2o, fmn2o, c, impl)
+    absn2o = _minor2(bs["ka_mn2o"], jmn2o, fmn2o, c, impl, mega)
     lower = (tau_spec_lo(2, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor + adjcoln2o[..., None] * absn2o)
     fr_lo = _frac2(bs["fracrefa"], jpl_, fpl, impl)
@@ -632,7 +674,7 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None,
     scU1, _, jsU1, fsU1 = _spec(h2o, co2, rfrate[..., 0, 1], 4.0)
     jmn2oU, fmn2oU = _jpl(h2o, co2, refrat_m_b, mult=4.0)
     jplU, fplU = _jpl(h2o, co2, refrat_pl_b, mult=4.0)
-    absn2oU = _minor2(bs["kb_mn2o"], jmn2oU, fmn2oU, c, impl)
+    absn2oU = _minor2(bs["kb_mn2o"], jmn2oU, fmn2oU, c, impl, mega)
     upper = (tau_spec_hi(2, scU, fsU, jsU, scU1, fsU1, jsU1)
              + taufor + adjcoln2o[..., None] * absn2oU)
     fr_hi = _frac2(bs["fracrefb"], jplU, fplU, impl)
@@ -671,7 +713,7 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None,
     jmo3, fmo3 = _jpl(h2o, co2, refrat_m_a)
     jpl_, fpl = _jpl(h2o, co2, refrat_pl_a)
     tauself, taufor = self_for(4)
-    abso3 = _minor2(bs["ka_mo3"], jmo3, fmo3, c, impl)
+    abso3 = _minor2(bs["ka_mo3"], jmo3, fmo3, c, impl, mega)
     ccl4 = wx[..., 0:1] * bt["ccl4"]
     lower = (tau_spec_lo(4, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor + abso3 * o3[..., None] + ccl4)
@@ -713,7 +755,7 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None,
         ratco2_lo > 3.0, (3.0 + (ratco2_lo - 3.0) ** 0.79) * ref_co2, co2
     )
     tauself, taufor = self_for(6)
-    absco2_lo = _minor2(bs["ka_mco2"], jmco2, fmco2, c, impl)
+    absco2_lo = _minor2(bs["ka_mco2"], jmco2, fmco2, c, impl, mega)
     lower = (tau_spec_lo(6, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor + adjco2_lo[..., None] * absco2_lo)
     fr_lo = _frac2(bs["fracrefa"], jpl_, fpl, impl)
@@ -754,7 +796,7 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None,
     jmn2o, fmn2o = _jpl(h2o, ch4, refrat_m_a)
     jpl_, fpl = _jpl(h2o, ch4, refrat_pl_a)
     tauself, taufor = self_for(8)
-    absn2o = _minor2(bs["ka_mn2o"], jmn2o, fmn2o, c, impl)
+    absn2o = _minor2(bs["ka_mn2o"], jmn2o, fmn2o, c, impl, mega)
     lower = (tau_spec_lo(8, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor + adjcoln2o[..., None] * absn2o)
     fr_lo = _frac2(bs["fracrefa"], jpl_, fpl, impl)
@@ -819,8 +861,8 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None,
         co2,
     )
     tauself, taufor = self_for(12)
-    absco2 = _minor2(bs["ka_mco2"], jmco2, fmco2, c, impl)
-    absco = _minor2(bs["ka_mco"], jmco, fmco, c, impl)
+    absco2 = _minor2(bs["ka_mco2"], jmco2, fmco2, c, impl, mega)
+    absco = _minor2(bs["ka_mco"], jmco, fmco, c, impl, mega)
     lower = (tau_spec_lo(12, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor + adjcolco2[..., None] * absco2
              + colamt[..., 6:7] * absco)
@@ -848,7 +890,7 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None,
     jpl_, fpl = _jpl(n2o, co2, refrat_pl_a)
     scalen2 = (colbrd * c["scaleminor"])[..., None]
     tauself, taufor = self_for(14)
-    taun2 = scalen2 * _minor2(bs["ka_mn2"], jmn2, fmn2, c, impl)
+    taun2 = scalen2 * _minor2(bs["ka_mn2"], jmn2, fmn2, c, impl, mega)
     lower = (tau_spec_lo(14, sc, sp, fs, js, sc1, sp1, fs1, js1)
              + tauself + taufor + taun2)
     fr_lo = _frac2(bs["fracrefa"], jpl_, fpl, impl)
@@ -886,23 +928,28 @@ def taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None,
     return fracs, tautot
 
 
-def taumol_lw_plain(c, colamt, coldry, colbrd, wx, tauaer, T):
+def taumol_lw_plain(c, colamt, coldry, colbrd, wx, tauaer, T,
+                    storage=None):
     """The plain PyTorch version of K2: :func:`taumol_lw` with every
-    selection as a plain gather."""
-    return taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl="torch")
+    selection as a plain gather; under bfloat16 ``storage`` in the
+    megakernel's form (its ``mega``)."""
+    return taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T, impl="torch",
+                     storage=storage, mega=True)
 
 
-def taumol_lw_mega(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None):
+def taumol_lw_mega(c, colamt, coldry, colbrd, wx, tauaer, T, impl=None,
+                   storage=None):
     """:func:`taumol_lw` as one kernel launch: K2 on CUDA tensors (it
-    launches or raises), :func:`taumol_lw_plain` on CPU tensors; ``impl``
-    "cuda" or "torch" forces one."""
+    launches or raises; its float32, float64 or, with ``storage``
+    bfloat16, bfloat16 instance), :func:`taumol_lw_plain` on CPU
+    tensors; ``impl`` "cuda" or "torch" forces one."""
     if impl not in (None, "cuda", "torch"):
         raise ValueError(f"taumol impl must be None, 'cuda' or 'torch'; got "
                          f"{impl!r}")
     if impl == "cuda" or (impl is None and coldry.is_cuda):
         return taumol_cuda.taumol_lw_cuda(c, colamt, coldry, colbrd, wx,
-                                          tauaer, T)
-    return taumol_lw_plain(c, colamt, coldry, colbrd, wx, tauaer, T)
+                                          tauaer, T, storage)
+    return taumol_lw_plain(c, colamt, coldry, colbrd, wx, tauaer, T, storage)
 
 
 # ------------------------------------------------------------------ clouds
@@ -1131,11 +1178,6 @@ def lwrad(plyr, plvl, tlyr, tlvl, qlyr, olyr, gasvmr, clouds, aerosols,
         raise ValueError(f"taumol must be 'ktable' or 'mega'; got {taumol!r}")
     dtype = plyr.dtype
     storage = resolve_storage(storage, dtype, plyr.device)
-    if taumol == "mega" and storage is not None:
-        raise NotImplementedError(
-            "lwrad(taumol='mega') under bfloat16 storage: K2 has no "
-            "bfloat16 instance (ROADMAP Queue 2, 'K2 under bf16 storage')"
-        )
     tem1 = 100.0 * P.CON_G
     tem2 = 1.0e-20 * 1.0e3 * P.CON_AVGD
 
@@ -1194,7 +1236,7 @@ def lwrad(plyr, plvl, tlyr, tlvl, qlyr, olyr, gasvmr, clouds, aerosols,
     )
     if taumol == "mega":
         fracs, tautot = taumol_lw_mega(c, colamt, coldry, colbrd, wx,
-                                       tauaer, T, impl)
+                                       tauaer, T, impl, storage)
     else:
         fracs, tautot = taumol_lw(c, colamt, coldry, colbrd, wx, tauaer, T,
                                   impl, storage)

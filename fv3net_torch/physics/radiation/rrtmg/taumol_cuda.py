@@ -16,10 +16,18 @@ a :class:`Planes` struct passed by value (only a plane that is not evenly
 strided over the points is copied); :func:`taumol_lw_launch` launches
 the kernel on them.
 
+Under the RRTMG bfloat16 storage mode (``storage`` bfloat16, float32
+tables) the kernel's bfloat16 instance runs: it reads the tables in
+float32 and in a bfloat16 copy of the same layout (:func:`stored_flat`),
+rounds where the reference's megakernel rounds under its bf16 storage and
+writes bfloat16 outputs; its plain version is ``taumol_lw_plain`` with the
+same ``storage``.
+
 Build: :func:`fv3net_torch.ops.cuda_build.build` compiles the source at
 first use, without fused multiply-adds (see the source).  There is no
 fallback: a missing compiler, a failed build or a failed launch raises.
-``TAUMOL_LAUNCHES`` counts the launches of this process.
+``TAUMOL_LAUNCHES`` counts the launches of this process,
+``LAUNCHES_BY_INSTANCE`` the same by instance ("f32", "f64", "bf16").
 """
 from __future__ import annotations
 
@@ -40,9 +48,13 @@ SOURCE = "taumol_lw.cu"
 EXTRA_FLAGS = ("-fmad=false",)
 
 TAUMOL_LAUNCHES = 0
+LAUNCHES_BY_INSTANCE = {"f32": 0, "f64": 0, "bf16": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _PACK_KEY = "_taumol_pack"
+_PACK_BF16_KEY = "_taumol_pack_bf16"
+# the instance a plan is asked for (fv3_taumol_lw_plan's kind)
+_PLAN_KIND = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 # float planes of the points, in the kernel's order (F_* in the source)
 FLOAT_PLANES = (
@@ -64,14 +76,16 @@ class Planes(ctypes.Structure):
     """The point planes as the kernel takes them (``csrc/taumol_lw.cu``):
     per plane a pointer and an element stride (plane k's value at point n
     lies at ``f[k] + n * fs[k]``), float planes in ``FLOAT_PLANES``' order
-    and in the tables' dtype, index planes in ``INT_PLANES``' order with
-    their bytes per index (4, 8 or 1 for bool)."""
+    in the tables' dtype or, beside float32 tables, bfloat16 (their bytes
+    per value in ``fw``), index planes in ``INT_PLANES``' order with their
+    bytes per index (4, 8 or 1 for bool)."""
 
     _fields_ = [("f", ctypes.c_void_p * len(FLOAT_PLANES)),
                 ("i", ctypes.c_void_p * len(INT_PLANES)),
                 ("fs", ctypes.c_longlong * len(FLOAT_PLANES)),
                 ("istride", ctypes.c_longlong * len(INT_PLANES)),
-                ("iw", ctypes.c_int * len(INT_PLANES))]
+                ("iw", ctypes.c_int * len(INT_PLANES)),
+                ("fw", ctypes.c_int * len(FLOAT_PLANES))]
 
 # reference amount ratios chi_mls[a, level] / chi_mls[b, level] at fixed
 # levels, in the kernel's order (R_* in the source): (a, b, level)
@@ -159,6 +173,9 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [Planes] + [ptr] * 4 + [ctypes.c_longlong,
                                                ctypes.c_double, ptr]
         fn.restype = ctypes.c_int
+    lib.fv3_taumol_lw_bf16.argtypes = [Planes] + [ptr] * 5 + [
+        ctypes.c_longlong, ctypes.c_double, ptr]
+    lib.fv3_taumol_lw_bf16.restype = ctypes.c_int
     lib.fv3_taumol_lw_plan.argtypes = [
         ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
@@ -288,6 +305,19 @@ def pack_tables(T: Dict) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     return T[_PACK_KEY]
 
 
+def stored_flat(T: Dict) -> torch.Tensor:
+    """The bfloat16 copy of :func:`pack_tables`' float32 buffer (the same
+    layout), made once and kept on ``T``: the bfloat16 instance reads
+    there every table row the reference selects in bfloat16."""
+    flat = pack_tables(T)[0]
+    if flat.dtype != torch.float32:
+        raise TypeError(f"taumol_lw kernel: bfloat16 storage needs float32 "
+                        f"tables, got {flat.dtype}")
+    if _PACK_BF16_KEY not in T:
+        T[_PACK_BF16_KEY] = flat.to(torch.bfloat16)
+    return T[_PACK_BF16_KEY]
+
+
 def _even_stride(shape, strides):
     """The element stride s with which the value at flat index n over
     ``shape`` lies n * s elements from the first, given the dimensions'
@@ -331,11 +361,12 @@ def pack_planes(c: Dict, colamt, coldry, colbrd, wx, tauaer,
     """The per-point values of ``lw.taumol_lw``'s arguments as a
     :class:`Planes` struct: each plane where the caller holds it
     (``colamt``, ``wx``, ``tauaer`` and ``c["rfrate"]`` in their
-    [C, L, k] layouts), float planes in ``flat``'s dtype, index planes
-    int32, int64 or bool, all over ``coldry``'s shape on ``flat``'s
-    device.  Returns ``(struct, keep)``: ``keep`` holds the copies the
-    struct points into (of planes not evenly strided), which must live
-    until the launch is done."""
+    [C, L, k] layouts), float planes in ``flat``'s dtype (or bfloat16
+    beside float32 tables: the aerosol taus of the bf16 storage mode),
+    index planes int32, int64 or bool, all over ``coldry``'s shape on
+    ``flat``'s device.  Returns ``(struct, keep)``: ``keep`` holds the
+    copies the struct points into (of planes not evenly strided), which
+    must live until the launch is done."""
     kernel = "taumol_lw"
     lead = tuple(coldry.shape)
     # the float planes' sources, in FLOAT_PLANES' order
@@ -344,14 +375,18 @@ def pack_planes(c: Dict, colamt, coldry, colbrd, wx, tauaer,
                  ("coldry", coldry), ("colbrd", colbrd), ("wx", wx),
                  ("tauaer", tauaer)])
     keep = []
-    f, fs = [], []
+    f, fs, fw = [], [], []
+    allowed = {flat.dtype}
+    if flat.dtype == torch.float32:
+        allowed.add(torch.bfloat16)
     for name, x in floats:
-        if x.dtype != flat.dtype:
+        if x.dtype not in allowed:
             raise TypeError(f"{kernel} kernel: plane {name} is {x.dtype}, "
                             f"the tables {flat.dtype}")
         ptrs, step = _planes(kernel, name, x, lead, flat.device, keep)
         f += ptrs
         fs += [step] * len(ptrs)
+        fw += [x.element_size()] * len(ptrs)
     if len(f) != len(FLOAT_PLANES):
         raise ValueError(f"{kernel} kernel: {len(f)} float planes, not "
                          f"{len(FLOAT_PLANES)}")
@@ -366,15 +401,17 @@ def pack_planes(c: Dict, colamt, coldry, colbrd, wx, tauaer,
         istride.append(step)
         iw.append(_INDEX_WIDTH[x.dtype])
     return Planes(tuple(f), tuple(i), tuple(fs), tuple(istride),
-                  tuple(iw)), keep
+                  tuple(iw), tuple(fw)), keep
 
 
 def taumol_lw_launch(planes: Planes, flat: torch.Tensor, meta: torch.Tensor,
-                     lead: Tuple[int, ...]) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
+                     lead: Tuple[int, ...], flat_bf16: torch.Tensor = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 on the point planes of :func:`pack_planes` (N = prod(lead)
     points) and the tables of :func:`pack_tables`, contiguous on one CUDA
-    device.  Returns ``(fracs, tautot)``, each ``lead + (140,)``."""
+    device.  With ``flat_bf16`` (:func:`stored_flat`, beside float32
+    tables) the bfloat16 instance runs.  Returns ``(fracs, tautot)``,
+    each ``lead + (140,)``, in the tables' dtype or bfloat16."""
     global TAUMOL_LAUNCHES
     kernel = "taumol_lw"
     if flat.dtype not in _SUFFIX:
@@ -383,41 +420,63 @@ def taumol_lw_launch(planes: Planes, flat: torch.Tensor, meta: torch.Tensor,
     check_tensor(kernel, "tables", flat, flat.shape, flat.dtype, flat.device)
     check_tensor(kernel, "table description", meta, meta.shape, torch.int32,
                  flat.device)
-    fracs = torch.empty(tuple(lead) + (P.NGPT_LW,), dtype=flat.dtype,
+    instance = _SUFFIX[flat.dtype]
+    out_dtype = flat.dtype
+    if flat_bf16 is not None:
+        if flat.dtype != torch.float32:
+            raise TypeError(f"{kernel} kernel: the bfloat16 instance takes "
+                            f"float32 tables, got {flat.dtype}")
+        check_tensor(kernel, "bfloat16 tables", flat_bf16, flat.shape,
+                     torch.bfloat16, flat.device)
+        instance, out_dtype = "bf16", torch.bfloat16
+    fracs = torch.empty(tuple(lead) + (P.NGPT_LW,), dtype=out_dtype,
                         device=flat.device)
     tautot = torch.empty_like(fracs)
     N = math.prod(lead)
     if N == 0:
         return fracs, tautot
-    fn = getattr(_library(), f"fv3_taumol_lw_{_SUFFIX[flat.dtype]}")
+    lib = _library()
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
-        err = fn(planes, flat.data_ptr(), meta.data_ptr(), fracs.data_ptr(),
-                 tautot.data_ptr(), N, float(P.ONEMINUS), stream)
+        if flat_bf16 is not None:
+            err = lib.fv3_taumol_lw_bf16(
+                planes, flat.data_ptr(), flat_bf16.data_ptr(),
+                meta.data_ptr(), fracs.data_ptr(), tautot.data_ptr(), N,
+                float(P.ONEMINUS), stream)
+        else:
+            err = getattr(lib, f"fv3_taumol_lw_{instance}")(
+                planes, flat.data_ptr(), meta.data_ptr(), fracs.data_ptr(),
+                tautot.data_ptr(), N, float(P.ONEMINUS), stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
     TAUMOL_LAUNCHES += 1
+    LAUNCHES_BY_INSTANCE[instance] += 1
     return fracs, tautot
 
 
-def taumol_lw_cuda(c: Dict, colamt, coldry, colbrd, wx, tauaer,
-                   T: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+def taumol_lw_cuda(c: Dict, colamt, coldry, colbrd, wx, tauaer, T: Dict,
+                   storage=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: ``(fracs, tautot)``, each [C, L, 140], of ``lw.taumol_lw``'s
     arguments, all on one CUDA device in the tables' dtype (float32 or
-    float64; index planes int32, int64 or bool)."""
+    float64; index planes int32, int64 or bool).  ``storage`` bfloat16
+    (float32 tables) runs the bfloat16 instance: bfloat16 outputs, as
+    ``lw.taumol_lw_plain(..., storage=torch.bfloat16)``."""
     flat, meta, _ = pack_tables(T)
+    flat_bf16 = stored_flat(T) if storage == torch.bfloat16 else None
     planes, keep = pack_planes(c, colamt, coldry, colbrd, wx, tauaer, flat)
-    return taumol_lw_launch(planes, flat, meta, tuple(coldry.shape))
+    return taumol_lw_launch(planes, flat, meta, tuple(coldry.shape),
+                            flat_bf16)
 
 
 def launch_plan(dtype: torch.dtype) -> dict:
-    """How K2 launches on the current card in ``dtype``: a block's shared
-    bytes, its threads and the blocks an SM holds
+    """How K2 launches on the current card in ``dtype`` (float32, float64
+    or bfloat16, the instance): a block's shared bytes, its threads and
+    the blocks an SM holds
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     smem = ctypes.c_longlong()
     threads, per_sm = ctypes.c_int(), ctypes.c_int()
     err = _library().fv3_taumol_lw_plan(
-        int(dtype == torch.float64), ctypes.byref(smem),
+        _PLAN_KIND[dtype], ctypes.byref(smem),
         ctypes.byref(threads), ctypes.byref(per_sm))
     if err != 0:
         raise RuntimeError(f"taumol_lw kernel plan failed: cudaError {err}")

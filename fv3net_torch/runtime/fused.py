@@ -89,7 +89,8 @@ def _build_radiation_fn(phys_cfg: PhysicsConfig, device, dtype,
     if phys_cfg.radiation_scheme != "rrtmg":
         raise NotImplementedError(
             f"radiation_scheme={phys_cfg.radiation_scheme!r} is not ported "
-            "to fv3net_torch yet (gray and rrtmg are)"
+            "to fv3net_torch yet (gray and rrtmg are; ROADMAP.md Queue 1 "
+            "item 6)"
         )
     from fv3net_torch.physics.radiation.rrtmg.driver import (
         RRTMGConfig,
@@ -215,7 +216,10 @@ def build_fused_multi_step(
                 T, delp, t_surface, cos_zenith, g.lat, phys_cfg.radiation
             )
         qc = s.tracers["cloud_water"].movedim(1, -1)
-        return band_radiation(T, delp, q, qc, t_surface, cos_zenith, g.lat)
+        o3 = (s.tracers["o3mr"].movedim(1, -1)
+              if "o3mr" in s.tracers else None)
+        return band_radiation(T, delp, q, qc, t_surface, cos_zenith, g.lat,
+                              o3=o3)
 
     @torch.no_grad()
     def multi(state: DycoreState, ml_params, t_surface, cos_zenith):
@@ -240,13 +244,21 @@ def build_fused_multi_step(
     return multi
 
 
-def _rad_inputs_full(state: DycoreState, dyn_cfg: DycoreConfig):
-    """Radiation column inputs (z-last) from the dycore state, as
-    physics_step hands them to its ``radiation_fn``: (T, delp, q, qc,
-    o3), o3 None without a prognostic ozone tracer."""
+def _rad_inputs_full(state: DycoreState, dyn_cfg: DycoreConfig,
+                     gfdl_mode: bool = False):
+    """Radiation column inputs (z-last) from the dycore state: (T, delp,
+    q, qc, o3), o3 None without a prognostic ozone tracer.
+
+    In six-category mode (``gfdl_mode``) the reference's chunk adds a
+    "cloud_ice" tracer to the condensate, as here; the six-category state
+    holds its ice as "ice_wat", so the chunk's cached radiation sees the
+    liquid only where ``physics_step`` hands liquid + ice to its
+    ``radiation_fn`` (ROADMAP Queue 3)."""
     delp = state.delp.movedim(1, -1)
     q = state.tracers["sphum"].movedim(1, -1)
     qc = state.tracers["cloud_water"].movedim(1, -1)
+    if gfdl_mode and "cloud_ice" in state.tracers:
+        qc = qc + state.tracers["cloud_ice"].movedim(1, -1)
     pmid = thermo.pressure_at_midpoint_log(delp, toa_pressure=dyn_cfg.ptop)
     T = temperature_from_theta_v(state.pt.movedim(1, -1), pmid, q)
     o3 = (state.tracers["o3mr"].movedim(1, -1)
@@ -356,6 +368,7 @@ def build_fused_production_chunk(
     validate_acoustic_cfl(g, dyn_cfg)
     band_radiation = _build_radiation_fn(phys_cfg, g.lat.device,
                                          g.lat.dtype, impl)
+    gfdl_mode = phys_cfg.microphysics_scheme == "gfdl"
     dt = dyn_cfg.dt
 
     def derived(s, sfc):
@@ -365,7 +378,7 @@ def build_fused_production_chunk(
     def compute_radiation_cache(s: DycoreState, surface, cos_zenith):
         """One band-radiation call with the current surface state (ice
         and snow albedo, land mask), as physics_step would make it."""
-        T, delp, q, qc, o3 = _rad_inputs_full(s, dyn_cfg)
+        T, delp, q, qc, o3 = _rad_inputs_full(s, dyn_cfg, gfdl_mode)
         _, ice_frac = surface_coupling_factors(surface, nml)
         return band_radiation(
             T, delp, q, qc, surface[names.TSFC], cos_zenith, g.lat,

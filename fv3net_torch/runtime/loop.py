@@ -28,7 +28,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from fv3net_torch.core.constants import GRAVITY
+from fv3net_torch.core.constants import GRAVITY, TOA_PRESSURE
 from fv3net_torch.core.quantity import Quantity
 from fv3net_torch.dycore.core import (
     DycoreConfig,
@@ -36,10 +36,12 @@ from fv3net_torch.dycore.core import (
     dynamics_step,
     validate_acoustic_cfl,
 )
-from fv3net_torch.dycore.state import init_state
+from fv3net_torch.dycore.state import add_nonhydrostatic_fields, init_state
 from fv3net_torch.grid.geometry import make_grid
-from fv3net_torch.ops import zenith
+from fv3net_torch.ops import zenith, zscan
 from fv3net_torch.physics import PhysicsConfig
+from fv3net_torch.physics.microphysics_gfdl import GFDL_TRACER_NAMES
+from fv3net_torch.physics.radiation import gases
 from fv3net_torch.runtime import factories, names
 from fv3net_torch.runtime.factories import not_ported
 from fv3net_torch.runtime.config import UserConfig
@@ -102,12 +104,6 @@ class TimeLoop:
         if nml.surface_data:
             raise not_ported(
                 f"surface_data {nml.surface_data!r} (the catalog)", 10)
-        if nml.prognostic_ozone:
-            raise not_ported("prognostic_ozone (physics/ozone.py)", 6)
-        if nml.microphysics != "zhao_carr":
-            raise not_ported(
-                f"microphysics {nml.microphysics!r} "
-                "(physics/microphysics_gfdl.py)", 6)
         factories.check_unported_steppers(config)
 
         self.grid = make_grid(nml.npx)
@@ -130,6 +126,21 @@ class TimeLoop:
         if config.initial_conditions:
             self._load_initial_conditions(config.initial_conditions,
                                           tuple(dstate.delp.shape))
+        d = self.state.dycore
+        tracers = dict(d.tracers)
+        if nml.prognostic_ozone and "o3mr" not in tracers:
+            # the radiation's climatology on the starting layers
+            pe = torch.cat([torch.full_like(d.delp[:, :1], TOA_PRESSURE),
+                            TOA_PRESSURE + zscan.cumsum(d.delp, axis=1)],
+                           dim=1)
+            pmid = d.delp / (torch.log(pe[:, 1:]) - torch.log(pe[:, :-1]))
+            tracers["o3mr"] = gases.ozone_profile(
+                pmid.movedim(1, -1), self._g.lat).movedim(-1, 1).to(dtype)
+        if nml.microphysics == "gfdl":
+            for name in GFDL_TRACER_NAMES:
+                if name not in tracers:
+                    tracers[name] = torch.zeros_like(d.delp)
+        self.state.dycore = dataclasses.replace(d, tracers=tracers)
         surface = self.state.surface
         if nml.sea_ice and "ice_thickness" not in surface:
             surface["ice_thickness"] = torch.zeros_like(surface[names.TSFC])
@@ -173,8 +184,11 @@ class TimeLoop:
             tau_rayleigh=nml.tau,
             rf_cutoff=nml.rf_cutoff,
         )
-        # the nonhydrostatic core is not ported: this raises for it
         validate_acoustic_cfl(self._g, self._dyn_cfg)
+        if not nml.hydrostatic and self.state.dycore.w is None:
+            # a restart may already carry w and delz
+            self.state.dycore = add_nonhydrostatic_fields(
+                self.state.dycore, ptop=self._dyn_cfg.ptop)
         self._phys_cfg = PhysicsConfig(
             radiation_scheme=nml.radiation,
             surface_scheme=nml.surface_scheme,

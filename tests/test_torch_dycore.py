@@ -11,7 +11,11 @@ import torch
 from torch_port_util import assert_states_close, jax_state, make_state_numpy
 
 from fv3net_torch.dycore import core as tc
-from fv3net_torch.dycore.state import state_from_numpy, state_to_numpy
+from fv3net_torch.dycore.state import (
+    add_nonhydrostatic_fields,
+    state_from_numpy,
+    state_to_numpy,
+)
 from fv3net_torch.grid.geometry import make_grid
 from fv3net_torch.parallel.halo import halo_append, halo_append_numpy
 
@@ -111,26 +115,40 @@ def test_dynamics_step_matches_reference(extra):
 
 
 def test_unported_dycore_options_raise():
-    """The nonhydrostatic core is still unported and raises (by its config
-    and by a state with w); advection order 2, which this test once held
-    to a raise, steps as the reference's does (the reference's default
-    DycoreConfig; tests/test_torch_dycore_options.py holds orders 1, 2 and
-    kord 7 against it)."""
+    """Every dycore option this test once held to a raise steps as the
+    reference's does: advection order 2 (the reference's default
+    DycoreConfig; tests/test_torch_dycore_options.py holds orders 1, 2
+    and kord 7 against it) and the nonhydrostatic core, by its config
+    and by a state with w and delz (tests/test_torch_nonhydro.py holds it
+    over terrain).  What still raises is a nonhydrostatic step on a state
+    without w and delz, and an advection order the reference lacks."""
     from fv3net_tpu.dycore import core as jc
+    from fv3net_tpu.dycore.state import add_nonhydrostatic_fields as jadd
     from fv3net_tpu.grid.geometry import make_grid as jmake_grid
 
     st, grid, ak, bk = make_state_numpy(4, 8)
     g = tc.GridArrays.from_grid(grid, torch.float64)
+    jg = jc.GridArrays.from_grid(jmake_grid(4), dtype=jnp.float64)
     args = (state_from_numpy(st), g, torch.tensor(ak), torch.tensor(bk))
-    with pytest.raises(NotImplementedError):
+    nh_kw = {**FLAGSHIP_KW, "hydrostatic": False}
+    with pytest.raises(ValueError, match="w and delz"):
+        tc.dynamics_step(*args, tc.DycoreConfig(**nh_kw))
+    with pytest.raises(ValueError, match="advection_order"):
         tc.dynamics_step(*args, tc.DycoreConfig(**{**FLAGSHIP_KW,
-                                                   "hydrostatic": False}))
+                                                   "advection_order": 3}))
     kw = {**FLAGSHIP_KW, "advection_order": 2}
     want = jc.dynamics_step(
-        jax_state(st, jnp.float64),
-        jc.GridArrays.from_grid(jmake_grid(4), dtype=jnp.float64),
+        jax_state(st, jnp.float64), jg,
         jnp.asarray(ak), jnp.asarray(bk), jc.DycoreConfig(**kw))
     assert_states_close(tc.dynamics_step(*args, tc.DycoreConfig(**kw)), want,
                         STEP_RTOL)
-    with pytest.raises(NotImplementedError):
-        state_from_numpy({**st, "w": np.zeros_like(st["delp"])})
+    nh = add_nonhydrostatic_fields(args[0])
+    want = jc.dynamics_step(
+        jadd(jax_state(st, jnp.float64)), jg, jnp.asarray(ak),
+        jnp.asarray(bk), jc.DycoreConfig(**nh_kw))
+    assert_states_close(tc.dynamics_step(nh, *args[1:],
+                                         tc.DycoreConfig(**nh_kw)),
+                        want, STEP_RTOL)
+    w_state = state_from_numpy({**st, "w": np.zeros_like(st["delp"]),
+                                "delz": np.ones_like(st["delp"])})
+    assert torch.equal(w_state.w, torch.zeros_like(w_state.delp))

@@ -246,7 +246,9 @@ def test_port_imports_neither_jax_nor_reference():
         "             'runtime.segmented_run.api',\n"
         "             'runtime.segmented_run.cli', 'fit.io',\n"
         "             'core.netcdfio', 'loaders.batches',\n"
-        "             'physics.radiation.rrtmg.io', 'dycore.testcases'):\n"
+        "             'physics.radiation.rrtmg.io', 'dycore.testcases',\n"
+        "             'dycore.nonhydro', 'physics.microphysics_gfdl',\n"
+        "             'physics.ozone', 'physics.h2ophys'):\n"
         "    assert 'fv3net_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )

@@ -410,9 +410,10 @@ def test_spec_kernel_source_matches_plain(emulated, case, dtype, offset):
 
 
 @functools.lru_cache(maxsize=None)
-def _taumol_args(dtype):
+def _taumol_args(dtype, storage=None):
     """The arguments one RRTMG call on the CPU hands to its LW gas optics,
-    on 3 seeded columns of 32 levels."""
+    on 3 seeded columns of 32 levels (``storage`` its RRTMGConfig's
+    storage_dtype)."""
     import datetime
 
     from fv3net_torch.physics.radiation.rrtmg import driver as tdrv
@@ -429,8 +430,8 @@ def _taumol_args(dtype):
 
     tlw.taumol_lw_mega = wrapped
     try:
-        tdrv.RRTMGDriver(tdrv.RRTMGConfig(), dtype=tdt, device="cpu",
-                         lw_taumol="mega")(
+        tdrv.RRTMGDriver(tdrv.RRTMGConfig(storage_dtype=storage), dtype=tdt,
+                         device="cpu", lw_taumol="mega")(
             datetime.datetime(2016, 7, 1),
             {k: torch.tensor(v, dtype=tdt) for k, v in state.items()},
             cosz=torch.tensor(cosz, dtype=tdt))
@@ -481,3 +482,41 @@ def test_taumol_kernel_source_matches_plain(emulated, dtype):
         assert ((g - w).abs() <= value_rtol * w.abs()).all(), name
     assert torch.equal(fracs.reshape(-1, P.NGPT_LW)[:N],
                        want[0].reshape(-1, P.NGPT_LW)[:N])
+
+
+def test_taumol_bf16_kernel_source_matches_plain(emulated):
+    """K2's bfloat16 instance (the RRTMG bf16 storage mode: float32 and
+    bfloat16 tables, the aerosol taus a bfloat16 plane, bfloat16 outputs
+    through its 8-value stores and the odd tile's scalar tail) on 2.5
+    columns, against ``taumol_lw_plain`` under bfloat16 storage.  The
+    kernel takes the plain version's operations in its order, so the
+    outputs are equal bit for bit (tolerance 0)."""
+    from fv3net_torch.physics.radiation.rrtmg import lw as tlw
+    from fv3net_torch.physics.radiation.rrtmg import params as P
+    from fv3net_torch.physics.radiation.rrtmg import taumol_cuda as tc
+
+    args = _taumol_args("float32", "bfloat16")
+    assert args[5].dtype == torch.bfloat16  # the aerosol taus
+    N = 80  # 2.5 columns of 32 levels: tiles of 32 points
+    flat, meta, _ = tc.pack_tables(args[6])
+    flat_bf16 = tc.stored_flat(args[6])
+    assert torch.equal(flat_bf16, flat.to(torch.bfloat16))
+    planes, keep = tc.pack_planes(*args[:6], flat)
+    assert list(planes.fw) == [4] * 37 + [2] * 16
+    lib = emulated("taumol_lw.cu", "-D__CUDACC__")
+    fn = lib.fv3_taumol_lw_bf16
+    fn.argtypes = [tc.Planes] + [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_double, ctypes.c_void_p]
+    shape = tuple(args[2].shape) + (P.NGPT_LW,)
+    fracs = torch.full(shape, float("nan"), dtype=torch.bfloat16)
+    tautot = torch.full_like(fracs, float("nan"))
+    assert fn(planes, flat.data_ptr(), flat_bf16.data_ptr(), meta.data_ptr(),
+              fracs.data_ptr(), tautot.data_ptr(), N, float(P.ONEMINUS),
+              None) == 0
+    want = tlw.taumol_lw_plain(*args, storage=torch.bfloat16)
+    for g, w, name in zip((fracs, tautot), want, ("fracs", "tautot")):
+        assert w.dtype == torch.bfloat16
+        g, w = g.reshape(-1, P.NGPT_LW), w.reshape(-1, P.NGPT_LW)
+        assert torch.isnan(g[N:]).all(), name  # nothing past the N points
+        assert torch.isfinite(w[:N]).all()
+        assert torch.equal(g[:N], w[:N]), name

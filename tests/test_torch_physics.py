@@ -205,19 +205,28 @@ def test_physics_step_matches_reference(schemes):
 
 
 def test_unported_physics_options_raise():
+    """The microphysics emulator hooks still raise (ROADMAP Queue 1 item
+    6).  Stratospheric water and an o3mr tracer, which this test once
+    held to a raise, run (tests/test_torch_gfdl_physics.py holds them and
+    GFDL microphysics against the reference): each moves what it acts
+    on."""
     st, sst, cosz, lat = _step_inputs(4, 8)
     args = (state_from_numpy(st), _t(sst), _t(cosz), _t(lat), 900.0)
     for cfg, kw in [
-        (PhysicsConfig(microphysics_scheme="gfdl"), {}),
-        (PhysicsConfig(stratospheric_h2o=True), {}),
         (PhysicsConfig(), dict(microphysics_emulator=lambda s: s)),
         (PhysicsConfig(), dict(gscond_emulator=lambda s: s)),
+        (PhysicsConfig(microphysics_scheme="gfdl"),
+         dict(microphysics_emulator=lambda s: s)),
     ]:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="emulator"):
             physics_step(*args, cfg, **kw)
+    base, _ = physics_step(*args)
+    wet, _ = physics_step(*args, PhysicsConfig(stratospheric_h2o=True))
+    assert not torch.equal(wet.tracers["sphum"], base.tracers["sphum"])
     o3 = dict(st, tracers={**st["tracers"], "o3mr": st["tracers"]["sphum"]})
-    with pytest.raises(NotImplementedError):
-        physics_step(state_from_numpy(o3), *args[1:])
+    got, _ = physics_step(state_from_numpy(o3), *args[1:])
+    assert not torch.equal(got.tracers["o3mr"],
+                           torch.tensor(st["tracers"]["sphum"]))
     # rrtmg reaches the step only as a radiation_fn (runtime/fused.py)
     with pytest.raises(ValueError, match="radiation_fn"):
         physics_step(*args, PhysicsConfig(radiation_scheme="rrtmg"))

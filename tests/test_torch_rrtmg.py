@@ -228,13 +228,16 @@ def test_taumol_sw_matches_reference(route):
 
 
 def test_unported_options_raise():
-    """The one RRTMG option still unported raises: the LW megakernel (K2)
-    under bf16 storage.  The options this test once held to a raise run
-    (tests/test_torch_rrtmg_options.py holds them against the reference):
-    daylight compression equals the full-width call here (4 columns, all
-    solved), the lookup tables part from the direct exponentials within
-    the reference's quantization bounds, and a driver takes
-    ``fast_exp=False`` and a column block."""
+    """Every RRTMG option this test once held to a raise runs
+    (tests/test_torch_rrtmg_options.py holds them against the reference,
+    tests/test_torch_taumol.py K2 under bf16 storage): daylight
+    compression equals the full-width call here (4 columns, all solved),
+    the lookup tables part from the direct exponentials within the
+    reference's quantization bounds, a driver takes ``fast_exp=False``
+    and a column block, and the LW megakernel route (K2) runs under bf16
+    storage, within 0.05 W/m2 (and 1e-3) of the k-table route's fluxes:
+    the two routes round the species taus differently, as the
+    reference's do."""
     args, solcon, rand2d = _sw_inputs()
     targs = [torch.tensor(x) for x in args]
     T = tsw.prep_sw_tables(ttab.make_sw_tables(seed=1), dtype=torch.float64)
@@ -255,14 +258,17 @@ def test_unported_options_raise():
     for k in LW_KEYS[2:]:
         np.testing.assert_allclose(lw_tables[k], lw_fast[k], rtol=5e-4,
                                    atol=0.2, err_msg=k)
-    with pytest.raises(NotImplementedError, match="K2 under bf16"):
-        tlw.lwrad(*[x.float() for x in lw_args],
-                  tlw.prep_lw_tables(ttab.make_lw_tables(seed=0),
-                                     torch.float32),
-                  taumol="mega", storage="bfloat16")
-    with pytest.raises(NotImplementedError, match="K2 under bf16"):
-        tdrv.RRTMGDriver(tdrv.RRTMGConfig(storage_dtype="bfloat16"),
-                         device="cpu", lw_taumol="mega")
+    Tl32 = tlw.prep_lw_tables(ttab.make_lw_tables(seed=0), torch.float32)
+    lw32 = [x.float() for x in lw_args]
+    routes = {route: tlw.lwrad(*lw32, Tl32, taumol=route,
+                               storage="bfloat16")
+              for route in ("mega", "ktable")}
+    for k in LW_KEYS[2:]:
+        assert torch.isfinite(routes["mega"][k]).all(), k
+        np.testing.assert_allclose(routes["mega"][k], routes["ktable"][k],
+                                   rtol=1e-3, atol=0.05, err_msg=k)
+    assert tdrv.RRTMGDriver(tdrv.RRTMGConfig(storage_dtype="bfloat16"),
+                            device="cpu", lw_taumol="mega").lw_taumol == "mega"
     state, cosz = driver_state(C=6, L=8)
     when = datetime.datetime(2016, 7, 1)
     outs = [tdrv.RRTMGDriver(cfg, dtype=torch.float64, device="cpu")(

@@ -296,6 +296,38 @@ def test_taumol_lw_matches_reference_megakernel():
             assert err <= REFERENCE_RTOL * np.abs(w).max(), (fn, name, err)
 
 
+def test_taumol_lw_plain_bf16_matches_reference_megakernel():
+    """K2's bfloat16 form: ``taumol_lw_plain`` under bfloat16 storage
+    against the reference's megakernel in interpret mode (4 columns per
+    block) under its ``set_storage_dtype("bfloat16")``, float32, both on
+    the arguments the port's ``lwrad`` hands its gas optics on the oracle
+    battery.  Tolerance: none, both outputs equal bit for bit.  The
+    port's k-table route, which follows the reference's XLA route, parts
+    from the megakernel in over 1% of the tautot values (the reference's
+    own two routes do, in 3.15%)."""
+    from fv3net_tpu.physics.radiation.rrtmg import lw as jlw
+    from fv3net_tpu.physics.radiation.rrtmg import pallas_taumol
+
+    targs = _capture_taumol("float32")
+    jargs = [{k: jnp.asarray(v.numpy()) for k, v in targs[0].items()}] + [
+        jnp.asarray(x.numpy()) for x in targs[1:6]]
+    T = jlw.prep_lw_tables(ttab.make_lw_tables(seed=0), dtype="float32")
+    jlw.set_storage_dtype("bfloat16")
+    try:
+        want = pallas_taumol.taumol_lw_megakernel(*jargs, T, block=4,
+                                                  interpret=True)
+    finally:
+        jlw.set_storage_dtype("auto")
+    got = tlw.taumol_lw_plain(*targs, storage=torch.bfloat16)
+    ktable = tlw.taumol_lw(*targs, storage=torch.bfloat16)
+    for g, w, name in zip(got, want, ("fracs", "tautot")):
+        assert w.dtype == jnp.bfloat16 and g.dtype == torch.bfloat16
+        w = torch.tensor(np.asarray(w).astype(np.float32))
+        assert torch.equal(g.float(), w), name
+    differ = (ktable[1].float() != got[1].float()).float().mean().item()
+    assert differ > 0.01, differ
+
+
 # ------------------------------------------------- the kernel source on the host
 # the kernel source's host program: the kernel's tiles, bands and
 # two phases as loops over the source's own device-agnostic functions
@@ -324,7 +356,7 @@ int host_taumol(const Planes& pl, const void* tab_, const void* meta_,
     }
     for (int b = 0; b < kBands; ++b) {
       for (int q = 0; q < np; ++q)
-        band_point(b, pts[q], sc[q], tab, meta, om, sb[q]);
+        band_point(b, pts[q], sc[q], tab, nullptr, meta, om, sb[q]);
       const int ng = meta[M_NG + b];
       const int ns = meta[M_NS + b];
       for (int t = 0; t < np * ng; ++t) {
@@ -490,3 +522,47 @@ def test_taumol_kernel_matches_plain_on_card(dtype):
         err = (g - w).abs().max().item()
         assert err <= HOST_RTOL[dtype] * w.abs().max().item(), (name, err)
         assert ((g - w).abs() <= VALUE_RTOL[dtype] * w.abs()).all(), name
+
+
+@pytest.mark.gpu
+def test_taumol_bf16_kernel_matches_plain_on_card():
+    """K2's bfloat16 instance on the card, inside one driver call under
+    bf16 storage at 1,000 columns x 32 levels, against its plain version
+    on the same CUDA arguments: fracs equal, tautot within one bfloat16
+    ulp (a float32 operation the card takes its own way, such as the pow
+    of the gas-amount adjustments, may move a sum across a rounding tie);
+    the launch is counted as the bfloat16 instance's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    seen = []
+    orig = tc.taumol_lw_cuda
+
+    def wrapped(*args):
+        out = orig(*args)
+        seen.append((args, out))
+        return out
+
+    state, cosz = column_state(1000, 32)
+    driver = tdrv.RRTMGDriver(tdrv.RRTMGConfig(storage_dtype="bfloat16"),
+                              dtype=torch.float32, device="cuda",
+                              lw_taumol="mega")
+    before = tc.LAUNCHES_BY_INSTANCE["bf16"]
+    tc.taumol_lw_cuda = wrapped
+    try:
+        driver(datetime.datetime(2016, 7, 1),
+               {k: torch.tensor(v, dtype=torch.float32, device="cuda")
+                for k, v in state.items()},
+               cosz=torch.tensor(cosz, dtype=torch.float32, device="cuda"))
+    finally:
+        tc.taumol_lw_cuda = orig
+    torch.cuda.synchronize()
+    assert tc.LAUNCHES_BY_INSTANCE["bf16"] == before + 1
+    args, got = seen[0]
+    assert args[7] == torch.bfloat16
+    want = tlw.taumol_lw_plain(*args[:7], storage=torch.bfloat16)
+    assert torch.equal(got[0], want[0])
+    g, w = got[1], want[1]
+    assert g.dtype == w.dtype == torch.bfloat16
+    assert torch.isfinite(w.float()).all()
+    ulps = (g.view(torch.int16).int() - w.view(torch.int16).int()).abs()
+    assert ulps.max().item() <= 1

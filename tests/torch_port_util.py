@@ -63,12 +63,18 @@ def jax_state(state, dtype):
     import jax.numpy as jnp
     from fv3net_tpu.dycore.state import DycoreState
 
+    def opt(name):
+        x = state.get(name)
+        return None if x is None else jnp.asarray(x, dtype)
+
     return DycoreState(
         delp=jnp.asarray(state["delp"], dtype),
         pt=jnp.asarray(state["pt"], dtype),
         wind=jnp.asarray(state["wind"], dtype),
         tracers={k: jnp.asarray(v, dtype) for k, v in state["tracers"].items()},
         phis=jnp.asarray(state["phis"], dtype),
+        w=opt("w"),
+        delz=opt("delz"),
     )
 
 
@@ -81,6 +87,9 @@ def flat_fields(state):
     }
     for k, v in state.tracers.items():
         out[k] = np.asarray(v)
+    for k in ("w", "delz"):  # the nonhydrostatic prognostics
+        if getattr(state, k, None) is not None:
+            out[k] = np.asarray(getattr(state, k))
     return out
 
 
