@@ -156,7 +156,32 @@ Phases (any failure exits nonzero, and no result line is printed):
     0, the GFDL scheme making condensate; 2 x 2 chunks against 1 x 4 bit
     for bit; a fresh loop's chunk profiled; the device time and
     activities of the sedimentation loop and the acoustic solve; one
-    float64 chunk of 2 steps, kernels against plain, within 1e-8.
+    float64 chunk of 2 steps, kernels against plain, within 1e-8;
+20. the online microphysics emulator through the segmented run: phase
+    15's configuration with ``online_emulator`` (a dense artifact of the
+    exact map q -> 0.99 q, T and cloud water passed through, written with
+    the port's ``DenseModel.dump``; target microphysics), two
+    ``append_segment`` segments of 2 chunks, each chunk gated as phase 12
+    (K1 24, K4 88, K3 46, K2 0; the dry-air budget) and q >= 0, segment 2
+    started from segment 1's RESTART bit for bit, a fresh loop's chunk
+    profiled; one chunk with a seeded model in the gscond slot,
+    piggy-backed, its six emulator and physics tendencies in the zarr
+    store; one float64 chunk of 2 steps, kernels against plain, 1e-8;
+21. the Python radiation stepper (``radiation_scheme``: rrtmg) in a
+    per-step TimeLoop at C48 beside the gray model radiation, 4 steps:
+    K1 3, K4 44, K3 23 a step, its fluxes among the diagnostics, ms a
+    step; with ``apply_heating`` its dQ1 equal to its heating rate; one
+    ``GFSRadiationDriver`` call on the 13,824 C48 columns in GFS layout,
+    float64 (seeded sfcprop, emissivity map and condensate, McICA
+    uniforms from a ``torch.Generator``) against the same call with the
+    plain versions within 1e-10 of each output's scale, its K4/K3 calls
+    value by value within their summation roundoff, ms a call;
+22. the flagship chunk with the synthetic band radiation
+    (``flagship(radiation="synthband")``): K1 24 a chunk and no other
+    hand kernel, ms a chunk, SYPD, device busy and activities, its
+    heating and fluxes finite; a float64 chunk of 2 steps, kernels
+    against plain, 1e-8; ``held_suarez_forcing`` on the C48 JW06 state on
+    the card against its CPU result, 1e-6.
 
 ``--sw-columns PATH`` also saves, in phase 6, ``swrad``'s arguments on
 the 8 columns where the float32 SW heating parts most from float64 on
@@ -830,6 +855,77 @@ class RangeLaunches:
         self.mod.record_function = self.orig
 
 
+# names the profiler's own event list leaves out (torch.autograd.profiler
+# _filter_name)
+PROFILER_UTILITY_OPS = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"))
+
+
+def kineto_totals(prof):
+    """The sums of a profiler run that ``key_averages()`` gives, read
+    from the profiler's raw (kineto) events without building its event
+    tree, which takes tens of seconds for a chunk's several hundred
+    thousand events.  As there, a device event counts toward the
+    front-end CPU op whose correlation id it is linked to, and an op's
+    device time takes in that of every op nested in it on its thread.
+
+    Returns ``(device, ranges, spans, ops)``: the device activities by
+    name ([count, ns]), less the ranges' device-side spans; each range of
+    ``RANGES`` as [calls, host ns, device ns]; the spans' device ns by
+    range; the front-end ops by name ([count, device ns of the kernels
+    linked to them])."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    attached, device, spans, ops, marks = {}, {}, {}, {}, []
+    by_thread = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name in PROFILER_UTILITY_OPS or (
+                hasattr(e, "is_hidden_event") and e.is_hidden_event()):
+            continue
+        linked = e.linked_correlation_id()
+        if e.device_type() != DeviceType.CPU:
+            ns = e.duration_ns()
+            if linked > 0:
+                attached[linked] = attached.get(linked, 0) + ns
+            if name in RANGES:
+                spans[name] = spans.get(name, 0) + ns
+            elif ns > 0:
+                c = device.setdefault(name, [0, 0])
+                c[0] += 1
+                c[1] += ns
+        elif (linked == 0 and not e.is_async()
+              and e.start_thread_id() == e.end_thread_id()):
+            op = (e.start_ns(), e.end_ns(), e.correlation_id(), name)
+            by_thread.setdefault(e.start_thread_id(), []).append(op)
+            if name in RANGES:
+                marks.append((e.start_thread_id(), op))
+    for thread_ops in by_thread.values():
+        thread_ops.sort()
+        for _, _, corr, name in thread_ops:
+            c = ops.setdefault(name, [0, 0])
+            c[0] += 1
+            c[1] += attached.get(corr, 0)
+    ranges = {}
+    for thread, (t0, t1, _, name) in marks:
+        thread_ops = by_thread[thread]
+        i = bisect.bisect_left(thread_ops, (t0,))
+        ns = 0
+        while i < len(thread_ops) and thread_ops[i][0] < t1:
+            if thread_ops[i][1] <= t1:
+                ns += attached.get(thread_ops[i][2], 0)
+            i += 1
+        r = ranges.setdefault(name, [0, 0, 0])
+        r[0] += 1
+        r[1] += t1 - t0
+        r[2] += ns
+    return device, ranges, spans, ops
+
+
 def profile_chunk(label, run):
     """One chunk, ``run()``, under torch.profiler: the device's busy share
     of the wall time, the device time of each of the step's ranges and
@@ -853,19 +949,9 @@ def profile_chunk(label, run):
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    # the device-time attribute's name differs across torch versions
-    key = ("device_time_total"
-           if hasattr(events[0], "device_time_total")
-           else "cuda_time_total")
-    self_key = "self_" + key
-    # device activities (kernels, copies) are the events without CPU
-    # time, less the ranges' device-side annotations (their spans)
-    device = [e for e in events
-              if getattr(e, self_key) > 0 and e.self_cpu_time_total == 0
-              and e.key not in RANGES]
-    device_us = sum(getattr(e, self_key) for e in device)
-    n_kernels = sum(e.count for e in device)
+    device, ranges, spans, ops = kineto_totals(prof)
+    device_us = sum(ns for _, ns in device.values()) / 1e3
+    n_kernels = sum(n for n, _ in device.values())
     log(f"  profile (one {label} chunk, profiler on): wall "
         f"{wall_us / 1e3:.1f} ms, device busy {device_us / 1e3:.1f} ms "
         f"({100 * device_us / wall_us:.1f}%), {n_kernels} device "
@@ -876,11 +962,11 @@ def profile_chunk(label, run):
     reading = {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
                "activities": n_kernels, "ranges": {}, "kernels": {}}
     for kname, count_name in HAND_KERNELS.items():
-        mine = [e for e in device if kname in e.key]
+        mine = [c for name, c in device.items() if kname in name]
         if not mine:
             continue
-        n = sum(e.count for e in mine)
-        us = sum(getattr(e, self_key) for e in mine)
+        n = sum(c[0] for c in mine)
+        us = sum(c[1] for c in mine) / 1e3
         launched = sum(c[count_name] for c in in_range.counts.values())
         log(f"  kernel {kname}: {n} launches, {us / 1e3:.3f} ms; launched "
             + ", ".join(f"{c[count_name]} in {r}"
@@ -892,26 +978,27 @@ def profile_chunk(label, run):
                 "the step's ranges: its share of each range is not exact)")
         for r, c in in_range.counts.items():
             hand_us[r] += us * c[count_name] / max(launched, 1)
-    host = {e.key: e for e in events
-            if e.key in RANGES and e.cpu_time_total > 0}
-    span = {e.key: e for e in events
-            if e.key in RANGES and e.cpu_time_total == 0}
     for name in RANGES:
-        if name not in host:
+        if name not in ranges or ranges[name][1] <= 0:
             continue
-        e = host[name]
+        calls, host_ns, dev_ns = ranges[name]
         # the kernels of the PyTorch ops inside the range, and the hand
         # kernels it launched
-        busy = getattr(e, key) + hand_us[name]
+        busy = dev_ns / 1e3 + hand_us[name]
         reading["ranges"][name] = busy / 1e3
-        span_us = getattr(span[name], key) if name in span else float("nan")
-        log(f"  range {name}: {e.count} calls, host "
-            f"{e.cpu_time_total / 1e3:.1f} ms, device busy "
+        span_us = spans[name] / 1e3 if name in spans else float("nan")
+        log(f"  range {name}: {calls} calls, host "
+            f"{host_ns / 1e6:.1f} ms, device busy "
             f"{busy / 1e3:.1f} ms ({100 * busy / max(device_us, 1e-9):.1f}% "
             f"of device busy; hand kernels {hand_us[name] / 1e3:.3f} ms of "
             f"it), device span {span_us / 1e3:.1f} ms")
-    for line in events.table(sort_by=self_key, row_limit=15).splitlines():
-        log(f"  | {line}")
+    top = sorted([(ns, n, name) for name, (n, ns) in device.items()]
+                 + [(ns, n, name) for name, (n, ns) in ops.items()
+                    if ns > 0 and name not in RANGES], reverse=True)[:15]
+    log("  | device ms  calls  name (device activities, and the ops whose "
+        "kernels they are)")
+    for ns, n, name in top:
+        log(f"  | {ns / 1e6:9.3f} {n:6d}  {name[:90]}")
     return reading
 
 
@@ -2355,6 +2442,48 @@ def log_segment(label, report, chunks, seconds):
     return per_chunk
 
 
+def loop_kernels_vs_plain(label, cfg64, expected):
+    """One float64 chunk of 2 steps through the TimeLoop with the kernels
+    and with the plain versions: the launches (``expected`` with the
+    kernels, none without), every state field and TOTAL_PRECIP, ULWRFtoa
+    and DSWRFsfc where the chunk emits them, within
+    PRODUCTION_CHUNK_RTOL of each field's scale.  Returns the names of
+    the state fields compared."""
+    import torch
+    from fv3net_torch.runtime import names
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.loop import TimeLoop
+
+    outs = {}
+    for impl in ("torch", "cuda"):
+        loop = TimeLoop(get_config(cfg64), dtype=torch.float64, impl=impl)
+        reset_counts()
+        (_, diags), = list(loop)
+        counts = read_counts()
+        want = launches() if impl == "torch" else expected
+        check(counts == want, f"{label} ({impl}): launches {counts}, "
+              f"expected {want}")
+        outs[impl] = (loop.state, diags)
+    (ks, kdiags), (ps, pdiags) = outs["cuda"], outs["torch"]
+    kt, pt = state_tensors(ks), state_tensors(ps)
+    pairs = [(k, kt[k], pt[k]) for k in sorted(pt)]
+    pairs += [(k, kdiags[k].data, pdiags[k].data)
+              for k in (names.TOTAL_PRECIP, "ULWRFtoa", "DSWRFsfc")
+              if k in pdiags]
+    bad, worst = [], 0.0
+    for name, got, want in pairs:
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        rel = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+        worst = max(worst, rel)
+        if not rel <= PRODUCTION_CHUNK_RTOL:
+            bad.append(f"{name} rel {rel:.3e}")
+    check(not bad, f"{label}, kernels against plain: {bad}")
+    log(f"  {label} of 2 steps, kernels against plain: {len(pairs)} fields "
+        f"within {worst:.3e} of their scale (bound {PRODUCTION_CHUNK_RTOL})")
+    return set(pt)
+
+
 def phase_segmented_run(device):
     """The segmented run (runtime/segmented_run/api.py) on the card at
     C48: ``api.create`` and two ``api.append_segment`` calls of
@@ -2459,36 +2588,8 @@ def phase_segmented_run(device):
         cfg64 = dict(segment_config(tmp, 1), fused_chunk_steps=2,
                      duration_seconds=2 * DT, radiation_interval_steps=2,
                      diagnostics=[], fortran_diagnostics=[])
-        outs = {}
-        for impl in ("torch", "cuda"):
-            loop = TimeLoop(get_config(cfg64), dtype=torch.float64,
-                            impl=impl)
-            reset_counts()
-            (_, diags), = list(loop)
-            counts = read_counts()
-            want = launches() if impl == "torch" else production_launches(2, 1)
-            check(counts == want, f"float64 loop chunk ({impl}): launches "
-                  f"{counts}, expected {want}")
-            outs[impl] = (loop.state, diags)
-        bad = []
-        (ks, kdiags), (ps, pdiags) = outs["cuda"], outs["torch"]
-        kt, pt = state_tensors(ks), state_tensors(ps)
-        pairs = [(k, kt[k], pt[k]) for k in sorted(pt)]
-        pairs += [(k, kdiags[k].data, pdiags[k].data)
-                  for k in (names.TOTAL_PRECIP, "ULWRFtoa", "DSWRFsfc")]
-        worst = 0.0
-        for name, got, want in pairs:
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            rel = err / scale if scale > 0 else (0.0 if err == 0 else
-                                                 math.inf)
-            worst = max(worst, rel)
-            if not rel <= PRODUCTION_CHUNK_RTOL:
-                bad.append(f"{name} rel {rel:.3e}")
-        check(not bad, f"float64 loop chunk, kernels against plain: {bad}")
-        log(f"  float64 loop chunk of 2 steps, kernels against plain: "
-            f"{len(pairs)} fields within {worst:.3e} of their scale (bound "
-            f"{PRODUCTION_CHUNK_RTOL})")
+        loop_kernels_vs_plain("float64 loop chunk", cfg64,
+                              production_launches(2, 1))
     finally:
         stats.removeHandler(handler)
         import shutil
@@ -2778,16 +2879,17 @@ RAD_SUM_FAULT_RATIO = 10.0
 
 
 def phase_radiation_summation(rec):
-    """K4 and K3 against their plain versions on every recorded float32
-    call of one radiation call, each value within the summation roundoff
-    of its terms (see RAD_SUM_ULPS), beside the bfloat16-table control;
-    returns (the largest kernel reading in units of its bound, the least
+    """K4 and K3 against their plain versions on every recorded call of
+    one radiation call (float32, or float64 for the GFS chain), each value
+    within the summation roundoff of its terms in its dtype (see
+    RAD_SUM_ULPS), beside the bfloat16-table control; returns (the
+    largest kernel reading in units of its bound, the least
     control-to-kernel ratio)."""
     import torch
     from fv3net_torch.ops import ktable
 
-    eps = torch.finfo(torch.float32).eps
     worst, margin, bad = 0.0, math.inf, []
+    dtype_name = "float32"
 
     def rounded(tab):
         return tab.to(torch.bfloat16).to(tab.dtype)
@@ -2816,13 +2918,14 @@ def phase_radiation_summation(rec):
                     [absolute(p) for p in s_paths], tab.abs(), nspa)
                 n_round = len(w_paths) * len(s_paths[0]) * (
                     3 * len(w_paths[0]) + 2)
+            finfo = torch.finfo(out.dtype)
+            dtype_name = str(out.dtype).replace("torch.", "")
             finite = torch.isfinite(want)
             d_k = torch.where(finite, (out - want).abs(), 0.0)
             d_c = torch.where(finite, (control - want).abs(), 0.0)
-            allowed = RAD_SUM_ULPS * n_round * eps * torch.where(
+            allowed = RAD_SUM_ULPS * n_round * finfo.eps * torch.where(
                 finite, mag, 0.0)
-            reading = (d_k / allowed.clamp(min=torch.finfo(
-                torch.float32).tiny)).max().item()
+            reading = (d_k / allowed.clamp(min=finfo.tiny)).max().item()
             ratio = (d_c.max() / d_k.max()).item() if d_k.max() > 0 \
                 else math.inf
             worst, margin = max(worst, reading), min(margin, ratio)
@@ -2831,10 +2934,10 @@ def phase_radiation_summation(rec):
             if not ratio >= RAD_SUM_FAULT_RATIO:
                 bad.append(f"{name} call {i}: bfloat16-table control "
                            f"{ratio:.3g} x the kernel's")
-        log(f"  {name}: {len(calls)} float32 calls, each value of the "
-            f"kernel within its summation roundoff of plain")
-    log(f"  float32 radiation call, K4/K3 against plain value by value: at "
-        f"most {worst:.3g} of the summation-roundoff bound; the "
+        log(f"  {name}: {len(calls)} {dtype_name} calls, each value of "
+            f"the kernel within its summation roundoff of plain")
+    log(f"  {dtype_name} radiation call, K4/K3 against plain value by value: "
+        f"at most {worst:.3g} of the summation-roundoff bound; the "
         f"bfloat16-table control parts by at least {margin:.3g} times the "
         f"kernels' reading on every call (needed {RAD_SUM_FAULT_RATIO})")
     check(not bad, f"K4/K3 against plain beyond their summation roundoff: "
@@ -3747,41 +3850,13 @@ def phase_namelist_run(device):
         cfg64 = dict(namelist_config(tmp, 1), fused_chunk_steps=2,
                      duration_seconds=2 * DT, radiation_interval_steps=2,
                      diagnostics=[], fortran_diagnostics=[])
-        outs = {}
-        for impl in ("torch", "cuda"):
-            loop = TimeLoop(get_config(cfg64), dtype=torch.float64,
-                            impl=impl)
-            reset_counts()
-            (_, diags), = list(loop)
-            counts = read_counts()
-            want = launches() if impl == "torch" else launches(
-                remap_apply=2 * NAMELIST_REMAPS_PER_STEP,
-                weighted_select_dot=SELECT_PER_CALL,
-                spec_band_dot=SPEC_PER_CALL)
-            check(counts == want, f"float64 namelist chunk ({impl}): "
-                  f"launches {counts}, expected {want}")
-            outs[impl] = (loop.state, diags)
-        (ks, kdiags), (ps, pdiags) = outs["cuda"], outs["torch"]
-        kt, pt = state_tensors(ks), state_tensors(ps)
-        pairs = [(k, kt[k], pt[k]) for k in sorted(pt)]
-        pairs += [(k, kdiags[k].data, pdiags[k].data)
-                  for k in (names.TOTAL_PRECIP, "ULWRFtoa", "DSWRFsfc")]
-        bad, worst = [], 0.0
-        for name, got, want in pairs:
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            rel = err / scale if scale > 0 else (0.0 if err == 0 else
-                                                 math.inf)
-            worst = max(worst, rel)
-            if not rel <= PRODUCTION_CHUNK_RTOL:
-                bad.append(f"{name} rel {rel:.3e}")
-        check({"w", "delz", "tracer_o3mr", "tracer_graupel"} <= set(pt),
-              f"float64 namelist chunk: fields {sorted(pt)}")
-        check(not bad, f"float64 namelist chunk, kernels against plain: "
-              f"{bad}")
-        log(f"  float64 namelist chunk of 2 steps, kernels against plain: "
-            f"{len(pairs)} fields within {worst:.3e} of their scale (bound "
-            f"{PRODUCTION_CHUNK_RTOL})")
+        compared = loop_kernels_vs_plain(
+            "float64 namelist chunk", cfg64,
+            launches(remap_apply=2 * NAMELIST_REMAPS_PER_STEP,
+                     weighted_select_dot=SELECT_PER_CALL,
+                     spec_band_dot=SPEC_PER_CALL))
+        check({"w", "delz", "tracer_o3mr", "tracer_graupel"} <= compared,
+              f"float64 namelist chunk: fields {sorted(compared)}")
     finally:
         import shutil
 
@@ -3789,6 +3864,532 @@ def phase_namelist_run(device):
     log(f"  namelist run: launches in the {2 * SEGMENT_CHUNKS} chunks of the "
         f"appended segments {total}")
     return total
+
+
+# -- phase 20: the online microphysics emulator through run_segment ------
+# the gscond piggy-back diagnostics a run records (the emulator's and
+# the native stage's tendencies)
+PIGGY_FIELDS = tuple(
+    f"tendency_of_{f}_due_to_gscond_{src}"
+    for f in ("air_temperature", "specific_humidity", "cloud_water")
+    for src in ("emulator", "physics"))
+
+
+EMULATOR_FIELDS = ("air_temperature", "specific_humidity",
+                   "cloud_water_mixing_ratio")
+
+
+def _emulator_sample(npz):
+    """A seeded batch of 256 columns of the emulator's fields and its
+    packing."""
+    import numpy as np
+    from fv3net_torch.fit.packer import PackingInfo
+
+    rng = np.random.RandomState(0)
+    X = np.concatenate([260 + 30 * rng.rand(256, npz),
+                        0.01 * rng.rand(256, npz),
+                        1e-4 * rng.rand(256, npz)], axis=1)
+    return rng, X, PackingInfo(list(EMULATOR_FIELDS), [npz] * 3)
+
+
+def dry_emulator_model(npz):
+    """A float32 DenseModel (CPU) of the emulator's fields that is exactly
+    q -> 0.99 q with T and cloud water passed through: one hidden ReLU
+    layer [I, -I] (relu(x) - relu(-x) = x makes the map linear in
+    normalized space), both scalers of zero mean and the sample's std, so
+    that the map keeps each value's sign and q >= 0."""
+    import numpy as np
+    import torch
+    from fv3net_torch.fit.dense import DenseModel
+    from fv3net_torch.fit.normalize import StandardScaler
+
+    _, X, info = _emulator_sample(npz)
+    std = StandardScaler.fit(torch.tensor(X, dtype=torch.float32)).std
+    m = np.ones(3 * npz)
+    m[npz:2 * npz] = 0.99
+    eye = np.eye(3 * npz)
+    w = [np.concatenate([eye, -eye], axis=1),
+         np.concatenate([np.diag(m), -np.diag(m)], axis=0)]
+    params = [{"w": torch.tensor(wi, dtype=torch.float32),
+               "b": torch.zeros(wi.shape[1], dtype=torch.float32)}
+              for wi in w]
+    return DenseModel(
+        input_variables=info.names, output_variables=info.names,
+        params=params, input_info=info, output_info=info,
+        x_scaler=StandardScaler(torch.zeros_like(std), std),
+        y_scaler=StandardScaler(torch.zeros_like(std), std.clone()))
+
+
+def seeded_emulator_model(npz):
+    """A float32 DenseModel (CPU) of the emulator's fields with one hidden
+    layer of 16, untrained He-normal weights from a ``torch.Generator``
+    seeded with 0, its scalers from the seeded sample."""
+    import torch
+    from fv3net_torch.fit.dense import DenseModel, init_mlp_params
+    from fv3net_torch.fit.normalize import StandardScaler
+
+    rng, X, info = _emulator_sample(npz)
+    params = init_mlp_params(torch.Generator().manual_seed(0),
+                             [3 * npz, 16, 3 * npz], dtype=torch.float32)
+    Y = X * (1.0 + 0.01 * rng.randn(*X.shape))
+    return DenseModel(
+        input_variables=info.names, output_variables=info.names,
+        params=params, input_info=info, output_info=info,
+        x_scaler=StandardScaler.fit(torch.tensor(X, dtype=torch.float32)),
+        y_scaler=StandardScaler.fit(torch.tensor(Y, dtype=torch.float32)))
+
+
+def emulator_artifacts(tmp):
+    """The emulator artifacts in the reference's dense format, written
+    with the port's ``DenseModel.dump``: the dry map q -> 0.99 q (T and
+    cloud water passed through, exactly linear; its zero-mean scalers
+    keep q >= 0) and a seeded He-normal 1 x 16 model.  Returns their
+    directories."""
+    from fv3net_torch.fit import io
+
+    dirs = {}
+    for name, build in (("dry", dry_emulator_model),
+                        ("seeded", seeded_emulator_model)):
+        path = os.path.join(tmp, f"emulator_{name}")
+        if not os.path.isdir(path):
+            io.dump(build(NPZ), path)
+        dirs[name] = path
+    return dirs
+
+
+def emulated_config(tmp, chunks=SEGMENT_CHUNKS, model="dry", **online):
+    """Phase 15's run config with ``online_emulator`` (by default the dry
+    map in place of Zhao-Carr)."""
+    cfg = segment_config(tmp, chunks)
+    cfg["online_emulator"] = {"url": emulator_artifacts(tmp)[model],
+                              "target": "microphysics", **online}
+    return cfg
+
+
+def phase_emulated_run(device):
+    """The emulated production run at C48: phase 15's configuration with
+    ``online_emulator`` (the dry map, target microphysics) through
+    ``api.create`` and two ``api.append_segment`` calls of SEGMENT_CHUNKS
+    chunks, each chunk gated as phase 12 (launches exact, the dry-air
+    budget, ...) and q >= 0; segment 2 started from segment 1's RESTART
+    bit for bit; a fresh loop's chunk profiled; one chunk with the seeded
+    model in the gscond slot, piggy-backed, whose six tendencies reach
+    the zarr diagnostics; one float64 chunk of 2 steps, kernels against
+    plain.  Returns the launches of the appended segments."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from fv3net_torch import entry
+    from fv3net_torch.core import zarrio
+    from fv3net_torch.runtime import checkpoint, timing
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.loop import TimeLoop
+    from fv3net_torch.runtime.segmented_run import api
+
+    area = torch.tensor(entry.make_grid(NPX).area, device=device)
+    expected = production_launches(CHUNK, RADIATION_CALLS_PER_CHUNK)
+    total = launches()
+    tmp = tempfile.mkdtemp(prefix="emulated_run_")
+    try:
+        url = os.path.join(tmp, "run")
+        api.create(url, emulated_config(tmp))
+        walls = []
+        for s in (1, 2):
+            with ChunkRecorder() as rec:
+                t0 = time.perf_counter()
+                seg = api.append_segment(url)
+                seconds = time.perf_counter() - t0
+            report = timing.phase_report()
+            label = f"emulated segment {s}"
+            loop = rec.loops[0]
+            check(loop.fusable() and loop._production_features()
+                  and loop._microphysics_emulator is not None
+                  and loop._gscond_emulator is None,
+                  f"{label}: the emulated production path was not taken")
+            counts = gate_segment(label, rec, area, expected)
+            total = {k: v + counts[k] for k, v in total.items()}
+            for i, (_, _, out, _) in enumerate(rec.chunks):
+                q_min = out[0].tracers["sphum"].min().item()
+                check(q_min >= 0.0, f"{label} chunk {i}: q down to {q_min}")
+            walls.append(log_segment(label, report, SEGMENT_CHUNKS,
+                                     seconds))
+            gate_stores(label, seg, SEGMENT_CHUNKS)
+            if s == 1:
+                state, t_end = checkpoint.load_state(
+                    os.path.join(seg, "RESTART"))
+                same_bits(state, loop.state,
+                          "emulated segment 1 RESTART read back")
+            else:
+                same_bits(model_state_of(rec.chunks[0][1]), state,
+                          "emulated segment 2's first chunk from segment "
+                          "1's RESTART")
+            del rec, loop
+
+        loop = TimeLoop(get_config(emulated_config(tmp, 1)))
+        it = iter(loop)
+        reading = profile_chunk("emulated", lambda: next(it))
+        log("  emulated profiled chunk (the loop's): wall "
+            f"{reading['wall_ms']:.1f} ms, device busy "
+            f"{reading['device_ms']:.1f} ms, idle share "
+            f"{100 * (1 - reading['device_ms'] / reading['wall_ms']):.1f}%, "
+            f"{reading['activities']} device activities; range device busy "
+            + ", ".join(f"{r} {v:.1f} ms"
+                        for r, v in reading["ranges"].items()))
+        del loop, it
+
+        # the seeded model in the gscond slot, piggy-backed: the native
+        # stage advances the state, both sources' tendencies are recorded
+        cfg = dict(emulated_config(tmp, 1, model="seeded", target="gscond",
+                                   piggy_back=True),
+                   fortran_diagnostics=[],
+                   diagnostics=[{"name": "piggy.zarr",
+                                 "variables": list(PIGGY_FIELDS),
+                                 "times": {"kind": "every"}}])
+        reset_counts()
+        loop = api.run_segment(get_config(cfg), os.path.join(tmp, "piggy"))
+        counts = read_counts()
+        check(loop._gscond_emulator is not None
+              and loop._emulator_piggy_back and loop.fusable(),
+              "piggy-back: the gscond slot was not taken")
+        check(counts == expected, f"piggy-back chunk: launches {counts}, "
+              f"expected {expected}")
+        ds = zarrio.open_zarr(os.path.join(tmp, "piggy", "piggy.zarr"))
+        check(sorted(ds) == sorted(PIGGY_FIELDS),
+              f"piggy-back store: variables {sorted(ds)}")
+        for k in PIGGY_FIELDS:
+            v = ds[k].values
+            check(v.shape[0] == 1 and np.isfinite(v).all(),
+                  f"piggy-back store {k}: shape {v.shape} or non-finite")
+        e = ds["tendency_of_specific_humidity_due_to_gscond_emulator"].values
+        p = ds["tendency_of_specific_humidity_due_to_gscond_physics"].values
+        log(f"  piggy-back chunk (gscond, seeded model): {len(PIGGY_FIELDS)} "
+            f"tendencies in the store; dq/dt emulator up to "
+            f"{np.abs(e).max():.3e}, physics up to {np.abs(p).max():.3e} "
+            "1/s")
+        del loop
+
+        cfg64 = dict(emulated_config(tmp, 1), fused_chunk_steps=2,
+                     duration_seconds=2 * DT, radiation_interval_steps=2,
+                     diagnostics=[], fortran_diagnostics=[])
+        loop_kernels_vs_plain("float64 emulated chunk", cfg64,
+                              production_launches(2, 1))
+        log(f"  emulated run: wall per chunk in run_segment "
+            + ", ".join(f"{w * 1e3:.1f} ms ({CHUNK * DT / w / 365.0:.3f} "
+                        "SYPD)" for w in walls))
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  emulated run: launches in the {2 * SEGMENT_CHUNKS} chunks of the "
+        f"appended segments {total}")
+    return total
+
+
+# -- phase 21: the radiation stepper and the GFS chain -------------------
+STEPPER_STEPS = 4
+GFS_JDATE = (2016, 7, 3, 12, 30, 0)
+GFS_RTOL = 1e-10  # the float64 chain, kernels against plain
+GFS_REPS = 3
+
+
+def gfs_inputs(device, seed=0):
+    """The GFS-layout inputs (ivflip=1, layer 0 at the surface) of the
+    13,824 columns of a C48 rest state, float64: its pressures,
+    temperatures and humidity, the ozone climatology, seeded GFDL
+    condensate and cloud amount in the free troposphere, a seeded
+    sfcprop over sea, land and sea ice, a seeded emissivity index map,
+    and McICA uniforms from a ``torch.Generator`` on the card."""
+    import numpy as np
+    import torch
+    from fv3net_torch.dycore.state import init_state, temperature_from_theta_v
+    from fv3net_torch.grid.geometry import make_grid
+    from fv3net_torch.ops import thermo
+    from fv3net_torch.physics.radiation import gases
+
+    grid = make_grid(NPX)
+    f64 = dict(dtype=torch.float64, device=device)
+    state, _, _ = init_state(grid, NPZ, **f64)
+    delp = state.delp.movedim(1, -1).reshape(-1, NPZ)
+    q = state.tracers["sphum"].movedim(1, -1).reshape(-1, NPZ)
+    pe = thermo.pressure_at_interface(delp)
+    pmid = thermo.pressure_at_midpoint_log(delp)
+    T = temperature_from_theta_v(
+        state.pt.movedim(1, -1).reshape(-1, NPZ), pmid, q)
+    C = delp.shape[0]
+    lat = torch.tensor(grid.lat.reshape(-1), **f64)
+    o3 = gases.ozone_profile(pmid, lat)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, **f64)
+
+    liq = torch.where((pmid > 4.0e4) & (pmid < 9.0e4),
+                      2.0e-5 * rand(C, NPZ), 0.0)
+    ice = torch.where((pmid > 1.5e4) & (pmid < 4.5e4),
+                      1.2e-5 * rand(C, NPZ), 0.0)
+    cldamt = torch.where(liq + ice > 1e-7, 0.3 + 0.7 * rand(C, NPZ), 0.0)
+    qgrs = torch.stack([q, o3, liq, ice, 0.2 * liq, 0.3 * ice, 0.1 * ice,
+                        cldamt], dim=-1)
+    statein = {"prsi": pe.flip(1), "prsl": pmid.flip(1), "tgrs": T.flip(1),
+               "qgrs": qgrs.flip(1)}
+    rng = np.random.default_rng(seed)
+    slmsk = rng.integers(0, 3, C).astype(np.float64)
+    tsfc = T[:, -1].cpu().numpy() + 2.0
+    sfcprop = {
+        "tsfc": tsfc, "slmsk": slmsk,
+        "snowd": np.where(slmsk > 0.5, 20.0 * rng.random(C), 0.0),
+        "zorl": 10.0 + 90.0 * rng.random(C),
+        "hprime": 200.0 * rng.random(C),
+        "alvsf": 0.2 + 0.1 * rng.random(C),
+        "alnsf": 0.3 + 0.1 * rng.random(C),
+        "alvwf": 0.18 + 0.1 * rng.random(C),
+        "alnwf": 0.28 + 0.1 * rng.random(C),
+        "facsf": 0.5 * np.ones(C), "facwf": 0.5 * np.ones(C),
+        "fice": np.where(slmsk > 1.5, 0.6 + 0.4 * rng.random(C), 0.0),
+        "tisfc": np.where(slmsk > 1.5, 260.0 + 10.0 * rng.random(C), tsfc),
+    }
+    grid_in = {"xlat": grid.lat.reshape(-1), "xlon": grid.lon.reshape(-1)}
+    rand_lw = rand(C, 140 * NPZ)
+    rand_sw = rand(C, 112 * NPZ)
+    idxems = rng.integers(1, 9, size=(360, 180))
+    return statein, sfcprop, grid_in, rand_lw, rand_sw, idxems
+
+
+def phase_radiation_stepper(device):
+    """The Python radiation stepper in a per-step TimeLoop at C48 (gray
+    model radiation, the stepper on RRTMG every step): its launches each
+    step, its fluxes among the diagnostics, ms a step; with apply_heating
+    its dQ1 equal to its heating rate.  Then one GFSRadiationDriver call
+    on the C48 columns in float64: against the same call with the plain
+    versions (GFS_RTOL), its K4/K3 calls value by value within their
+    summation roundoff, ms a call and the launches.  Returns the
+    launches a stepper step and a GFS call."""
+    import torch
+    from fv3net_torch.physics.radiation import gfs_driver
+    from fv3net_torch.physics.radiation.rrtmg import tables
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.loop import TimeLoop
+    from fv3net_torch.runtime.steppers.radiation import RadiationStepper
+
+    def stepper_config(steps, **rs):
+        return get_config({
+            "namelist": {"npx": NPX, "npz": NPZ},
+            "duration_seconds": steps * DT,
+            "radiation_scheme": {"kind": "python", "scheme": "rrtmg", **rs}})
+
+    per_step = launches(remap_apply=REMAPS_PER_STEP,
+                        weighted_select_dot=SELECT_PER_CALL,
+                        spec_band_dot=SPEC_PER_CALL)
+    log(f"  predicted launches a stepper step: {per_step}")
+    loop = TimeLoop(stepper_config(STEPPER_STEPS))
+    check(not loop.fusable() and loop._radiation_stepper is not None
+          and loop._radiation_fn is None,
+          "the stepper loop is not the per-step path with gray radiation")
+    it = iter(loop)
+    walls = []
+    flux = "total_sky_upward_longwave_flux_at_top_of_atmosphere_python"
+    for i in range(STEPPER_STEPS):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, diags = next(it)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = read_counts()
+        check(counts == per_step, f"stepper step {i}: launches {counts}, "
+              f"expected {per_step}")
+        for k in (flux, "total_sky_downward_shortwave_flux_at_surface_python",
+                  "clear_sky_longwave_heating_rate_python"):
+            check(k in diags and torch.isfinite(diags[k].data).all().item(),
+                  f"stepper step {i}: {k} missing or non-finite")
+        check("dQ1_radiation" not in diags,
+              f"stepper step {i}: dQ1 applied without apply_heating")
+    ms = statistics.median(walls[1:]) * 1e3
+    log(f"  stepper loop: {ms:.1f} ms a step (median of "
+        f"{STEPPER_STEPS - 1} after the first, "
+        + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+        + f"), OLR {diags[flux].data.min().item():.1f} .. "
+        f"{diags[flux].data.max().item():.1f} W/m2")
+    del loop, it
+
+    heated = TimeLoop(stepper_config(1, apply_heating=True))
+    calls = []
+    orig = RadiationStepper.__call__
+
+    def record(self, time_, state):
+        out = orig(self, time_, state)
+        calls.append(out)
+        return out
+
+    RadiationStepper.__call__ = record
+    try:
+        (_, diags), = list(heated)
+    finally:
+        RadiationStepper.__call__ = orig
+    (tendencies, sdiags, _), = calls
+    heating = sdiags["tendency_of_air_temperature_due_to_radiation"].data
+    check(torch.equal(diags["dQ1_radiation"].data, heating)
+          and torch.equal(tendencies["dQ1"].data, heating),
+          "apply_heating: dQ1 is not the stepper's heating rate")
+    log("  apply_heating: dQ1 equal to the stepper's heating rate")
+    del heated
+
+    statein, sfcprop, grid, rand_lw, rand_sw, idxems = gfs_inputs(device)
+    lw_t, sw_t = tables.make_lw_tables(seed=0), tables.make_sw_tables(seed=1)
+    drivers = {}
+    for impl in ("torch", None):
+        d = gfs_driver.GFSRadiationDriver(
+            gfs_driver.GFSDriverConfig(levs=NPZ), lw_t, sw_t, idxems,
+            device=device, impl=impl)
+        d.radupdate(GFS_JDATE, DT)
+        drivers[impl] = d
+
+    def call(impl):
+        return drivers[impl](statein, sfcprop, grid, 12.5, rand_lw, rand_sw)
+
+    want = call("torch")
+    reset_counts()
+    with Recorder() as rec:
+        got = call(None)
+    counts = read_counts()
+    gfs_launches = launches(weighted_select_dot=SELECT_PER_CALL,
+                            spec_band_dot=SPEC_PER_CALL)
+    check(counts == gfs_launches, f"GFS call: launches {counts}, expected "
+          f"{gfs_launches}")
+    bad, worst = [], 0.0
+    for k, w in want.items():
+        if not torch.is_tensor(w):
+            continue
+        g = got[k]
+        check(torch.isfinite(g).all().item(), f"GFS call: non-finite {k}")
+        scale = w.abs().max().item()
+        rel = ((g - w).abs().max().item() / scale if scale > 0
+               else float((g != w).any()))
+        worst = max(worst, rel)
+        if not rel <= GFS_RTOL:
+            bad.append(f"{k} rel {rel:.3e}")
+    check(not bad, f"GFS call, kernels against plain: {bad}")
+    day = (got["coszen"] > 1e-4).sum().item()
+    log(f"  GFS call (C{NPX}, {got['coszen'].numel()} columns, {day} daylit; "
+        f"float64): {len(want) - 1} outputs within {worst:.3e} of their "
+        f"scale of the plain call (bound {GFS_RTOL}); launches {counts}")
+    phase_radiation_summation(rec)
+    del rec
+    walls = {impl: [] for impl in ("torch", None)}
+    for _ in range(GFS_REPS):
+        for impl in (None, "torch"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(impl)
+            torch.cuda.synchronize()
+            walls[impl].append(time.perf_counter() - t0)
+    ms = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    log(f"  GFS call: {ms[None]:.1f} ms with the kernels, {ms['torch']:.1f} "
+        f"ms with the plain versions (host clock, medians of {GFS_REPS}); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        "since the start")
+    return per_step, counts
+
+
+# -- phase 22: synthband and Held-Suarez ---------------------------------
+SYNTHBAND_TIMED_CHUNKS = 2
+HELD_SUAREZ_RTOL = 1e-6
+
+
+def phase_synthband(device):
+    """The flagship chunk with the synthetic band radiation at C48: one
+    warm-up and SYNTHBAND_TIMED_CHUNKS timed chunks (K1 only, exact), one
+    profiled; the band radiation's heating and fluxes on the last state
+    finite; a float64 chunk of 2 steps, kernels against plain (1e-8 of
+    each field's scale); then held_suarez_forcing on the C48 JW06 state
+    on the card against its CPU result (HELD_SUAREZ_RTOL)."""
+    import torch
+    from fv3net_torch import entry
+    from fv3net_torch.dycore import testcases
+    from fv3net_torch.dycore.state import temperature_from_theta_v
+    from fv3net_torch.ops import thermo
+    from fv3net_torch.physics import held_suarez
+    from fv3net_torch.physics.driver import PhysicsConfig
+    from fv3net_torch.runtime import fused
+
+    step, (state, ml_params, sst, cosz) = entry.flagship(
+        npx=NPX, npz=NPZ, radiation="synthband", chunk=CHUNK, device=device)
+    grid = entry.make_grid(NPX)
+    area = torch.tensor(grid.area, device=device)
+    path = Path("synthband", step, state, (ml_params, sst, cosz), area,
+                launches(remap_apply=CHUNK * REMAPS_PER_STEP))
+    for _ in range(1 + SYNTHBAND_TIMED_CHUNKS):
+        path.chunk()
+    path.summary()
+    reading = profile_chunk("synthband",
+                            lambda: path.step(path.state, *path.args))
+    log("  synthband profiled chunk: device busy "
+        f"{reading['device_ms']:.1f} ms of {reading['wall_ms']:.1f} ms wall "
+        f"(idle {100 * (1 - reading['device_ms'] / reading['wall_ms']):.1f}"
+        f"%), {reading['activities']} device activities")
+    band = fused._build_radiation_fn(
+        PhysicsConfig(radiation_scheme="synthband"), device, torch.float32)
+    lat = torch.tensor(grid.lat, dtype=torch.float32, device=device)
+    heating, diags = band(*radiation_inputs(path.state, sst, cosz, lat))
+    for k, v in dict(diags, heating=heating).items():
+        check(torch.isfinite(v).all().item(), f"synthband: non-finite {k}")
+    check((heating != 0).any().item(), "synthband: no heating")
+    log(f"  synthband radiation on the last state: heating "
+        f"{heating.min().item() * 86400:.2f} .. "
+        f"{heating.max().item() * 86400:.2f} K/day, OLR "
+        f"{diags['ULWRFtoa'].min().item():.1f} .. "
+        f"{diags['ULWRFtoa'].max().item():.1f} W/m2")
+    del path, step
+
+    outs = {}
+    for impl in ("torch", "cuda"):
+        step, (st, mlp, sst64, cosz64) = entry.flagship(
+            npx=NPX, npz=NPZ, radiation="synthband", chunk=2,
+            radiation_interval=2, dtype=torch.float64, device=device,
+            impl=impl)
+        reset_counts()
+        outs[impl] = fields(step(st, mlp, sst64, cosz64))
+        counts = read_counts()
+        want = (launches() if impl == "torch"
+                else launches(remap_apply=2 * REMAPS_PER_STEP))
+        check(counts == want, f"float64 synthband chunk ({impl}): launches "
+              f"{counts}, expected {want}")
+    worst = 0.0
+    for k, want in outs["torch"].items():
+        got = outs["cuda"][k]
+        rel = (got - want).abs().max().item() / want.abs().max().clamp(
+            min=1e-300).item()
+        worst = max(worst, rel)
+        check(rel <= PRODUCTION_CHUNK_RTOL, f"float64 synthband chunk, "
+              f"kernels against plain: {k} rel {rel:.3e}")
+    log(f"  float64 synthband chunk of 2 steps, kernels against plain: "
+        f"{len(outs['torch'])} fields within {worst:.3e} of their scale "
+        f"(bound {PRODUCTION_CHUNK_RTOL})")
+    del outs
+
+    jw, _, _ = testcases.baroclinic_wave_state(grid, NPZ,
+                                               dtype=torch.float64,
+                                               device=device)
+    delp = jw.delp.movedim(1, -1)
+    pmid = thermo.pressure_at_midpoint_log(delp)
+    T = temperature_from_theta_v(jw.pt.movedim(1, -1), pmid,
+                                 jw.tracers["sphum"].movedim(1, -1))
+    wind = jw.wind.movedim(2, -1)
+    ps = delp.sum(-1) + thermo.TOA_PRESSURE
+    lat64 = torch.tensor(grid.lat, dtype=torch.float64, device=device)
+    args = (T, wind, pmid, ps, lat64)
+    got = held_suarez.held_suarez_forcing(*args, DT)
+    want = held_suarez.held_suarez_forcing(*(a.cpu() for a in args), DT)
+    for name, g, w in zip(("T", "wind"), got, want):
+        check(torch.isfinite(g).all().item(), f"Held-Suarez: non-finite "
+              f"{name}")
+        rel = ((g.cpu() - w).abs().max() / w.abs().max()).item()
+        check(rel <= HELD_SUAREZ_RTOL, f"Held-Suarez {name}: card against "
+              f"CPU {rel:.3e}")
+        log(f"  Held-Suarez {name} on the C{NPX} JW06 state: card against CPU "
+            f"{rel:.3e} of scale (bound {HELD_SUAREZ_RTOL}); change up to "
+            f"{(w - args[0 if name == 'T' else 1].cpu()).abs().max():.3e}")
 
 
 def main():
@@ -3909,9 +4510,8 @@ def main():
     phase("16: the RRTMG options (bf16 storage with K4/K3 in bfloat16, "
         "daylight compression, lookup tables, column blocking)")
     t16 = time.perf_counter()
-    bf16_lines, bf16_launches, options = phase_rrtmg_options(device, state,
-                                                             sst,
-                                                       cosz)
+    bf16_lines, bf16_launches, options = phase_rrtmg_options(
+        device, state, sst, cosz)
     log(f"  phase 16 in {time.perf_counter() - t16:.1f} s")
 
     phase("17: the dycore options on the JW06 baroclinic wave (C48)")
@@ -3932,6 +4532,22 @@ def main():
     t19 = time.perf_counter()
     phase_namelist_run(device)
     log(f"  phase 19 in {time.perf_counter() - t19:.1f} s")
+
+    phase("20: the online microphysics emulator through the segmented run")
+    t20 = time.perf_counter()
+    phase_emulated_run(device)
+    log(f"  phase 20 in {time.perf_counter() - t20:.1f} s")
+
+    phase("21: the Python radiation stepper in the per-step loop, and the "
+          "GFS radiation chain")
+    t21 = time.perf_counter()
+    phase_radiation_stepper(device)
+    log(f"  phase 21 in {time.perf_counter() - t21:.1f} s")
+
+    phase("22: the synthetic band radiation and Held-Suarez")
+    t22 = time.perf_counter()
+    phase_synthband(device)
+    log(f"  phase 22 in {time.perf_counter() - t22:.1f} s")
 
     # each kernel's launches come from the run of the path it lies on
     counts = dict(counts, taumol_lw=counts_mega["taumol_lw"],

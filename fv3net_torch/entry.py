@@ -80,8 +80,9 @@ def flagship(npx: int = 48, npz: int = 32, radiation: str = "rrtmg",
              impl: str = None, lw_taumol: str = "ktable",
              rrtmg_options: dict = None):
     """The flagship hybrid configuration: PPM dynamics, GFS-style column
-    physics with RRTMG LW+SW (or ``radiation="gray"``) every
-    ``radiation_interval`` steps, and the in-step dense ML correction.
+    physics with RRTMG LW+SW (or ``radiation="gray"``, or the synthetic
+    band model ``"synthband"``) every ``radiation_interval`` steps, and
+    the in-step dense ML correction.
 
     ``chunk=None`` returns a single step; ``chunk=N`` the N-step chunk.
     Returns ``(step, (state, ml_params, sst, cosz))``.  ``impl`` selects

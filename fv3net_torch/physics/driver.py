@@ -17,9 +17,13 @@ liquid + ice radiation condensate), stratospheric water
 (``stratospheric_h2o``), linearized ozone photochemistry (an ``o3mr``
 tracer, also handed to the radiation) and the nonhydrostatic state
 (w passes through; delz expands with the layer's virtual temperature).
-The microphysics emulator hooks raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 6); the reference's off-by-default switches (thermal top
-sponge, turning convection off) are not ported.
+The microphysics emulator hooks (the call_py_fort slots of the
+reference's Fortran physics): ``microphysics_emulator`` replaces
+Zhao-Carr, ``gscond_emulator`` its condensation stage (precpd runs
+natively), and ``emulator_piggy_back`` runs the native scheme beside the
+emulator, advances the state with the native result and reports both
+sources' tendencies.  The reference's off-by-default switches (thermal
+top sponge, turning convection off) are not ported.
 """
 from __future__ import annotations
 
@@ -102,11 +106,6 @@ def _zmid(x):
     return x.movedim(-1, 1)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to fv3net_torch yet "
-                               "(ROADMAP.md Queue 1 item 6)")
-
-
 def physics_step(
     state: DycoreState,
     t_surface: torch.Tensor,  # [6, ny, nx]
@@ -116,6 +115,7 @@ def physics_step(
     cfg: PhysicsConfig = PhysicsConfig(),
     microphysics_emulator=None,
     gscond_emulator=None,
+    emulator_piggy_back: bool = False,
     radiation_fn=None,
     sgh=None,  # [6, ny, nx] subgrid-orography std (m) enables GWD
     evap_factor=None,  # [6, ny, nx] land evaporation efficiency
@@ -126,14 +126,22 @@ def physics_step(
 
     ``radiation_fn``: optional (T, delp, q, qc, t_surface, cos_zenith,
     lat, o3=, land=, ice=) -> (heating, diags) override of the gray
-    scheme (the fused chunk passes its cached radiation this way).  The
-    emulator hooks raise ``NotImplementedError``.
+    scheme (the fused chunk passes its cached radiation this way).
+
+    ``microphysics_emulator``: a callable replacing the Zhao-Carr scheme
+    (see :class:`fv3net_torch.emulation.MicrophysicsEmulator`).  It
+    receives the z-last column state {air_temperature,
+    specific_humidity, cloud_water_mixing_ratio, pressure} and returns
+    the dict with its updates; the surface precipitation then comes from
+    the column's total-water convergence.  ``gscond_emulator`` replaces
+    the condensation stage only, and precpd runs natively on its result.
+    With ``emulator_piggy_back`` the native scheme advances the state and
+    both sources' tendencies go to the diagnostics
+    (``tendency_of_*_due_to_{zhao_carr,gscond}_{emulator,physics}``).
     """
     if cfg.microphysics_scheme not in ("zhao_carr", "gfdl"):
         raise ValueError(f"microphysics_scheme must be 'zhao_carr' or "
                          f"'gfdl', got {cfg.microphysics_scheme!r}")
-    if microphysics_emulator is not None or gscond_emulator is not None:
-        raise _not_ported("the microphysics emulator hooks (emulation/)")
     if radiation_fn is None and cfg.radiation_scheme != "gray":
         raise ValueError(
             f"radiation_scheme={cfg.radiation_scheme!r} needs a radiation_fn "
@@ -170,6 +178,10 @@ def physics_step(
                 "microphysics_scheme='gfdl' needs tracers "
                 f"{mp_gfdl.GFDL_TRACER_NAMES}, missing {missing} "
                 "(see runtime config: microphysics namelist key)")
+        if microphysics_emulator is not None or gscond_emulator is not None:
+            raise ValueError(
+                "the microphysics emulation hooks target the Zhao-Carr "
+                "scheme; use microphysics_scheme='zhao_carr'")
         qi_g, qr_g, qs_g, qg_g = (_zlast(state.tracers[k])
                                   for k in mp_gfdl.GFDL_TRACER_NAMES)
 
@@ -295,16 +307,68 @@ def physics_step(
     wind = wind + dwind_sh
 
     # ---- microphysics ---------------------------------------------------
+    def emulator_result(emulator):
+        out = emulator({
+            "air_temperature": T,
+            "specific_humidity": q,
+            "cloud_water_mixing_ratio": qc,
+            "pressure": pmid,
+        })
+        return (out["air_temperature"], out["specific_humidity"],
+                out.get("cloud_water_mixing_ratio", qc))
+
+    emu_diags = {}
+
+    def source_diags(source, T_s, q_s, qc_s, precip_s, stage="zhao_carr"):
+        # the piggy-backed tendencies of one source, named as the
+        # reference's emulation diagnostics expect
+        sfx = f"due_to_{stage}_{source}"
+        emu_diags[f"tendency_of_air_temperature_{sfx}"] = _zmid(
+            (T_s - T) / dt)
+        emu_diags[f"tendency_of_specific_humidity_{sfx}"] = _zmid(
+            (q_s - q) / dt)
+        emu_diags[f"tendency_of_cloud_water_{sfx}"] = _zmid((qc_s - qc) / dt)
+        if precip_s is not None:
+            emu_diags[f"surface_precipitation_{sfx}"] = precip_s
+
     if gfdl_mode:
         (T, q, qc, qi_g, qr_g, qs_g, qg_g, rain_g, frozen_g
          ) = mp_gfdl.gfdl_microphysics_step(
             T, q, qc, qi_g, qr_g, qs_g, qg_g, pmid, delp, dt, cfg.gfdl_mp)
         precip = rain_g + frozen_g
         snow = frozen_g
-    else:
+    elif microphysics_emulator is None and gscond_emulator is None:
         T, q, qc, precip, snow = mp.microphysics_step(
             T, q, qc, pmid, delp, dt, cfg.microphysics
         )
+    elif gscond_emulator is not None:
+        # emulate the grid-scale condensation stage only, run precpd
+        # natively
+        T_g, q_g, qc_g = emulator_result(gscond_emulator)
+        if emulator_piggy_back:
+            T_n, q_n, qc_n = mp.gscond(T, q, qc, pmid, dt, cfg.microphysics)
+            source_diags("emulator", T_g, q_g, qc_g, None, "gscond")
+            source_diags("physics", T_n, q_n, qc_n, None, "gscond")
+            T_g, q_g, qc_g = T_n, q_n, qc_n
+        T, q, qc, precip, snow = mp.precpd(
+            T_g, q_g, qc_g, pmid, delp, dt, cfg.microphysics
+        )
+    else:
+        T_e, q_e, qc_e = emulator_result(microphysics_emulator)
+        # implied surface precipitation from total-water convergence
+        dq_col_e = ((q + qc) - (q_e + qc_e)) * thermo.layer_mass(delp)
+        precip_e = torch.clamp(dq_col_e.sum(dim=-1) / dt, min=0.0)
+        if emulator_piggy_back:
+            T_n, q_n, qc_n, precip_n, snow_n = mp.microphysics_step(
+                T, q, qc, pmid, delp, dt, cfg.microphysics
+            )
+            source_diags("emulator", T_e, q_e, qc_e, precip_e)
+            source_diags("physics", T_n, q_n, qc_n, precip_n)
+            T, q, qc, precip, snow = T_n, q_n, qc_n, precip_n, snow_n
+        else:
+            T, q, qc = T_e, q_e, qc_e
+            precip = precip_e
+            snow = torch.zeros_like(precip)
 
     # ---- stratospheric methane-oxidation water (GFS h2o_phys) -----------
     if cfg.stratospheric_h2o:
@@ -351,6 +415,7 @@ def physics_step(
     )
 
     diags = dict(rad_diags)
+    diags.update(emu_diags)
     if gwd_on:
         diags["taugwd"] = tau_gwd  # launched mountain-wave stress, N/m^2
     if hpbl is not None:

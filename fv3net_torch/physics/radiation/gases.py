@@ -42,3 +42,14 @@ def ozone_profile(play: torch.Tensor, lat: torch.Tensor) -> torch.Tensor:
     strat = peak_vmr * torch.exp(-0.5 * (lnp / width) ** 2)
     tropo = 3.0e-8
     return vmr_to_mmr(strat + tropo, "o3")
+
+
+def well_mixed(play: torch.Tensor, year: int = 2016, ico2: int = 0):
+    """Well-mixed gas mass mixing ratios broadcast to the layers' shape."""
+    one = torch.ones_like(play)
+    return {
+        "co2": one * vmr_to_mmr(co2vmr(year, ico2), "co2"),
+        "ch4": one * vmr_to_mmr(CH4VMR_DEF, "ch4"),
+        "n2o": one * vmr_to_mmr(N2OVMR_DEF, "n2o"),
+        "o2": one * vmr_to_mmr(O2VMR_DEF, "o2"),
+    }

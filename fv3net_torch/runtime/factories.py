@@ -3,10 +3,12 @@
 workflows/prognostic_c48_run/runtime/factories.py:60-150).
 
 Ported: the ML corrector (``scikit_learn``: dense models in the
-reference's artifact format) and the "prescriber" prephysics kind.  The
-other steppers raise ``NotImplementedError`` naming their ROADMAP.md
-item; configs that merely carry their keys without enabling them build
-nothing, as in the reference.
+reference's artifact format), the "prescriber" prephysics kind, the
+Python radiation stepper (``radiation_scheme``) and the online
+microphysics emulator (``online_emulator``).  The other steppers raise
+``NotImplementedError`` naming their ROADMAP.md item; configs that
+merely carry their keys without enabling them build nothing, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ def _getter(mapper, config: UserConfig, timestep: float):
 
 
 def get_postphysics_stepper(config: UserConfig, timestep: float,
-                            dtype=None, device=None):
+                            dtype=None, device="cuda"):
     """The ML corrector from ``scikit_learn``: its models loaded from
     their artifact directories and moved to ``device`` in ``dtype``."""
     if config.scikit_learn is not None and config.scikit_learn.model:
@@ -94,16 +96,50 @@ def get_prephysics_steppers(config: UserConfig, timestep: float) -> List:
     return steppers
 
 
+def get_radiation_stepper(config: UserConfig, timestep: float,
+                          dtype=None, device="cuda", impl: str = None):
+    """The Python radiation stepper of ``radiation_scheme`` (it runs
+    beside the model's own radiation, its fluxes as diagnostics), or
+    None.  Its RRTMG driver computes in ``dtype`` on ``device``, its
+    k-table selections in ``impl``'s version (None: the kernels on a
+    CUDA device)."""
+    rs = config.radiation_scheme
+    if rs is None:
+        return None
+    if rs.kind != "python":
+        raise ValueError(f"unknown radiation stepper kind {rs.kind!r}")
+    from fv3net_torch.physics.radiation import Radiation, RadiationConfig
+    from fv3net_torch.runtime.steppers.radiation import RadiationStepper
+
+    return RadiationStepper(
+        Radiation(
+            RadiationConfig(scheme=rs.scheme, lookup_dir=rs.lookup_dir),
+            timestep, dtype=dtype, device=device, impl=impl,
+        ),
+        apply_heating=rs.apply_heating,
+    )
+
+
+def get_microphysics_emulator(config: UserConfig, dtype=None,
+                              device="cuda"):
+    """``(emulator, target, piggy_back)`` of ``online_emulator``: the
+    saved model (moved to ``device`` in ``dtype``) applied inside the
+    physics step through the emulation hook slot, or ``(None,
+    "microphysics", False)``."""
+    oe = config.online_emulator
+    if oe is None or not oe.enabled or not oe.url:
+        return None, "microphysics", False
+    from fv3net_torch.emulation import MicrophysicsEmulator
+    from fv3net_torch.fit import io
+
+    model = io.load(oe.url).to(device=device, dtype=dtype)
+    return MicrophysicsEmulator(model), oe.target, oe.piggy_back
+
+
 def check_unported_steppers(config: UserConfig) -> None:
     """Raise for a config that enables a stepper the port does not run:
-    the Python radiation stepper, the top-level tendency prescriber, bias
-    correction, the reservoir corrector and the online emulator."""
-    rs = config.radiation_scheme
-    if rs is not None:
-        if rs.kind != "python":
-            raise ValueError(f"unknown radiation stepper kind {rs.kind!r}")
-        raise not_ported(
-            "the radiation stepper (runtime/steppers/radiation.py)", 6)
+    the top-level tendency prescriber, bias correction and the reservoir
+    corrector."""
     if config.tendency_prescriber is not None:
         raise not_ported(
             "tendency_prescriber (runtime/steppers/tendency_prescriber.py)",
@@ -115,7 +151,3 @@ def check_unported_steppers(config: UserConfig) -> None:
     if config.reservoir_corrector is not None:
         raise not_ported(
             "reservoir_corrector (runtime/steppers/reservoir.py)", 9)
-    oe = config.online_emulator
-    if oe is not None and oe.enabled and oe.url:
-        raise not_ported("online_emulator (emulation/, the microphysics "
-                          "emulator hooks)", 6)

@@ -76,32 +76,41 @@ def _build_radiation_fn(phys_cfg: PhysicsConfig, device, dtype,
                         rrtmg_options: Optional[dict] = None
                         ) -> Optional[Callable]:
     """The band-solver closure handed to physics_step: the RRTMG driver
-    for scheme "rrtmg", None for "gray" (which physics_step computes).
+    for scheme "rrtmg", the synthetic band model for "synthband", None
+    for "gray" (which physics_step computes).
 
-    The driver computes in ``dtype``, the state's (the reference's
+    The RRTMG driver computes in ``dtype``, the state's (the reference's
     driver computes in float32 whatever the state's dtype), at solar
     constant 1368.22 * ``solcon_scale``.  ``lw_taumol`` is its route
     of the LW gas optics; ``rrtmg_options`` other fields of its
     ``RRTMGConfig`` (``storage_dtype``, ``compress_daylight``,
-    ``fast_exp``, ``column_block``, ...)."""
+    ``fast_exp``, ``column_block``, ...).  The synthband driver
+    computes in float32, as the reference's does (its heating returns
+    in float32 and promotes where the step adds it)."""
     if phys_cfg.radiation_scheme == "gray":
         return None
-    if phys_cfg.radiation_scheme != "rrtmg":
-        raise NotImplementedError(
-            f"radiation_scheme={phys_cfg.radiation_scheme!r} is not ported "
-            "to fv3net_torch yet (gray and rrtmg are; ROADMAP.md Queue 1 "
-            "item 6)"
+    if phys_cfg.radiation_scheme == "rrtmg":
+        from fv3net_torch.physics.radiation.rrtmg.driver import (
+            RRTMGConfig,
+            RRTMGDriver,
         )
-    from fv3net_torch.physics.radiation.rrtmg.driver import (
-        RRTMGConfig,
-        RRTMGDriver,
-    )
 
-    driver = RRTMGDriver(
-        RRTMGConfig(solcon=1368.22 * phys_cfg.solcon_scale,
-                    **(rrtmg_options or {})),
-        dtype=dtype, device=device, impl=impl, lw_taumol=lw_taumol,
-    )
+        driver = RRTMGDriver(
+            RRTMGConfig(solcon=1368.22 * phys_cfg.solcon_scale,
+                        **(rrtmg_options or {})),
+            dtype=dtype, device=device, impl=impl, lw_taumol=lw_taumol,
+        )
+    elif phys_cfg.radiation_scheme == "synthband":
+        from fv3net_torch.physics.radiation.driver import (
+            DriverConfig,
+            RadiationDriver,
+        )
+
+        driver = RadiationDriver(DriverConfig(), device=device)
+    else:
+        raise ValueError(
+            f"unknown radiation_scheme {phys_cfg.radiation_scheme!r} "
+            "(gray, rrtmg or synthband)")
     epoch = datetime.datetime(2016, 7, 1)  # isol=0: the date seeds o3 only
 
     def radiation_fn(T, delp, q, qc, t_surface, cos_zenith, lat, o3=None,
@@ -318,6 +327,9 @@ def build_fused_production_chunk(
     radiation_interval: int = 1,
     prephysics_kinds: Tuple[str, ...] = (),
     impl: str = None,
+    microphysics_emulator=None,
+    gscond_emulator=None,
+    emulator_piggy_back: bool = False,
 ):
     """The production configuration as one chunk of ``n_steps`` steps:
     prephysics prescribers -> dynamics -> physics with the prognostic
@@ -333,8 +345,9 @@ def build_fused_production_chunk(
     named tendencies).  The band radiation takes the default k-table
     route of the LW gas optics.  Each step's parts run under the profiler
     ranges "prephysics", "dynamics", "radiation", "physics" (with the
-    surface models) and "ml".  The reference's microphysics emulator
-    hooks are not ported.
+    surface models) and "ml".  ``microphysics_emulator``,
+    ``gscond_emulator`` and ``emulator_piggy_back`` reach every step's
+    ``physics_step`` (the emulation hooks, see there).
 
     Returns ``fn(dycore, surface, cos_zenith, prescribed) -> (dycore,
     surface, chunk_diags)``: ``chunk_diags`` holds the last step's
@@ -425,6 +438,9 @@ def build_fused_production_chunk(
                 dycore, surface, raw = physics_with_surface(
                     dycore, surface, cos_zenith, g.lat, dt, nml, phys_cfg,
                     radiation_fn=radiation_fn,
+                    microphysics_emulator=microphysics_emulator,
+                    gscond_emulator=gscond_emulator,
+                    emulator_piggy_back=emulator_piggy_back,
                 )
             if ml_stepper is not None:
                 with record_function("ml"):

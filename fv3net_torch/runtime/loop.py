@@ -7,16 +7,20 @@ steppers, the dynamics, the physics with the prognostic surface and the
 postphysics ML stepper, with the Monitor's tendency diagnostics of each
 part; or, when the configuration allows it (:meth:`TimeLoop.fusable`),
 whole chunks of steps: the flagship chunk
-(``runtime/fused.py::build_fused_multi_step``) or, with ML, prescribers
-or a prognostic surface, the production chunk
-(``build_fused_production_chunk``), each followed by the chunk-boundary
-diagnostics and their global means.  ``impl`` reaches both chunk
-builders and the per-step dynamics: the same loop runs the hand kernels
-or their plain versions.
+(``runtime/fused.py::build_fused_multi_step``) or, with ML, prescribers, a
+prognostic surface or the online microphysics emulator, the production
+chunk (``build_fused_production_chunk``), each followed by the
+chunk-boundary diagnostics and their global means.  The Python radiation
+stepper (``radiation_scheme``) runs on the per-step path, beside the
+model's own radiation, after the dynamics.  ``impl`` reaches both chunk
+builders, the per-step dynamics and radiation and the radiation stepper:
+the same loop runs the hand kernels or their plain versions.
 
-The reference's caches of compiled chunks and its abstract-tracing probe
-of the ML model are JAX's; here a loop builds its chunk once, when it is
-constructed, and any model of the port runs inside a chunk.
+The reference's caches of compiled chunks (keyed on the configuration,
+the ML model and the emulator) and its abstract-tracing probe of the ML
+model are JAX's; here a loop builds its chunk once, when it is
+constructed, with its own ML model and emulator, and any model of the
+port runs inside a chunk.
 """
 from __future__ import annotations
 
@@ -210,6 +214,16 @@ class TimeLoop:
             if prephysics_steppers is not None
             else factories.get_prephysics_steppers(config, self._timestep)
         )
+        self._radiation_stepper = factories.get_radiation_stepper(
+            config, self._timestep, dtype=dtype, device=self._device,
+            impl=impl)
+        (self._microphysics_emulator, emu_target,
+         self._emulator_piggy_back) = factories.get_microphysics_emulator(
+            config, dtype=dtype, device=self._device)
+        self._gscond_emulator = None
+        if emu_target == "gscond":
+            self._gscond_emulator = self._microphysics_emulator
+            self._microphysics_emulator = None
         self.monitor = Monitor(
             [names.TEMP, names.SPHUM, names.CLOUD], self._timestep
         )
@@ -318,6 +332,9 @@ class TimeLoop:
             self._config.namelist,
             self._phys_cfg,
             radiation_fn=self._radiation_fn,
+            microphysics_emulator=self._microphysics_emulator,
+            gscond_emulator=self._gscond_emulator,
+            emulator_piggy_back=self._emulator_piggy_back,
         )
         self.state.dycore = new_dycore
         self.state.surface = new_surface
@@ -447,6 +464,13 @@ class TimeLoop:
         for stepper in self._prephysics_steppers:
             diags.update(self._apply_stepper(stepper))
         diags.update(self.monitor("dynamics", self._step_dynamics, state))
+        if self._radiation_stepper is not None:
+            # the Python radiation beside the model's own: its fluxes as
+            # diagnostics, its heating as dQ1 with apply_heating
+            diags.update(self.monitor(
+                "radiation",
+                lambda: self._apply_stepper(self._radiation_stepper),
+                state))
         diags.update(self.monitor("fv3_physics", self._step_physics, state))
         diags.update(self.monitor("python", self._step_postphysics, state))
         # water_vapor_path (+ physics_precip) every step
@@ -461,11 +485,14 @@ class TimeLoop:
     # -- fused path -------------------------------------------------------
     def _production_features(self) -> bool:
         """Anything beyond the plain dynamics + physics chunk: the ML
-        stepper, prescribers, or prognostic surface components."""
+        stepper, prescribers, the emulators or prognostic surface
+        components."""
         nml = self._config.namelist
         return bool(
             self._postphysics_stepper is not None
             or self._prephysics_steppers
+            or self._microphysics_emulator is not None
+            or self._gscond_emulator is not None
             or nml.slab_ocean
             or nml.bucket_land
             or nml.sea_ice
@@ -474,9 +501,10 @@ class TimeLoop:
 
     def fusable(self) -> bool:
         """True when the run goes in chunks of ``fused_chunk_steps``
-        steps: more than one step a chunk, a postphysics stepper (if
-        any) that is a dense ML stepper applying its predictions, and
-        prephysics steppers (if any) that are prescribers.  A
+        steps: more than one step a chunk, no Python radiation stepper,
+        a postphysics stepper (if any) that is a dense ML stepper
+        applying its predictions, and prephysics steppers (if any) that
+        are prescribers; the emulators run inside a chunk.  A
         diagnostic-only ML stepper keeps the per-step path (its per-step
         record is the point of that mode)."""
         from fv3net_torch.runtime.steppers.machine_learning import (
@@ -484,7 +512,7 @@ class TimeLoop:
         )
         from fv3net_torch.runtime.steppers.prescriber import Prescriber
 
-        if self._fused_chunk <= 1:
+        if self._fused_chunk <= 1 or self._radiation_stepper is not None:
             return False
         post = self._postphysics_stepper
         if post is not None and not (
@@ -544,6 +572,9 @@ class TimeLoop:
             radiation_interval=self._radiation_interval,
             prephysics_kinds=("set",) * len(self._prephysics_steppers),
             impl=self._impl,
+            microphysics_emulator=self._microphysics_emulator,
+            gscond_emulator=self._gscond_emulator,
+            emulator_piggy_back=self._emulator_piggy_back,
         )
 
     @torch.no_grad()

@@ -65,6 +65,9 @@ def physics_with_surface(
     nml,
     phys_cfg: PhysicsConfig,
     radiation_fn=None,
+    microphysics_emulator=None,
+    gscond_emulator=None,
+    emulator_piggy_back: bool = False,
 ) -> Tuple[DycoreState, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One physics interval and the prognostic surface updates.
 
@@ -80,6 +83,9 @@ def physics_with_surface(
     new_dycore, raw = physics_step(
         dycore, surface[names.TSFC], cosz, lat, dt, phys_cfg,
         radiation_fn=radiation_fn,
+        microphysics_emulator=microphysics_emulator,
+        gscond_emulator=gscond_emulator,
+        emulator_piggy_back=emulator_piggy_back,
         # subgrid-orography std enables mountain-wave drag where a
         # surface field provides it
         sgh=surface.get("sgh"),

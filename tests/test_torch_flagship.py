@@ -226,6 +226,9 @@ def test_port_imports_neither_jax_nor_reference():
         "import fv3net_torch.runtime.segmented_run.api\n"
         "import fv3net_torch.runtime.segmented_run.cli\n"
         "import fv3net_torch.runtime.loop\n"
+        "import fv3net_torch.emulation, fv3net_torch.physics.held_suarez\n"
+        "import fv3net_torch.physics.radiation.gfs_driver\n"
+        "import fv3net_torch.runtime.steppers.radiation\n"
         "for m in pkgutil.walk_packages(fv3net_torch.__path__, 'fv3net_torch.'):\n"
         "    __import__(m.name)\n"
         "bad = sorted(k for k in sys.modules\n"
@@ -248,7 +251,15 @@ def test_port_imports_neither_jax_nor_reference():
         "             'core.netcdfio', 'loaders.batches',\n"
         "             'physics.radiation.rrtmg.io', 'dycore.testcases',\n"
         "             'dycore.nonhydro', 'physics.microphysics_gfdl',\n"
-        "             'physics.ozone', 'physics.h2ophys'):\n"
+        "             'physics.ozone', 'physics.h2ophys',\n"
+        "             'emulation', 'emulation.hooks', 'emulation.transforms',\n"
+        "             'physics.radiation.params', 'physics.radiation.spectra',\n"
+        "             'physics.radiation.optics', 'physics.radiation.lw',\n"
+        "             'physics.radiation.sw', 'physics.radiation.driver',\n"
+        "             'physics.radiation.wrapper',\n"
+        "             'physics.radiation.gfs_driver',\n"
+        "             'physics.held_suarez', 'runtime.steppers.radiation',\n"
+        "             'runtime.factories'):\n"
         "    assert 'fv3net_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )

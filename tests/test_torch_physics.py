@@ -205,21 +205,36 @@ def test_physics_step_matches_reference(schemes):
 
 
 def test_unported_physics_options_raise():
-    """The microphysics emulator hooks still raise (ROADMAP Queue 1 item
-    6).  Stratospheric water and an o3mr tracer, which this test once
-    held to a raise, run (tests/test_torch_gfdl_physics.py holds them and
-    GFDL microphysics against the reference): each moves what it acts
-    on."""
+    """The microphysics emulator hooks, which this test once held to a
+    raise, run (tests/test_torch_emulation.py holds each mode against the
+    reference): an identity emulator in the microphysics slot leaves the
+    microphysics out (its implied precipitation is nil), one in the gscond
+    slot runs precpd natively; in GFDL mode the hooks raise the
+    reference's ValueError.  Stratospheric water and an o3mr tracer,
+    which this test once held to a raise, run
+    (tests/test_torch_gfdl_physics.py holds them and GFDL microphysics
+    against the reference): each moves what it acts on."""
     st, sst, cosz, lat = _step_inputs(4, 8)
     args = (state_from_numpy(st), _t(sst), _t(cosz), _t(lat), 900.0)
-    for cfg, kw in [
-        (PhysicsConfig(), dict(microphysics_emulator=lambda s: s)),
-        (PhysicsConfig(), dict(gscond_emulator=lambda s: s)),
-        (PhysicsConfig(microphysics_scheme="gfdl"),
-         dict(microphysics_emulator=lambda s: s)),
-    ]:
-        with pytest.raises(NotImplementedError, match="emulator"):
-            physics_step(*args, cfg, **kw)
+    native, dn = physics_step(*args)
+    emulated, de = physics_step(*args, PhysicsConfig(),
+                                microphysics_emulator=lambda s: s)
+    assert torch.equal(de["PRATEsfc"], de["CPRATsfc"])
+    assert not torch.equal(emulated.tracers["cloud_water"],
+                           native.tracers["cloud_water"])
+    gscond, dg = physics_step(*args, PhysicsConfig(),
+                              gscond_emulator=lambda s: s)
+    for d in (de, dg):
+        assert all(torch.isfinite(v).all() for v in d.values())
+    assert not torch.equal(gscond.pt, native.pt)
+    gfdl = dict(st, tracers={**st["tracers"], **{
+        k: np.zeros_like(st["delp"])
+        for k in ("ice_wat", "rainwat", "snowwat", "graupel")}})
+    for kw in (dict(microphysics_emulator=lambda s: s),
+               dict(gscond_emulator=lambda s: s)):
+        with pytest.raises(ValueError, match="Zhao-Carr"):
+            physics_step(state_from_numpy(gfdl), *args[1:],
+                         PhysicsConfig(microphysics_scheme="gfdl"), **kw)
     base, _ = physics_step(*args)
     wet, _ = physics_step(*args, PhysicsConfig(stratospheric_h2o=True))
     assert not torch.equal(wet.tracers["sphum"], base.tracers["sphum"])

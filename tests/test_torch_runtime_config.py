@@ -5,6 +5,7 @@ the restarts in both formats, the dense model's artifact format, the
 prescriber's data path and the per-stepper diagnostics."""
 import dataclasses
 import datetime
+import inspect
 import json
 import logging
 
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import make_state_numpy, rel_diff
+from torch_port_util import dry_emulator_model, make_state_numpy, rel_diff
 
 from fv3net_torch.core import convenience, netcdfio, zarrio
 from fv3net_torch.core.dataset import Dataset
@@ -620,3 +621,41 @@ def test_phase_timer_and_report():
         timing.phases.start("b")
     timing.reset_phases()
     assert timing.phase_report() == {}
+
+
+# ------------------------------------------------------------ factories
+def test_stepper_factories_build_the_config_steppers(tmp_path):
+    """The "steppers" config's radiation_scheme and online_emulator keys
+    build the port's radiation stepper and emulator as the reference's
+    factories build theirs (an emulator artifact stands in for the url);
+    the config's tendency prescriber, bias correction and reservoir keys
+    still raise, naming item 9."""
+    from fv3net_tpu.runtime import factories as jfactories
+    from fv3net_tpu.runtime.config import get_config as jget_config
+
+    from fv3net_torch.runtime import factories
+
+    io.dump(dry_emulator_model(NPZ, torch.float64),
+            str(tmp_path / "emulator"))
+    user = dict(VALID["steppers"], online_emulator=dict(
+        VALID["steppers"]["online_emulator"], url=str(tmp_path / "emulator")))
+    cfg, jcfg = config.get_config(user), jget_config(user)
+    got = factories.get_radiation_stepper(cfg, 900.0, device="cpu")
+    want = jfactories.get_radiation_stepper(jcfg, 900.0)
+    assert got.apply_heating == want.apply_heating
+    assert (dataclasses.asdict(got.radiation.config)
+            == dataclasses.asdict(want.radiation.config))
+    emu, target, piggy = factories.get_microphysics_emulator(
+        cfg, device="cpu")
+    jemu, jtarget, jpiggy = jfactories.get_microphysics_emulator(jcfg)
+    assert (target, piggy) == (jtarget, jpiggy) == ("gscond", True)
+    assert emu.model.input_variables == jemu.model.input_variables
+    assert factories.get_microphysics_emulator(config.get_config({})) == (
+        None, "microphysics", False)
+    for build in (factories.get_postphysics_stepper,
+                  factories.get_radiation_stepper,
+                  factories.get_microphysics_emulator):
+        assert inspect.signature(build).parameters[
+            "device"].default == "cuda"
+    with pytest.raises(NotImplementedError, match="item 9"):
+        factories.check_unported_steppers(cfg)

@@ -19,7 +19,12 @@ import pytest
 import torch
 import yaml
 
-from torch_port_util import assert_states_close, make_state_numpy, rel_diff
+from torch_port_util import (
+    assert_states_close,
+    dry_emulator_model,
+    make_state_numpy,
+    rel_diff,
+)
 
 from fv3net_torch.core import zarrio
 from fv3net_torch.core.dataset import Dataset
@@ -418,15 +423,38 @@ def test_partial_segment_and_profile(inputs, tmp_path, caplog):
     ({}, {"prephysics": [{"kind": "tendency_prescriber", "dataset": "x",
                           "variables": ["dQ1"]}]}),
 ])
-def test_unported_options_raise(inputs, namelist, top):
+def test_unported_options_raise(inputs, namelist, top, tmp_path):
     """Each option the port does not run raises when the loop is built.
-    The three namelist options this test once held to a raise (the
-    nonhydrostatic core, GFDL microphysics, prognostic ozone) build a
-    loop that sets up their fields (tests/test_torch_namelist_run.py
-    holds them against the reference)."""
+    The options this test once held to a raise build a loop: the three
+    namelist options (the nonhydrostatic core, GFDL microphysics,
+    prognostic ozone) set up their fields (tests/test_torch_namelist_run.py
+    holds them against the reference); the synthband radiation, the
+    Python radiation stepper and the online emulator (here an emulator
+    artifact stands in for the config's url) build their parts
+    (tests/test_torch_synthband.py, test_torch_gfs_radiation.py and
+    test_torch_emulation.py hold them against the reference)."""
+    if "online_emulator" in top:
+        from fv3net_torch.fit import io
+
+        io.dump(dry_emulator_model(NPZ, torch.float64),
+                str(tmp_path / "emulator"))
+        top = dict(top, online_emulator={"url": str(tmp_path / "emulator")})
     cfg = _config(inputs, namelist=namelist, **top)
     ported = {"hydrostatic": "w", "microphysics": "graupel",
               "prognostic_ozone": "o3mr"}
+    if namelist.get("radiation") == "synthband":
+        loop = _tloop(cfg)
+        assert loop._phys_cfg.radiation_scheme == "synthband"
+        assert loop._radiation_fn is not None  # the per-step path's
+        return
+    if "radiation_scheme" in top:
+        loop = _tloop(cfg)
+        assert loop._radiation_stepper is not None and not loop.fusable()
+        return
+    if "online_emulator" in top:
+        loop = _tloop(cfg)
+        assert loop._microphysics_emulator is not None
+        return
     key = next((k for k in namelist if k in ported), None)
     if key is None:
         with pytest.raises(NotImplementedError):

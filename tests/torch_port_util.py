@@ -137,3 +137,73 @@ def column_state(C, L, seed=0):
         "land_sea_mask": (rng.rand(C) > 0.7).astype(np.float64),
     }
     return state, np.clip(np.cos(lat) * np.cos(lon), -0.3, 1)
+
+
+#: the fields of the microphysics emulator's state (physics_step's
+#: emulation hook)
+EMULATOR_FIELDS = ("air_temperature", "specific_humidity",
+                   "cloud_water_mixing_ratio")
+
+
+def _emulator_sample(npz):
+    """A seeded batch of 256 columns of the emulator's fields and its
+    packing."""
+    from fv3net_torch.fit.packer import PackingInfo
+
+    rng = np.random.RandomState(0)
+    X = np.concatenate([260 + 30 * rng.rand(256, npz),
+                        0.01 * rng.rand(256, npz),
+                        1e-4 * rng.rand(256, npz)], axis=1)
+    return rng, X, PackingInfo(list(EMULATOR_FIELDS), [npz] * 3)
+
+
+def dry_emulator_model(npz, dtype, device="cpu"):
+    """A port DenseModel of the emulator's fields that is exactly q ->
+    0.99 q with T and cloud water passed through: one hidden ReLU layer
+    [I, -I] (relu(x) - relu(-x) = x makes the map linear in normalized
+    space), both scalers of zero mean and the sample's std, so that the
+    map keeps each value's sign and q >= 0."""
+    import torch
+
+    from fv3net_torch.fit.dense import DenseModel
+    from fv3net_torch.fit.normalize import StandardScaler
+
+    _, X, info = _emulator_sample(npz)
+    std = StandardScaler.fit(torch.tensor(X, dtype=dtype,
+                                          device=device)).std
+    m = np.ones(3 * npz)
+    m[npz:2 * npz] = 0.99
+    eye = np.eye(3 * npz)
+    w = [np.concatenate([eye, -eye], axis=1),
+         np.concatenate([np.diag(m), -np.diag(m)], axis=0)]
+    params = [{"w": torch.tensor(wi, dtype=dtype, device=device),
+               "b": torch.zeros(wi.shape[1], dtype=dtype, device=device)}
+              for wi in w]
+    return DenseModel(
+        input_variables=info.names, output_variables=info.names,
+        params=params, input_info=info, output_info=info,
+        x_scaler=StandardScaler(torch.zeros_like(std), std),
+        y_scaler=StandardScaler(torch.zeros_like(std), std.clone()))
+
+
+def seeded_emulator_model(npz, dtype, device="cpu"):
+    """A port DenseModel of the emulator's fields with one hidden layer of
+    16, untrained He-normal weights from a ``torch.Generator`` seeded
+    with 0, its scalers from the seeded sample."""
+    import torch
+
+    from fv3net_torch.fit.dense import DenseModel, init_mlp_params
+    from fv3net_torch.fit.normalize import StandardScaler
+
+    rng, X, info = _emulator_sample(npz)
+    params = init_mlp_params(torch.Generator().manual_seed(0),
+                             [3 * npz, 16, 3 * npz], dtype=dtype,
+                             device=device)
+    Y = X * (1.0 + 0.01 * rng.randn(*X.shape))
+    return DenseModel(
+        input_variables=info.names, output_variables=info.names,
+        params=params, input_info=info, output_info=info,
+        x_scaler=StandardScaler.fit(torch.tensor(X, dtype=dtype,
+                                                 device=device)),
+        y_scaler=StandardScaler.fit(torch.tensor(Y, dtype=dtype,
+                                                 device=device)))
