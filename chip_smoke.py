@@ -34,11 +34,13 @@ Phases (any failure exits nonzero, and no result line is printed):
    4th chunk: its time on both routes, OLR and the SW fluxes (the
    down-flux at the top from ``RRTMGDriver`` itself) inside physical
    ranges; then, on the states after its 3rd and its 4th chunk, the same
-   float32 call on both routes against the plain versions beside two
-   controls (the plain call in float64, and with bfloat16 tables): every
-   heating rate and flux parts by at most twice what float32 itself errs
-   there, the bfloat16 control by at least 3 times what the kernels do,
-   and on the last state within absolute bounds; one LW call alone on
+   float32 call on both routes against the plain versions beside the
+   plain call in float64: every heating rate and flux parts by at most
+   twice what float32 itself errs there; and the same calls with the SW
+   two-stream in float64 on every side (which takes the state-dependent
+   float32 cancellation out) within absolute bounds, beside the plain
+   call with bfloat16 tables, which must part by at least 3 times what
+   the kernels do; one LW call alone on
    each route; then every K4 and K3 call of that float32 call against
    its plain version value by value, within the two versions' own
    float32 summation roundoff, the bfloat16-table control at least 10
@@ -181,7 +183,18 @@ Phases (any failure exits nonzero, and no result line is printed):
     hand kernel, ms a chunk, SYPD, device busy and activities, its
     heating and fluxes finite; a float64 chunk of 2 steps, kernels
     against plain, 1e-8; ``held_suarez_forcing`` on the C48 JW06 state on
-    the card against its CPU result, 1e-6.
+    the card against its CPU result, 1e-6;
+23. the dense trainer: ``entry.train_entry_model`` (the flagship's 2 x
+    128 on 256 samples, production's 1 x 16 on 64, one epoch) on the
+    card in float32 and float64, the float64 weights within 1e-10 of
+    scale of the same training on the CPU, ms a training (phases 4-5
+    and 12-20 drive the entries with these trained models);
+24. the sharded dry run, ``entry.dryrun_multigpu(4)`` in four processes
+    over gloo on the one card, each rank computing its block with the
+    hand kernels: the nonhydrostatic RRTMG step within 2e-5 of one
+    device, the 8-step production chunk within 5e-3, ``write_sharded``
+    exact, a data-parallel Adam step within 1e-5, the C384 case within
+    1e-3; each rank's K1/K4/K3 launches equal to one device's.
 
 ``--sw-columns PATH`` also saves, in phase 6, ``swrad``'s arguments on
 the 8 columns where the float32 SW heating parts most from float64 on
@@ -216,7 +229,10 @@ and ``spec_band_dot_bf16`` are K4's and K3's bfloat16 instances, their
 launches from phase 16's bf16 chunks, their bound at 2 bytes a bfloat16
 value; ``taumol_lw_bf16`` is K2's bfloat16 instance, its launches from
 phase 18's mega-route bf16 chunks, its bound at 2 bytes a bfloat16
-output.  The script imports nothing of jax or of ``fv3net_tpu``.
+output; ``weighted_select_dot_f64`` and ``spec_band_dot_f64`` are K4's
+and K3's float64 instances at the float64 GFS chain's shapes, their
+launches from phase 21's GFS call (``path_ms``: the call's 44 and 23
+calls).  The script imports nothing of jax or of ``fv3net_tpu``.
 """
 import concurrent.futures
 import gc
@@ -240,8 +256,7 @@ RRTMG_SCHEDULE = ("ktable", "mega", "ktable", "mega", "mega", "ktable",
                   "ktable", "mega", "ktable", "mega", "mega", "ktable")
 # phase 6 compares the float32 radiation call, kernels against plain, on
 # the ktable route's states after these chunks (warm-up included); the
-# rest of the phase (times, recorded kernel calls, the absolute bounds
-# below) is on the last
+# rest of the phase (times, recorded kernel calls) is on the last
 RADIATION_STATES_AFTER = (3, 4)
 REMAPS_PER_STEP = 3  # winds, tracers, total energy (dycore/core.py)
 KM_DEEP = 79  # a K1 case of more than 32 levels (the diagnostics' 79)
@@ -285,26 +300,26 @@ WAVG_RTOL = 2e-6  # K5, float32 sums in another order (per value)
 C384, NZ_DIAG, COARSEN_FACTOR = 384, 79, 8  # the diagnostics workload
 PIPELINE_TIMES = 2  # time indices of the pipeline phase's store
 PIPELINE_MEAN_RTOL = 1e-6
-# float32 radiation call, kernels against plain.  Two absolute bounds,
-# set from the readings on an H100 on the state after the ktable route's
-# 4th chunk (max 1.348e-2 K/day of SW heating, in the top layer, and
-# 1.025e-2 W/m2 of surface SW down-flux) and held on that state only: on
-# the state one chunk earlier the SW heating parts by 6.5e-2 K/day while
-# float32 itself errs by 1.9e-1 there.
-RAD_F32_HEATING_K_DAY = 2e-2
-RAD_F32_FLUX_W_M2 = 2e-2
-# And two bounds relative to the same call's controls, held on every
-# state of RADIATION_STATES_AFTER and in every quantity.  The controls
-# use the plain versions and the same McICA draws: the call in float64
-# (what float32 roundoff itself moves) and with every selection table
-# rounded to bfloat16 (a precision fault the gate must catch).
-#   Two float32 results that each err from the float64 one by e part by
-# at most 2 e (RAD_F32_CONTROL_FACTOR; the control below
-# RAD_F32_ULPS float32 ulps of the quantity's largest value counts as
-# that many ulps).
-#   The bfloat16-table control must part from plain by at least
+# float32 radiation call, kernels against plain, on each state of
+# RADIATION_STATES_AFTER.  As the main path makes it, the call is held
+# to the same call's controls, which use the plain versions and the same
+# McICA draws: the call in float64 (what float32 roundoff itself moves).
+# Two float32 results that each err from the float64 one by e part by at
+# most 2 e (RAD_F32_CONTROL_FACTOR; the control below RAD_F32_ULPS
+# float32 ulps of the quantity's largest value counts as that many ulps).
+#   The float32 SW two-stream cancels (inherited, ROADMAP Queue 3) and
+# lifts any roundoff of the gas optics by a factor that depends on the
+# state: on one state the kernels' SW heating parted from plain by
+# 1.348e-2 K/day, on another by 2.69e-2, with float32 itself erring by
+# 7e-2 to 1.9e-1.  So the call is also made with the two-stream in
+# float64 on every side (TwoStream64), and there held to two absolute
+# bounds (first set, on the float32 call, from an H100's readings), and
+# the control with every selection table rounded to bfloat16 (a
+# precision fault the gate must catch) must part from plain by at least
 # RAD_F32_FAULT_RATIO times what the kernels do, or the comparison could
 # not tell a sound kernel from that fault.
+RAD_F32_HEATING_K_DAY = 2e-2
+RAD_F32_FLUX_W_M2 = 2e-2
 RAD_F32_CONTROL_FACTOR = 2.0
 RAD_F32_ULPS = 4
 RAD_F32_FAULT_RATIO = 3.0
@@ -800,8 +815,8 @@ def phase_rrtmg(device):
     """The RRTMG main path on both routes of the LW gas optics, their
     chunks taken in turns so that both meet the same host; then one
     profiled chunk of each.  Returns the two paths by route and the
-    states that phase 6 runs its radiation call on, by the ktable
-    route's chunks before them."""
+    states that phases 6, 8, 16 and 18 run on, by the ktable route's
+    chunks before them."""
     paths = {route: rrtmg_path(device, route)
              for route in ("ktable", "mega")}
     radiation_states = {}
@@ -1081,6 +1096,40 @@ class BFloat16Tables:
          self.mod.spec_band_dot_plain) = self.orig
 
 
+class TwoStream64:
+    """Makes the SW solver take its layers' two-stream properties
+    (``rrtmg.sw._twostream``) in float64, cast back to the call's dtype:
+    the float32 cancellation there (inherited from the reference, ROADMAP
+    Queue 3) amplifies any roundoff of the gas optics by a factor that
+    depends on the state, which this takes out of a comparison."""
+
+    def __init__(self):
+        from fv3net_torch.physics.radiation.rrtmg import sw
+
+        self.mod, self.orig = sw, sw._twostream
+
+    def __enter__(self):
+        import torch
+
+        orig = self.orig
+
+        def twostream(*args, **kwargs):
+            dtype = args[0].dtype
+
+            def up(x):
+                return x.double() if torch.is_tensor(x) else x
+
+            out = orig(*[up(x) for x in args],
+                       **{k: up(v) for k, v in kwargs.items()})
+            return tuple(x.to(dtype) for x in out)
+
+        self.mod._twostream = twostream
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._twostream = self.orig
+
+
 class Capture:
     """Wraps ``module.name`` to keep the arguments and the result of its
     first call."""
@@ -1104,11 +1153,15 @@ class Capture:
         setattr(self.module, self.name, self.orig)
 
 
-def radiation_differences(out, delp, where, absolute):
+def radiation_differences(out, delp, where, isolated=False):
     """Logs, per heating rate and flux of one float32 radiation call, how
-    far the kernels (both routes) and the two controls part from the
-    plain versions; returns the failed gates: the bounds relative to the
-    controls and, where ``absolute``, the absolute bounds."""
+    far the kernels (both routes) and the controls part from the plain
+    versions; returns the failed gates.  The float32 call as the main
+    path makes it: at most RAD_F32_CONTROL_FACTOR times the float64
+    control's reading.  ``isolated``, the same call with the SW
+    two-stream in float64 on every side (``TwoStream64``): within the
+    absolute bounds RAD_F32_*, and the bfloat16-table control at least
+    RAD_F32_FAULT_RATIO times the kernels' reading."""
     import torch
     from fv3net_torch.physics.radiation.rrtmg import params as P
 
@@ -1124,34 +1177,43 @@ def radiation_differences(out, delp, where, absolute):
     quantities += [(key[:-len("_python")], key, 1.0, "W/m2",
                     RAD_F32_FLUX_W_M2)
                    for key in sorted(out["plain"]) if "_flux_" in key]
+    controls = ("bfloat16 tables",) if isolated else ("float64",
+                                                      "bfloat16 tables")
+    tag = ("float32, SW two-stream in float64" if isolated else "float32")
     bad = []
     for label, key, unit_scale, unit, limit in quantities:
         d = {name: unit_scale * dmax(out[name][key], out["plain"][key])
-             for name in ("kernels", "mega", "float64", "bfloat16 tables")}
+             for name in ("kernels", "mega") + controls}
         routes = unit_scale * dmax(out["mega"][key], out["kernels"][key])
-        scale = unit_scale * out["plain"][key].abs().max().item()
-        allowed = RAD_F32_CONTROL_FACTOR * max(d["float64"],
-                                               RAD_F32_ULPS * eps * scale)
         worst = max(d["kernels"], d["mega"])
         ratio = d["bfloat16 tables"] / worst if worst else math.inf
-        log(f"  float32 {label}: kernels against plain {d['kernels']:.3e} "
+        if isolated:
+            allowed = limit
+            against = "bound"
+        else:
+            scale = unit_scale * out["plain"][key].abs().max().item()
+            allowed = RAD_F32_CONTROL_FACTOR * max(
+                d["float64"], RAD_F32_ULPS * eps * scale)
+            against = "from the float64 control"
+        log(f"  {tag} {label}: kernels against plain {d['kernels']:.3e} "
             f"{unit}, mega route against plain {d['mega']:.3e} (allowed "
-            f"{allowed:.3e}" + (f", bound {limit}" if absolute else "")
-            + f"), mega against ktable route {routes:.3e}; controls, plain "
-            f"float32 against float64 {d['float64']:.3e}, against bfloat16 "
-            f"tables {d['bfloat16 tables']:.3e} "
-            f"({ratio:.3g} times the kernels' reading)")
+            f"{allowed:.3e}), mega against ktable route {routes:.3e}; "
+            "controls, " + ("" if isolated else "plain float32 against "
+                            f"float64 {d['float64']:.3e}, ")
+            + f"against bfloat16 tables {d['bfloat16 tables']:.3e} "
+            f"({ratio:.3g} times the kernels' reading"
+            + (f", needed {RAD_F32_FAULT_RATIO})" if isolated else ")"))
         for name in ("kernels", "mega"):
             if not d[name] <= allowed:
-                bad.append(f"{where}: {name} {label} {d[name]} {unit} > "
-                           f"{allowed} from the float64 control")
-            if absolute and not d[name] <= limit:
-                bad.append(f"{where}: {name} {label} {d[name]} {unit} > "
-                           f"{limit}")
-        if not d["bfloat16 tables"] >= RAD_F32_FAULT_RATIO * worst:
-            bad.append(f"{where}: {label}: the bfloat16-table control "
-                       f"{d['bfloat16 tables']} {unit} is less than "
-                       f"{RAD_F32_FAULT_RATIO} times the kernels' {worst}")
+                bad.append(f"{where}, {tag}: {name} {label} {d[name]} "
+                           f"{unit} > {allowed} {against}")
+        if isolated and not d["bfloat16 tables"] >= RAD_F32_FAULT_RATIO * worst:
+            bad.append(f"{where}, {tag}: {label}: the bfloat16-table "
+                       f"control {d['bfloat16 tables']} {unit} is less "
+                       f"than {RAD_F32_FAULT_RATIO} times the kernels' "
+                       f"{worst}")
+    if isolated:
+        return bad
 
     # where the heating parts most: the layer's flux-divergence
     # difference (heating = HEATFAC * dF / dp[mb]) in float32 ulps of the
@@ -1310,7 +1372,7 @@ def phase_radiation(device, states, sst, cosz, sw_columns=None, smi=""):
         x.double() for x in draws(fold, ncol, nz))
     when = datetime.datetime(2016, 7, 1)
 
-    def outputs(state):
+    def outputs(state, float64=True):
         T, delp, q, qc = radiation_inputs(state, sst, cosz, lat)[:4]
         inputs = {
             "air_temperature": T,
@@ -1322,7 +1384,8 @@ def phase_radiation(device, states, sst, cosz, sw_columns=None, smi=""):
             "longitude": torch.zeros_like(lat),
         }
         out = {name: d(when, inputs, cosz=cosz)
-               for name, d in drivers.items()}
+               for name, d in drivers.items()
+               if float64 or name != "float64"}
         with BFloat16Tables():
             out["bfloat16 tables"] = drivers["plain"](when, inputs,
                                                       cosz=cosz)
@@ -1330,12 +1393,15 @@ def phase_radiation(device, states, sst, cosz, sw_columns=None, smi=""):
 
     bad = []
     for after in RADIATION_STATES_AFTER:
-        last = after == RADIATION_STATES_AFTER[-1]
+        where = f"after {after} chunks"
         log(f"  the state after {after} chunks of the ktable route:")
+        with TwoStream64():
+            isolated, _ = outputs(states[after], float64=False)
+        bad += radiation_differences(isolated, None, where, isolated=True)
+        del isolated
         with Capture(rlw, "lwrad") as lw_call:
             out, delp = outputs(states[after])
-        bad += radiation_differences(out, delp, f"after {after} chunks",
-                                     absolute=last)
+        bad += radiation_differences(out, delp, where)
     if sw_columns:
         first = states[RADIATION_STATES_AFTER[0]]
         T, delp, q, qc = radiation_inputs(first, sst, cosz, lat)[:4]
@@ -2119,12 +2185,13 @@ def phase_production(device):
 
 
 def production_model(device, dtype, dq_scale):
-    """The production entry's seeded dense model (1 hidden layer of 16),
-    its output scaler fitted to tendencies of the scales ``dq_scale``."""
+    """The production entry's dense model (1 hidden layer of 16), trained
+    one epoch on the entry's sample batch with tendencies of the scales
+    ``dq_scale``."""
     from fv3net_torch import entry
 
-    return entry.flagship_dense_model(NPZ, dtype, device, 0, hidden=(16,),
-                                      n=64, dq_scale=dq_scale)
+    return entry.train_entry_model(NPZ, dtype, device, 0, hidden=(16,),
+                                   n=64, dq_scale=dq_scale)
 
 
 def quiet_production_model(device, dtype):
@@ -4275,6 +4342,7 @@ def phase_radiation_stepper(device):
         f"float64): {len(want) - 1} outputs within {worst:.3e} of their "
         f"scale of the plain call (bound {GFS_RTOL}); launches {counts}")
     phase_radiation_summation(rec)
+    f64_lines = ktable_lines_of_call(rec)
     del rec
     walls = {impl: [] for impl in ("torch", None)}
     for _ in range(GFS_REPS):
@@ -4289,7 +4357,177 @@ def phase_radiation_stepper(device):
         f"ms with the plain versions (host clock, medians of {GFS_REPS}); "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         "since the start")
-    return per_step, counts
+    return per_step, counts, f64_lines
+
+
+def ktable_lines_of_call(rec, reps=20):
+    """Kernel-line numbers of K4 and K3 on one recorded radiation call
+    (the GFS chain's float64 call): the call of each kernel with the
+    largest output against its plain version and ``embedding_bag``,
+    device times and bound, and all of the call's calls timed together
+    with their summed bound (path_ms, path_bound_ms)."""
+    from fv3net_torch.ops import ktable_cuda
+
+    lines = {}
+    for name, calls, plain, cost, kernel, library in (
+            ("weighted_select_dot", rec.select, _select_plain,
+             lambda a, out: _select_cost(*a, out),
+             ktable_cuda.weighted_select_dot_cuda, _embedding_bag_select),
+            ("spec_band_dot", rec.spec, _spec_plain, _spec_cost,
+             ktable_cuda.spec_band_dot_cuda, _embedding_bag_spec)):
+        worst, path_bound = 0.0, 0.0
+        dtype_name = str(calls[0][1].dtype).replace("torch.", "")
+        for i, (a, out) in enumerate(calls):
+            err, scale = max_diff(out, plain(*a), f"{name} call {i}")
+            check(err <= KTABLE_RTOL[dtype_name] * scale,
+                  f"{name} {dtype_name} call {i}: max|kernel-plain| {err} > "
+                  f"{KTABLE_RTOL[dtype_name]} * {scale}")
+            worst = max(worst, err)
+            path_bound += bound(*cost(a, out), dtype_name)[0]
+        a, out = max(calls, key=lambda c: c[1].numel())
+        lib = library(*a)
+        lib_err = max_diff(lib(), out, f"embedding_bag {name}")[0]
+        before = read_counts()[name]
+        ms = device_ms({"kernel": lambda: kernel(*a),
+                        "plain": lambda: plain(*a), "library": lib}, reps)
+
+        def run_path(calls=calls, kernel=kernel):
+            for args, _ in calls:
+                kernel(*args)
+
+        path_ms = device_ms({"path": run_path}, 4, warmup=1)["path"]
+        check(read_counts()[name] > before, f"{name} did not launch")
+        bound_ms, by = bound(*cost(a, out), dtype_name)
+        log(f"  {name} {dtype_name} (GFS chain, {len(calls)} calls a call; "
+            f"the largest, out {tuple(out.shape)}): kernel {ms['kernel']:.4f}"
+            f" ms, plain {ms['plain']:.4f} ms, embedding_bag "
+            f"{ms['library']:.4f} ms (max|diff| {lib_err:.3e}), bound "
+            f"{bound_ms:.4f} ms ({by}, {100 * bound_ms / ms['kernel']:.1f}%"
+            f"); all {len(calls)} calls {path_ms:.4f} ms against "
+            f"{path_bound:.4f} ms; kernel against plain within {worst:.3e}")
+        lines[name] = {"max_abs_err": worst, "ms": ms["kernel"],
+                       "plain_ms": ms["plain"], "bound_ms": bound_ms,
+                       "bound_by": by, "library_ms": ms["library"],
+                       "path_ms": path_ms, "path_bound_ms": path_bound}
+    return lines
+
+
+# -- phase 23: the dense trainer on the card ------------------------------
+TRAIN_F64_RTOL = 1e-10  # the card's float64 training against the CPU's
+TRAIN_REPS = 3
+
+
+def phase_trainer(device):
+    """``entry.train_entry_model`` for the flagship (2 x 128, 256 samples)
+    and production (1 x 16, 64 samples) models, one epoch each, on the
+    card in float32 and float64: finite weights of the entries' shapes,
+    float64 within TRAIN_F64_RTOL of scale of the same training on the
+    CPU (the initial weights are drawn on the CPU, so both start alike),
+    ms a training (host clock, median of TRAIN_REPS).  Earlier phases
+    already drove the entries with these trained models (phases 4-5 and
+    12-20 build them through ``entry`` and ``production_model``)."""
+    import torch
+    from fv3net_torch import entry
+
+    models = {"flagship": dict(hidden=(128, 128), n=256,
+                               dq_scale=(1e-5, 1e-8)),
+              "production": dict(hidden=(16,), n=64,
+                                 dq_scale=(1e-6, 1e-9))}
+    times = {}
+    for label, kw in models.items():
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).replace("torch.", "")
+            walls = []
+            for _ in range(TRAIN_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model = entry.train_entry_model(NPZ, dtype, device, 0, **kw)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            times[f"{label} {dname}"] = statistics.median(walls) * 1e3
+            shapes = [tuple(layer.weight.shape) for layer in model.layers]
+            want = [(w, v) for v, w in zip(
+                [2 * NPZ, *kw["hidden"]], [*kw["hidden"], 2 * NPZ])]
+            check(shapes == want, f"{label} {dname}: layers {shapes}, "
+                  f"expected {want}")
+            check(all(torch.isfinite(p).all().item()
+                      for p in model.parameters()),
+                  f"{label} {dname}: non-finite weights")
+            if dtype == torch.float64:
+                cpu = entry.train_entry_model(NPZ, dtype, "cpu", 0, **kw)
+                worst = 0.0
+                for a, b in zip(model.parameters(), cpu.parameters()):
+                    worst = max(worst, ((a.cpu() - b).abs().max()
+                                        / b.abs().max()).item())
+                check(worst <= TRAIN_F64_RTOL, f"{label} float64: card "
+                      f"against CPU {worst:.3e} > {TRAIN_F64_RTOL}")
+                log(f"  {label} float64: the card's trained weights within "
+                    f"{worst:.3e} of scale of the CPU's (bound "
+                    f"{TRAIN_F64_RTOL})")
+    log("  training one epoch on the card (host clock, median of "
+        f"{TRAIN_REPS}): " + ", ".join(f"{k} {v:.1f} ms"
+                                       for k, v in times.items()))
+    return times
+
+
+# -- phase 24: the sharded dry run, four ranks on the one card -------------
+DRYRUN_RANKS = 4
+
+
+def phase_sharded_dryrun(device):
+    """``entry.dryrun_multigpu(4)`` with its C384 case in four processes
+    over gloo on the one card (NCCL takes one rank a device): every rank
+    computes its block on the card with the hand kernels.  Prints each
+    check's reading beside its bound and the per-rank K1/K4/K3 launches,
+    which must equal the single-device run's (rank 0's), and the sharded
+    step's and chunk's times against one device's: four processes
+    sharing one card, not a multi-card speed.  A rank that fails fails
+    the phase."""
+    import torch
+    from fv3net_torch import entry
+    from fv3net_torch.parallel import sharded
+
+    results = sharded.launch(entry.dryrun_multigpu, DRYRUN_RANKS,
+                             (DRYRUN_RANKS, torch.float32, str(device)),
+                             backend="gloo")
+    summary = results[0]
+    check(not summary["failures"], f"dry run: {summary['failures']}")
+    for key in ("multichip_numerics", "production_chunk_numerics",
+                "write_sharded_roundtrip", "dp_training_step",
+                "c384_production_chunk"):
+        sec = summary[key]
+        log(f"  {key}: max rel " + ", ".join(
+            f"{k} {v:.3e}" for k, v in
+            sec["max_rel_diff_vs_single_device"].items())
+            + " (abs " + ", ".join(
+                f"{k} {v:.3e}" for k, v in
+                sec["max_abs_diff_vs_single_device"].items())
+            + f"); bound {sec['bound']}")
+    single = summary["counts"]
+    for case in ("step", "production_chunk", "c384"):
+        key = "single_step" if case == "step" else f"{case}_single"
+        sharded_key = ("sharded_step" if case == "step"
+                       else f"{case}_sharded")
+        want = tuple(single[key])
+        for res in results:
+            got = tuple(res["counts"][sharded_key])
+            check(got == want, f"rank {res['rank']} {case}: K1/K4/K3 "
+                  f"launches {got}, one device {want}")
+        log(f"  {case}: K1/K4/K3 launches on each of the "
+            f"{DRYRUN_RANKS} ranks " + ", ".join(
+                str(tuple(r["counts"][sharded_key])) for r in results)
+            + f", one device {want}")
+    check(sum(single["single_step"]) > 0, "the dry run launched no kernel")
+    w = summary["wall_seconds"]
+    log(f"  wall: sharded step {w['sharded_step']:.3f} s, one device "
+        f"{w['single_step']:.3f} s; sharded chunk "
+        f"{w['production_chunk_sharded']:.3f} s, one device "
+        f"{w['production_chunk_single']:.3f} s; C384 sharded "
+        f"{w['c384_sharded']:.3f} s, one device {w['c384_single']:.3f} s; "
+        f"training step {w['dp_training_step']:.3f} s (each the first call, "
+        f"its setup in; {DRYRUN_RANKS} processes share one card and its "
+        "host: not a multi-card speed)")
+    return summary
 
 
 # -- phase 22: synthband and Held-Suarez ---------------------------------
@@ -4541,13 +4779,24 @@ def main():
     phase("21: the Python radiation stepper in the per-step loop, and the "
           "GFS radiation chain")
     t21 = time.perf_counter()
-    phase_radiation_stepper(device)
+    _, gfs_launches, f64_lines = phase_radiation_stepper(device)
     log(f"  phase 21 in {time.perf_counter() - t21:.1f} s")
 
     phase("22: the synthetic band radiation and Held-Suarez")
     t22 = time.perf_counter()
     phase_synthband(device)
     log(f"  phase 22 in {time.perf_counter() - t22:.1f} s")
+
+    phase("23: the dense trainer on the card (the entries' models)")
+    t23 = time.perf_counter()
+    phase_trainer(device)
+    log(f"  phase 23 in {time.perf_counter() - t23:.1f} s")
+
+    phase(f"24: the sharded dry run ({DRYRUN_RANKS} ranks over gloo on "
+          "the one card)")
+    t24 = time.perf_counter()
+    phase_sharded_dryrun(device)
+    log(f"  phase 24 in {time.perf_counter() - t24:.1f} s")
 
     # each kernel's launches come from the run of the path it lies on
     counts = dict(counts, taumol_lw=counts_mega["taumol_lw"],
@@ -4556,7 +4805,10 @@ def main():
                   weighted_select_dot_bf16=bf16_launches[
                       "weighted_select_dot"],
                   spec_band_dot_bf16=bf16_launches["spec_band_dot"],
-                  taumol_lw_bf16=taumol_bf16_launches)
+                  taumol_lw_bf16=taumol_bf16_launches,
+                  weighted_select_dot_f64=gfs_launches[
+                      "weighted_select_dot"],
+                  spec_band_dot_f64=gfs_launches["spec_band_dot"])
     common = {
         "remap_apply": {"source": "fv3net_torch/csrc/remap_apply.cu",
                         "replaces": "fv3net_tpu/ops/pallas_remap.py:58",
@@ -4595,6 +4847,16 @@ def main():
             "replaces": "fv3net_tpu/physics/radiation/rrtmg/"
                         "pallas_taumol.py:73",
             **taumol_bf16_line},
+        # the float64 instances, their launches from phase 21's float64
+        # GFS radiation call
+        "weighted_select_dot_f64": {
+            "source": "fv3net_torch/csrc/ktable.cu",
+            "replaces": "fv3net_tpu/ops/pallas_ktable.py:35",
+            **f64_lines["weighted_select_dot"]},
+        "spec_band_dot_f64": {
+            "source": "fv3net_torch/csrc/ktable.cu",
+            "replaces": "fv3net_tpu/ops/pallas_ktable.py:97",
+            **f64_lines["spec_band_dot"]},
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": v["source"],

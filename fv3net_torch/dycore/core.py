@@ -62,6 +62,12 @@ class GridArrays:
     north: torch.Tensor  # [3, 6, n, n]
     lat: torch.Tensor  # [6, n, n] radians
     lon: torch.Tensor  # [6, n, n] radians
+    # the global mean cell area, set on a sharded block
+    # (``parallel.sharded.shard_grid``); None: the mean of ``area``
+    area_mean: torch.Tensor = None
+
+    def mean_area(self) -> torch.Tensor:
+        return self.area.mean() if self.area_mean is None else self.area_mean
 
     @classmethod
     def from_grid(cls, grid: Grid, dtype=torch.float32,
@@ -471,14 +477,14 @@ def _substep(state: DycoreState, g: GridArrays, cfg: DycoreConfig,
     if div_damp_on:
         coef = _level_coef(nz, cfg.divergence_damp_coef, cfg.d2_bg_k1,
                            cfg.d2_bg_k2, delp)
-        nu_d = coef[None, None, :, None, None] * g.area.mean() / dt
+        nu_d = coef[None, None, :, None, None] * g.mean_area() / dt
         wind_new = wind_new + dt * nu_d * _lsq_gradient(ext2[:, i_div], g)
 
     # ---- del-2 damping --------------------------------------------------
     # (the d2_bg boost of this half applies only when diff_coef > 0, as
     # in the reference)
     if cfg.diff_coef > 0.0:
-        dx2 = g.area.mean()
+        dx2 = g.mean_area()
         dcoef = _level_coef(nz, cfg.diff_coef, cfg.d2_bg_k1, cfg.d2_bg_k2,
                             delp)
         nu = dcoef[None, :, None, None] * dx2 / dt
@@ -685,8 +691,10 @@ def validate_acoustic_cfl(g: GridArrays, cfg: DycoreConfig) -> None:
     _check_supported(cfg)
     if cfg.hydrostatic:
         return
+    from fv3net_torch.parallel.sharded import global_min
+
     c_s = 350.0  # sound speed bound, m/s
-    dx_min = float(torch.minimum(g.dist_x.min(), g.dist_y.min()))
+    dx_min = float(global_min(torch.minimum(g.dist_x.min(), g.dist_y.min())))
     dt_sub = cfg.dt / cfg.n_split
     if c_s * dt_sub > 0.75 * dx_min:
         need = int(np.ceil(c_s * cfg.dt / (0.75 * dx_min)))

@@ -1,17 +1,27 @@
-"""Apply side of the dense (MLP) model (port of
-``fv3net_tpu/fit/dense.py``): normalize, a ReLU MLP, denormalize.
+"""The dense (MLP) model and its trainer (port of
+``fv3net_tpu/fit/dense.py``; reference: external/fv3fit/fv3fit/keras/
+_models/dense.py:90 ``train_dense_model``): normalize, a ReLU MLP,
+denormalize, clamp to the output limits.
 
-Training is not ported yet: :meth:`DenseModel.load` reads a model that
-the reference package trained and dumped (its artifact format: a
-``name`` file, ``weights.npz`` and ``metadata.json``), and
-:func:`params_from_jax` carries one over in memory.
+:func:`train_dense_model` trains as the reference does: the same
+minibatch indices (``np.random.RandomState(seed)``, one permutation per
+epoch), the loss (mse or mae with its weight, plus the l2 or regularizer
+penalty) and the optax update rules of ``fit/config.py``.  The
+reference runs its steps as one ``lax.scan``; here they are a Python
+loop with autograd.  The initial weights are the port's own He-normal
+draws from a ``torch.Generator`` seeded with ``seed``: the reference's
+distribution, not its numbers.  :meth:`DenseModel.dump` and
+:meth:`DenseModel.load` use the reference's artifact format (a ``name``
+file, ``weights.npz`` and ``metadata.json``), and :func:`params_from_jax`
+carries a reference model over in memory.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -19,7 +29,33 @@ from torch import nn
 
 from fv3net_torch.core.dataset import Dataset
 from fv3net_torch.fit import io, packer
+from fv3net_torch.fit.config import OutputLimitConfig
 from fv3net_torch.fit.normalize import StandardScaler
+from fv3net_torch.fit.train import register_training_function
+
+
+@dataclasses.dataclass
+class DenseHyperparameters:
+    """The reference's dense hyperparameters (keras/_models/dense.py:36).
+    The nested ``dense_network`` ({width, depth, kernel_regularizer:
+    {name, kwargs}}), ``optimizer_config`` ({name, kwargs,
+    learning_rate_schedule}) and ``loss`` ({loss_type: mse|mae, weight})
+    override the flat knobs; ``output_limit_config`` ({name: {min, max}})
+    clamps the predictions."""
+
+    input_variables: List[str] = dataclasses.field(default_factory=list)
+    output_variables: List[str] = dataclasses.field(default_factory=list)
+    hidden_layers: int = 3
+    width: int = 419
+    learning_rate: float = 1e-3
+    epochs: int = 10
+    batch_size: int = 512
+    l2_regularization: float = 0.0
+    seed: int = 0
+    dense_network: Optional[dict] = None
+    optimizer_config: Optional[dict] = None
+    loss: Optional[dict] = None
+    output_limit_config: Optional[dict] = None
 
 
 def init_mlp_params(generator: torch.Generator, sizes: Sequence[int],
@@ -39,11 +75,12 @@ def init_mlp_params(generator: torch.Generator, sizes: Sequence[int],
     return params
 
 
-def _output_limits_not_ported():
-    return NotImplementedError(
-        "output limits of the dense model are not ported to fv3net_torch "
-        "yet (ROADMAP.md Queue 1 item 9)"
-    )
+def mlp_apply(params, x):
+    """The ReLU MLP on a list of {"w", "b"} layers."""
+    for layer in params[:-1]:
+        x = torch.relu(x @ layer["w"] + layer["b"])
+    last = params[-1]
+    return x @ last["w"] + last["b"]
 
 
 @io.register("dense")
@@ -60,6 +97,7 @@ class DenseModel(nn.Module):
         output_info: packer.PackingInfo,
         x_scaler: StandardScaler,
         y_scaler: StandardScaler,
+        output_limits: Optional[OutputLimitConfig] = None,
     ):
         super().__init__()
         self.input_variables = list(input_variables)
@@ -79,6 +117,14 @@ class DenseModel(nn.Module):
         self.register_buffer("x_std", x_scaler.std)
         self.register_buffer("y_mean", y_scaler.mean)
         self.register_buffer("y_std", y_scaler.std)
+        self.output_limits = output_limits or None
+        if self.output_limits:
+            lo, hi = self.output_limits.packed_bounds(output_info.names,
+                                                      output_info.features)
+            self.register_buffer("y_min", torch.as_tensor(
+                lo, dtype=y_scaler.mean.dtype, device=y_scaler.mean.device))
+            self.register_buffer("y_max", torch.as_tensor(
+                hi, dtype=y_scaler.mean.dtype, device=y_scaler.mean.device))
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         """Packed [sample, feature] inputs -> packed outputs."""
@@ -86,7 +132,10 @@ class DenseModel(nn.Module):
         for layer in self.layers[:-1]:
             x = torch.relu(layer(x))
         y = self.layers[-1](x)
-        return y * self.y_std + self.y_mean
+        Y = y * self.y_std + self.y_mean
+        if self.output_limits:
+            Y = torch.clamp(Y, self.y_min, self.y_max)
+        return Y
 
     apply_packed = forward  # the reference's name
 
@@ -132,6 +181,8 @@ class DenseModel(nn.Module):
             "output_info": info(self.output_info),
             "n_layers": len(self.layers),
         }
+        if self.output_limits:
+            meta["output_limits"] = self.output_limits.to_dict()
         with open(os.path.join(path, "metadata.json"), "w") as f:
             json.dump(meta, f)
 
@@ -140,8 +191,6 @@ class DenseModel(nn.Module):
         """The model in ``path``, on the CPU in the saved dtype."""
         with open(os.path.join(path, "metadata.json")) as f:
             meta = json.load(f)
-        if meta.get("output_limits"):
-            raise _output_limits_not_ported()
         z = np.load(os.path.join(path, "weights.npz"))
 
         def t(key):
@@ -160,16 +209,20 @@ class DenseModel(nn.Module):
             output_info=info(meta["output_info"]),
             x_scaler=StandardScaler(t("x_mean"), t("x_std")),
             y_scaler=StandardScaler(t("y_mean"), t("y_std")),
+            output_limits=_load_output_limits(meta),
         )
+
+
+def _load_output_limits(meta: dict) -> Optional[OutputLimitConfig]:
+    if meta.get("output_limits"):
+        return OutputLimitConfig.from_dict(meta["output_limits"])
+    return None
 
 
 def params_from_jax(model, dtype=torch.float64, device=None) -> DenseModel:
     """The port's :class:`DenseModel` computing what a reference-package
     ``DenseModel`` computes: its params, scalers and packing layouts are
     read with ``np.asarray`` (no jax import needed here)."""
-    if getattr(model, "output_limits", None):
-        raise _output_limits_not_ported()
-
     def t(x):
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
@@ -184,4 +237,127 @@ def params_from_jax(model, dtype=torch.float64, device=None) -> DenseModel:
         output_info=info(model.output_info),
         x_scaler=StandardScaler(t(model.x_scaler.mean), t(model.x_scaler.std)),
         y_scaler=StandardScaler(t(model.y_scaler.mean), t(model.y_scaler.std)),
+        output_limits=(
+            OutputLimitConfig.from_dict(model.output_limits.to_dict())
+            if getattr(model, "output_limits", None) else None),
+    )
+
+
+def _collect(batches, input_variables, output_variables):
+    """Batches (Datasets of [sample(, z)] Quantities) -> the packed
+    [sample, feature] tensors X and Y, concatenated, with their
+    layouts."""
+    xs, ys = [], []
+    x_info = y_info = None
+    for ds in batches:
+        data = packer.dataset_to_samples(
+            ds, list(input_variables) + list(output_variables))
+        X, x_info = packer.pack(data, input_variables)
+        Y, y_info = packer.pack(data, output_variables)
+        xs.append(X)
+        ys.append(Y)
+    return torch.cat(xs), torch.cat(ys), x_info, y_info
+
+
+def minibatch_indices(n: int, batch_size: int, epochs: int,
+                      seed: int) -> np.ndarray:
+    """[epochs * steps_per_epoch, bs] sample indices, the reference's:
+    one ``np.random.RandomState(seed)`` permutation per epoch, cut into
+    ``max((n - bs) // bs + 1, 1)`` whole batches of ``bs = min(batch_size,
+    n)``."""
+    rng = np.random.RandomState(seed)
+    bs = min(batch_size, n)
+    steps = max((n - bs) // bs + 1, 1)
+    return np.stack([
+        rng.permutation(n)[: steps * bs].reshape(steps, bs)
+        for _ in range(epochs)
+    ]).reshape(epochs * steps, bs)
+
+
+@register_training_function("dense", DenseHyperparameters)
+def train_dense_model(hyperparameters: DenseHyperparameters,
+                      train_batches, validation_batches=None) -> DenseModel:
+    """Fit a :class:`DenseModel` to ``train_batches`` on the batches'
+    device, in their dtype (``validation_batches`` is unused, as in the
+    reference)."""
+    from fv3net_torch.fit.config import (
+        LearningRateScheduleConfig,
+        OptimizerConfig,
+        RegularizerConfig,
+    )
+    from fv3net_torch.fit.networks import DenseNetworkConfig
+
+    hp = hyperparameters
+    X, Y, x_info, y_info = _collect(train_batches, hp.input_variables,
+                                    hp.output_variables)
+    x_scaler = StandardScaler.fit(X)
+    y_scaler = StandardScaler.fit(Y)
+
+    width, n_hidden = hp.width, hp.hidden_layers
+    penalty = None
+    if hp.dense_network is not None:
+        nd = dict(hp.dense_network)
+        reg = nd.pop("kernel_regularizer", None)
+        netcfg = DenseNetworkConfig(
+            **nd, kernel_regularizer=(RegularizerConfig(**reg) if reg
+                                      else RegularizerConfig("none")))
+        width, n_hidden = netcfg.width, netcfg.depth - 1
+        penalty = netcfg.penalty
+    sizes = ([x_info.total_features] + [width] * n_hidden
+             + [y_info.total_features])
+    params = init_mlp_params(torch.Generator().manual_seed(hp.seed), sizes,
+                             dtype=X.dtype, device=X.device)
+    leaves = [p[k].detach().clone().requires_grad_(True)
+              for p in params for k in ("w", "b")]
+    params = [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
+              for i in range(len(sizes) - 1)]
+
+    if hp.optimizer_config is not None:
+        oc = dict(hp.optimizer_config)
+        sched = oc.pop("learning_rate_schedule", None)
+        tx = OptimizerConfig(
+            **oc, learning_rate_schedule=(
+                LearningRateScheduleConfig(**sched) if sched else None),
+        ).instance
+    else:
+        tx = OptimizerConfig("adam", {"learning_rate": hp.learning_rate}
+                             ).instance
+
+    xn = x_scaler.normalize(X)
+    yn = y_scaler.normalize(Y)
+    loss_type = (hp.loss or {}).get("loss_type", "mse")
+    loss_weight = float((hp.loss or {}).get("weight", 1.0))
+
+    def loss_fn(xb, yb):
+        err = mlp_apply(params, xb) - yb
+        if loss_type == "mae":
+            loss = loss_weight * torch.mean(torch.abs(err))
+        else:
+            loss = loss_weight * torch.mean(err ** 2)
+        if penalty is not None:
+            loss = loss + penalty([{"w": p["w"]} for p in params])
+        elif hp.l2_regularization > 0:
+            loss = loss + hp.l2_regularization * sum(
+                torch.sum(p["w"] ** 2) for p in params)
+        return loss
+
+    idx_all = torch.as_tensor(
+        minibatch_indices(X.shape[0], hp.batch_size, hp.epochs, hp.seed),
+        device=X.device)
+    with torch.enable_grad():
+        for idx in idx_all:
+            grads = torch.autograd.grad(loss_fn(xn[idx], yn[idx]), leaves)
+            tx.step(leaves, grads)
+
+    output_limits = (OutputLimitConfig.from_dict(hp.output_limit_config)
+                     if hp.output_limit_config else None)
+    return DenseModel(
+        input_variables=list(hp.input_variables),
+        output_variables=list(hp.output_variables),
+        params=[{k: v.detach() for k, v in p.items()} for p in params],
+        input_info=x_info,
+        output_info=y_info,
+        x_scaler=x_scaler,
+        y_scaler=y_scaler,
+        output_limits=output_limits,
     )

@@ -51,8 +51,8 @@ class _Register:
         except KeyError:
             raise NotImplementedError(
                 f"model type {name!r} at {path} is not ported to "
-                "fv3net_torch yet (only 'dense' is; ROADMAP.md Queue 1 "
-                "item 9)"
+                "fv3net_torch yet (ROADMAP.md Queue 1 item 9; the port "
+                f"loads {', '.join(sorted(self._model_types))})"
             ) from None
         return cls.load(path)
 

@@ -1,0 +1,145 @@
+"""Trainer registry, training config and CLI (port of
+``fv3net_tpu/fit/train.py``; reference: external/fv3fit/fv3fit/
+_shared/training_config.py and fv3fit/train.py:33-192).
+
+``@register_training_function(name, HyperparamCls)`` registers
+``fn(hyperparameters, train_batches, validation_batches) -> model``;
+``train_main`` resolves, fits and dumps a model with its ``train.yaml``.
+Only the ``dense`` trainer is ported (``fit/dense.py``); the CLI's data
+loaders are not (ROADMAP.md Queue 1 item 9), so ``main`` raises on them.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import random
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Type
+
+import numpy as np
+
+_TRAINING_FUNCTIONS: Dict[str, Tuple[Callable, Type]] = {}
+
+
+def register_training_function(name: str, hyperparameter_class: Type):
+    """Decorator registering ``fn(hyperparameters, train_batches,
+    validation_batches) -> model`` under ``name``."""
+
+    def decorator(fn):
+        if name in _TRAINING_FUNCTIONS:
+            raise ValueError(f"training function {name!r} already registered")
+        _TRAINING_FUNCTIONS[name] = (fn, hyperparameter_class)
+        return fn
+
+    return decorator
+
+
+def _registered(name: str) -> Tuple[Callable, Type]:
+    # the registered trainers register on import
+    from fv3net_torch.fit import dense  # noqa: F401
+
+    if name not in _TRAINING_FUNCTIONS:
+        raise NotImplementedError(
+            f"training function {name!r} is not ported to fv3net_torch yet "
+            "(only 'dense' is; ROADMAP.md Queue 1 item 9)")
+    return _TRAINING_FUNCTIONS[name]
+
+
+def get_training_function(name: str) -> Callable:
+    return _registered(name)[0]
+
+
+def get_hyperparameter_class(name: str) -> Type:
+    return _registered(name)[1]
+
+
+@dataclasses.dataclass
+class TrainingConfig:
+    """Top-level training configuration (reference train.py:110-135)."""
+
+    model_type: str
+    hyperparameters: Any
+    random_seed: int = 0
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TrainingConfig":
+        model_type = d["model_type"]
+        hp = get_hyperparameter_class(model_type)(
+            **d.get("hyperparameters", {}))
+        return cls(model_type=model_type, hyperparameters=hp,
+                   random_seed=d.get("random_seed", 0))
+
+    def to_dict(self) -> dict:
+        return {
+            "model_type": self.model_type,
+            "hyperparameters": dataclasses.asdict(self.hyperparameters),
+            "random_seed": self.random_seed,
+        }
+
+
+def set_random_seed(seed: int) -> None:
+    random.seed(seed)
+    np.random.seed(seed + 1)
+
+
+def apply_config_overrides(d: dict, overrides: Sequence[str]) -> dict:
+    """Apply ``a.b.c=value`` dotted-path CLI overrides (reference
+    train.py:110-117)."""
+    import yaml
+
+    for item in overrides:
+        path, value = item.split("=", 1)
+        keys = path.split(".")
+        node = d
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = yaml.safe_load(value)
+    return d
+
+
+def train_main(config_dict: dict, train_batches, validation_batches,
+               output_path: str):
+    """Resolve the trainer, fit, dump the model (the reference's artifact
+    format) and its ``train.yaml``."""
+    import yaml
+
+    from fv3net_torch.fit import io
+
+    config = TrainingConfig.from_dict(config_dict)
+    set_random_seed(config.random_seed)
+    train_fn = get_training_function(config.model_type)
+    model = train_fn(config.hyperparameters, train_batches,
+                     validation_batches)
+    io.dump(model, output_path)
+    with open(os.path.join(output_path, "train.yaml"), "w") as f:
+        yaml.safe_dump(config.to_dict(), f)
+    print(json.dumps({"step": "train", "model_type": config.model_type,
+                      "output": output_path}))
+    return model
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """CLI: train <training.yaml> <data.yaml> <output> [overrides...]
+    (reference: python -m fv3fit.train).  The data loaders are not
+    ported yet: any data config raises ``NotImplementedError``."""
+    import yaml
+
+    parser = argparse.ArgumentParser("fv3net_torch.fit.train")
+    parser.add_argument("training_config")
+    parser.add_argument("training_data_config")
+    parser.add_argument("output_path")
+    parser.add_argument("overrides", nargs="*")
+    args = parser.parse_args(argv)
+    with open(args.training_config) as f:
+        config_dict = apply_config_overrides(yaml.safe_load(f),
+                                             args.overrides)
+    TrainingConfig.from_dict(config_dict)  # validate before the data
+    raise NotImplementedError(
+        f"training data configs ({args.training_data_config}) need the "
+        "loaders, which are not ported to fv3net_torch yet (ROADMAP.md "
+        "Queue 1 item 9); call train_main with batches instead")
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -16,7 +16,12 @@ south/north rows across the full extended width (twice), so the 8 cube
 corners receive third-tile data.  Vector fields are exchanged
 componentwise with no rotation: winds are 3-D Cartesian.
 
-The multi-device forms are not ported yet.
+The sharded layout: while a mesh is registered (:func:`set_active_mesh`,
+done by ``parallel.sharded.make_mesh``), each rank holds one (y, x)
+block of all six tiles and :func:`halo_append` routes a block to the
+exchange of ``parallel/shardmap_halo.py``, which gives the block's
+window of the global extended array; :class:`no_explicit_halo` clears
+the mesh for single-device work in the same process.
 """
 from __future__ import annotations
 
@@ -239,13 +244,60 @@ def _oriented_block(src, ne: int, rev: bool, h: int, west_or_south: bool,
     return block
 
 
+# ---------------------------------------------------------------------------
+# the active mesh: the sharded layout's halo backend
+# ---------------------------------------------------------------------------
+_ACTIVE_MESH = None
+
+
+def set_active_mesh(mesh) -> None:
+    """Register (or clear, with None) the mesh (``parallel.sharded.Mesh``)
+    whose blocks :func:`halo_append` exchanges."""
+    global _ACTIVE_MESH
+    _ACTIVE_MESH = mesh
+
+
+def active_mesh():
+    return _ACTIVE_MESH
+
+
+class no_explicit_halo:
+    """Context manager: clear the active mesh for the block, so that a
+    single-device computation in a process of a sharded run appends its
+    halo (and reduces) on its own tensors."""
+
+    def __enter__(self):
+        global _ACTIVE_MESH
+        self._saved = _ACTIVE_MESH
+        _ACTIVE_MESH = None
+        return self
+
+    def __exit__(self, *exc):
+        global _ACTIVE_MESH
+        _ACTIVE_MESH = self._saved
+        return False
+
+
 def halo_append(field: torch.Tensor, h: int) -> torch.Tensor:
     """Append an ``h``-deep halo to ``field`` of shape [6, ..., n, n].
 
     Returns [6, ..., n+2h, n+2h] whose interior equals ``field`` and whose
     border holds the adjacent tiles' data (corners included).  Bit-equal
-    to :func:`halo_append_numpy`: only copies, no arithmetic.
+    to :func:`halo_append_numpy`: only copies, no arithmetic.  While a
+    mesh is active, ``field`` is this rank's block and the halo comes
+    from the exchange (``shardmap_halo.halo_append_shardmap``).
     """
+    if _ACTIVE_MESH is not None:
+        from fv3net_torch.parallel.shardmap_halo import halo_append_shardmap
+
+        return halo_append_shardmap(field, h, _ACTIVE_MESH)
+    return halo_append_concat(field, h)
+
+
+def halo_append_concat(field: torch.Tensor, h: int) -> torch.Tensor:
+    """The static-slice halo append on one device (the reference's
+    ``halo_append_concat``): neighbour blocks are slices, flips and
+    transposes of the neighbour tile, assembled with ``torch.cat``."""
     n = field.shape[-1]
     if field.shape[-2] != n or field.shape[0] != NUM_TILES:
         raise ValueError(f"expected [6, ..., n, n] tiles, got {tuple(field.shape)}")

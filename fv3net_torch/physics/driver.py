@@ -44,6 +44,7 @@ from fv3net_torch.dycore.state import (
     theta_v_from_temperature,
 )
 from fv3net_torch.ops import thermo
+from fv3net_torch.parallel import sharded
 from fv3net_torch.physics import convection as conv
 from fv3net_torch.physics import convection_mf as cmf
 from fv3net_torch.physics import gravity_wave_drag as gwd_mod
@@ -220,7 +221,7 @@ def physics_step(
             (cfg.strat_eddy_damp_pa - pmid) / cfg.strat_eddy_damp_pa,
             0.0, 1.0,
         )
-        t_bar = T.mean(dim=tuple(range(T.ndim - 1)))  # [nz]
+        t_bar = sharded.global_mean(T, dim=tuple(range(T.ndim - 1)))  # [nz]
         rate = w_ed * (dt / (cfg.strat_eddy_damp_days * 86400.0))
         T = T + rate * (t_bar - T)
 

@@ -28,6 +28,7 @@ import torch
 
 from fv3net_torch.core.constants import GRAVITY
 from fv3net_torch.ops import thermo, zenith
+from fv3net_torch.parallel import sharded
 from fv3net_torch.physics.radiation import gases, lw, optics, spectra, sw
 from fv3net_torch.physics.radiation import params as P
 
@@ -103,19 +104,23 @@ class RadiationDriver:
     def mcica_fold(self, T: torch.Tensor) -> int:
         """The integer a call's McICA draws are keyed on, a fold of the
         columns' temperatures [ncol, nz] (their max, not their sum as the
-        reference's: the max does not depend on the reduction order)."""
-        return int(torch.fmod(T.abs().max() * 64.0, 1000003.0).item())
+        reference's: the max does not depend on the reduction order; over
+        the whole grid on a sharded block)."""
+        return int(torch.fmod(sharded.global_max(T.abs().max()) * 64.0,
+                              1000003.0).item())
 
-    def draw_mcica(self, fold: int, ncol: int,
-                   nlay: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def draw_mcica(self, fold: int, ncol: int, nlay: int,
+                   keep: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """McICA uniforms (u_lw [nlay, ncol, 140], u_sw [nlay, ncol,
         112]) in the compute dtype, from a generator on the driver's
-        device seeded with ``(mcica_seed, fold)``."""
+        device seeded with ``(mcica_seed, fold)``; ``keep``: only those
+        columns (``parallel.sharded.draw_columns``)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.config.mcica_seed * 1000003 + int(fold))
-        kw = dict(generator=gen, dtype=self.dtype, device=self.device)
-        return (torch.rand((nlay, ncol, P.NGPT_LW), **kw),
-                torch.rand((nlay, ncol, P.NGPT_SW), **kw))
+        return sharded.draw_columns(
+            gen, ((nlay, ncol, P.NGPT_LW), (nlay, ncol, P.NGPT_SW)), 1,
+            keep, dtype=self.dtype, device=self.device)
 
     def __call__(
         self,
@@ -194,7 +199,8 @@ class RadiationDriver:
         re_ice = (326.3 + 12.42 * (T - 273.15)).clamp(20.0, 130.0)
         co = optics.cloud_optics(lwp, iwp, re_liq, re_ice, cldfrac)
 
-        u_lw, u_sw = self.draw_mcica(self.mcica_fold(T), ncol, nz)
+        u_lw, u_sw = sharded.column_draws(self.draw_mcica,
+                                          self.mcica_fold(T), lead, nz)
         mask_lw = optics.mcica_subcolumns(cldfrac, u_lw, iovr=cfg.iovr)
         mask_sw = optics.mcica_subcolumns(cldfrac, u_sw, iovr=cfg.iovr)
 

@@ -33,6 +33,7 @@ import torch
 
 from fv3net_torch.core.constants import GRAVITY, RDGAS, TOA_PRESSURE
 from fv3net_torch.ops import thermo, zenith
+from fv3net_torch.parallel import sharded
 from fv3net_torch.physics.microphysics import (
     saturation_specific_humidity,
     sundqvist_cloud_fraction,
@@ -169,16 +170,18 @@ class RRTMGDriver:
         )
         self.Taer = aer_mod.make_aerosol_tables(_SW_LAM_UM, _LW_LAM_UM)
 
-    def draw_mcica(self, fold: int, ncol: int,
-                   nz: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def draw_mcica(self, fold: int, ncol: int, nz: int,
+                   keep: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """McICA uniforms (rand_lw [ncol, 140*nz], rand_sw
         [ncol, 112*nz]) in the compute dtype, from a generator on the
-        driver's device seeded with ``(mcica_seed, fold)``."""
+        driver's device seeded with ``(mcica_seed, fold)``; ``keep``:
+        only those columns (``parallel.sharded.draw_columns``)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.config.mcica_seed * 1000003 + int(fold))
-        kw = dict(generator=gen, dtype=self.dtype, device=self.device)
-        return (torch.rand((ncol, P.NGPT_LW * nz), **kw),
-                torch.rand((ncol, P.NGPT_SW * nz), **kw))
+        return sharded.draw_columns(
+            gen, ((ncol, P.NGPT_LW * nz), (ncol, P.NGPT_SW * nz)), 0, keep,
+            dtype=self.dtype, device=self.device)
 
     def _aerosols(self, play_mb, dp_mb, land, nbands, lw_mode):
         """[C, L, nbands, 3] (tau, ssa, asy) of the compact iaer=2
@@ -307,8 +310,11 @@ class RRTMGDriver:
 
         # McICA uniforms keyed on a fold of the state (max, not sum: it
         # does not depend on the reduction order)
-        fold = int(torch.fmod(T.abs().max() * 64.0, 1000003.0).item())
-        rand_lw, rand_sw = self.draw_mcica(fold, ncol, nz)
+        # (over the whole grid, and in its column order, on a sharded block)
+        fold = int(torch.fmod(sharded.global_max(T.abs().max()) * 64.0,
+                              1000003.0).item())
+        rand_lw, rand_sw = sharded.column_draws(self.draw_mcica, fold,
+                                                lead, nz)
 
         sfemis = optics.surface_emissivity(land)
         aerodp = None

@@ -18,6 +18,7 @@ import torch
 
 from fv3net_torch.core.quantity import Quantity
 from fv3net_torch.ops import thermo
+from fv3net_torch.parallel import sharded
 from fv3net_torch.runtime import names
 
 DIMS_3D = ("tile", "z", "y", "x")
@@ -160,7 +161,8 @@ def limit_sphum_tendency(
     out["dQ2"] = Quantity(dq2_new, DIMS_3D)
     diags: Dict[str, Quantity] = {
         "specific_humidity_limiter_active": Quantity(
-            (dq2_new != dq2_old).any().to(torch.float32), ()
+            sharded.global_max(
+                (dq2_new != dq2_old).any().to(torch.float32)), ()
         ),
         "column_integrated_dQ2_change_non_neg_sphum_constraint": Quantity(
             thermo.mass_integrate(dq2_new - dq2_old, delp, axis=1),

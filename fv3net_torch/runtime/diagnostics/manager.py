@@ -131,30 +131,57 @@ class DiagnosticFile:
 
     def _write_row(self, label, rows: Dict[str, np.ndarray],
                    dims: Mapping[str, tuple]) -> None:
+        """Append one time row.  Under a sharded layout each rank holds its
+        block of every field [..., my, mx]: rank 0 creates the store (one
+        chunk per block along y and x) and grows the time axis, then each
+        rank writes its region (``core.sharded_io.write_block``)."""
+        import torch.distributed as dist
+
+        from fv3net_torch.core.sharded_io import global_shape, write_block
+        from fv3net_torch.parallel import sharded
+
+        mesh = sharded.active()
+        lead = mesh is None or mesh.rank == 0
         t_index = len(self._stored_times)
-        if self._store is None:
-            self._store = zarrio.ZarrGroup.create(self._path)
-            for name, arr in rows.items():
-                full = ("time",) + tuple(dims[name])
-                chunk = (self._chunks.get("time", 1),) + tuple(
-                    min(self._chunks.get(d, s), s)
-                    for d, s in zip(full[1:], arr.shape)
-                )
-                self._store.create_array(
-                    name,
-                    shape=(0,) + arr.shape,
-                    chunks=chunk,
-                    dtype="float32",
-                    dims=full,
-                    fill_value="NaN",
-                )
+        if lead:
+            if self._store is None:
+                self._store = zarrio.ZarrGroup.create(self._path)
+                for name, arr in rows.items():
+                    full = ("time",) + tuple(dims[name])
+                    if mesh is None:
+                        shape, chunks = arr.shape, tuple(
+                            min(self._chunks.get(d, s), s)
+                            for d, s in zip(full[1:], arr.shape))
+                    else:
+                        shape, chunks = global_shape(arr.shape, mesh), \
+                            arr.shape
+                    self._store.create_array(
+                        name,
+                        shape=(0,) + shape,
+                        chunks=(self._chunks.get("time", 1),) + chunks,
+                        dtype="float32",
+                        dims=full,
+                        fill_value="NaN",
+                    )
+            for name in rows:
+                self._store[name].resize_time(t_index + 1)
+        if mesh is not None:
+            dist.barrier(group=mesh.group)
+            if self._store is None:
+                self._store = zarrio.ZarrGroup(self._path)
         with timing.phases.clock("zarr_write"):
             for name, arr in rows.items():
-                za = self._store[name]
-                za.resize_time(t_index + 1)
-                za[(t_index,)] = arr.astype(np.float32, copy=False)
+                arr = arr.astype(np.float32, copy=False)
+                if mesh is None:
+                    self._store[name][(t_index,)] = arr
+                else:
+                    write_block(self._store[name], arr, mesh,
+                                index=(t_index,))
         self._stored_times.append(label)
-        self._write_times()
+        if mesh is not None:
+            dist.barrier(group=mesh.group)
+        if lead:
+            self._write_times()
 
     def _write_times(self) -> None:
         # time coordinate in hours since the first stored time

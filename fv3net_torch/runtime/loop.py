@@ -102,9 +102,17 @@ class TimeLoop:
         self._dtype = dtype
         self._device = torch.device(device)
         self._impl = impl
-        if tuple(int(v) for v in (nml.layout or (1, 1))) != (1, 1):
-            raise not_ported(
-                f"namelist layout {tuple(nml.layout)} (the sharded state)", 7)
+        # namelist layout [py, px] != [1, 1]: this process is one rank of
+        # a (py, px) layout and holds its (y, x) block of every tile (the
+        # reference places its state on a device mesh; here the caller
+        # starts one process per block, e.g. under torchrun)
+        self._mesh = None
+        self._sharded = False  # the state and grid cut to the block
+        layout = tuple(int(v) for v in (nml.layout or (1, 1)))
+        if layout != (1, 1):
+            from fv3net_torch.parallel import sharded
+
+            self._mesh = sharded.make_mesh(layout=layout)
         if nml.surface_data:
             raise not_ported(
                 f"surface_data {nml.surface_data!r} (the catalog)", 10)
@@ -188,11 +196,17 @@ class TimeLoop:
             tau_rayleigh=nml.tau,
             rf_cutoff=nml.rf_cutoff,
         )
-        validate_acoustic_cfl(self._g, self._dyn_cfg)
         if not nml.hydrostatic and self.state.dycore.w is None:
             # a restart may already carry w and delz
             self.state.dycore = add_nonhydrostatic_fields(
                 self.state.dycore, ptop=self._dyn_cfg.ptop)
+        if self._mesh is not None:
+            from fv3net_torch.parallel import sharded
+
+            self._g = sharded.shard_grid(self._g, self._mesh)
+            self._sharded = True
+            self.state = self.place(self.state)
+        validate_acoustic_cfl(self._g, self._dyn_cfg)
         self._phys_cfg = PhysicsConfig(
             radiation_scheme=nml.radiation,
             surface_scheme=nml.surface_scheme,
@@ -228,10 +242,12 @@ class TimeLoop:
             [names.TEMP, names.SPHUM, names.CLOUD], self._timestep
         )
         # cos-zenith is computed in float64 and cast to the state's dtype
-        self._lon_deg = torch.tensor(np.rad2deg(self.grid.lon),
-                                     dtype=torch.float64, device=self._device)
-        self._lat_deg = torch.tensor(np.rad2deg(self.grid.lat),
-                                     dtype=torch.float64, device=self._device)
+        self._lon_deg = self.local(torch.tensor(
+            np.rad2deg(self.grid.lon), dtype=torch.float64,
+            device=self._device))
+        self._lat_deg = self.local(torch.tensor(
+            np.rad2deg(self.grid.lat), dtype=torch.float64,
+            device=self._device))
         # the chunk (with its RRTMG tables) or the per-step radiation is
         # built here, so that a segment's setup holds it
         self._chunk_fns: Dict = {}
@@ -247,9 +263,43 @@ class TimeLoop:
                 self._phys_cfg, self._device, dtype, impl)
 
     # -- state placement --------------------------------------------------
+    @property
+    def mesh(self):
+        """The sharded layout of this process (None: one device)."""
+        return self._mesh
+
+    def local(self, x):
+        """This rank's block of a global [..., ny, nx] tensor under a
+        sharded layout (``x`` itself on one device or when it is a block
+        already)."""
+        n = self.grid.n
+        if (not self._sharded or getattr(x, "ndim", 0) < 2
+                or tuple(x.shape[-2:]) != (n, n)):
+            return x
+        ys, xs = self._mesh.block(n)
+        return x[..., ys, xs]
+
+    def _local_quantity(self, q):
+        if isinstance(q, Quantity):
+            return dataclasses.replace(q, data=self.local(q.data))
+        return self.local(q)
+
+    def global_state(self) -> ModelState:
+        """The whole state: under a sharded layout gathered from every
+        rank's block (on every rank)."""
+        if self._mesh is None:
+            return self.state
+        from fv3net_torch.parallel import sharded
+
+        return ModelState(
+            dycore=sharded.gather_state(self.state.dycore, self._mesh),
+            surface={k: sharded.gather(v, self._mesh)
+                     for k, v in self.state.surface.items()})
+
     def place(self, state: ModelState) -> ModelState:
         """``state`` (say, a restart read on the CPU) on this loop's device
-        in its dtype, every tensor contiguous.
+        in its dtype, every tensor contiguous; under a sharded layout, a
+        global state is cut to this rank's block.
 
         The loop places its state so after every step and chunk: a step
         leaves its fields z-last in memory, and some reductions round
@@ -257,8 +307,8 @@ class TimeLoop:
         reads back, so that without it a run continued from a restart
         would part from an unbroken one by roundoff."""
         def t(x):
-            return None if x is None else x.to(
-                device=self._device, dtype=self._dtype).contiguous()
+            return None if x is None else self.local(x.to(
+                device=self._device, dtype=self._dtype)).contiguous()
 
         d = state.dycore
         dycore = dataclasses.replace(
@@ -361,6 +411,10 @@ class TimeLoop:
 
         state = self._derived()
         tendencies, diagnostics, state_updates = stepper(self.time, state)
+        if self._sharded:  # a prescriber's data is global
+            tendencies, state_updates = (
+                {k: self._local_quantity(v) for k, v in d.items()}
+                for d in (tendencies, state_updates))
         delp_before = state[names.DELP].data if track_precip else None
         # zero-fill NaN tendencies (masked predictions) and record the
         # filled fraction
@@ -539,8 +593,9 @@ class TimeLoop:
                 per_step.append(
                     {k: getattr(v, "data", v) for k, v in updates.items()})
             out.append({
-                k: torch.stack([torch.as_tensor(d[k]) for d in per_step]).to(
-                    device=self._device, dtype=self._dtype)
+                k: self.local(torch.stack(
+                    [torch.as_tensor(d[k]) for d in per_step]).to(
+                        device=self._device, dtype=self._dtype))
                 for k in per_step[0]
             })
         return tuple(out)

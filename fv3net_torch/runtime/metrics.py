@@ -26,10 +26,16 @@ GLOBAL_MEANS_KEY = "__global_means__"
 
 def mean_impl(f: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Area-weighted mean over (tile, y, x); a 3-D field is first
-    averaged over its levels (axis 1)."""
+    averaged over its levels (axis 1).  On a sharded block the sums of
+    f w and w are all-reduced over the ranks."""
+    from fv3net_torch.parallel import sharded
+
     if f.ndim == 4:
         f = f.mean(dim=1)
-    return (f * w).sum() / w.sum()
+    if sharded.active() is None:
+        return (f * w).sum() / w.sum()
+    num, den = sharded.all_reduce(torch.stack([(f * w).sum(), w.sum()]))
+    return num / den
 
 
 class GlobalMeans:

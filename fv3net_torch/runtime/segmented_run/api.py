@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 import yaml
 
+from fv3net_torch.parallel.halo import set_active_mesh
 from fv3net_torch.runtime import metrics, timing
 from fv3net_torch.runtime.checkpoint import (
     load_state,
@@ -78,7 +79,12 @@ def run_segment(
 
     A segment that fails after its first step or chunk is a warning, not
     a loss: the diagnostics written so far and the last completed state's
-    RESTART are kept (the reference's partial-segment recovery).
+    RESTART are kept (the reference's partial-segment recovery).  Under a
+    sharded layout a failed step raises on its rank instead: the other
+    ranks are then inside the step's halo exchanges and reductions,
+    which a recovery's gathers could not line up with, so the process
+    group is torn down and every rank fails (under ``torchrun`` the
+    agent ends the others).
     ``profile=True`` records a ``torch.profiler`` trace of the segment to
     ``<output_dir>/profile``.  ``dtype`` is float32 in production (the
     reference's run is float32); the tests take float64.
@@ -119,8 +125,18 @@ def run_segment(
                     with timing.phases.clock("scalar_flush"):
                         names_, vec = metrics.global_means(diags, loop.area)
                         row = [] if vec is None else vec.cpu().tolist()
-                        metrics.log_scalar(time, dict(zip(names_, row)))
+                        if loop.mesh is None or loop.mesh.rank == 0:
+                            metrics.log_scalar(time,
+                                               dict(zip(names_, row)))
                 except Exception as e:  # noqa: BLE001
+                    if loop.mesh is not None:
+                        import torch.distributed as dist
+
+                        logger.error("segment failed at step %d on rank "
+                                     "%d (%s)", step, loop.mesh.rank, e)
+                        set_active_mesh(None)
+                        dist.destroy_process_group()
+                        raise
                     # coarse recovery: keep the diagnostics written so
                     # far and the last completed state's RESTART
                     logger.warning(
@@ -137,9 +153,17 @@ def run_segment(
         raise failure
     restart_dir = os.path.join(output_dir, "RESTART")
     with timing.phases.clock("restart_write"):
-        host_state = pull_state(loop.state)  # one device->host copy
-        save_state(host_state, loop.time, restart_dir)
-        save_fortran_restarts(host_state, loop.time, restart_dir, loop.grid)
+        # one device->host copy; under a sharded layout rank 0 writes the
+        # state gathered from every rank's block
+        host_state = pull_state(loop.global_state())
+        if loop.mesh is None or loop.mesh.rank == 0:
+            save_state(host_state, loop.time, restart_dir)
+            save_fortran_restarts(host_state, loop.time, restart_dir,
+                                  loop.grid)
+        if loop.mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=loop.mesh.group)
     loop.phase_report = timing.phase_report()
     return loop
 

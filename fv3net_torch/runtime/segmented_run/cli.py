@@ -5,10 +5,20 @@ and run-native, on the card unless ``--device`` says otherwise.
     python -m fv3net_torch.runtime.segmented_run.cli create URL CONFIG
     python -m fv3net_torch.runtime.segmented_run.cli append URL [--segments N]
     python -m fv3net_torch.runtime.segmented_run.cli run-native CONFIG URL
+
+A config whose namelist ``layout`` is [py, px] runs as py * px processes
+under ``torchrun`` (one per block), e.g.
+
+    torchrun --nproc-per-node 4 -m fv3net_torch.runtime.segmented_run.cli \
+        append URL
+
+Each process joins the process group torchrun describes (NCCL on the
+card, each rank on ``cuda:<local rank>``; gloo with ``--device cpu``).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import yaml
@@ -45,20 +55,58 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     from fv3net_torch.runtime.segmented_run import api
 
+    device = getattr(args, "device", "cuda")
+    rank = _join_process_group(device)
+    if device.startswith("cuda") and rank is not None:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+    if rank:  # only rank 0 creates the run directory
+        if args.command == "create":
+            return 0
+        if args.command == "run-native":
+            _barrier()  # rank 0's create
+            args.command = "append"
+
     if args.command == "create":
         with open(args.config) as f:
             config = yaml.safe_load(f)
         api.create(args.url, config)
     elif args.command == "append":
-        for _ in range(args.segments):
-            print(api.append_segment(args.url, profile=args.profile,
-                                     device=args.device))
+        for _ in range(getattr(args, "segments", 1)):
+            print(api.append_segment(args.url,
+                                     profile=getattr(args, "profile", False),
+                                     device=device))
     elif args.command == "run-native":
         with open(args.config) as f:
             config = yaml.safe_load(f)
         api.create(args.url, config)
-        print(api.append_segment(args.url, device=args.device))
+        if rank is not None:
+            _barrier()
+        print(api.append_segment(args.url, device=device))
     return 0
+
+
+def _join_process_group(device: str):
+    """Under torchrun (WORLD_SIZE > 1 in the environment) join its process
+    group and return this rank; None for a single process."""
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None
+    if not dist.is_initialized():
+        if device.startswith("cuda"):
+            import torch
+
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(
+            "nccl" if device.startswith("cuda") else "gloo")
+    return dist.get_rank()
+
+
+def _barrier():
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
 
 
 if __name__ == "__main__":

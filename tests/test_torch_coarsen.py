@@ -18,6 +18,8 @@ try:
 except ImportError:  # the card's machine has no jax
     jax = jnp = None
 
+import torch_port_util  # noqa: F401  (torch threads under xdist)
+
 from fv3net_torch.core import zarrio as tz
 from fv3net_torch.core.dataset import Dataset as TDataset
 from fv3net_torch.core.quantity import Quantity as TQuantity

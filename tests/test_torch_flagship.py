@@ -259,7 +259,9 @@ def test_port_imports_neither_jax_nor_reference():
         "             'physics.radiation.wrapper',\n"
         "             'physics.radiation.gfs_driver',\n"
         "             'physics.held_suarez', 'runtime.steppers.radiation',\n"
-        "             'runtime.factories'):\n"
+        "             'runtime.factories', 'fit.config', 'fit.networks',\n"
+        "             'fit.train', 'fit.dense', 'parallel.sharded',\n"
+        "             'parallel.shardmap_halo', 'core.sharded_io'):\n"
         "    assert 'fv3net_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )

@@ -19,6 +19,8 @@ try:
 except ImportError:  # the card's machine has no jax
     jax = jnp = None
 
+import torch_port_util  # noqa: F401  (torch threads under xdist)
+
 from fv3net_torch.ops import ktable, ktable_cuda
 
 TORCH = {"float64": torch.float64, "float32": torch.float32,

@@ -19,6 +19,8 @@ try:
 except ImportError:  # the card's machine has no jax
     jax = jnp = None
 
+import torch_port_util  # noqa: F401  (torch threads under xdist)
+
 from fv3net_torch.ops import remap as tr
 from fv3net_torch.ops import remap_cuda, zscan
 

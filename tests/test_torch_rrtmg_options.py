@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_util  # noqa: F401  (torch threads under xdist)
+
 from test_rrtmg import NOON, profile
 from test_torch_rrtmg import driver_state, jax_mcica_draws
 

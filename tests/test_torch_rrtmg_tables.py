@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_util  # noqa: F401  (torch threads under xdist)
+
 from fv3net_torch.ops import zenith as tzen
 from fv3net_torch.physics import microphysics as tmp
 from fv3net_torch.physics.radiation import aerosols as taer

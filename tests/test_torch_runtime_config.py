@@ -472,8 +472,9 @@ def test_netcdf_files_are_read_by_either_package(tmp_path):
 def test_dense_model_artifacts_load_in_either_package(tmp_path):
     """A reference DenseModel dumped with fv3net_tpu.fit.dump and loaded
     by the port's fit.io.load predicts what the reference predicts
-    (float64, 1e-12); the port's dump loads in the reference; output
-    limits raise."""
+    (float64, 1e-12); the port's dump loads in the reference; an artifact
+    with output limits predicts the reference's clamped outputs; other
+    model types raise."""
     from fv3net_tpu import fit as jfit
     from fv3net_tpu.fit.dense import DenseModel as JDenseModel
     from fv3net_tpu.fit.normalize import StandardScaler as JScaler
@@ -511,8 +512,13 @@ def test_dense_model_artifacts_load_in_either_package(tmp_path):
     meta = json.loads((tmp_path / "port" / "metadata.json").read_text())
     meta["output_limits"] = {"dQ1": {"min": 0.0}}
     (tmp_path / "port" / "metadata.json").write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        io.load(str(tmp_path / "port"))
+    limited = io.load(str(tmp_path / "port"))
+    jlimited = jfit.load(str(tmp_path / "port"))
+    want = jlimited.predict_arrays({k: jnp.asarray(v) for k, v in x.items()})
+    out = limited.predict_arrays({k: torch.tensor(v) for k, v in x.items()})
+    assert float(np.min(np.asarray(want["dQ1"]))) >= 0.0
+    for k in names_out:
+        assert rel_diff(out[k].numpy(), np.asarray(want[k])) <= 1e-12, k
     (tmp_path / "port" / "name").write_text("random_forest")
     with pytest.raises(NotImplementedError, match="item 9"):
         io.load(str(tmp_path / "port"))

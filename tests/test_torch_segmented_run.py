@@ -432,7 +432,9 @@ def test_unported_options_raise(inputs, namelist, top, tmp_path):
     Python radiation stepper and the online emulator (here an emulator
     artifact stands in for the config's url) build their parts
     (tests/test_torch_synthband.py, test_torch_gfs_radiation.py and
-    test_torch_emulation.py hold them against the reference)."""
+    test_torch_emulation.py hold them against the reference).  A
+    namelist layout raises the reference's ``ValueError`` without a
+    process group of its size."""
     if "online_emulator" in top:
         from fv3net_torch.fit import io
 
@@ -454,6 +456,13 @@ def test_unported_options_raise(inputs, namelist, top, tmp_path):
     if "online_emulator" in top:
         loop = _tloop(cfg)
         assert loop._microphysics_emulator is not None
+        return
+    if "layout" in namelist:
+        # the sharded layout runs one process per block: without an
+        # initialised process group of that size it raises the
+        # reference's ValueError (tests/test_torch_sharded.py runs it)
+        with pytest.raises(ValueError, match="needs 2 devices"):
+            _tloop(cfg)
         return
     key = next((k for k in namelist if k in ported), None)
     if key is None:

@@ -1,7 +1,27 @@
 """Shared inputs and comparisons for the ``tests/test_torch_*.py`` files,
 which hold ``fv3net_torch`` against ``fv3net_tpu`` on the same numpy
-inputs."""
+inputs.  Every one of them imports this module, which gives torch's
+intra-op pool of a pytest-xdist worker its share of the host's cores."""
+import os
+
 import numpy as np
+
+
+def _share_torch_threads():
+    """Under pytest-xdist, torch's intra-op threads of each worker: the
+    usable cores over the workers (at least 1).  torch's default, every
+    core in every worker, oversubscribes the host by the number of
+    workers, and the port's many small CPU ops then wait on each other's
+    threads: a C4 RRTMG chunk took 20 times as long so."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    if workers > 1:
+        import torch
+
+        cores = len(os.sched_getaffinity(0))
+        torch.set_num_threads(max(1, cores // workers))
+
+
+_share_torch_threads()
 
 
 def make_state_numpy(npx: int, npz: int, seed: int = 0, moist: bool = False):
@@ -207,3 +227,143 @@ def seeded_emulator_model(npz, dtype, device="cpu"):
                                                  device=device)),
         y_scaler=StandardScaler.fit(torch.tensor(Y, dtype=dtype,
                                                  device=device)))
+
+
+# ------------------------------------------------ the sharded layout
+#: the halo-exchange cases of tests/test_torch_sharded.py: C12 so that h =
+#: 3 fits the (4, 1) and (1, 4) layouts' 3-cell blocks
+SHARDED_N = 12
+SHARDED_LAYOUTS = ((2, 2), (4, 1), (1, 4))
+SHARDED_HALOS = (1, 2, 3)
+
+
+def sharded_field(h):
+    """The seeded global field [6, 2, n, n] (float64) each exchange case
+    appends an h-deep halo to."""
+    rng = np.random.RandomState(100 + h)
+    return rng.randn(6, 2, SHARDED_N, SHARDED_N)
+
+
+def sharded_segment_config(layout):
+    """A C8 production run (slab ocean, sea ice, RRTMG, 2-step chunks,
+    two chunks) with per-chunk and interval-averaged diagnostics, on
+    ``layout``."""
+    return {
+        "namelist": {"npx": 8, "npz": 8, "layout": list(layout),
+                     "radiation": "rrtmg", "slab_ocean": True,
+                     "sea_ice": True},
+        "duration_seconds": 3600.0,
+        "fused_chunk_steps": 2,
+        "diagnostics": [
+            {"name": "state.zarr",
+             "variables": ["air_temperature", "specific_humidity",
+                           "eastward_wind", "surface_pressure"],
+             "times": {"kind": "every"}},
+            {"name": "diags.zarr",
+             "variables": ["total_precipitation", "ULWRFtoa", "DSWRFsfc",
+                           "water_vapor_path"],
+             "times": {"kind": "interval-average", "frequency": 3600.0}},
+        ],
+    }
+
+
+def sharded_worker(out_dir, threads):
+    """Run by each of 4 gloo CPU ranks (``parallel.sharded.launch``) with
+    ``threads`` torch threads: the block halo exchange at every layout
+    and halo width, the dry run in float32 and float64, a write_sharded /
+    read_sharded round trip and a C8 ``run_segment`` on a (2, 2) layout
+    (rank 0 then runs it on one process, into another directory).
+    Returns this rank's readings."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(threads)
+
+    from fv3net_torch import entry
+    from fv3net_torch.core import zarrio
+    from fv3net_torch.core.sharded_io import read_sharded, write_sharded
+    from fv3net_torch.parallel import sharded, shardmap_halo
+    from fv3net_torch.parallel.halo import no_explicit_halo
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.segmented_run import api
+
+    out = {"rank": dist.get_rank(), "halo": {}}
+    for layout in SHARDED_LAYOUTS:
+        mesh = sharded.make_mesh(layout=layout)
+        for h in SHARDED_HALOS:
+            block = sharded.shard_yx(torch.tensor(sharded_field(h)), mesh)
+            out["halo"][layout, h] = (
+                mesh.rc,
+                shardmap_halo.halo_append_shardmap(block, h, mesh).numpy())
+        blocks = shardmap_halo.halo_blocks_shardmap(block, 3, mesh)
+        out["halo"][layout, "blocks"] = shardmap_halo.blocks_to_global(
+            blocks, 3).numpy()
+
+    out["dry32"] = entry.dryrun_multigpu(4, torch.float32, "cpu",
+                                         c384=False)
+    out["dry64"] = entry.dryrun_multigpu(4, torch.float64, "cpu",
+                                         c384=False)
+
+    mesh = sharded.make_mesh(layout=(2, 2))
+    rng = np.random.RandomState(7)
+    full = torch.tensor(rng.randn(6, 3, 8, 8))
+    grp = zarrio.ZarrGroup.create(os.path.join(out_dir, "io.zarr"))
+    write_sharded(grp, "x", sharded.shard_yx(full, mesh),
+                  dims=("tile", "z", "y", "x"), mesh=mesh)
+    out["io"] = {"whole": grp["x"].read(),
+                 "block": read_sharded(grp, "x", mesh=mesh).numpy(),
+                 "want_block": sharded.shard_yx(full, mesh).numpy(),
+                 "chunks": grp["x"].chunks}
+
+    seg = os.path.join(out_dir, "sharded")
+    loop = api.run_segment(get_config(sharded_segment_config((2, 2))), seg,
+                           device="cpu", dtype=torch.float64)
+    out["segment_counts"] = (tuple(loop.state.dycore.delp.shape),
+                             loop.mesh.layout)
+    dist.barrier()
+    if out["rank"] == 0:
+        with no_explicit_halo():
+            api.run_segment(get_config(sharded_segment_config((1, 1))),
+                            os.path.join(out_dir, "single"), device="cpu",
+                            dtype=torch.float64)
+    return out
+
+
+#: the rank whose step raises in ``sharded_failing_worker``
+FAILING_RANK = 2
+
+
+def sharded_failing_worker(out_dir, threads):
+    """Run by each of 4 gloo CPU ranks: the C8 ``run_segment`` of
+    ``sharded_worker`` on a (2, 2) layout, in which rank FAILING_RANK
+    raises as its second chunk starts (its error first written to
+    ``rank<r>.error``), while the others go into that chunk's halo
+    exchanges."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.loop import TimeLoop
+    from fv3net_torch.runtime.segmented_run import api
+
+    torch.set_num_threads(threads)
+    if dist.get_rank() == FAILING_RANK:
+        orig, calls = TimeLoop.chunk_inputs, []
+
+        def chunk_inputs(self, n):
+            calls.append(n)
+            if len(calls) == 2:
+                msg = "injected failure in the second chunk"
+                with open(os.path.join(out_dir, f"rank{FAILING_RANK}.error"),
+                          "w") as f:
+                    f.write(msg)
+                raise RuntimeError(msg)
+            return orig(self, n)
+
+        TimeLoop.chunk_inputs = chunk_inputs
+    api.run_segment(get_config(sharded_segment_config((2, 2))), out_dir,
+                    device="cpu", dtype=torch.float64)
