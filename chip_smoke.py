@@ -194,7 +194,34 @@ Phases (any failure exits nonzero, and no result line is printed):
     hand kernels: the nonhydrostatic RRTMG step within 2e-5 of one
     device, the 8-step production chunk within 5e-3, ``write_sharded``
     exact, a data-parallel Adam step within 1e-5, the C384 case within
-    1e-3; each rank's K1/K4/K3 launches equal to one device's.
+    1e-3; each rank's K1/K4/K3 launches equal to one device's;
+25. the nudged run: phase 15's configuration without its ML model,
+    ``nudging`` T, q, both winds and delp (3 h) toward a seeded
+    9-time reference store, per step (RRTMG each step: K1 3, K4 44, K3
+    23 a step) through 2 ``append_segment`` segments of 4 steps: launches
+    and finite fields, the nudging diagnostics in the zarr store, 2 x 4
+    steps against 1 x 8 bit for bit, T nearer its reference than without
+    nudging, one float64 step kernels against plain (1e-8) whose
+    nudging tendencies equal (ref - state) / tau on the host (1e-12),
+    ms a step, SYPD, a profiled step;
+26. prescribed tendencies: the production configuration with a limited
+    prephysics ``tendency_prescriber`` of a seeded dQ1/dQ2 store with
+    outliers, as 2 fused chunks of 4 ("tend") and as 8 per-step steps;
+    the limiter's bounds equal to ``np.quantile``, no prescribed value
+    outside them, exact launches; the top-level ``tendency_prescriber``
+    with ``bias_correction`` every 1800 s (fires on steps 1, 3, 5, 7);
+    float64, the 2 fused chunks against the 8 per-step steps within
+    1e-10 (radiation every step: the per-step path has no interval);
+27. the reservoir corrector: ``reservoir``, ``hybrid_reservoir`` (state
+    500, 64 column features) and ``subdomain_reservoir`` (2 x 2
+    subdomains a tile, overlap 1, a [60, 6, 48, 48, 64] series) trained
+    on the card and on the CPU, held-out predictions within 1e-4; the
+    hybrid and the subdomain model as ``reservoir_corrector`` over 2
+    segments of 4 steps, the second warm-started from
+    ``save_reservoir_state``, and a diagnostic-only step: launches, the
+    increment before the predict, predictions after the synchronization
+    equal to the host's float64 readout (1e-5) and landing in the state;
+    ms of one increment, ms a step, the trainers' seconds.
 
 ``--sw-columns PATH`` also saves, in phase 6, ``swrad``'s arguments on
 the 8 columns where the float32 SW heating parts most from float64 on
@@ -2489,9 +2516,10 @@ def gate_stores(label, seg, chunks):
         f"{len(want_files)} files")
 
 
-def log_segment(label, report, chunks, seconds):
-    """Logs one segment's phase report, wall per chunk in run_segment and
-    SYPD; returns the wall per chunk (s)."""
+def log_segment(label, report, chunks, seconds, chunk_steps=CHUNK):
+    """Logs one segment's phase report, wall per chunk (of
+    ``chunk_steps`` steps) in run_segment and SYPD; returns the wall per
+    chunk (s)."""
     for name in SEGMENT_PHASES:
         check(name in report, f"{label}: no {name} in the phase report")
     loop_s = sum(report[k]["total_seconds"] for k in
@@ -2500,7 +2528,7 @@ def log_segment(label, report, chunks, seconds):
     log(f"  {label}: {seconds:.2f} s in all; setup "
         f"{report['setup']['total_seconds']:.2f} s; wall per chunk in "
         f"run_segment {per_chunk * 1e3:.1f} ms "
-        f"({CHUNK * DT / per_chunk / 365.0:.3f} SYPD); host seconds "
+        f"({chunk_steps * DT / per_chunk / 365.0:.3f} SYPD); host seconds "
         + ", ".join(f"{k} {report[k]['total_seconds']:.3f} "
                     f"({report[k]['hits']} hits)"
                     for k in SEGMENT_PHASES[1:])
@@ -2510,9 +2538,10 @@ def log_segment(label, report, chunks, seconds):
 
 
 def loop_kernels_vs_plain(label, cfg64, expected):
-    """One float64 chunk of 2 steps through the TimeLoop with the kernels
-    and with the plain versions: the launches (``expected`` with the
-    kernels, none without), every state field and TOTAL_PRECIP, ULWRFtoa
+    """One float64 chunk of 2 steps (or, on the per-step path, the
+    config's steps) through the TimeLoop with the kernels and with the
+    plain versions: the launches (``expected`` with the kernels, none
+    without), every state field and TOTAL_PRECIP, ULWRFtoa
     and DSWRFsfc where the chunk emits them, within
     PRODUCTION_CHUNK_RTOL of each field's scale.  Returns the names of
     the state fields compared."""
@@ -2546,7 +2575,8 @@ def loop_kernels_vs_plain(label, cfg64, expected):
         if not rel <= PRODUCTION_CHUNK_RTOL:
             bad.append(f"{name} rel {rel:.3e}")
     check(not bad, f"{label}, kernels against plain: {bad}")
-    log(f"  {label} of 2 steps, kernels against plain: {len(pairs)} fields "
+    steps = int(cfg64["duration_seconds"] // DT)
+    log(f"  {label} of {steps} step(s), kernels against plain: {len(pairs)} fields "
         f"within {worst:.3e} of their scale (bound {PRODUCTION_CHUNK_RTOL})")
     return set(pt)
 
@@ -4630,6 +4660,793 @@ def phase_synthband(device):
             f"{(w - args[0 if name == 'T' else 1].cpu()).abs().max():.3e}")
 
 
+# ------------------------------------------- the time loop's steppers
+# the per-step path with RRTMG at C48: every step is a radiation step
+# (the per-step loop calls the model's radiation each step, as the
+# reference's does)
+STEPPER_SEGMENT_STEPS = 4  # steps a segment of phases 25 and 27
+NUDGED = ("air_temperature", "specific_humidity", "eastward_wind",
+          "northward_wind", "pressure_thickness_of_atmospheric_layer")
+NUDGE_TIMES = 9  # time indices of the reference store, one a step
+NUDGE_TAU_HOURS = 3.0
+NUDGE_RTOL = 1e-12  # the float64 step's tendencies against the host's
+PRESCRIBED_TIMES = 9  # time indices of phase 26's dQ1/dQ2 store
+PRESCRIBED_CHUNK = 4  # steps a fused chunk of phase 26
+FUSED_VS_STEP_RTOL = 1e-10  # float64 fused chunk against per-step steps
+BIAS_INTERVAL_S = 1800.0
+RESERVOIR_STATE = 500  # the reference's default state size
+RESERVOIR_L2 = 1.0  # the readout's ridge (see phase_reservoir)
+COLUMN_SERIES = 200  # steps of the column series
+CUBE_SERIES = 60  # steps of the cube series
+RESERVOIR_TRAIN_RTOL = 1e-4  # float32 card training against the CPU's
+RESERVOIR_PREDICT_RTOL = 1e-5  # a prediction against the host's
+RESERVOIR_SYNC_STEPS = 2
+RESERVOIR_STEP_S = 1800.0
+INCREMENT_REPS = 20
+
+
+def per_step_launches():
+    """The launches of a per-step step at C48 with RRTMG: K1 on the
+    dycore's 3 remaps, K4 and K3 in the step's radiation call."""
+    return launches(remap_apply=REMAPS_PER_STEP,
+                    weighted_select_dot=SELECT_PER_CALL,
+                    spec_band_dot=SPEC_PER_CALL)
+
+
+class StepRecorder:
+    """While active, every step of the per-step path a TimeLoop takes is
+    recorded: its launches (counts set to 0 just before the step, read
+    just after), its wall time (ending in a synchronize), the keys of its
+    diagnostics, and the loops that took them; ``after(loop, diags)``,
+    if given, runs after each step."""
+
+    def __init__(self, after=None):
+        from fv3net_torch.runtime import loop
+
+        self.cls, self.orig = loop.TimeLoop, loop.TimeLoop._step
+        self.after = after
+        self.steps, self.loops = [], []
+
+    def __enter__(self):
+        import torch
+
+        orig, rec = self.orig, self
+
+        def step(loop):
+            if not rec.loops or rec.loops[-1] is not loop:
+                rec.loops.append(loop)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(loop)
+            torch.cuda.synchronize()
+            rec.steps.append((read_counts(), time.perf_counter() - t0,
+                              set(out[1])))
+            if rec.after is not None:
+                rec.after(loop, out[1])
+            return out
+
+        self.cls._step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._step = self.orig
+
+    def gate(self, label, n_steps):
+        """Gates: ``n_steps`` steps, each with the per-step launches, one
+        loop whose state is finite; returns (launches summed, walls)."""
+        check(len(self.steps) == n_steps,
+              f"{label}: {len(self.steps)} steps, expected {n_steps}")
+        want = per_step_launches()
+        total = launches()
+        for i, (counts, _, _) in enumerate(self.steps):
+            check(counts == want, f"{label} step {i + 1}: launches "
+                  f"{counts}, expected {want}")
+            total = {k: v + counts[k] for k, v in total.items()}
+        loop = self.loops[-1]
+        check(not loop.fusable(), f"{label}: not the per-step path")
+        for name, x in state_tensors(loop.state).items():
+            check(x.isfinite().all().item(), f"{label}: non-finite {name}")
+        return total, [w for _, w, _ in self.steps]
+
+
+def stepper_run_config(tmp, steps, **extra):
+    """Phase 15's configuration (C48, npz=32, RRTMG, slab ocean, sea ice,
+    the "set" SST prescriber) without its ML model, run per step for
+    ``steps`` steps, without diagnostics files; ``extra`` keys added."""
+    cfg = segment_config(tmp)
+    cfg.pop("scikit_learn")
+    cfg.update(duration_seconds=steps * DT, fused_chunk_steps=0,
+               diagnostics=[], fortran_diagnostics=[])
+    cfg.update(extra)
+    return cfg
+
+
+def median_ms(walls):
+    return statistics.median(walls) * 1e3
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|, in float64 on the host."""
+    import torch
+
+    got = torch.as_tensor(got).double().cpu()
+    want = torch.as_tensor(want).double().cpu()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    return err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+
+
+def nudging_store(tmp, loop):
+    """The reference store of the nudged run: NUDGE_TIMES time indices
+    (one a model step from the start) of the nudged fields, each the
+    run's initial field plus a fixed seeded perturbation (2 K in T, 10%
+    in q, 3 m/s in the winds, 0.5% in delp, uniform) of which a tenth is
+    drawn anew at each time; float32 zarr.  Returns its path and the
+    host float64 arrays."""
+    import numpy as np
+    from fv3net_torch.core import zarrio
+    from fv3net_torch.core.dataset import Dataset
+    from fv3net_torch.core.quantity import Quantity
+
+    rng = np.random.RandomState(25)
+    st = loop._derived()
+    amp = {"air_temperature": 2.0, "eastward_wind": 3.0,
+           "northward_wind": 3.0}
+    ref = {}
+    for k in NUDGED:
+        x = st[k].data.double().cpu().numpy()
+        fixed = rng.uniform(-1.0, 1.0, x.shape)
+        noise = fixed + 0.1 * rng.uniform(-1.0, 1.0,
+                                          (NUDGE_TIMES,) + x.shape)
+        if k == "specific_humidity":
+            v = x * (1.0 + 0.1 * noise)
+        elif k == "pressure_thickness_of_atmospheric_layer":
+            v = x * (1.0 + 0.005 * noise)
+        else:
+            v = x + amp[k] * noise
+        ref[k] = v.astype(np.float32)
+    path = os.path.join(tmp, "nudge.zarr")
+    zarrio.to_zarr(Dataset({k: Quantity(v, ("time", "tile", "z", "y", "x"))
+                            for k, v in ref.items()}), path)
+    return path, ref
+
+
+def phase_nudged_run(device):
+    """The nudged run (``nudging``) through ``append_segment`` at C48:
+    phase 15's configuration without the ML model, nudging T, q, both
+    winds and delp toward a seeded reference store (:func:`nudging_store`)
+    with a 3-hour timescale, 2 segments of STEPPER_SEGMENT_STEPS steps on
+    the per-step path, then one segment of twice the steps from the same
+    start and one without nudging.  Gates: every step's launches (K1 3,
+    K4 44, K3 23: RRTMG each step) and finite fields; the nudging
+    diagnostics in the zarr store; 2 x 4 steps against 1 x 8 bit for bit;
+    T nearer its reference after 8 steps than without nudging (RMS); one
+    float64 step with the kernels and with the plain versions within
+    PRODUCTION_CHUNK_RTOL, its nudging tendencies equal to (ref -
+    state) / tau computed on the host in float64 within NUDGE_RTOL.
+    Returns the ms a step with and without nudging."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from fv3net_torch.core import zarrio
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.loop import TimeLoop
+    from fv3net_torch.runtime.segmented_run import api
+    from fv3net_torch.runtime.steppers.nudging import PureNudger
+
+    steps = STEPPER_SEGMENT_STEPS
+    tmp = tempfile.mkdtemp(prefix="nudged_run_")
+    try:
+        free_cfg = stepper_run_config(tmp, 2 * steps)
+        loop = TimeLoop(get_config(free_cfg))
+        store, ref = nudging_store(tmp, loop)
+        del loop
+        tau = NUDGE_TAU_HOURS * 3600.0
+        diag_vars = ["dQ1_nudging", "dQp_nudging",
+                     "net_mass_tendency_due_to_nudging",
+                     "column_heating_due_to_nudging",
+                     "air_temperature_reference",
+                     "pressure_thickness_of_atmospheric_layer_reference"]
+        # the timescales in sorted order, as the run config's yaml holds
+        # them: the tendencies apply in that order, and it matters (the
+        # humidity and delp setters move delp)
+        nudged = stepper_run_config(
+            tmp, steps,
+            nudging={"restarts_path": store, "timescale_hours": {
+                k: NUDGE_TAU_HOURS for k in sorted(NUDGED)}},
+            diagnostics=[{"name": "nudging.zarr", "variables": diag_vars,
+                          "times": {"kind": "every"}}])
+        url = os.path.join(tmp, "run")
+        api.create(url, nudged)
+        total, walls, loops = launches(), [], []
+        for s in (1, 2):
+            with StepRecorder() as rec:
+                seg = api.append_segment(url)
+            counts, w = rec.gate(f"nudged segment {s}", steps)
+            check(type(rec.loops[0]._postphysics_stepper) is PureNudger,
+                  f"nudged segment {s}: the nudger is not the postphysics "
+                  "stepper")
+            total = {k: v + counts[k] for k, v in total.items()}
+            walls += w
+            loops.append(rec.loops[0])
+            ds = zarrio.open_zarr(os.path.join(seg, "nudging.zarr"))
+            check(sorted(ds) == sorted(diag_vars),
+                  f"nudged segment {s}: store variables {sorted(ds)}")
+            for k in diag_vars:
+                check(ds[k].shape[0] == steps
+                      and np.isfinite(ds[k].values).all(),
+                      f"nudged segment {s}: {k} shape {ds[k].shape}")
+            log(f"  nudged segment {s}: {steps} steps, "
+                f"{median_ms(w):.1f} ms a step (median; "
+                + ", ".join(f"{x * 1e3:.1f}" for x in w)
+                + f"), launches {counts}; store {sorted(ds)}")
+        with StepRecorder() as rec:
+            long = api.run_segment(
+                get_config(dict(nudged, duration_seconds=2 * steps * DT,
+                                diagnostics=[])),
+                os.path.join(tmp, "long"))
+        rec.gate("nudged 1 x 8", 2 * steps)
+        same_bits(loops[1].state, long.state,
+                  f"nudged 2 x {steps} steps against 1 x {2 * steps}")
+        with StepRecorder() as rec:
+            free = api.run_segment(get_config(free_cfg),
+                                   os.path.join(tmp, "free"))
+        _, free_walls = rec.gate("without nudging", 2 * steps)
+        t_ref = torch.tensor(ref["air_temperature"][2 * steps],
+                             dtype=torch.float64)
+
+        def rms(loop):
+            T = loop._derived()["air_temperature"].data.double().cpu()
+            return (T - t_ref).pow(2).mean().sqrt().item()
+
+        rms_nudged, rms_free = rms(long), rms(free)
+        check(rms_nudged < rms_free, f"nudged T RMS {rms_nudged:.4f} K "
+              f"from its reference, not below {rms_free:.4f} K without")
+        log(f"  after {2 * steps} steps, RMS of T - T_ref: nudged "
+            f"{rms_nudged:.4f} K, without nudging {rms_free:.4f} K")
+        del long, free, loops
+
+        # one float64 step, kernels against plain; the nudger's calls
+        # recorded: its tendencies against the host's float64
+        calls, orig = [], PureNudger.__call__
+
+        def record(self, time_, state):
+            before = {k: state[k].data.double().cpu() for k in NUDGED}
+            out = orig(self, time_, state)
+            calls.append((time_, before, out))
+            return out
+
+        PureNudger.__call__ = record
+        try:
+            loop_kernels_vs_plain(
+                "float64 nudged loop",
+                dict(nudged, duration_seconds=DT, diagnostics=[]),
+                per_step_launches())
+        finally:
+            PureNudger.__call__ = orig
+        check(len(calls) == 2, f"{len(calls)} nudger calls")
+        t_call, before, (tend, diags, _) = calls[-1]
+        t_start = datetime.datetime.fromisoformat(
+            get_config(nudged).initial_time)
+        idx = int(round((t_call - t_start).total_seconds() / DT))
+        worst = 0.0
+        names_ = {"air_temperature": "dQ1", "specific_humidity": "dQ2",
+                  "eastward_wind": "dQu", "northward_wind": "dQv",
+                  "pressure_thickness_of_atmospheric_layer": "dQp"}
+        for k, tname in names_.items():
+            want = (torch.tensor(ref[k][idx], dtype=torch.float64)
+                    - before[k]) / tau
+            err = rel_err(tend[tname].data, want)
+            worst = max(worst, err)
+            check(err <= NUDGE_RTOL, f"nudging {tname}: {err:.3e} of scale "
+                  f"from (ref - state) / tau on the host")
+            check(f"{k}_reference" in diags, f"no {k}_reference")
+        log(f"  float64 step: the nudging tendencies within {worst:.3e} of "
+            f"their scale of (ref - state) / tau on the host (bound "
+            f"{NUDGE_RTOL}; reference index {idx})")
+
+        loop = TimeLoop(get_config(nudged))
+        it = iter(loop)
+        next(it)
+        reading = profile_chunk("nudged step", lambda: next(it))
+        del loop, it
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ms, ms_free = median_ms(walls), median_ms(free_walls)
+    log(f"  nudged run: {ms:.1f} ms a step ({DT / (ms / 1e3) / 365.0:.3f} "
+        f"SYPD; median of {len(walls)}), without nudging {ms_free:.1f} ms "
+        f"({DT / (ms_free / 1e3) / 365.0:.3f} SYPD); profiled step: wall "
+        f"{reading['wall_ms']:.1f} ms, device busy "
+        f"{reading['device_ms']:.1f} ms, {reading['activities']} "
+        f"activities; launches in the appended segments {total}")
+    return ms, ms_free
+
+
+def tendency_store(tmp):
+    """PRESCRIBED_TIMES time indices of seeded dQ1 / dQ2 at C48 (float32
+    zarr) whose tails hold outliers beyond their 1% and 99% quantiles
+    (1% of the cells at +-100 times the spread)."""
+    import numpy as np
+    from fv3net_torch.core import zarrio
+    from fv3net_torch.core.dataset import Dataset
+    from fv3net_torch.core.quantity import Quantity
+
+    rng = np.random.RandomState(26)
+    shape = (PRESCRIBED_TIMES, 6, NPZ, NPX, NPX)
+    data = {}
+    for name, spread in (("dQ1", 2e-5), ("dQ2", 2e-9)):
+        x = spread * rng.randn(*shape)
+        flat = x.reshape(PRESCRIBED_TIMES, -1)
+        n = flat.shape[1] // 100
+        idx = rng.choice(flat.shape[1], n, replace=False)
+        flat[:, idx] = 100.0 * spread * np.sign(rng.randn(n))
+        data[name] = x.astype(np.float32)
+    path = os.path.join(tmp, "tendencies.zarr")
+    zarrio.to_zarr(Dataset({k: Quantity(v, ("time", "tile", "z", "y", "x"))
+                            for k, v in data.items()}), path)
+    return path, data
+
+
+def phase_prescribed_tendencies(device):
+    """Prescribed tendencies at C48 on the production configuration (the
+    trained 1 x 16 ML stepper, slab ocean, sea ice, the SST prescriber):
+    (a) with a limited prephysics ``tendency_prescriber`` (dQ1, dQ2,
+    quantiles 0.01 and 0.99) through ``append_segment`` as 2 fused
+    chunks of PRESCRIBED_CHUNK steps; (b) the same config in 8 per-step
+    steps; (c) 8 per-step steps with the top-level
+    ``tendency_prescriber`` and ``bias_correction`` every
+    BIAS_INTERVAL_S; (d) float64, (a)'s 2 fused chunks against (b)'s 8
+    per-step steps, radiation every step (the per-step path has no
+    radiation interval), each per-step step given its chunk's cos-zenith
+    (a chunk takes its midpoint's). Gates: exact launches (a chunk K1
+    12, K4 44, K3 23; a step K1 3, K4 44, K3 23); the limiter's bounds
+    equal to np.quantile of the store's first prescribed time; no
+    prescribed value outside them; bias correction on steps 1, 3, 5, 7
+    only; (d) within FUSED_VS_STEP_RTOL of each field's scale. Returns
+    (ms a fused chunk, ms a per-step step)."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from fv3net_torch.runtime import timing
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.loop import TimeLoop
+    from fv3net_torch.runtime.segmented_run import api
+    from fv3net_torch.runtime.steppers.tendency_prescriber import (
+        TendencyPrescriber,
+    )
+
+    n_steps = 2 * PRESCRIBED_CHUNK
+    tmp = tempfile.mkdtemp(prefix="prescribed_")
+    try:
+        store, data = tendency_store(tmp)
+        base = segment_config(tmp)
+        entry_ = {"kind": "tendency_prescriber", "dataset": store,
+                  "variables": ["dQ1", "dQ2"],
+                  "limit_quantiles": {"upper": 0.99, "lower": 0.01}}
+        cfg_a = dict(base, prephysics=base["prephysics"] + [entry_],
+                     fused_chunk_steps=PRESCRIBED_CHUNK,
+                     duration_seconds=n_steps * DT, diagnostics=[],
+                     fortran_diagnostics=[])
+        # (a) fused
+        url = os.path.join(tmp, "fused")
+        api.create(url, cfg_a)
+        with ChunkRecorder() as rec:
+            t0 = time.perf_counter()
+            api.append_segment(url)
+            seconds = time.perf_counter() - t0
+        per_chunk = log_segment("fused prescribed run", timing.phase_report(),
+                                2, seconds, PRESCRIBED_CHUNK)
+        loop = rec.loops[0]
+        check(loop.fusable() and len(rec.chunks) == 2,
+              "the prescribed run did not take 2 fused chunks")
+        tp = loop._prephysics_steppers[1]
+        check(isinstance(tp, TendencyPrescriber) and tp.limiter is not None,
+              "no fitted tendency prescriber in the fused loop")
+        want = production_launches(PRESCRIBED_CHUNK, 1)
+        bounds = tp.limiter.bounds
+        for i, (n, args, out, counts) in enumerate(rec.chunks):
+            check(counts == want, f"fused chunk {i}: launches {counts}, "
+                  f"expected {want}")
+            for name, x in fields(out[0]).items():
+                check(torch.isfinite(x).all().item(),
+                      f"fused chunk {i}: non-finite {name}")
+            prescribed = args[3][1]
+            for k, (lo, hi) in bounds.items():
+                x = prescribed[k]
+                check(x.min().item() >= np.float32(lo)
+                      and x.max().item() <= np.float32(hi),
+                      f"fused chunk {i}: {k} outside [{lo}, {hi}]")
+        for k in ("dQ1", "dQ2"):
+            q = (np.quantile(data[k][1], 0.01), np.quantile(data[k][1], 0.99))
+            check(tuple(bounds[k]) == q, f"limiter bounds of {k} "
+                  f"{bounds[k]} against np.quantile {q}")
+            outside = ((data[k][1:n_steps + 1] < q[0])
+                       | (data[k][1:n_steps + 1] > q[1])).mean()
+            log(f"  {k}: bounds [{q[0]:.4e}, {q[1]:.4e}] equal to "
+                f"np.quantile of the store's first prescribed time; "
+                f"{100 * outside:.2f}% of the prescribed values clipped")
+        del rec, loop, tp
+        # (b) per step
+        with StepRecorder() as rec:
+            api.run_segment(get_config(dict(cfg_a, fused_chunk_steps=0)),
+                            os.path.join(tmp, "per_step"))
+        _, walls = rec.gate("per-step prescribed run", n_steps)
+        # (c) the top-level prescriber and bias correction
+        cfg_c = dict(stepper_run_config(tmp, n_steps),
+                     tendency_prescriber={
+                         "dataset": store, "variables": ["dQ2"],
+                         "limit_quantiles": {"upper": 0.99, "lower": 0.01}},
+                     bias_correction={
+                         "dataset": store, "variables": ["dQ1"],
+                         "apply_interval_seconds": BIAS_INTERVAL_S})
+        with StepRecorder() as rec:
+            api.run_segment(get_config(cfg_c), os.path.join(tmp, "bias"))
+        rec.gate("bias-corrected run", n_steps)
+        fired = [i + 1 for i, (_, _, keys) in enumerate(rec.steps)
+                 if "dQ1_interval_bias_correction" in keys]
+        check(fired == [1, 3, 5, 7], f"bias correction fired on steps "
+              f"{fired}, expected 1, 3, 5, 7")
+        check(all("dQ2_tendency_prescriber" in keys
+                  for _, _, keys in rec.steps),
+              "the top-level tendency prescriber missed a step")
+        log(f"  bias correction fired on steps {fired}; the top-level "
+            "tendency prescriber on every step")
+        del rec
+        # (d) float64: run (a)'s 2 fused chunks against (b)'s 8 per-step
+        # steps.  Radiation every step: the per-step path (the
+        # reference's too) has no radiation interval, so (a)'s cached
+        # heating between radiation steps has no per-step counterpart.
+        # Each per-step step takes its chunk's cos-zenith (a chunk holds
+        # its midpoint's).
+        cfg64 = dict(cfg_a, radiation_interval_steps=1)
+        fused = TimeLoop(get_config(cfg64), dtype=torch.float64)
+        start = fused.time
+        cosz = []
+        for c in range(2):
+            fused.time = start + datetime.timedelta(
+                seconds=c * PRESCRIBED_CHUNK * DT)
+            cosz.append(fused.chunk_cos_zenith(PRESCRIBED_CHUNK))
+        fused.time = start
+        stepped = TimeLoop(get_config(dict(cfg64, fused_chunk_steps=0)),
+                           dtype=torch.float64)
+
+        def chunk_cos_zenith(time_):
+            # the loop's time is the step's end when its physics runs
+            step = round((time_ - start).total_seconds() / DT) - 1
+            return cosz[step // PRESCRIBED_CHUNK]
+
+        stepped._cos_zenith = chunk_cos_zenith
+        check(fused.fusable() and not stepped.fusable(),
+              "the float64 pair is not fused against per step")
+        n_chunks = sum(1 for _ in fused)
+        n_stepped = sum(1 for _ in stepped)
+        check(n_chunks == 2 and n_stepped == n_steps
+              and fused.time == stepped.time,
+              f"float64 pair: {n_chunks} chunks against {n_stepped} steps")
+        a, b = state_tensors(fused.state), state_tensors(stepped.state)
+        check(set(a) == set(b), f"fields {sorted(a)} against {sorted(b)}")
+        worst = max(rel_err(a[k], b[k]) for k in b)
+        check(worst <= FUSED_VS_STEP_RTOL, f"float64 fused chunks against "
+              f"per-step steps: {worst:.3e} > {FUSED_VS_STEP_RTOL}")
+        log(f"  float64: 2 fused chunks of {PRESCRIBED_CHUNK} steps (tend, "
+            f"radiation every step) within {worst:.3e} of scale of "
+            f"{n_steps} per-step steps, all {len(b)} fields (bound "
+            f"{FUSED_VS_STEP_RTOL})")
+        del fused, stepped
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ms_step = median_ms(walls)
+    log(f"  prescribed tendencies: fused {per_chunk * 1e3:.1f} ms a chunk "
+        f"of {PRESCRIBED_CHUNK} steps in run_segment "
+        f"({per_chunk * 1e3 / PRESCRIBED_CHUNK:.1f} ms a step), per step "
+        f"{ms_step:.1f} ms a step (median of {len(walls)})")
+    return per_chunk * 1e3, ms_step
+
+
+def reservoir_series(loop):
+    """The training series of phase 27 from the run's initial state
+    (host, float32): (i) COLUMN_SERIES columns of T and q, each a random
+    column of the state plus 1 K and 5% noise, with the clean column's T
+    as its target; (ii) CUBE_SERIES cube fields of T and q plus the same
+    noise, [t, 6, ny, nx, 2 npz] (~212 MB), with their T as targets.
+    Returns both, and held-out inputs of each (3 apiece)."""
+    import numpy as np
+    from fv3net_torch.fit.packer import stack_columns
+
+    rng = np.random.RandomState(27)
+    st = loop._derived()
+    T = st["air_temperature"].data.float().cpu()
+    q = st["specific_humidity"].data.float().cpu()
+    cols = np.concatenate([stack_columns(T).numpy(),
+                           stack_columns(q).numpy()], axis=1)
+
+    def perturb(x):
+        y = x.copy()
+        y[..., :NPZ] += rng.randn(*y[..., :NPZ].shape).astype(np.float32)
+        y[..., NPZ:] *= 1.0 + 0.05 * rng.randn(
+            *y[..., NPZ:].shape).astype(np.float32)
+        return y
+
+    pick = rng.randint(cols.shape[0], size=COLUMN_SERIES)
+    column = (perturb(cols[pick]), cols[pick, :NPZ].copy())
+    column_held = [perturb(cols) for _ in range(3)]
+    cube0 = np.concatenate([T.movedim(1, -1).numpy(),
+                            q.movedim(1, -1).numpy()], axis=-1)
+    u = np.empty((CUBE_SERIES,) + cube0.shape, np.float32)
+    for t in range(CUBE_SERIES):
+        u[t] = perturb(cube0)
+    cube = (u, u[..., :NPZ])
+    cube_held = [perturb(cube0) for _ in range(3)]
+    return column, column_held, cube, cube_held
+
+
+def phase_reservoir(device, ms_without):
+    """The reservoir corrector at C48.  Trains on the card and on the
+    CPU, float32 (the reference's): a ``hybrid_reservoir`` and a
+    ``reservoir`` (state RESERVOIR_STATE) on COLUMN_SERIES columns of T
+    and q (64 features, T out) and a ``subdomain_reservoir`` ((2, 2)
+    subdomains a tile, overlap 1, state RESERVOIR_STATE) on CUBE_SERIES
+    cube fields of them (:func:`reservoir_series`), each with the ridge
+    RESERVOIR_L2 (the readouts have more features than samples, and the
+    reference's 1e-6 leaves them far off the series on held-out
+    columns); the card's held-out
+    predictions within RESERVOIR_TRAIN_RTOL of the CPU's.  Then the
+    hybrid and the subdomain model each as ``reservoir_corrector``
+    (synchronize_steps 2, a reservoir step of 1800 s) through
+    ``append_segment`` over 2 segments of STEPPER_SEGMENT_STEPS steps,
+    the second warm-started from ``save_reservoir_state``; and one step
+    with ``diagnostic_only``.  Gates: each step's launches (phase 25's);
+    the incrementer before the predictor on every step that predicts;
+    predictions only after the synchronization (on the second segment's
+    steps 1 and 3) and equal to the model's readout recomputed on the
+    host in float64 from its state within RESERVOIR_PREDICT_RTOL; T after
+    such a step equal to the prediction (within 1e-6, through theta_v);
+    under ``diagnostic_only`` the prediction a diagnostic and no state
+    update.  Readings: the trainers' seconds, ms of one increment at
+    13,824 columns (pure, hybrid) and at 24 subdomains, ms a step with
+    the corrector against ``ms_without``."""
+    import shutil
+    import tempfile
+
+    import torch
+    from fv3net_torch.core.dataset import Dataset
+    from fv3net_torch.core.quantity import Quantity
+    from fv3net_torch.fit import reservoir as tres
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.loop import TimeLoop
+
+    names_in = ["air_temperature", "specific_humidity"]
+    tmp = tempfile.mkdtemp(prefix="reservoir_")
+    try:
+        loop = TimeLoop(get_config(stepper_run_config(tmp, 1)))
+        column, column_held, cube, cube_held = reservoir_series(loop)
+        del loop
+        hp = dict(input_variables=names_in,
+                  output_variables=["air_temperature"],
+                  state_size=RESERVOIR_STATE,
+                  l2_regularization=RESERVOIR_L2)
+
+        def dataset(pair, dims, where):
+            return Dataset({k: Quantity(torch.tensor(v, device=where), dims)
+                            for k, v in zip(("inputs", "outputs"), pair)})
+
+        trainers = {
+            "pure": lambda w: tres.train_reservoir_model(
+                tres.ReservoirHyperparameters(**hp),
+                [dataset(column, ("time", "f"), w)]),
+            "hybrid": lambda w: tres.train_hybrid_reservoir_model(
+                tres.ReservoirHyperparameters(**hp),
+                [dataset(column, ("time", "f"), w)]),
+            "subdomain": lambda w: tres.train_subdomain_reservoir(
+                tres.SubdomainReservoirHyperparameters(
+                    input_variables=names_in,
+                    output_variables=["air_temperature"],
+                    subdomain_layout=(2, 2), overlap=1,
+                    reservoir=tres.ReservoirHyperparameters(
+                        state_size=RESERVOIR_STATE,
+                        l2_regularization=RESERVOIR_L2)),
+                [dataset(cube, ("time", "tile", "y", "x", "f"), w)]),
+        }
+        models, seconds = {}, {}
+        for label, train in trainers.items():
+            got = {}
+            for where, name in ((device, "card"), ("cpu", "cpu")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got[name] = train(where)
+                torch.cuda.synchronize()
+                seconds[f"{label} {name}"] = time.perf_counter() - t0
+            held = column_held if label != "subdomain" else cube_held
+            preds = {}
+            for name, m in got.items():
+                if label == "subdomain":
+                    m.reset_state()
+                else:
+                    m.reset_state(batch_shape=(held[0].shape[0],))
+                for x in held[:2]:
+                    m.increment(torch.tensor(x, device=m.W.device))
+                preds[name] = m.predict_from_state(
+                    torch.tensor(held[2], device=m.W.device))
+            err = rel_err(preds["card"], preds["cpu"])
+            lo, hi = preds["cpu"].min().item(), preds["cpu"].max().item()
+            check(torch.isfinite(preds["card"]).all().item(),
+                  f"{label} reservoir: non-finite predictions")
+            check(err <= RESERVOIR_TRAIN_RTOL, f"{label} reservoir: card "
+                  f"against CPU {err:.3e} > {RESERVOIR_TRAIN_RTOL}")
+            log(f"  {label} reservoir trained: card {seconds[label + ' card']:.2f} "
+                f"s, CPU {seconds[label + ' cpu']:.2f} s; held-out "
+                f"predictions card against CPU {err:.3e} of scale (bound "
+                f"{RESERVOIR_TRAIN_RTOL}), {lo:.1f} .. {hi:.1f} K")
+            models[label] = got["card"]
+
+        # one increment at the run's shapes
+        increment_ms = {}
+        ncol = 6 * NPX * NPX
+        for label, m in models.items():
+            if label == "subdomain":
+                m.reset_state()
+                u = torch.tensor(cube_held[0], device=device)
+            else:
+                m.reset_state(batch_shape=(ncol,))
+                u = torch.tensor(column_held[0], device=device)
+            increment_ms[label] = cuda_ms(lambda: m.increment(u),
+                                          INCREMENT_REPS)
+        log("  one increment (CUDA events, median of "
+            f"{INCREMENT_REPS}): pure {increment_ms['pure']:.3f} ms and "
+            f"hybrid {increment_ms['hybrid']:.3f} ms at {ncol} columns, "
+            f"subdomain {increment_ms['subdomain']:.3f} ms at "
+            f"{models['subdomain'].divider.n_subdomains} subdomains")
+
+        walls = {}
+        for label in ("hybrid", "subdomain"):
+            walls[label] = reservoir_segments(label, tmp, models[label])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("  ms a step with the corrector (median): "
+        + ", ".join(f"{k} {median_ms(v):.1f}" for k, v in walls.items())
+        + f"; without (phase 25) {ms_without:.1f}; trainers' seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    return increment_ms
+
+
+def reservoir_segments(label, tmp, model):
+    """One model as the reservoir corrector: 2 appended segments (the
+    second warm-started from the state the first left) and one
+    diagnostic-only step, gated as :func:`phase_reservoir` says; returns
+    the walls of the segments' steps."""
+    import torch
+    from fv3net_torch.fit import io
+    from fv3net_torch.fit.packer import unstack_columns
+    from fv3net_torch.runtime import factories
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.segmented_run import api
+    from fv3net_torch.runtime.steppers import reservoir as rsteppers
+
+    model_dir = os.path.join(tmp, f"{label}_model")
+    io.dump(model, model_dir)
+    steps = STEPPER_SEGMENT_STEPS
+    rc = {"model_path": model_dir, "synchronize_steps": RESERVOIR_SYNC_STEPS,
+          "reservoir_timestep_seconds": RESERVOIR_STEP_S}
+    cfg = stepper_run_config(tmp, steps, reservoir_corrector=rc)
+    events, built = [], []
+    orig_build = factories.get_reservoir_steppers
+    orig_inc = rsteppers.ReservoirIncrementOnlyStepper.__call__
+    orig_pred = rsteppers.ReservoirPredictStepper.__call__
+
+    def build(*a, **k):
+        pair = orig_build(*a, **k)
+        built.append(pair)
+        return pair
+
+    def inc(self, time_, state):
+        fired = self._fsm.completed_increments
+        out = orig_inc(self, time_, state)
+        events.append(("increment", time_,
+                       self._fsm.completed_increments > fired))
+        return out
+
+    def pred(self, time_, state):
+        u = self._pull_inputs(state)
+        r = self.model.state.clone()
+        out = orig_pred(self, time_, state)
+        events.append(("predict", time_, (u, r, out)))
+        return out
+
+    landed = []
+
+    def after(loop, diags):
+        upd = [e for e in events if e[0] == "predict" and e[1] == loop.time
+               and (e[2][2][2] or e[2][2][1])]
+        if upd:
+            q = upd[-1][2][2][2].get("air_temperature")
+            if q is not None:
+                landed.append(rel_err(
+                    loop._derived()["air_temperature"].data, q.data))
+
+    factories.get_reservoir_steppers = build
+    rsteppers.ReservoirIncrementOnlyStepper.__call__ = inc
+    rsteppers.ReservoirPredictStepper.__call__ = pred
+    walls = []
+    try:
+        url = os.path.join(tmp, f"{label}_run")
+        api.create(url, cfg)
+        for s in (1, 2):
+            with StepRecorder(after=after) as rec:
+                api.append_segment(url)
+            _, w = rec.gate(f"{label} corrector segment {s}", steps)
+            walls += w
+            if s == 1:
+                rsteppers.save_reservoir_state(built[-1][1].model,
+                                               model_dir)
+                api.create(url, dict(cfg, reservoir_corrector=dict(
+                    rc, warm_start=True)))
+        # diagnostic only: one warm-started step
+        with StepRecorder() as rec:
+            api.run_segment(get_config(stepper_run_config(
+                tmp, 1, reservoir_corrector=dict(
+                    rc, warm_start=True, diagnostic_only=True))),
+                os.path.join(tmp, f"{label}_diagnostic"))
+        rec.gate(f"{label} diagnostic-only step", 1)
+    finally:
+        factories.get_reservoir_steppers = orig_build
+        rsteppers.ReservoirIncrementOnlyStepper.__call__ = orig_inc
+        rsteppers.ReservoirPredictStepper.__call__ = orig_pred
+    # the order: each step's increment before its predict
+    kinds = [e[0] for e in events]
+    check(kinds == ["increment", "predict"] * (2 * steps + 1),
+          f"{label}: stepper calls {kinds}")
+    predicted = [i // 2 + 1 for i, e in enumerate(events)
+                 if e[0] == "predict" and (e[2][2][1] or e[2][2][2])]
+    want = [steps + 1, steps + 3, 2 * steps + 1]
+    check(predicted == want, f"{label}: predictions on steps {predicted}, "
+          f"expected {want} (the second segment's 1st and 3rd, the "
+          "diagnostic step)")
+    for i, e in enumerate(events):
+        if e[0] == "predict" and i // 2 + 1 in predicted:
+            check(events[i - 1][2], f"{label}: step {i // 2 + 1} predicted "
+                  "without an increment firing before it")
+    # each prediction against the host's float64 readout of the state
+    host = model.to(device="cpu", dtype=torch.float64)
+    worst = 0.0
+    for i, e in enumerate(events):
+        if e[0] != "predict" or i // 2 + 1 not in predicted:
+            continue
+        u, r, (_, diags, updates) = e[2]
+        got = (updates.get("air_temperature")
+               or diags.get("air_temperature_reservoir_prediction")).data
+        host.state = r.double().cpu()
+        want_pred = host.predict_from_state(u.double().cpu())
+        if hasattr(host, "divider"):
+            want_t = want_pred.movedim(-1, 1)
+        else:
+            want_t = unstack_columns(want_pred, (6, NPX, NPX))
+        err = rel_err(got, want_t)
+        worst = max(worst, err)
+        check(err <= RESERVOIR_PREDICT_RTOL, f"{label} step {i // 2 + 1}: "
+              f"prediction {err:.3e} of scale from the host's readout")
+    diag_pred = events[-1][2][2]
+    check(diag_pred[2] == {} and "air_temperature_reservoir_prediction"
+          in diag_pred[1], f"{label}: diagnostic_only updated the state or "
+          "lacks its diagnostic")
+    check(len(landed) == 2 and max(landed) <= 1e-6,
+          f"{label}: T after the predicting steps against the prediction "
+          f"{landed}")
+    log(f"  {label} corrector: predictions on steps {predicted} (the last "
+        "diagnostic only), each within "
+        f"{worst:.3e} of scale of the host's float64 readout (bound "
+        f"{RESERVOIR_PREDICT_RTOL}); T after the step within "
+        f"{max(landed):.3e} of the prediction; {median_ms(walls):.1f} ms a "
+        "step (median of " f"{len(walls)})")
+    return walls
+
+
 def main():
     import argparse
 
@@ -4797,6 +5614,23 @@ def main():
     t24 = time.perf_counter()
     phase_sharded_dryrun(device)
     log(f"  phase 24 in {time.perf_counter() - t24:.1f} s")
+
+    phase("25: the nudged run through the segmented run")
+    t25 = time.perf_counter()
+    _, ms_without = phase_nudged_run(device)
+    log(f"  phase 25 in {time.perf_counter() - t25:.1f} s")
+
+    phase("26: prescribed tendencies (the tendency prescriber, fused and "
+          "per step, and bias correction)")
+    t26 = time.perf_counter()
+    phase_prescribed_tendencies(device)
+    log(f"  phase 26 in {time.perf_counter() - t26:.1f} s")
+
+    phase("27: the reservoir corrector (its trainers on the card, the "
+          "hybrid and subdomain models through the segmented run)")
+    t27 = time.perf_counter()
+    phase_reservoir(device, ms_without)
+    log(f"  phase 27 in {time.perf_counter() - t27:.1f} s")
 
     # each kernel's launches come from the run of the path it lies on
     counts = dict(counts, taumol_lw=counts_mega["taumol_lw"],

@@ -2,8 +2,10 @@
 external/fv3fit/fv3fit/_shared/io.py:17-92): an artifact directory holds
 a ``name`` file naming its model type, and ``load(path)`` dispatches on
 it.  The port reads and writes the reference's artifact formats, so a
-model the reference trained and dumped loads here.  Only the dense model
-is registered; other types raise ``NotImplementedError``.
+model the reference trained and dumped loads here.  Registered: the
+dense model (``fit/dense.py``) and the pure, hybrid and subdomain
+reservoir models (``fit/reservoir.py``); the reference's other model
+types raise ``NotImplementedError`` naming ROADMAP.md Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -74,6 +76,6 @@ def load(path: str):
     """The model dumped at ``path``, on the CPU in the dtype it was saved
     in (``.to(device, dtype)`` moves it)."""
     # the registered types register on import
-    from fv3net_torch.fit import dense  # noqa: F401
+    from fv3net_torch.fit import dense, reservoir  # noqa: F401
 
     return register.load(path)

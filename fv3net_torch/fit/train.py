@@ -5,8 +5,11 @@ _shared/training_config.py and fv3fit/train.py:33-192).
 ``@register_training_function(name, HyperparamCls)`` registers
 ``fn(hyperparameters, train_batches, validation_batches) -> model``;
 ``train_main`` resolves, fits and dumps a model with its ``train.yaml``.
-Only the ``dense`` trainer is ported (``fit/dense.py``); the CLI's data
-loaders are not (ROADMAP.md Queue 1 item 9), so ``main`` raises on them.
+Ported: the ``dense`` trainer (``fit/dense.py``) and the ``reservoir``,
+``hybrid_reservoir`` and ``subdomain_reservoir`` trainers
+(``fit/reservoir.py``); the reference's other trainers and the CLI's
+data loaders are not (ROADMAP.md Queue 1 item 9), so ``main`` raises on
+them.
 """
 from __future__ import annotations
 
@@ -37,12 +40,13 @@ def register_training_function(name: str, hyperparameter_class: Type):
 
 def _registered(name: str) -> Tuple[Callable, Type]:
     # the registered trainers register on import
-    from fv3net_torch.fit import dense  # noqa: F401
+    from fv3net_torch.fit import dense, reservoir  # noqa: F401
 
     if name not in _TRAINING_FUNCTIONS:
         raise NotImplementedError(
             f"training function {name!r} is not ported to fv3net_torch yet "
-            "(only 'dense' is; ROADMAP.md Queue 1 item 9)")
+            f"(ROADMAP.md Queue 1 item 9; the port trains "
+            f"{', '.join(sorted(_TRAINING_FUNCTIONS))})")
     return _TRAINING_FUNCTIONS[name]
 
 

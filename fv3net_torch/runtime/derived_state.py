@@ -145,6 +145,14 @@ class DerivedState:
         if key == names.TEMP:
             self._replace(pt=theta_v_from_temperature(
                 data, self._pmid(), d.tracers["sphum"]))
+        elif key == names.DELP:
+            # the layer thicknesses (a nudged delp): temperature and the
+            # mixing ratios are held, theta_v recomputed at the new pmid
+            # (the reference's setter has no delp branch and raises)
+            T = self._temperature()
+            self._replace(delp=data)
+            self._replace(pt=theta_v_from_temperature(
+                T, self._pmid(), d.tracers["sphum"]))
         elif key == names.SPHUM:
             # the set_state_mass_conserving semantics: overwriting the
             # specific humidity changes the layer's water mass, so delp is

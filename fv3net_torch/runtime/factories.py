@@ -2,13 +2,15 @@
 (port of ``fv3net_tpu/runtime/factories.py``; reference:
 workflows/prognostic_c48_run/runtime/factories.py:60-150).
 
-Ported: the ML corrector (``scikit_learn``: dense models in the
-reference's artifact format), the "prescriber" prephysics kind, the
-Python radiation stepper (``radiation_scheme``) and the online
-microphysics emulator (``online_emulator``).  The other steppers raise
-``NotImplementedError`` naming their ROADMAP.md item; configs that
-merely carry their keys without enabling them build nothing, as in the
-reference.
+Every stepper of the reference's time loop: the ML corrector
+(``scikit_learn``: dense models in the reference's artifact format) or
+the nudger (``nudging``), the "prescriber" and "tendency_prescriber"
+prephysics kinds, the Python radiation stepper (``radiation_scheme``),
+the top-level ``tendency_prescriber``, ``bias_correction``, the
+reservoir corrector (``reservoir_corrector``: pure, hybrid and subdomain
+reservoir models) and the online microphysics emulator
+(``online_emulator``).  Configs that merely carry a key without enabling
+it build nothing, as in the reference.
 """
 from __future__ import annotations
 
@@ -42,8 +44,11 @@ def _getter(mapper, config: UserConfig, timestep: float):
 
 def get_postphysics_stepper(config: UserConfig, timestep: float,
                             dtype=None, device="cuda"):
-    """The ML corrector from ``scikit_learn``: its models loaded from
-    their artifact directories and moved to ``device`` in ``dtype``."""
+    """The ML corrector from ``scikit_learn`` (its models loaded from
+    their artifact directories and moved to ``device`` in ``dtype``), or
+    else the nudger from ``nudging`` (its reference states read from the
+    zarr store at ``restarts_path``, moved to the state's device each
+    step), or None."""
     if config.scikit_learn is not None and config.scikit_learn.model:
         from fv3net_torch.fit import io
         from fv3net_torch.runtime.steppers.machine_learning import (
@@ -67,12 +72,23 @@ def get_postphysics_stepper(config: UserConfig, timestep: float,
             ),
         )
     if config.nudging is not None and config.nudging.timescale_hours:
-        raise not_ported("nudging (runtime/steppers/nudging.py)", 9)
+        from fv3net_torch.loaders.batches import ZarrMapper
+        from fv3net_torch.runtime.steppers.nudging import PureNudger
+
+        mapper = ZarrMapper(config.nudging.restarts_path)
+        timescales = {
+            var: hours * 3600.0
+            for var, hours in config.nudging.timescale_hours.items()
+        }
+        return PureNudger(_getter(mapper, config, timestep), timescales)
     return None
 
 
-def get_prephysics_steppers(config: UserConfig, timestep: float) -> List:
-    """The prescriber chain of ``prephysics``."""
+def get_prephysics_steppers(config: UserConfig, timestep: float,
+                            device="cuda") -> List:
+    """The prescriber chain of ``prephysics``: "prescriber" entries set
+    state variables from their store, "tendency_prescriber" entries add
+    its tendencies (clipped on ``device``, in the store's dtype)."""
     steppers: List = []
     for entry in config.prephysics or []:
         kind = entry.get("kind", "prescriber")
@@ -88,9 +104,19 @@ def get_prephysics_steppers(config: UserConfig, timestep: float) -> List:
                 )
             )
         elif kind == "tendency_prescriber":
-            raise not_ported(
-                "the tendency_prescriber prephysics kind "
-                "(runtime/steppers/tendency_prescriber.py)", 9)
+            from fv3net_torch.loaders.batches import ZarrMapper
+            from fv3net_torch.runtime.steppers.tendency_prescriber import (
+                TendencyPrescriber,
+            )
+
+            steppers.append(
+                TendencyPrescriber(
+                    _getter(ZarrMapper(entry["dataset"]), config, timestep),
+                    entry["variables"],
+                    limit_quantiles=entry.get("limit_quantiles"),
+                    device=device,
+                )
+            )
         else:
             raise ValueError(f"unknown prephysics stepper kind {kind!r}")
     return steppers
@@ -120,6 +146,83 @@ def get_radiation_stepper(config: UserConfig, timestep: float,
     )
 
 
+def get_tendency_prescriber(config: UserConfig, timestep: float,
+                            device="cuda"):
+    """The top-level ``tendency_prescriber``: a TendencyPrescriber after
+    the physics, its tendencies clipped on ``device`` in the store's
+    dtype, or None."""
+    tp = config.tendency_prescriber
+    if tp is None:
+        return None
+    from fv3net_torch.loaders.batches import ZarrMapper
+    from fv3net_torch.runtime.steppers.tendency_prescriber import (
+        TendencyPrescriber,
+    )
+
+    return TendencyPrescriber(
+        _getter(ZarrMapper(tp.dataset), config, timestep),
+        tp.variables,
+        limit_quantiles=tp.limit_quantiles,
+        device=device,
+    )
+
+
+def get_bias_correction(config: UserConfig, timestep: float,
+                        device="cuda"):
+    """``bias_correction``: a TendencyPrescriber of correction tendencies
+    labelled "bias_correction", inside an IntervalStepper when
+    ``apply_interval_seconds`` is set, or None."""
+    bc = config.bias_correction
+    if bc is None:
+        return None
+    from fv3net_torch.loaders.batches import ZarrMapper
+    from fv3net_torch.runtime.steppers.combine import IntervalStepper
+    from fv3net_torch.runtime.steppers.tendency_prescriber import (
+        TendencyPrescriber,
+    )
+
+    stepper = TendencyPrescriber(
+        _getter(ZarrMapper(bc.dataset), config, timestep),
+        bc.variables,
+        limit_quantiles=bc.limit_quantiles,
+        device=device,
+    )
+    stepper.label = "bias_correction"
+    if bc.apply_interval_seconds:
+        stepper = IntervalStepper(bc.apply_interval_seconds, stepper)
+    return stepper
+
+
+def get_reservoir_steppers(config: UserConfig, timestep: float,
+                           device="cuda"):
+    """``reservoir_corrector`` -> the (incrementer, predictor) pair over
+    one model loaded from ``model_path`` onto ``device`` (its arrays in
+    the reference's float32), or (None, None)."""
+    rc = config.reservoir_corrector
+    if rc is None:
+        return None, None
+    from fv3net_torch.fit import io
+    from fv3net_torch.runtime.steppers.reservoir import (
+        ReservoirConfig,
+        ReservoirIncrementOnlyStepper,
+        ReservoirPredictStepper,
+    )
+
+    model = io.load(rc.model_path).to(device=device)
+    cfg = ReservoirConfig(
+        model_path=rc.model_path,
+        synchronize_steps=rc.synchronize_steps,
+        reservoir_timestep_seconds=rc.reservoir_timestep_seconds,
+        rename_mapping=dict(rc.rename_mapping),
+        diagnostic_only=rc.diagnostic_only,
+        warm_start=rc.warm_start,
+    )
+    return (
+        ReservoirIncrementOnlyStepper(model, cfg),
+        ReservoirPredictStepper(model, cfg),
+    )
+
+
 def get_microphysics_emulator(config: UserConfig, dtype=None,
                               device="cuda"):
     """``(emulator, target, piggy_back)`` of ``online_emulator``: the
@@ -134,20 +237,3 @@ def get_microphysics_emulator(config: UserConfig, dtype=None,
 
     model = io.load(oe.url).to(device=device, dtype=dtype)
     return MicrophysicsEmulator(model), oe.target, oe.piggy_back
-
-
-def check_unported_steppers(config: UserConfig) -> None:
-    """Raise for a config that enables a stepper the port does not run:
-    the top-level tendency prescriber, bias correction and the reservoir
-    corrector."""
-    if config.tendency_prescriber is not None:
-        raise not_ported(
-            "tendency_prescriber (runtime/steppers/tendency_prescriber.py)",
-            9)
-    if config.bias_correction is not None:
-        raise not_ported(
-            "bias_correction (runtime/steppers/{tendency_prescriber,"
-            "combine}.py)", 9)
-    if config.reservoir_corrector is not None:
-        raise not_ported(
-            "reservoir_corrector (runtime/steppers/reservoir.py)", 9)

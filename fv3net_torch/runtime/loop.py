@@ -2,17 +2,18 @@
 ``fv3net_tpu/runtime/loop.py``; reference:
 workflows/prognostic_c48_run/runtime/loop.py:106-664).
 
-An iterator over (time, diagnostics): per step it runs the prephysics
-steppers, the dynamics, the physics with the prognostic surface and the
-postphysics ML stepper, with the Monitor's tendency diagnostics of each
+An iterator over (time, diagnostics): per step it runs the reservoir
+incrementer, the prephysics steppers, the dynamics, the Python radiation
+stepper, the physics with the prognostic surface, the top-level tendency
+prescriber, the postphysics stepper (ML or nudging), bias correction and
+the reservoir predictor, with the Monitor's tendency diagnostics of each
 part; or, when the configuration allows it (:meth:`TimeLoop.fusable`),
 whole chunks of steps: the flagship chunk
-(``runtime/fused.py::build_fused_multi_step``) or, with ML, prescribers, a
-prognostic surface or the online microphysics emulator, the production
-chunk (``build_fused_production_chunk``), each followed by the
-chunk-boundary diagnostics and their global means.  The Python radiation
-stepper (``radiation_scheme``) runs on the per-step path, beside the
-model's own radiation, after the dynamics.  ``impl`` reaches both chunk
+(``runtime/fused.py::build_fused_multi_step``) or, with ML, prescribers
+(of state or of tendencies), a prognostic surface or the online
+microphysics emulator, the production chunk
+(``build_fused_production_chunk``), each followed by the chunk-boundary
+diagnostics and their global means.  ``impl`` reaches both chunk
 builders, the per-step dynamics and radiation and the radiation stepper:
 the same loop runs the hand kernels or their plain versions.
 
@@ -116,7 +117,6 @@ class TimeLoop:
         if nml.surface_data:
             raise not_ported(
                 f"surface_data {nml.surface_data!r} (the catalog)", 10)
-        factories.check_unported_steppers(config)
 
         self.grid = make_grid(nml.npx)
         self._g = GridArrays.from_grid(self.grid, dtype=dtype,
@@ -226,11 +226,24 @@ class TimeLoop:
         self._prephysics_steppers = (
             prephysics_steppers
             if prephysics_steppers is not None
-            else factories.get_prephysics_steppers(config, self._timestep)
+            else factories.get_prephysics_steppers(
+                config, self._timestep, device=self._device)
         )
         self._radiation_stepper = factories.get_radiation_stepper(
             config, self._timestep, dtype=dtype, device=self._device,
             impl=impl)
+        self._tendency_prescriber = factories.get_tendency_prescriber(
+            config, self._timestep, device=self._device)
+        self._bias_correction = factories.get_bias_correction(
+            config, self._timestep, device=self._device)
+        (self._reservoir_incrementer,
+         self._reservoir_predictor) = factories.get_reservoir_steppers(
+            config, self._timestep, device=self._device)
+        getter = getattr(self._postphysics_stepper, "reference_getter", None)
+        if self._sharded and getter is not None:
+            # the nudger's reference states are global: cut to the block
+            self._postphysics_stepper.reference_getter = lambda time: {
+                k: self._local_quantity(q) for k, q in getter(time).items()}
         (self._microphysics_emulator, emu_target,
          self._emulator_piggy_back) = factories.get_microphysics_emulator(
             config, dtype=dtype, device=self._device)
@@ -411,10 +424,10 @@ class TimeLoop:
 
         state = self._derived()
         tendencies, diagnostics, state_updates = stepper(self.time, state)
-        if self._sharded:  # a prescriber's data is global
-            tendencies, state_updates = (
+        if self._sharded:  # a prescriber's or a subdomain model's is global
+            tendencies, diagnostics, state_updates = (
                 {k: self._local_quantity(v) for k, v in d.items()}
-                for d in (tendencies, state_updates))
+                for d in (tendencies, diagnostics, state_updates))
         delp_before = state[names.DELP].data if track_precip else None
         # zero-fill NaN tendencies (masked predictions) and record the
         # filled fraction
@@ -507,7 +520,7 @@ class TimeLoop:
 
     @torch.no_grad()
     def _step(self) -> Tuple[datetime.datetime, Dict[str, Quantity]]:
-        """One step of the per-step path."""
+        """One step of the per-step path, in the reference's order."""
         from fv3net_torch.runtime.diagnostics.compute import (
             compute_baseline_diagnostics,
         )
@@ -515,6 +528,9 @@ class TimeLoop:
         self.time += datetime.timedelta(seconds=self._timestep)
         diags: Dict[str, Quantity] = {}
         state = self._derived()
+        if self._reservoir_incrementer is not None:
+            # the reservoir is driven with the pre-dynamics state
+            diags.update(self._apply_stepper(self._reservoir_incrementer))
         for stepper in self._prephysics_steppers:
             diags.update(self._apply_stepper(stepper))
         diags.update(self.monitor("dynamics", self._step_dynamics, state))
@@ -526,7 +542,17 @@ class TimeLoop:
                 lambda: self._apply_stepper(self._radiation_stepper),
                 state))
         diags.update(self.monitor("fv3_physics", self._step_physics, state))
+        if self._tendency_prescriber is not None:
+            diags.update(self.monitor(
+                "tendency_prescriber",
+                lambda: self._apply_stepper(self._tendency_prescriber),
+                state))
         diags.update(self.monitor("python", self._step_postphysics, state))
+        if self._bias_correction is not None:
+            diags.update(self._apply_stepper(self._bias_correction))
+        if self._reservoir_predictor is not None:
+            # the reservoir's correction after every other update
+            diags.update(self._apply_stepper(self._reservoir_predictor))
         # water_vapor_path (+ physics_precip) every step
         diags.update(compute_baseline_diagnostics(self._derived()))
         if names.PHYSICS_PRECIP_RATE in diags:
@@ -555,18 +581,26 @@ class TimeLoop:
 
     def fusable(self) -> bool:
         """True when the run goes in chunks of ``fused_chunk_steps``
-        steps: more than one step a chunk, no Python radiation stepper,
-        a postphysics stepper (if any) that is a dense ML stepper
-        applying its predictions, and prephysics steppers (if any) that
-        are prescribers; the emulators run inside a chunk.  A
-        diagnostic-only ML stepper keeps the per-step path (its per-step
-        record is the point of that mode)."""
+        steps: more than one step a chunk; no Python radiation stepper,
+        top-level tendency prescriber, bias correction or reservoir; a
+        postphysics stepper (if any) that is a dense ML stepper applying
+        its predictions (not the nudger); and prephysics steppers (if
+        any) that are prescribers of state or of tendencies.  The
+        emulators run inside a chunk.  A diagnostic-only ML stepper keeps
+        the per-step path (its per-step record is the point of that
+        mode)."""
         from fv3net_torch.runtime.steppers.machine_learning import (
             PureMLStepper,
         )
         from fv3net_torch.runtime.steppers.prescriber import Prescriber
+        from fv3net_torch.runtime.steppers.tendency_prescriber import (
+            TendencyPrescriber,
+        )
 
-        if self._fused_chunk <= 1 or self._radiation_stepper is not None:
+        if self._fused_chunk <= 1 or any(s is not None for s in (
+                self._radiation_stepper, self._tendency_prescriber,
+                self._bias_correction, self._reservoir_incrementer,
+                self._reservoir_predictor)):
             return False
         post = self._postphysics_stepper
         if post is not None and not (
@@ -574,7 +608,7 @@ class TimeLoop:
             and not getattr(post, "diagnostic_only", False)
         ):
             return False
-        return all(isinstance(s, Prescriber)
+        return all(isinstance(s, (Prescriber, TendencyPrescriber))
                    for s in self._prephysics_steppers)
 
     def _prefetch_prescribed(self, n_steps: int, start_time):
@@ -616,8 +650,12 @@ class TimeLoop:
 
     def build_production_chunk(self, n_steps: int):
         """The bare production chunk this loop runs (without its
-        boundary diagnostics)."""
+        boundary diagnostics): a "set" prephysics kind for each
+        prescriber, a "tend" for each tendency prescriber."""
         from fv3net_torch.runtime.fused import build_fused_production_chunk
+        from fv3net_torch.runtime.steppers.tendency_prescriber import (
+            TendencyPrescriber,
+        )
 
         return build_fused_production_chunk(
             self._g, self._ak, self._bk, self._dyn_cfg, self._phys_cfg,
@@ -625,7 +663,9 @@ class TimeLoop:
             ml_stepper=self._postphysics_stepper,
             n_steps=n_steps,
             radiation_interval=self._radiation_interval,
-            prephysics_kinds=("set",) * len(self._prephysics_steppers),
+            prephysics_kinds=tuple(
+                "tend" if isinstance(s, TendencyPrescriber) else "set"
+                for s in self._prephysics_steppers),
             impl=self._impl,
             microphysics_emulator=self._microphysics_emulator,
             gscond_emulator=self._gscond_emulator,

@@ -229,6 +229,9 @@ def test_port_imports_neither_jax_nor_reference():
         "import fv3net_torch.emulation, fv3net_torch.physics.held_suarez\n"
         "import fv3net_torch.physics.radiation.gfs_driver\n"
         "import fv3net_torch.runtime.steppers.radiation\n"
+        "import fv3net_torch.runtime.steppers.reservoir\n"
+        "import fv3net_torch.runtime.steppers.nudging\n"
+        "import fv3net_torch.fit.reservoir\n"
         "for m in pkgutil.walk_packages(fv3net_torch.__path__, 'fv3net_torch.'):\n"
         "    __import__(m.name)\n"
         "bad = sorted(k for k in sys.modules\n"
@@ -261,7 +264,11 @@ def test_port_imports_neither_jax_nor_reference():
         "             'physics.held_suarez', 'runtime.steppers.radiation',\n"
         "             'runtime.factories', 'fit.config', 'fit.networks',\n"
         "             'fit.train', 'fit.dense', 'parallel.sharded',\n"
-        "             'parallel.shardmap_halo', 'core.sharded_io'):\n"
+        "             'parallel.shardmap_halo', 'core.sharded_io',\n"
+        "             'ops.limit', 'runtime.steppers.tendency_prescriber',\n"
+        "             'runtime.steppers.combine', 'runtime.steppers.nudging',\n"
+        "             'runtime.steppers.reservoir', 'fit.predictor',\n"
+        "             'fit.domain', 'fit.reservoir'):\n"
         "    assert 'fv3net_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )

@@ -631,20 +631,50 @@ def test_phase_timer_and_report():
 
 # ------------------------------------------------------------ factories
 def test_stepper_factories_build_the_config_steppers(tmp_path):
-    """The "steppers" config's radiation_scheme and online_emulator keys
-    build the port's radiation stepper and emulator as the reference's
-    factories build theirs (an emulator artifact stands in for the url);
-    the config's tendency prescriber, bias correction and reservoir keys
-    still raise, naming item 9."""
+    """The "steppers" config's radiation_scheme, online_emulator,
+    tendency_prescriber, bias_correction and reservoir_corrector keys
+    build the port's steppers as the reference's factories build theirs
+    (an emulator artifact, a dQ1 store and a reservoir artifact the
+    reference dumped stand in for the config's "x")."""
     from fv3net_tpu.runtime import factories as jfactories
     from fv3net_tpu.runtime.config import get_config as jget_config
 
     from fv3net_torch.runtime import factories
 
+    from fv3net_tpu import fit as jfit
+    from fv3net_tpu.fit.reservoir import (
+        ReservoirHyperparameters,
+        train_reservoir_model,
+    )
+    from fv3net_tpu.core.dataset import Dataset as JDataset
+    from fv3net_tpu.core.quantity import Quantity as JQuantity
+
     io.dump(dry_emulator_model(NPZ, torch.float64),
             str(tmp_path / "emulator"))
-    user = dict(VALID["steppers"], online_emulator=dict(
-        VALID["steppers"]["online_emulator"], url=str(tmp_path / "emulator")))
+    rng = np.random.RandomState(0)
+    store = str(tmp_path / "dq1.zarr")
+    zarrio.to_zarr(Dataset({"dQ1": Quantity(
+        1e-5 * rng.randn(2, 6, NPZ, 6, 6), ("time", "tile", "z", "y", "x"))}),
+        store)
+    series = jnp.asarray(rng.rand(20, 2 * NPZ))
+    jfit.dump(train_reservoir_model(
+        ReservoirHyperparameters(input_variables=["a"], state_size=8,
+                                 n_burn=2),
+        [JDataset({"inputs": JQuantity(series, ("time", "f")),
+                   "outputs": JQuantity(series, ("time", "f"))})]),
+        str(tmp_path / "reservoir"))
+    steppers = VALID["steppers"]
+    user = dict(
+        steppers,
+        online_emulator=dict(steppers["online_emulator"],
+                             url=str(tmp_path / "emulator")),
+        tendency_prescriber=dict(steppers["tendency_prescriber"],
+                                 dataset=store,
+                                 limit_quantiles={"lower": 0.01,
+                                                  "upper": 0.99}),
+        bias_correction=dict(steppers["bias_correction"], dataset=store),
+        reservoir_corrector=dict(steppers["reservoir_corrector"],
+                                 model_path=str(tmp_path / "reservoir")))
     cfg, jcfg = config.get_config(user), jget_config(user)
     got = factories.get_radiation_stepper(cfg, 900.0, device="cpu")
     want = jfactories.get_radiation_stepper(jcfg, 900.0)
@@ -660,8 +690,27 @@ def test_stepper_factories_build_the_config_steppers(tmp_path):
         None, "microphysics", False)
     for build in (factories.get_postphysics_stepper,
                   factories.get_radiation_stepper,
-                  factories.get_microphysics_emulator):
+                  factories.get_microphysics_emulator,
+                  factories.get_tendency_prescriber,
+                  factories.get_bias_correction,
+                  factories.get_reservoir_steppers):
         assert inspect.signature(build).parameters[
             "device"].default == "cuda"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        factories.check_unported_steppers(cfg)
+    t0 = datetime.datetime(2016, 8, 1, 0, 15)
+    tp = factories.get_tendency_prescriber(cfg, 900.0, device="cpu")
+    jtp = jfactories.get_tendency_prescriber(jcfg, 900.0)
+    assert (tp.label, tp.variables) == (jtp.label, jtp.variables)
+    (got,), (want,) = tp(t0, None)[0].values(), jtp(t0, None)[0].values()
+    assert rel_diff(got.data.numpy(), want.data) <= 1e-14
+    bc = factories.get_bias_correction(cfg, 900.0, device="cpu")
+    jbc = jfactories.get_bias_correction(jcfg, 900.0)
+    assert (bc.label, bc.interval) == (jbc.label, jbc.interval) == (
+        "interval_bias_correction", 1800.0)
+    inc, pred = factories.get_reservoir_steppers(cfg, 900.0, device="cpu")
+    jinc, jpred = jfactories.get_reservoir_steppers(jcfg, 900.0)
+    assert (inc.label, pred.label) == (jinc.label, jpred.label)
+    assert inc.config == pred.config and dataclasses.asdict(
+        inc.config) == dataclasses.asdict(jinc.config)
+    assert inc.input_variables == jinc.input_variables == ["b"]  # renamed
+    np.testing.assert_array_equal(inc.model.W.numpy(),
+                                  np.asarray(jinc.model.W))

@@ -405,6 +405,46 @@ def test_partial_segment_and_profile(inputs, tmp_path, caplog):
         assert "model_step_0" in f.read()
 
 
+def _stepper_stores(top, tmp_path):
+    """``top`` with its stepper's "x" replaced: a nudging store of the
+    state fields, a dQ1 store (C6, 8 levels, 2 times) or a hybrid column
+    reservoir artifact of T and q in, T out."""
+    rng = np.random.RandomState(4)
+    shape = (2, 6, NPZ, NPX, NPX)
+    dims = ("time", "tile", "z", "y", "x")
+    if "nudging" in top:
+        path = str(tmp_path / "nudge.zarr")
+        zarrio.to_zarr(Dataset({names.TEMP: Quantity(
+            250.0 + rng.rand(*shape), dims)}), path)
+        return dict(top, nudging=dict(top["nudging"], restarts_path=path))
+    if "reservoir_corrector" in top:
+        from fv3net_torch.fit import io
+        from fv3net_torch.fit.reservoir import (
+            ReservoirHyperparameters,
+            train_hybrid_reservoir_model,
+        )
+
+        u = rng.rand(20, 2 * NPZ)
+        model = train_hybrid_reservoir_model(
+            ReservoirHyperparameters(state_size=8, n_burn=2), [Dataset({
+                "inputs": Quantity(torch.tensor(u), ("time", "f")),
+                "outputs": Quantity(torch.tensor(u[:, :NPZ]),
+                                    ("time", "f"))})])
+        model.input_variables = [names.TEMP, names.SPHUM]
+        model.output_variables = [names.TEMP]
+        io.dump(model, str(tmp_path / "reservoir"))
+        return dict(top, reservoir_corrector={
+            "model_path": str(tmp_path / "reservoir")})
+    path = str(tmp_path / "dq1.zarr")
+    zarrio.to_zarr(Dataset({"dQ1": Quantity(1e-5 * rng.randn(*shape),
+                                            dims)}), path)
+    if "prephysics" in top:
+        return dict(top, prephysics=[dict(top["prephysics"][0],
+                                          dataset=path)])
+    key = next(iter(top))
+    return dict(top, **{key: dict(top[key], dataset=path)})
+
+
 @pytest.mark.parametrize("namelist,top", [
     ({"layout": [2, 1]}, {}),
     ({"hydrostatic": False}, {}),
@@ -432,15 +472,29 @@ def test_unported_options_raise(inputs, namelist, top, tmp_path):
     Python radiation stepper and the online emulator (here an emulator
     artifact stands in for the config's url) build their parts
     (tests/test_torch_synthband.py, test_torch_gfs_radiation.py and
-    test_torch_emulation.py hold them against the reference).  A
-    namelist layout raises the reference's ``ValueError`` without a
-    process group of its size."""
+    test_torch_emulation.py hold them against the reference); nudging,
+    the top-level tendency prescriber, bias correction, the reservoir
+    corrector (a reservoir artifact the test dumps) and the prephysics
+    tendency prescriber (a store the test writes stands in for "x")
+    build their steppers, and only the prephysics prescriber of
+    tendencies fuses, as the reference's rule has it
+    (tests/test_torch_nudging.py and test_torch_reservoir.py hold them
+    against the reference).  A namelist layout raises the reference's
+    ``ValueError`` without a process group of its size."""
     if "online_emulator" in top:
         from fv3net_torch.fit import io
 
         io.dump(dry_emulator_model(NPZ, torch.float64),
                 str(tmp_path / "emulator"))
         top = dict(top, online_emulator={"url": str(tmp_path / "emulator")})
+    stepper_keys = {"nudging": "nudging",
+                    "tendency_prescriber": "tendency_prescriber",
+                    "bias_correction": "bias_correction",
+                    "reservoir_corrector": "reservoir_predictor",
+                    "prephysics": "tendency_prescriber"}
+    key = next((k for k in top if k in stepper_keys), None)
+    if key is not None:
+        top = _stepper_stores(top, tmp_path)
     cfg = _config(inputs, namelist=namelist, **top)
     ported = {"hydrostatic": "w", "microphysics": "graupel",
               "prognostic_ozone": "o3mr"}
@@ -456,6 +510,20 @@ def test_unported_options_raise(inputs, namelist, top, tmp_path):
     if "online_emulator" in top:
         loop = _tloop(cfg)
         assert loop._microphysics_emulator is not None
+        return
+    if key is not None:
+        loop = _tloop(dict(cfg, fused_chunk_steps=2))
+        stepper = {
+            "nudging": loop._postphysics_stepper,
+            "tendency_prescriber": loop._tendency_prescriber,
+            "bias_correction": loop._bias_correction,
+            "reservoir_corrector": loop._reservoir_predictor,
+            "prephysics": (loop._prephysics_steppers or [None])[0],
+        }[key]
+        assert stepper.label == stepper_keys[key]
+        assert loop.fusable() is (key == "prephysics")
+        if key == "reservoir_corrector":
+            assert loop._reservoir_incrementer.model is stepper.model
         return
     if "layout" in namelist:
         # the sharded layout runs one process per block: without an

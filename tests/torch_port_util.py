@@ -2,6 +2,7 @@
 which hold ``fv3net_torch`` against ``fv3net_tpu`` on the same numpy
 inputs.  Every one of them imports this module, which gives torch's
 intra-op pool of a pytest-xdist worker its share of the host's cores."""
+import contextlib
 import os
 
 import numpy as np
@@ -22,6 +23,25 @@ def _share_torch_threads():
 
 
 _share_torch_threads()
+
+
+@contextlib.contextmanager
+def serial_solves():
+    """torch's intra-op pool at one thread inside the block.  Batched LU
+    solves (``torch.linalg.solve`` over a batch of systems of a few
+    hundred rows, as the subdomain reservoir's trainer makes) hang in
+    torch 2.13.0+cpu with MKL 2024.2 and OpenMP once
+    ``torch.set_num_threads`` has set the pool to 2-7 threads, as
+    ``_share_torch_threads`` may (MKL reports DLASWP's parameter 6 as
+    incorrect); at one thread, or at the default, they do not."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def make_state_numpy(npx: int, npz: int, seed: int = 0, moist: bool = False):
@@ -367,3 +387,139 @@ def sharded_failing_worker(out_dir, threads):
         TimeLoop.chunk_inputs = chunk_inputs
     api.run_segment(get_config(sharded_segment_config((2, 2))), out_dir,
                     device="cpu", dtype=torch.float64)
+
+
+# ------------------------------------- steppers under the sharded layout
+#: the per-step runs of ``stepper_worker``: C8, 8 levels, float64, two
+#: steps on a (2, 1) layout
+STEPPER_LAYOUT = (2, 1)
+
+
+def stepper_config(out_dir, layout, kind):
+    """A C8 per-step run of two steps with the steppers of ``kind``:
+    "nudging" (the nudger and a prephysics tendency prescriber, their
+    stores in ``out_dir``) or "reservoir" (the subdomain corrector of the
+    model in ``out_dir``/model, predicting on the second step)."""
+    import os
+
+    cfg = {"namelist": {"npx": 8, "npz": 8, "layout": list(layout)},
+           "duration_seconds": 1800.0}
+    if kind == "nudging":
+        cfg["nudging"] = {
+            "restarts_path": os.path.join(out_dir, "nudge.zarr"),
+            "timescale_hours": {"air_temperature": 3.0,
+                                "specific_humidity": 3.0,
+                                "eastward_wind": 3.0,
+                                "pressure_thickness_of_atmospheric_layer":
+                                    3.0}}
+        cfg["prephysics"] = [{
+            "kind": "tendency_prescriber",
+            "dataset": os.path.join(out_dir, "tendencies.zarr"),
+            "variables": ["dQ1", "dQ2"],
+            "limit_quantiles": {"upper": 0.99, "lower": 0.01}}]
+    else:
+        cfg["reservoir_corrector"] = {
+            "model_path": os.path.join(out_dir, "model"),
+            "synchronize_steps": 1, "reservoir_timestep_seconds": 900.0}
+    return cfg
+
+
+def stepper_worker(out_dir, threads, kind):
+    """Run by each of 2 gloo CPU ranks: ``stepper_config(kind)`` on the
+    (2, 1) layout through the TimeLoop's per-step path; rank 0 then runs
+    it on one process.  Returns this rank's block of the state fields,
+    the block's slices, the reservoir state (for "reservoir") and rank
+    0's one-process readings."""
+    import torch
+    import torch.distributed as dist
+
+    from fv3net_torch.parallel.halo import no_explicit_halo
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.loop import TimeLoop
+
+    torch.set_num_threads(threads)
+    fields = ("air_temperature", "specific_humidity", "eastward_wind",
+              "northward_wind", "pressure_thickness_of_atmospheric_layer")
+
+    def run(layout):
+        loop = TimeLoop(get_config(stepper_config(out_dir, layout, kind)),
+                        dtype=torch.float64, device="cpu")
+        for _ in loop:
+            pass
+        st = loop._derived()
+        out = {"state": {k: st[k].data.numpy() for k in fields}}
+        if kind == "reservoir":
+            out["reservoir_state"] = (
+                loop._reservoir_predictor.model.state.numpy())
+        return loop, out
+
+    loop, out = run(STEPPER_LAYOUT)
+    out["block"] = loop.mesh.block(8)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        with no_explicit_halo():
+            _, single = run((1, 1))
+        out["single"] = single["state"]
+        out["single_reservoir_state"] = single.get("reservoir_state")
+    return out
+
+
+def reservoir_worker(out_dir, threads):
+    return stepper_worker(out_dir, threads, "reservoir")
+
+
+def column_reservoir_worker(out_dir, threads):
+    """Run by each of 2 gloo CPU ranks: the column corrector of the model
+    in ``out_dir``/column on the (2, 1) layout over two segments of two
+    steps, the second warm-started from what ``save_reservoir_state``
+    saved after the first; rank 0 then runs the same on one process from
+    its own copy of the model (``out_dir``/column_single).  Returns this
+    rank's block of the state after the second segment, the block's
+    slices, the rank's reservoir state just after the warm start, the
+    saved file's state and rank 0's one-process readings."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from fv3net_torch.parallel.halo import no_explicit_halo
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.loop import TimeLoop
+    from fv3net_torch.runtime.steppers.reservoir import save_reservoir_state
+
+    torch.set_num_threads(threads)
+    fields = ("air_temperature", "specific_humidity", "eastward_wind",
+              "northward_wind", "pressure_thickness_of_atmospheric_layer")
+
+    def run(layout, model):
+        cfg = stepper_config(out_dir, layout, "reservoir")
+        rc = cfg["reservoir_corrector"]
+        rc["model_path"] = os.path.join(out_dir, model)
+        loop = TimeLoop(get_config(cfg), dtype=torch.float64, device="cpu")
+        for _ in loop:
+            pass
+        path = save_reservoir_state(loop._reservoir_predictor.model,
+                                    rc["model_path"])
+        rc["warm_start"] = True
+        loop = TimeLoop(get_config(cfg), dtype=torch.float64, device="cpu")
+        out = {"warm_state":
+               loop._reservoir_predictor.model.state.numpy().copy()}
+        for _ in loop:
+            pass
+        st = loop._derived()
+        out["state"] = {k: st[k].data.numpy() for k in fields}
+        with np.load(path) as z:
+            out["saved"] = z["state"]
+        return loop, out
+
+    loop, out = run(STEPPER_LAYOUT, "column")
+    out["block"] = loop.mesh.block(8)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        with no_explicit_halo():
+            _, out["single"] = run((1, 1), "column_single")
+    return out
+
+
+def nudging_worker(out_dir, threads):
+    return stepper_worker(out_dir, threads, "nudging")
