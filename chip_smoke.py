@@ -221,7 +221,24 @@ Phases (any failure exits nonzero, and no result line is printed):
     ``save_reservoir_state``, and a diagnostic-only step: launches, the
     increment before the predict, predictions after the synchronization
     equal to the host's float64 readout (1e-5) and landing in the state;
-    ms of one increment, ms a step, the trainers' seconds.
+    ms of one increment, ms a step, the trainers' seconds;
+28. the offline ops and pipelines at C384 -> C48, factor 8, float32, on
+    a seeded 79-level state with the GFDL tracer set on the card:
+    ``coarsen_state_on_sigma``, ``_on_pressure`` and ``_blended`` and
+    ``compute_budget`` (each timed twice), ``coarsen_sfc_data_complex``
+    (blocks without snow: K5 over all-zero weights), their exact K5
+    launches, each K5 call against its plain version on its own
+    arguments (NaN at the same places, 128 roundings of 2^-24 of scale),
+    the whole calls against their plain runs by NaN and finiteness, the
+    coarse column mass against the fine; float64 sigma, pressure and
+    budget calls on 8 levels, kernels against plain within 1e-12; the
+    ``coarsen_restarts`` CLI (blended) in a process of its own on a
+    C384 Fortran-layout restart directory that ``save_fortran_restarts``
+    writes (its seconds, K5 launches and peak RSS); ``coarsen_surface``
+    on 24 subtile shards with float64 areas through the runner's 4
+    threads (every tile ok on its first attempt, the files against the
+    float64 block average); ``regrid_zarr_to_latlon`` of the C48 state
+    to 180 x 360, gated by conservation; the phase's peak device memory.
 
 ``--sw-columns PATH`` also saves, in phase 6, ``swrad``'s arguments on
 the 8 columns where the float32 SW heating parts most from float64 on
@@ -5447,6 +5464,706 @@ def reservoir_segments(label, tmp, model):
     return walls
 
 
+
+# phase 28: the offline ops and pipelines at
+# C384 -> C48, factor 8, float32, on a state made from a seed on the card
+OFFLINE_NZ = 79  # the reference's levels (the diagnostics' 79)
+OFFLINE_TRACERS = {"sphum": 1e-2, "cloud_water": 1e-4, "ice_wat": 1e-4,
+                   "rainwat": 1e-4, "snowwat": 1e-4, "graupel": 1e-4,
+                   "o3mr": 1e-5}  # the GFDL tracer set and its scales
+OFFLINE_F64_NZ = 8  # levels of the float64 kernel-against-plain calls
+OFFLINE_F64_RTOL = 1e-12  # float64, kernel against plain, of scale
+# a float32 sum of a block's 64 terms errs by at most 63 roundings of 2^-24,
+# and an average divides two such sums: the bound of a float32 K5 call
+# against its plain version (of the output's scale) and of the coarse
+# column mass against the fine.  Whole float32 coarsenings are held to
+# their plain runs by NaN and finiteness only: on pressure levels the
+# plain run's coarse pressures part by an ulp, which may flip a fine
+# cell's below-the-surface mask (a 1e-5 chance a cell) or move a thin
+# layer's edge, so each K5 call is held on its own arguments instead
+F32_SUM_RTOL = 128 * 2.0 ** -24
+LATLON = (180, 360)
+LATLON_RTOL = 1e-6  # conservative_sum's total against sum(field * area)
+SURFACE_SUBTILES = 2  # subtiles a side: 4 shards a tile
+SURFACE_VARS = ("PRATEsfc", "TMP2m", "ULWRFsfc")
+SURFACE_TIMES = 2
+SURFACE_WORKERS = 4
+RESTART_COARSENINGS = {"sigma": "coarsen_state_on_sigma",
+                       "pressure": "coarsen_state_on_pressure",
+                       "blended": "coarsen_state_blended"}
+# code the coarsen_restarts CLI's child process runs first (empty on the
+# card; a CPU rehearsal puts its stubs here)
+CLI_PRELUDE = ""
+
+
+def offline_launches(method, n_tracers):
+    """K5 launches of one restart coarsening, counted from
+    ``pipelines/coarsen_restarts.py``: on sigma delp, pt, each tracer, the
+    3 wind components and phis; on pressure the same plus the coarse delp
+    of the regrid (``ops/regridz.py::regrid_to_area_weighted_pressure``);
+    the blend both and the coarse delp of its weights."""
+    sigma = 6 + n_tracers
+    pressure = 7 + n_tracers
+    return {"sigma": sigma, "pressure": pressure,
+            "blended": sigma + pressure + 1}[method]
+
+
+BUDGET_LAUNCHES = 5  # compute_budget: the coarse delp, 4 fields' averages
+
+
+class PlainK5:
+    """Inside the block, K5's dispatcher runs its plain version
+    (``impl="torch"``) wherever the offline modules call it."""
+
+    def __enter__(self):
+        import functools
+
+        from fv3net_torch.ops import coarsen
+
+        self.orig = coarsen.weighted_block_average
+        coarsen.weighted_block_average = functools.partial(self.orig,
+                                                           impl="torch")
+
+    def __exit__(self, *exc):
+        from fv3net_torch.ops import coarsen
+
+        coarsen.weighted_block_average = self.orig
+
+
+class CheckedK5:
+    """Inside the block each K5 launch is followed by its plain version on
+    the same arguments, which must give NaN at the same places and the
+    other values within ``rtol`` of the output's scale; counts the calls,
+    the NaN values and the calls with weights of x's full shape, and
+    keeps the worst error."""
+
+    def __init__(self, rtol):
+        self.rtol = rtol
+        self.calls = self.nans = self.full_rank = 0
+        self.worst = 0.0
+
+    def __enter__(self):
+        from fv3net_torch.ops import coarsen, coarsen_cuda
+
+        self.orig = coarsen_cuda.weighted_block_average_cuda
+
+        def checked(x, w, factor):
+            got = self.orig(x, w, factor)
+            want = coarsen.weighted_block_average_plain(x, w, factor)
+            err, nans = nan_and_scale(
+                f"K5 call {self.calls} (x {tuple(x.shape)}, w "
+                f"{tuple(w.shape)}, {x.dtype})", got, want, self.rtol)
+            self.calls += 1
+            self.nans += nans
+            self.full_rank += tuple(w.shape) == tuple(x.shape)
+            self.worst = max(self.worst, err)
+            return got
+
+        coarsen_cuda.weighted_block_average_cuda = checked
+        return self
+
+    def __exit__(self, *exc):
+        from fv3net_torch.ops import coarsen_cuda
+
+        coarsen_cuda.weighted_block_average_cuda = self.orig
+
+
+CUBE_GRIDS = {}
+
+
+def cube_grid(n):
+    """``make_grid(n)``, built once a resolution (C384 takes seconds)."""
+    from fv3net_torch.grid.geometry import make_grid
+
+    if n not in CUBE_GRIDS:
+        CUBE_GRIDS[n] = make_grid(n)
+    return CUBE_GRIDS[n]
+
+
+def offline_state(device, dtype, nz, seed=0):
+    """A seeded C384 dycore state on ``device``: hybrid-like levels under
+    a surface pressure that varies by hPa from cell to cell (so that
+    coarse layers reach below the fine surface of some cells of a block),
+    random winds and the GFDL tracer set, and its cell areas."""
+    import torch
+    from fv3net_torch.core.constants import TOA_PRESSURE
+    from fv3net_torch.dycore.state import DycoreState
+
+    n = C384
+    grid = cube_grid(n)
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device, dtype=dtype)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device, dtype=dtype)
+
+    lat = torch.as_tensor(grid.lat, dtype=dtype, device=device)
+    lon = torch.as_tensor(grid.lon, dtype=dtype, device=device)
+    ps = (1.0e5 + 1500.0 * torch.cos(2 * lat) * torch.sin(lon)
+          + 1000.0 * randn(6, n, n))
+    frac = torch.diff(torch.linspace(0.0, 1.0, nz + 1,
+                                     dtype=torch.float64) ** 1.5)
+    delp = (ps - TOA_PRESSURE)[:, None] * frac.to(dtype=dtype, device=device)[
+        None, :, None, None]
+    state = DycoreState(
+        delp=delp, pt=280.0 + 40.0 * rand(6, nz, n, n),
+        wind=10.0 * randn(3, 6, nz, n, n),
+        tracers={k: s * rand(6, nz, n, n)
+                 for k, s in OFFLINE_TRACERS.items()},
+        phis=3.0e4 * rand(6, n, n))
+    return state, torch.as_tensor(grid.area, dtype=dtype, device=device)
+
+
+def offline_fields(state):
+    out = {"delp": state.delp, "pt": state.pt, "phis": state.phis}
+    out.update({f"wind_{c}": state.wind[c] for c in range(3)})
+    out.update({f"tracer_{k}": v for k, v in state.tracers.items()})
+    return out
+
+
+def nan_and_scale(label, got, want, rtol):
+    """NaN at the same places as ``want``, and the other values finite and
+    within ``rtol`` of ``want``'s scale (its largest finite magnitude;
+    ``math.inf``: not held); returns (error of scale, NaN count)."""
+    import torch
+
+    nan = torch.isnan(want)
+    check(got.shape == want.shape and torch.equal(torch.isnan(got), nan),
+          f"{label}: NaN where the plain version has none, or the other "
+          "way round")
+    check(bool(torch.isfinite(got[~nan]).all()), f"{label}: non-finite "
+          "value where the plain version is finite")
+    fin = ~nan
+    if not fin.any():
+        return 0.0, int(nan.sum())
+    scale = want[fin].abs().max().double().item()
+    err = (got[fin] - want[fin]).abs().max().double().item()
+    err = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+    check(err <= rtol, f"{label}: kernel against plain {err:.3e} of scale "
+          f"> {rtol}")
+    return err, int(nan.sum())
+
+
+def column_mass_error(delp_c, fine_mass, area_c):
+    """max over coarse columns of |sum_z delp_c * area_c - the block's
+    fine sum_z delp * area| relative to the latter."""
+    coarse = delp_c.double().sum(1) * area_c
+    return ((coarse - fine_mass).abs() / fine_mass).max().item()
+
+
+def offline_restarts(state, area):
+    """The three restart coarsenings of the float32 state: each timed,
+    its K5 launches and its coarse column mass gated, each of its K5
+    calls held against plain on its own arguments, and its fields
+    against the whole plain run (NaN and finiteness); returns (launches,
+    the sigma coarse state)."""
+    import torch
+    from fv3net_torch.ops import coarsen
+    from fv3net_torch.pipelines import coarsen_restarts as cr
+
+    nt = len(state.tracers)
+    fine_mass = coarsen.block_sum(state.delp.double().sum(1)
+                                  * area.double(), COARSEN_FACTOR)
+    area_c = coarsen.block_sum(area.double(), COARSEN_FACTOR)
+    launched, sigma = 0, None
+    for method, name in RESTART_COARSENINGS.items():
+        fn = getattr(cr, name)
+        seconds = []  # a first call (the card's first use of some
+        for _ in range(2):  # operations) and a second
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(state, area, COARSEN_FACTOR)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        counts = read_counts()
+        want_counts = launches(weighted_block_average=offline_launches(
+            method, nt))
+        check(counts == want_counts, f"{method} coarsening: launches "
+              f"{counts}, expected {want_counts}")
+        launched += counts["weighted_block_average"]
+        with CheckedK5(F32_SUM_RTOL) as calls:
+            fn(state, area, COARSEN_FACTOR)
+        check(calls.calls == want_counts["weighted_block_average"],
+              f"{method}: {calls.calls} K5 calls checked")
+        with PlainK5():
+            want = fn(state, area, COARSEN_FACTOR)
+        got_f, want_f = offline_fields(out), offline_fields(want)
+        check(sorted(got_f) == sorted(want_f), f"{method}: fields")
+        errs, nans = {}, {}
+        for k in want_f:
+            check(got_f[k].shape[-2:] == (C384 // COARSEN_FACTOR,) * 2,
+                  f"{method} {k}: shape {tuple(got_f[k].shape)}")
+            errs[k], nans[k] = nan_and_scale(f"{method} {k}", got_f[k],
+                                             want_f[k], math.inf)
+        mass = column_mass_error(out.delp, fine_mass, area_c)
+        check(mass <= F32_SUM_RTOL, f"{method}: coarse column mass parts "
+              f"from the fine by {mass:.3e} > {F32_SUM_RTOL:.3e}")
+        worst = max(errs, key=errs.get)
+        log(f"  restart coarsening on {method}: C{C384} -> "
+            f"C{C384 // COARSEN_FACTOR}, {OFFLINE_NZ} levels, {nt} "
+            f"tracers, float32: {seconds[0]:.3f} s, again "
+            f"{seconds[1]:.3f} s, K5 launches "
+            f"{counts['weighted_block_average']} (expected "
+            f"{want_counts['weighted_block_average']}); each K5 call "
+            f"against plain on its arguments at most {calls.worst:.3e} of "
+            f"scale (bound {F32_SUM_RTOL:.2e}; {calls.full_rank} calls with "
+            f"weights of x's full shape, {calls.nans} NaN values); the "
+            f"whole plain run: NaN at the same {sum(nans.values())} places, "
+            f"finite elsewhere, at most {errs[worst]:.3e} of scale apart "
+            f"({worst}); column mass Σ delp·area within {mass:.3e} of the "
+            f"fine (bound {F32_SUM_RTOL:.2e})")
+        if method == "sigma":
+            sigma = out
+        del out, want, got_f, want_f
+    return launched, sigma
+
+
+def budget_inputs(state, seed=1):
+    """The fine-resolution budget's z-last inputs from a state: T and q at
+    the begin and end of an interval, and physics tendencies."""
+    import torch
+
+    g = torch.Generator(device=state.delp.device).manual_seed(seed)
+
+    def randn(like):
+        return torch.randn(like.shape, generator=g, device=like.device,
+                           dtype=like.dtype)
+
+    T0 = state.pt.movedim(1, -1)
+    q0 = state.tracers["sphum"].movedim(1, -1)
+    return (T0, T0 + 0.5 * randn(T0), q0, q0 * (1 + 0.01 * randn(q0)),
+            1e-4 * randn(T0), 1e-7 * randn(q0), state.delp.movedim(1, -1))
+
+
+def offline_budget(state, area):
+    """compute_budget on the C384 state: timed, launches gated, each K5
+    call against plain on its arguments, the outputs against the plain
+    run by NaN and finiteness; returns the launches."""
+    import torch
+    from fv3net_torch.pipelines import fine_res_budget as fb
+
+    args = budget_inputs(state)
+    seconds = []  # a first call and a second
+    for _ in range(2):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fb.compute_budget(*args, area, COARSEN_FACTOR, 900.0)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    counts = read_counts()
+    check(counts == launches(weighted_block_average=BUDGET_LAUNCHES),
+          f"compute_budget: launches {counts}, expected {BUDGET_LAUNCHES} "
+          "of K5")
+    with CheckedK5(F32_SUM_RTOL) as calls:
+        fb.compute_budget(*args, area, COARSEN_FACTOR, 900.0)
+    check(calls.calls == BUDGET_LAUNCHES, f"compute_budget: {calls.calls} "
+          "K5 calls checked")
+    with PlainK5():
+        want = fb.compute_budget(*args, area, COARSEN_FACTOR, 900.0)
+    errs = {k: nan_and_scale(f"budget {k}", out[k], want[k], math.inf)[0]
+            for k in want}
+    worst = max(errs, key=errs.get)
+    log(f"  compute_budget (Q1, Q2, dQ1, dQ2 and the storage terms): "
+        f"C{C384} -> C{C384 // COARSEN_FACTOR}, {OFFLINE_NZ} levels, "
+        f"float32: {seconds[0]:.3f} s, again {seconds[1]:.3f} s, K5 "
+        f"launches {counts['weighted_block_average']}; each K5 call "
+        f"against plain "
+        f"at most {calls.worst:.3e} of scale (bound {F32_SUM_RTOL:.2e}); "
+        f"the whole plain run at most {errs[worst]:.3e} of scale apart "
+        f"({worst}), NaN and finite alike")
+    return counts["weighted_block_average"]
+
+
+def sfc_data_fields(device, seed=6):
+    """GFS-named sfc_data fields at C384 on ``device``, with blocks
+    without snow or sea ice, whose snow- and ice-weighted averages are K5
+    calls with all-zero weight blocks (NaN, then 0)."""
+    import torch
+
+    n = C384
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape or (6, n, n), generator=g, device=device)
+
+    slmsk = torch.where(rand() < 0.5, 0.0, torch.where(rand() < 0.7, 1.0,
+                                                        2.0))
+    fields = {
+        "slmsk": slmsk, "vtype": (16 * rand()).floor(),
+        "stype": (17 * rand()).floor(), "vfrac": rand(),
+        "sncovr": torch.where(rand() > 0.6, rand(), 0.0),
+        "fice": torch.where(slmsk == 2.0, 0.2 + 0.8 * rand(), 0.0),
+        "tsea": 260 + 40 * rand(), "tg3": 260 + 30 * rand(),
+        "canopy": rand(), "zorl": 100 * rand(), "sheleg": 50 * rand(),
+        "hice": 3 * rand(), "tisfc": 250 + 40 * rand(),
+        "srflag": (2 * rand()).floor(), "slope": 1 + (8 * rand()).floor(),
+        "shdmin": 0.05 * rand(), "t2m": 260 + 40 * rand(),
+        "smc": 0.1 + 0.4 * rand(6, 4, n, n),
+        "stc": 260 + 40 * rand(6, 4, n, n),
+    }
+    fields["sncovr"][:, :n // 2] = 0.0  # no snow in half of each tile
+    return fields
+
+
+def offline_sfc_data(device, area):
+    """coarsen_sfc_data_complex at C384: its K5 calls (some over blocks
+    whose weights are all 0) against plain on their arguments, the output
+    against the plain run; returns its launches."""
+    import torch
+    from fv3net_torch.pipelines import coarsen_restarts as cr
+
+    fields = sfc_data_fields(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = cr.coarsen_sfc_data_complex(fields, area, COARSEN_FACTOR)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n = read_counts()["weighted_block_average"]
+    # the fields that ``coarsen_sfc_data_complex`` averages with K5 (the
+    # categories slmsk, vtype and stype take block modes)
+    area_fields = [k for k in fields if k not in ("slmsk", "vtype", "stype")
+                   and cr.SFC_DATA_COARSENING_METHOD.get(k, "area") in (
+                       "area", "area_sncovr", "area_fice")]
+    check(n == len(area_fields), f"coarsen_sfc_data_complex: {n} K5 "
+          f"launches, expected {len(area_fields)} ({area_fields})")
+    with CheckedK5(F32_SUM_RTOL) as calls:
+        cr.coarsen_sfc_data_complex(fields, area, COARSEN_FACTOR)
+    check(calls.nans > 0, "coarsen_sfc_data_complex: no K5 call met a "
+          "block of zero weights")
+    with PlainK5():
+        want = cr.coarsen_sfc_data_complex(fields, area, COARSEN_FACTOR)
+    errs = {k: nan_and_scale(f"sfc_data {k}", out[k], want[k],
+                             F32_SUM_RTOL)[0] for k in want}
+    log(f"  coarsen_sfc_data_complex: C{C384} -> C{C384 // COARSEN_FACTOR}, "
+        f"{len(fields)} fields, float32: {seconds:.3f} s, K5 launches {n}; "
+        f"each K5 call against plain at most {calls.worst:.3e} of scale, "
+        f"NaN (all-zero weight blocks) at the same {calls.nans} places; "
+        f"the output against the plain run at most "
+        f"{max(errs.values()):.3e} of scale")
+    return n
+
+
+def offline_float64(device):
+    """One float64 sigma and pressure coarsening and one float64
+    compute_budget at C384 on fewer levels, kernel against plain within
+    1e-12 of each output's scale."""
+    import torch
+    from fv3net_torch.pipelines import coarsen_restarts as cr
+    from fv3net_torch.pipelines import fine_res_budget as fb
+
+    state, area = offline_state(device, torch.float64, OFFLINE_F64_NZ,
+                                seed=2)
+    nt = len(state.tracers)
+    for method in ("sigma", "pressure"):
+        fn = getattr(cr, RESTART_COARSENINGS[method])
+        reset_counts()
+        got = offline_fields(fn(state, area, COARSEN_FACTOR))
+        check(read_counts() == launches(
+            weighted_block_average=offline_launches(method, nt)),
+            f"float64 {method}: launches {read_counts()}")
+        with PlainK5():
+            want = offline_fields(fn(state, area, COARSEN_FACTOR))
+        errs = {k: nan_and_scale(f"float64 {method} {k}", got[k], want[k],
+                                 OFFLINE_F64_RTOL)[0] for k in want}
+        log(f"  float64 {method} coarsening, {OFFLINE_F64_NZ} levels: "
+            f"kernel against plain at most {max(errs.values()):.3e} of "
+            f"scale (bound {OFFLINE_F64_RTOL})")
+    args = budget_inputs(state, seed=3)
+    reset_counts()
+    got = fb.compute_budget(*args, area, COARSEN_FACTOR, 900.0)
+    check(read_counts() == launches(weighted_block_average=BUDGET_LAUNCHES),
+          f"float64 compute_budget: launches {read_counts()}")
+    with PlainK5():
+        want = fb.compute_budget(*args, area, COARSEN_FACTOR, 900.0)
+    errs = {k: nan_and_scale(f"float64 budget {k}", got[k], want[k],
+                             OFFLINE_F64_RTOL)[0] for k in want}
+    log(f"  float64 compute_budget, {OFFLINE_F64_NZ} levels: kernel against "
+        f"plain at most {max(errs.values()):.3e} of scale (bound "
+        f"{OFFLINE_F64_RTOL})")
+
+
+def offline_cli(device, state, tmp):
+    """The coarsen_restarts CLI end to end, as a user runs it, in a
+    process of its own: on a Fortran-layout restart directory that
+    ``save_fortran_restarts`` writes of the C384 state (all 79 levels);
+    returns (K5 launches, the CLI process's peak RSS in bytes)."""
+    import datetime
+
+    import torch
+    from fv3net_torch.core import netcdfio
+    from fv3net_torch.ops import coarsen
+    from fv3net_torch.runtime.checkpoint import (load_fortran_restarts,
+                                                 save_fortran_restarts)
+    from fv3net_torch.runtime.derived_state import ModelState
+
+    import fv3net_torch
+
+    n = C384
+    g = torch.Generator(device=device).manual_seed(4)
+
+    def rand():
+        return torch.rand((6, n, n), generator=g, device=device)
+
+    surface = {"surface_temperature": 270.0 + 30.0 * rand(),
+               "land_sea_mask": (rand() > 0.7).float(),
+               "ice_thickness": torch.where(rand() > 0.9, 2.0 * rand(),
+                                            0.0)}
+    src, dst = os.path.join(tmp, "restart_c384"), os.path.join(
+        tmp, "restart_c48")
+    t0 = time.perf_counter()
+    save_fortran_restarts(ModelState(dycore=state, surface=surface),
+                          datetime.datetime(2016, 8, 1, 3), src,
+                          cube_grid(n))
+    t_write = time.perf_counter() - t0
+    n_surface = len(netcdfio.open_netcdf(os.path.join(
+        src, "sfc_data.tile1.nc")))
+    code = (CLI_PRELUDE
+            + "import json, resource, sys\n"
+            "from fv3net_torch.ops import coarsen_cuda\n"
+            "from fv3net_torch.pipelines import coarsen_restarts\n"
+            "rc = coarsen_restarts.main(sys.argv[1:])\n"
+            "print(json.dumps({'rc': rc, 'launches': "
+            "coarsen_cuda.WAVG_LAUNCHES, 'peak_rss_kb': "
+            "resource.getrusage(resource.RUSAGE_SELF).ru_maxrss}))\n")
+    tree = os.path.dirname(os.path.dirname(fv3net_torch.__file__))
+    # the CLI's process needs the card's memory that this process's
+    # allocator still caches from earlier phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [tree] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", code, src, dst, "--factor",
+         str(COARSEN_FACTOR), "--method", "blended"],
+        capture_output=True, text=True, env=env)
+    t_cli = time.perf_counter() - t0
+    check(proc.returncode == 0, f"coarsen_restarts CLI failed "
+          f"({proc.returncode}): {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    cli_line, child = json.loads(lines[-2]), json.loads(lines[-1])
+    check(cli_line["resolution"] == n // COARSEN_FACTOR and child["rc"] == 0,
+          f"coarsen_restarts CLI printed {lines[-2:]}")
+    want = offline_launches("blended", len(state.tracers)) + n_surface
+    check(child["launches"] == want, f"coarsen_restarts CLI: "
+          f"{child['launches']} K5 launches, expected {want} (the blend of "
+          f"{len(state.tracers)} tracers and {n_surface} surface fields)")
+    out, time_c = load_fortran_restarts(dst)
+    check(time_c == datetime.datetime(2016, 8, 1, 3),
+          f"coarsen_restarts CLI: time {time_c}")
+    nc = n // COARSEN_FACTOR
+    check(out.dycore.delp.shape == state.delp.shape[:2] + (nc, nc),
+          f"coarsen_restarts CLI: delp {tuple(out.dycore.delp.shape)}")
+    check(bool(torch.isfinite(out.dycore.delp).all()),
+          "coarsen_restarts CLI: non-finite coarse delp")
+    area = torch.as_tensor(cube_grid(n).area, device=device)
+    fine_mass = coarsen.block_sum(state.delp.double().sum(1) * area,
+                                  COARSEN_FACTOR)
+    mass = column_mass_error(out.dycore.delp.to(device), fine_mass,
+                             coarsen.block_sum(area, COARSEN_FACTOR))
+    check(mass <= F32_SUM_RTOL, f"coarsen_restarts CLI: coarse column mass "
+          f"parts from the fine by {mass:.3e}")
+    log(f"  coarsen_restarts CLI (--method blended, factor "
+        f"{COARSEN_FACTOR}) on a C{n} Fortran-layout restart directory of "
+        f"{state.delp.shape[1]} levels, {len(state.tracers)} tracers and "
+        f"{n_surface} "
+        f"surface fields: written in {t_write:.1f} s; the CLI process "
+        f"{t_cli:.1f} s (start, load, coarsen on the card, write), K5 "
+        f"launches {child['launches']}, its peak RSS "
+        f"{child['peak_rss_kb'] / 2 ** 20:.2f} GiB; column mass within "
+        f"{mass:.3e}")
+    return child["launches"], child["peak_rss_kb"] * 1024
+
+
+def write_surface_shards(root, seed=5):
+    """C384 surface diagnostics cut into subtile shards
+    (``{prefix}.tile{t}.nc.{SSSS}``, float32 data) and their grid_spec
+    shards (the cell areas in float64); returns the whole tiles' data and
+    areas."""
+    import numpy as np
+    from scipy.io import netcdf_file
+    from fv3net_torch.core import netcdfio
+    from fv3net_torch.core.dataset import Dataset
+    from fv3net_torch.core.quantity import Quantity
+
+    rng = np.random.default_rng(seed)
+    n, s = C384, SURFACE_SUBTILES
+    m = n // s
+    area = cube_grid(n).area
+    data = {v: (1.0 + rng.random((6, SURFACE_TIMES, n, n))).astype(
+        np.float32) for v in SURFACE_VARS}
+    for t in range(6):
+        for k in range(s * s):
+            iy, ix = divmod(k, s)
+            ys, xs = slice(iy * m, (iy + 1) * m), slice(ix * m, (ix + 1) * m)
+            xt, yt = np.arange(ix * m, (ix + 1) * m) + 1.0, np.arange(
+                iy * m, (iy + 1) * m) + 1.0
+            netcdfio.write_netcdf(Dataset(
+                {v: Quantity(data[v][t][:, ys, xs],
+                             ("time", "grid_yt", "grid_xt"))
+                 for v in SURFACE_VARS},
+                coords={"grid_xt": xt, "grid_yt": yt}),
+                os.path.join(root, f"gfsphysics_15min_fine.tile{t + 1}.nc."
+                                   f"{k:04d}"))
+            with netcdf_file(os.path.join(
+                    root, f"grid_spec.tile{t + 1}.nc.{k:04d}"), "w") as f:
+                f.createDimension("grid_xt", m)
+                f.createDimension("grid_yt", m)
+                for name, vals in (("grid_xt", xt), ("grid_yt", yt)):
+                    f.createVariable(name, "d", (name,))[:] = vals
+                f.createVariable("area", "d", ("grid_yt", "grid_xt"))[:] = (
+                    area[t, ys, xs])
+    return data, area
+
+
+def offline_surface(device, tmp):
+    """coarsen_surface on C384 subtile shards through the runner's
+    threads: every item ok on its first attempt, one K5 launch (its
+    float64 instance: float64 areas) per variable and shard, the files
+    equal to the block averages in float64 rounded to float32; returns
+    (launches, seconds)."""
+    import numpy as np
+    import torch
+    from fv3net_torch.core import netcdfio
+    from fv3net_torch.pipelines import coarsen_surface as cs
+
+    src, dst = os.path.join(tmp, "surface_in"), os.path.join(
+        tmp, "surface_out")
+    os.makedirs(src)
+    data, area = write_surface_shards(src)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = cs.coarsen_surface(src, dst, coarsening=COARSEN_FACTOR,
+                                 max_workers=SURFACE_WORKERS, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    shards = 6 * SURFACE_SUBTILES ** 2
+    check([(r.key, r.ok, r.attempts) for r in results]
+          == [(t, True, 1) for t in range(1, 7)],
+          f"coarsen_surface: items {[(r.key, r.ok, r.attempts, r.error) for r in results]}"
+          " (each must be ok on its first attempt)")
+    check(counts == launches(weighted_block_average=shards
+                             * len(SURFACE_VARS)),
+          f"coarsen_surface: launches {counts}, expected "
+          f"{shards * len(SURFACE_VARS)} (a variable a shard)")
+    nc = C384 // COARSEN_FACTOR
+    worst = 0.0
+    for v in SURFACE_VARS:
+        fine = data[v].astype(np.float64)
+        w = area[:, None]
+        num = (fine * w).reshape(6, SURFACE_TIMES, nc, COARSEN_FACTOR, nc,
+                                 COARSEN_FACTOR).sum((3, 5))
+        den = np.broadcast_to(w, fine.shape).reshape(
+            6, SURFACE_TIMES, nc, COARSEN_FACTOR, nc, COARSEN_FACTOR).sum(
+            (3, 5))
+        want = (num / den).astype(np.float32)
+        for t in range(6):
+            ds = netcdfio.open_netcdf(os.path.join(dst, f"C{nc}",
+                                                   f"{v}.tile{t + 1}.nc"))
+            got = np.asarray(ds[v].values)
+            check(got.shape == (SURFACE_TIMES, nc, nc) and got.dtype
+                  == np.dtype(">f4"), f"coarsen_surface {v}: {got.shape} "
+                  f"{got.dtype}")  # classic NetCDF is big-endian
+            rel = np.abs(got.astype(np.float64) - want[t]) / want[t]
+            worst = max(worst, float(rel.max()))
+    check(worst <= 2.0 ** -23, f"coarsen_surface: a value parts from the "
+          f"float64 block average by {worst:.3e} relative, more than a "
+          "float32 rounding")
+    log(f"  coarsen_surface: {shards} C{C384} subtile shards of "
+        f"{len(SURFACE_VARS)} variables x {SURFACE_TIMES} times, "
+        f"{SURFACE_WORKERS} worker threads: {seconds:.2f} s (reading and "
+        f"writing included), every tile ok on attempt 1, K5 launches "
+        f"{counts['weighted_block_average']}, files within {worst:.2e} "
+        f"relative of the float64 block average")
+    return counts["weighted_block_average"], seconds
+
+
+def offline_latlon(device, coarse, tmp):
+    """regrid_zarr_to_latlon of the C48 coarse state to 180 x 360 on the
+    card, gated by conservation (the scatter-add is atomic: its float32
+    order changes from run to run); returns seconds."""
+    import numpy as np
+    import torch
+    from fv3net_torch.core import zarrio
+    from fv3net_torch.core.dataset import Dataset
+    from fv3net_torch.core.quantity import Quantity
+    from fv3net_torch.ops.regrid_latlon import CubeToLatLon
+    from fv3net_torch.post_process import regrid_zarr_to_latlon
+
+    nc = C384 // COARSEN_FACTOR
+    nlat, nlon = LATLON
+    src, dst = os.path.join(tmp, "c48.zarr"), os.path.join(tmp, "latlon.zarr")
+    zarrio.to_zarr(Dataset({
+        "pt": Quantity(coarse.pt.cpu().numpy(), ("tile", "z", "y", "x")),
+        "phis": Quantity(coarse.phis.cpu().numpy(), ("tile", "y", "x"))}),
+        src)
+    t0 = time.perf_counter()
+    regrid_zarr_to_latlon(src, dst, nlat, nlon, device=device)
+    seconds = time.perf_counter() - t0
+    out = zarrio.open_zarr(dst)
+    for name, shape in (("pt", (coarse.pt.shape[1], nlat, nlon)),
+                        ("phis", (nlat, nlon))):
+        check(out[name].shape == shape and bool(np.isfinite(
+            out[name].values).all()), f"latlon {name}: {out[name].shape}")
+    regridder = CubeToLatLon(cube_grid(nc), nlat, nlon, device=device)
+    area = torch.as_tensor(cube_grid(nc).area, dtype=torch.float64,
+                           device=device)
+    worst = 0.0
+    for field in (coarse.pt.movedim(0, 1), coarse.phis[None]):
+        total = regridder.conservative_sum(field).double().sum((-2, -1))
+        want = (field.double() * area).sum((-3, -2, -1))
+        worst = max(worst, ((total - want).abs() / want.abs()).max().item())
+    check(worst <= LATLON_RTOL, f"latlon: conservative_sum parts from "
+          f"sum(field * area) by {worst:.3e} > {LATLON_RTOL}")
+    log(f"  regrid_zarr_to_latlon: C{nc} ({coarse.pt.shape[1]} levels and "
+        f"a surface field) -> {nlat} x {nlon} on the card in {seconds:.2f} "
+        f"s (store read and written); conservative_sum within {worst:.3e} "
+        f"of sum(field * area) (bound {LATLON_RTOL})")
+    return seconds
+
+
+def phase_offline(device):
+    """Phase 28: the offline ops and pipelines at C384 -> C48; returns
+    the K5 launches of its paths (the float64 comparisons left out)."""
+    import resource
+    import tempfile
+
+    import torch
+
+    torch.zeros(1, device=device)  # the allocator's stats need a context
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, area = offline_state(device, torch.float32, OFFLINE_NZ)
+    torch.cuda.synchronize()
+    log(f"  seeded C{C384} state, {OFFLINE_NZ} levels, "
+        f"{len(state.tracers)} tracers, float32, on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launched, sigma = offline_restarts(state, area)
+    launched += offline_budget(state, area)
+    launched += offline_sfc_data(device, area)
+    offline_float64(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        n, rss = offline_cli(device, state, tmp)
+        launched += n
+        del state
+        n, _ = offline_surface(device, tmp)
+        launched += n
+        offline_latlon(device, sigma, tmp)
+    log(f"  phase 28: K5 launches on its paths {launched}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB; host peak RSS of the CLI process {rss / 2 ** 30:.2f} GiB, "
+        f"of this process so far "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20:.2f}"
+        " GiB")
+    return launched
+
+
 def main():
     import argparse
 
@@ -5632,10 +6349,17 @@ def main():
     phase_reservoir(device, ms_without)
     log(f"  phase 27 in {time.perf_counter() - t27:.1f} s")
 
+    phase("28: the offline ops and pipelines at C384 -> C48 (restart "
+          "coarsening on sigma, pressure and blended levels, the fine-res "
+          "budget, the coarsen_restarts CLI, surface shards, lat-lon)")
+    t28 = time.perf_counter()
+    offline_k5 = phase_offline(device)
+    log(f"  phase 28 in {time.perf_counter() - t28:.1f} s")
+
     # each kernel's launches come from the run of the path it lies on
     counts = dict(counts, taumol_lw=counts_mega["taumol_lw"],
                   weighted_block_average=counts_pipeline[
-                      "weighted_block_average"],
+                      "weighted_block_average"] + offline_k5,
                   weighted_select_dot_bf16=bf16_launches[
                       "weighted_select_dot"],
                   spec_band_dot_bf16=bf16_launches["spec_band_dot"],

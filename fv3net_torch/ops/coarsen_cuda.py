@@ -8,13 +8,14 @@ dispatcher calls this wrapper on CUDA tensors.
 Build: :func:`fv3net_torch.ops.cuda_build.build` compiles the source at
 first use.  There is no fallback: a missing compiler, a failed build or a
 failed launch raises.  ``WAVG_LAUNCHES`` counts the launches of this
-process.
+process, from any thread (the surface pipeline launches from a pool).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -26,6 +27,7 @@ SOURCE = "wavg.cu"
 MAX_FACTOR = 1024  # fine columns a block holds in shared memory
 
 WAVG_LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -109,5 +111,6 @@ def weighted_block_average_cuda(x: torch.Tensor, w: torch.Tensor,
                  stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
-    WAVG_LAUNCHES += 1
+    with _COUNT_LOCK:
+        WAVG_LAUNCHES += 1
     return out

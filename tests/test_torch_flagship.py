@@ -268,7 +268,15 @@ def test_port_imports_neither_jax_nor_reference():
         "             'ops.limit', 'runtime.steppers.tendency_prescriber',\n"
         "             'runtime.steppers.combine', 'runtime.steppers.nudging',\n"
         "             'runtime.steppers.reservoir', 'fit.predictor',\n"
-        "             'fit.domain', 'fit.reservoir'):\n"
+        "             'fit.domain', 'fit.reservoir',\n"
+        "             'ops.regridz', 'ops.regrid_latlon', 'ops.spherical',\n"
+        "             'ops.statistics', 'ops.winds', 'ops.vertical_flux',\n"
+        "             'grid.cross', 'pipelines.coarsen_restarts',\n"
+        "             'pipelines.fine_res_budget', 'pipelines.runner',\n"
+        "             'pipelines.coarsen_surface',\n"
+        "             'pipelines.diagnostics_to_zarr',\n"
+        "             'pipelines.restarts_to_zarr', 'post_process',\n"
+        "             'post_process_cli'):\n"
         "    assert 'fv3net_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )

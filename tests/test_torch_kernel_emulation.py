@@ -1,7 +1,8 @@
 """The CUDA sources of K1 (``csrc/remap_apply.cu``), K4 and K3 (the
 weighted selection and the species-interpolated band tau of
-``csrc/ktable.cu``) and K2 (``csrc/taumol_lw.cu``) run on the CPU, held
-against their plain versions.
+``csrc/ktable.cu``), K2 (``csrc/taumol_lw.cu``) and K5 (the weighted
+block average of ``csrc/wavg.cu``) run on the CPU, held against their
+plain versions.
 
 There is no CUDA compiler or card where these tests run, and a kernel that
 is right on the card is checked there (``-m gpu``).  Here each source is
@@ -520,3 +521,51 @@ def test_taumol_bf16_kernel_source_matches_plain(emulated):
         assert torch.isnan(g[N:]).all(), name  # nothing past the N points
         assert torch.isfinite(w[:N]).all()
         assert torch.equal(g[:N], w[:N]), name
+
+
+# (x shape, w shape, factor, zero block): the restart coarsening's mass
+# weights of x's full shape, an area plane per tile shared by the levels,
+# weights with a block all 0 (a coarse level below the fine surface), and
+# a row wider than the kernel's chunk of 1024 fine columns, so that one
+# coarse row's sums come from two blocks
+K5_EMULATION_CASES = [((6, 3, 8, 8), (6, 3, 8, 8), 2, False),
+                      ((6, 3, 8, 8), (6, 1, 8, 8), 4, False),
+                      ((6, 2, 8, 8), (6, 2, 8, 8), 2, True),
+                      ((2, 4, 1032), (2, 4, 1032), 4, False)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", range(len(K5_EMULATION_CASES)))
+def test_wavg_kernel_source_matches_plain(emulated, case, dtype):
+    """K5 (``csrc/wavg.cu``: a block per batch, coarse row and chunk of
+    fine columns, the column sums in shared memory) against
+    ``weighted_block_average_plain``: within 2e-6 (float32) and 1e-13
+    (float64) of each value, NaN (0 / 0) where a block's weights are all
+    0, as the plain version gives it."""
+    from fv3net_torch.ops import coarsen, coarsen_cuda
+
+    shape, w_shape, factor, zero_block = K5_EMULATION_CASES[case]
+    tdt = TORCH_DTYPE[dtype]
+    rng = np.random.default_rng(case)
+    x = torch.tensor(rng.standard_normal(shape) + 3.0, dtype=tdt)
+    w = torch.tensor(rng.random(w_shape) + 0.1, dtype=tdt)
+    if zero_block:
+        w[1, 1, :factor, factor:2 * factor] = 0.0
+    div, mod = coarsen_cuda.weight_batches(shape[:-2], w_shape[:-2])
+    fn = getattr(emulated("wavg.cu"), "fv3_wavg_"
+                 + coarsen_cuda._SUFFIX[tdt])
+    fn.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    ny, nx = shape[-2:]
+    got = torch.full(shape[:-2] + (ny // factor, nx // factor),
+                     float("nan"), dtype=tdt)
+    assert fn(x.data_ptr(), w.data_ptr(), got.data_ptr(),
+              int(np.prod(shape[:-2])), ny, nx, factor, div, mod,
+              None) == 0
+    want = coarsen.weighted_block_average_plain(x, w, factor)
+    nan = torch.isnan(want)
+    assert nan.any() == zero_block
+    assert torch.equal(torch.isnan(got), nan)
+    rtol = {"float32": 2e-6, "float64": 1e-13}[dtype]
+    assert ((got - want).abs()[~nan] <= rtol * want.abs()[~nan]).all()
