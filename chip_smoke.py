@@ -238,7 +238,27 @@ Phases (any failure exits nonzero, and no result line is printed):
     on 24 subtile shards with float64 areas through the runner's 4
     threads (every tile ok on its first attempt, the files against the
     float64 block average); ``regrid_zarr_to_latlon`` of the C48 state
-    to 180 x 360, gated by conservation; the phase's peak device memory.
+    to 180 x 360, gated by conservation; the phase's peak device memory;
+29. the ML loop at C48: a nudged run (phase 25's configuration, T and q
+    nudged, 4 steps per step) writes its state and its nudging
+    tendencies to two zarr stores; ``validate-batches-config-torch``
+    checks the data config (a ``BatchesFromMapperConfig`` over
+    ``open_nudge_to_fine``, half the 13,824 columns a time, shuffled);
+    ``fv3fit-train-torch --device cuda`` trains ``dense`` (2 x 128, seeds
+    0 and 1), ``precipitative`` (2 x 128) and ``convolutional`` (the
+    reference's defaults: 3 layers of 32 filters of 3 x 3, on whole-cube
+    windows) in processes of their own, one epoch each; each CLI
+    artifact loaded on the card with finite weights, predicting finite
+    fields within 1e-4 of the same epoch trained in this process on the
+    same batches; each trainer's float64 epoch
+    on the card against the CPU's (1e-10) and its artifact loaded back
+    predicting the same; the two trained dense models in ``ensemble`` under
+    ``tapered_model`` through ``scikit_learn.model`` for 2 production
+    chunks of ``run_segment`` (gated as phase 15; its prediction in the
+    chunk equal to the wrapped model's called directly and to the taper
+    of the members' midpoint) and one float64 chunk of 2 steps, kernels
+    against plain (1e-8); the batch load's and each epoch's seconds,
+    the wall per chunk beside phase 15's.
 
 ``--sw-columns PATH`` also saves, in phase 6, ``swrad``'s arguments on
 the 8 columns where the float32 SW heating parts most from float64 on
@@ -276,7 +296,11 @@ phase 18's mega-route bf16 chunks, its bound at 2 bytes a bfloat16
 output; ``weighted_select_dot_f64`` and ``spec_band_dot_f64`` are K4's
 and K3's float64 instances at the float64 GFS chain's shapes, their
 launches from phase 21's GFS call (``path_ms``: the call's 44 and 23
-calls).  The script imports nothing of jax or of ``fv3net_tpu``.
+calls); ``weighted_block_average_f64`` is K5's float64 instance at the
+surface shards' shape of phase 28 (float64 areas), its launches from
+that phase's ``coarsen_surface`` (``path_ms``: those launches' calls),
+its bound at 8 bytes a value.  The script imports nothing of jax or of
+``fv3net_tpu``.
 """
 import concurrent.futures
 import gc
@@ -291,6 +315,9 @@ import time
 DEVICE = "cuda:0"
 NPX, NPZ = 48, 32  # the flagship's C48 cube and levels
 DT = 900.0  # s, the flagship's dynamics interval
+# s for all phases: a new phase that would pass it first cuts the depth of
+# earlier ones (the run's own limit is 1200 s, kernels' build included)
+SCRIPT_BUDGET_S = 700
 CHUNK = 8  # steps per chunk
 GRAY_TIMED_CHUNKS = 1  # after one warm-up chunk
 # the RRTMG chunks of both routes, in turns (each route's first is its
@@ -341,6 +368,7 @@ TAUMOL_RTOL = {"float32": 2e-6, "float64": 1e-12}
 # 1e-12 of an output's scale but not below this
 TAUMOL_VALUE_RTOL = {"float32": 2e-6, "float64": 1e-12}
 WAVG_RTOL = 2e-6  # K5, float32 sums in another order (per value)
+WAVG_F64_RTOL = 1e-13  # K5, float64 sums in another order (per value)
 C384, NZ_DIAG, COARSEN_FACTOR = 384, 79, 8  # the diagnostics workload
 PIPELINE_TIMES = 2  # time indices of the pipeline phase's store
 PIPELINE_MEAN_RTOL = 1e-6
@@ -1971,7 +1999,64 @@ def phase_wavg(device, reps=20):
     log(f"  K5, the pipeline's two calls of a time index: "
         f"{path['path_ms']:.4f} ms of device time against a bound of "
         f"{path['path_bound_ms']:.4f} ms")
-    return dict(line, **path)
+    return dict(line, **path), wavg_f64_line(device, reps)
+
+
+def wavg_f64_line(device, reps):
+    """K5's float64 instance at the shape phase 28's ``coarsen_surface``
+    gives it (a shard's [time, y, x] variable, its float64 areas) against
+    plain and the ``avg_pool2d`` form in float64; returns its kernel-line
+    numbers, ``path_ms`` for the surface pipeline's launches of it."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from fv3net_torch.ops import coarsen
+
+    m = C384 // SURFACE_SUBTILES
+    rng = np.random.RandomState(1)
+    x = torch.tensor(1.0 + rng.rand(SURFACE_TIMES, m, m), dtype=torch.float64,
+                     device=device)
+    w = torch.tensor(1.0 + rng.rand(m, m), dtype=torch.float64,
+                     device=device)
+    factor = COARSEN_FACTOR
+    before = read_counts()["weighted_block_average"]
+    got = coarsen.weighted_block_average(x, w, factor)
+    torch.cuda.synchronize()
+    check(read_counts()["weighted_block_average"] == before + 1,
+          "weighted_block_average (float64) did not launch")
+    want = coarsen.weighted_block_average_plain(x, w, factor)
+    err = (got - want).abs().max().item()
+    rel = ((got - want).abs() / want.abs()).max().item()
+    check(rel <= WAVG_F64_RTOL, f"K5 float64 {tuple(x.shape)}: max relative "
+          f"|kernel-plain| {rel} > {WAVG_F64_RTOL}")
+
+    def library():
+        planes = (1, -1) + x.shape[-2:]
+        return (F.avg_pool2d((x * w).reshape(planes), factor)
+                / F.avg_pool2d(w.expand(x.shape).reshape(planes), factor)
+                ).reshape(got.shape)
+
+    lib_rel = ((library() - want).abs() / want.abs()).max().item()
+    dev = device_ms({
+        "plain": lambda: coarsen.weighted_block_average_plain(x, w, factor),
+        "kernel": lambda: coarsen.weighted_block_average(x, w, factor),
+        "library": library,
+    }, reps)
+    moved = nbytes(x, w, got)
+    bound_ms, by = bound(moved, 3 * x.numel(), "float64")
+    calls = 6 * SURFACE_SUBTILES ** 2 * len(SURFACE_VARS)
+    log(f"  K5 float64 x {tuple(x.shape)}, w {tuple(w.shape)}, factor "
+        f"{factor} (a surface shard's variable): max relative |diff| "
+        f"{rel:.3e} (rtol {WAVG_F64_RTOL}); avg_pool2d form max relative "
+        f"|diff| {lib_rel:.3e}; device time kernel {dev['kernel']:.4f} ms, "
+        f"plain {dev['plain']:.4f} ms, avg_pool2d form "
+        f"{dev['library']:.4f} ms; {moved} bytes moved, bound "
+        f"{bound_ms:.4f} ms ({by}); the surface pipeline's {calls} calls "
+        f"{calls * dev['kernel']:.3f} ms")
+    return {"max_abs_err": err, "ms": dev["kernel"],
+            "plain_ms": dev["plain"], "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": dev["library"], "path_ms": calls * dev["kernel"],
+            "path_bound_ms": calls * bound_ms}
 
 
 def phase_pipeline(device):
@@ -2608,7 +2693,8 @@ def phase_segmented_run(device):
     back bit for bit and segment 2 started from it; the two segments
     against one segment of twice the chunks, bit for bit; and one float64
     chunk of 2 steps through the loop, kernels against plain.  Returns
-    the launches of the appended segments."""
+    the launches of the appended segments and the ms a chunk of the
+    segment of twice the chunks."""
     import logging
     import tempfile
 
@@ -2670,9 +2756,9 @@ def phase_segmented_run(device):
         long_cfg = get_config(segment_config(tmp, 2 * SEGMENT_CHUNKS))
         t0 = time.perf_counter()
         long = api.run_segment(long_cfg, os.path.join(tmp, "long"))
-        log_segment(f"one segment of {2 * SEGMENT_CHUNKS} chunks",
-                    long.phase_report, 2 * SEGMENT_CHUNKS,
-                    time.perf_counter() - t0)
+        per_chunk = log_segment(f"one segment of {2 * SEGMENT_CHUNKS} "
+                                "chunks", long.phase_report,
+                                2 * SEGMENT_CHUNKS, time.perf_counter() - t0)
         same_bits(loops[1].state, long.state,
                   f"2 x {SEGMENT_CHUNKS} chunks against 1 x "
                   f"{2 * SEGMENT_CHUNKS}")
@@ -2711,7 +2797,7 @@ def phase_segmented_run(device):
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"  segmented run: launches in the {2 * SEGMENT_CHUNKS} chunks of "
         f"the appended segments {total}")
-    return total
+    return total, per_chunk * 1e3
 
 
 def model_state_of(args):
@@ -6130,7 +6216,8 @@ def offline_latlon(device, coarse, tmp):
 
 def phase_offline(device):
     """Phase 28: the offline ops and pipelines at C384 -> C48; returns
-    the K5 launches of its paths (the float64 comparisons left out)."""
+    the K5 launches of its paths (the float64 comparisons left out) and,
+    of them, those of the surface shards (K5's float64 instance)."""
     import resource
     import tempfile
 
@@ -6152,8 +6239,8 @@ def phase_offline(device):
         n, rss = offline_cli(device, state, tmp)
         launched += n
         del state
-        n, _ = offline_surface(device, tmp)
-        launched += n
+        surface_f64, _ = offline_surface(device, tmp)
+        launched += surface_f64
         offline_latlon(device, sigma, tmp)
     log(f"  phase 28: K5 launches on its paths {launched}; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
@@ -6161,7 +6248,379 @@ def phase_offline(device):
         f"of this process so far "
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20:.2f}"
         " GiB")
-    return launched
+    return launched, surface_f64
+
+
+# -- phase 29: the ML loop --------------------------------------------------
+ML_STEPS = 4  # steps of the nudged run: a time of training data each
+ML_NUDGED = ("air_temperature", "specific_humidity")
+ML_STATE = ("air_temperature", "specific_humidity",
+            "pressure_thickness_of_atmospheric_layer", "physics_precip",
+            "total_precipitation_rate")
+ML_TENDENCIES = {"dQ1_nudging": "air_temperature_tendency_due_to_nudging",
+                 "dQ2_nudging": "specific_humidity_tendency_due_to_nudging"}
+ML_SUBSAMPLE = 0.5  # of the 13,824 columns a time
+ML_EPOCHS = 1
+ML_TAPER = {"cutoff": 10, "rate": 5.0}  # the reference's tapered_dQ defaults
+ML_TRAIN_F64_RTOL = 1e-10  # a float64 epoch, the card's against the CPU's
+# a CLI artifact's prediction against the same float32 epoch trained in
+# this process: one data path and seed, so apart only by the card's
+# reductions in another order
+ML_CLI_RTOL = 1e-4
+ML_MODELS = ("dense", "precipitative", "convolutional")
+# the dense models' outputs clamped to the range of the nudging
+# tendencies they learn ((ref - state) / 3 h of 2 K and of 10% of q at
+# most): trained on 4 steps, they feed back on the free run's states and
+# run away without the clamp (the tapered ensemble at C6, npz=8 on the
+# CPU: 0.014 K a step at the first step, 2.4e3 K at the 12th, then NaN)
+ML_OUTPUT_LIMITS = {"dQ1": {"min": -2e-4, "max": 2e-4},
+                    "dQ2": {"min": -2e-7, "max": 2e-7}}
+ML_COLUMN_INPUTS = ML_STATE[:4]
+
+
+def ml_configs(tmp, state_zarr, nudging_zarr):
+    """The data and training yaml files of phase 29: name -> (training,
+    data) paths."""
+    import yaml
+
+    columns = {"mapper_config": {"function": "open_nudge_to_fine", "kwargs": {
+        "state_zarr": state_zarr, "nudging_zarr": nudging_zarr}},
+        "variable_names": list(ML_STATE) + ["dQ1", "dQ2"],
+        "subsample_ratio": ML_SUBSAMPLE, "shuffle_seed": 0}
+    cube = {"data_path": nudging_zarr,
+            "unstacked_dims": ["tile", "z", "y", "x"], "window_size": 1,
+            "batch_size": 1, "n_windows": ML_STEPS, "seed": 0}
+    training = {
+        "dense": {"model_type": "dense", "random_seed": 0,
+                  "hyperparameters": {
+                      "input_variables": list(ML_NUDGED),
+                      "output_variables": ["dQ1", "dQ2"],
+                      "hidden_layers": 2, "width": 128,
+                      "epochs": ML_EPOCHS, "seed": 0,
+                      "output_limit_config": ML_OUTPUT_LIMITS}},
+        "precipitative": {"model_type": "precipitative", "hyperparameters": {
+            "hidden_layers": 2, "width": 128, "epochs": ML_EPOCHS}},
+        "convolutional": {"model_type": "convolutional", "hyperparameters": {
+            "input_variables": list(ML_NUDGED),
+            "output_variables": list(ML_TENDENCIES.values()),
+            "epochs": ML_EPOCHS}},
+    }
+    out = {}
+    for name, cfg in training.items():
+        paths = (os.path.join(tmp, f"{name}.yaml"),
+                 os.path.join(tmp, f"{name}_data.yaml"))
+        with open(paths[0], "w") as f:
+            yaml.safe_dump(cfg, f)
+        with open(paths[1], "w") as f:
+            yaml.safe_dump(cube if name == "convolutional" else columns, f)
+        out[name] = paths
+    return out
+
+
+def ml_batches(name, cfgs, device, dtype):
+    """The batches the CLI trains ``name`` on (its variables as the CLI
+    takes them), on ``device`` in ``dtype``, and its training config."""
+    import torch
+    import yaml
+    from fv3net_torch.fit import train
+
+    with open(cfgs[name][0]) as f:
+        raw = yaml.safe_load(f)
+    config = train.TrainingConfig.from_dict(raw)
+    with open(cfgs[name][1]) as f:
+        data = yaml.safe_load(f)
+    hp = raw.get("hyperparameters", {})
+    batches = train.open_batches(data, list(hp.get("input_variables", []))
+                                 + list(hp.get("output_variables", [])))
+    return list(train.batches_on(batches, device, dtype)), config
+
+
+def ml_params(model):
+    """name -> tensor of a trained model of phase 29."""
+    if hasattr(model, "named_parameters"):
+        return dict(model.named_parameters())
+    params = model.params
+    if isinstance(params, dict):
+        params = params["trunk"] + [params[h] for h in
+                                    ("head_T", "head_q", "head_precip")]
+    return {f"{i}.{k}": v for i, layer in enumerate(params)
+            for k, v in layer.items()}
+
+
+def ml_trainers(cfgs, cli, tmp, device):
+    """Each trainer in this process: one float32 epoch on the card with
+    the CLI's config (its seconds, synchronized), against which the
+    CLI's artifact, loaded on the card, predicts on the first batch; one
+    float64 epoch on the card against the same epoch on the CPU, the
+    float64 model dumped, loaded back and predicting as before its
+    dump.  Returns the seconds by trainer."""
+    import torch
+    from fv3net_torch.fit import io, train
+
+    def finite(model):
+        return all(bool(torch.isfinite(v).all())
+                   for v in ml_params(model).values())
+
+    seconds = {}
+    for name in ML_MODELS:
+        batches, config = ml_batches(name, cfgs, device, torch.float32)
+        fn = train.get_training_function(config.model_type)
+        train.set_random_seed(config.random_seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = fn(config.hyperparameters, batches, None)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        check(finite(model), f"{name}: non-finite float32 weights")
+        artifact = io.load(cli[name][0]).to(device=device)
+        check(finite(artifact), f"{name}: the CLI's artifact has "
+              "non-finite weights")
+        want = model.predict(batches[0])
+        got = artifact.predict(batches[0])
+        check(sorted(got) == sorted(want) and all(
+            got[k].data.shape == want[k].data.shape
+            and got[k].data.device == batches[0][k].data.device
+            and bool(torch.isfinite(got[k].data).all()) for k in want),
+              f"{name}: the CLI's artifact predicts "
+              + ", ".join(f"{k} {tuple(v.data.shape)}" for k, v in
+                          got.items()))
+        cli_err = max(rel_err(got[k].data, want[k].data) for k in want)
+        check(cli_err <= ML_CLI_RTOL, f"{name}: the CLI's artifact predicts "
+              f"{cli_err:.3e} of scale off the same epoch trained in this "
+              f"process (bound {ML_CLI_RTOL})")
+        del model, artifact, want, got
+        card, _ = ml_batches(name, cfgs, device, torch.float64)
+        cpu, _ = ml_batches(name, cfgs, "cpu", torch.float64)
+        got = fn(config.hyperparameters, card, None)
+        want = fn(config.hyperparameters, cpu, None)
+        errs = {k: rel_err(a.detach(), ml_params(want)[k].detach())
+                for k, a in ml_params(got).items()}
+        where = max(errs, key=errs.get)
+        worst = errs[where]
+        before = got.predict(card[0])
+        on_cpu = want.predict(cpu[0])
+        pred = max(rel_err(before[k].data, on_cpu[k].data) for k in before)
+        check(worst <= ML_TRAIN_F64_RTOL, f"{name}: a float64 epoch on the "
+              f"card parts from the CPU's by {worst:.3e} of scale in {where} "
+              f"(its predictions by {pred:.3e}; every tensor: "
+              + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()) + ")")
+        path = os.path.join(tmp, f"{name}_f64")
+        io.dump(got, path)
+        back = io.load(path).to(device=device)
+        after = back.predict(card[0])
+        same = sorted(before) == sorted(after) and all(
+            torch.equal(before[k].data, after[k].data) for k in before)
+        check(same, f"{name}: the loaded artifact predicts otherwise than "
+              "the model before its dump")
+        log(f"  {name}: one float32 epoch on {len(batches)} batches in "
+            f"{seconds[name]:.2f} s (synchronized); the CLI's artifact on "
+            f"the card, finite, predicts within {cli_err:.3e} of scale of "
+            f"it (bound {ML_CLI_RTOL}); float64 "
+            f"epoch, card against CPU, within {worst:.3e} of scale (bound "
+            f"{ML_TRAIN_F64_RTOL}; {where}), its predictions within "
+            f"{pred:.3e}; its artifact loads and predicts the same bit for "
+            "bit")
+    return seconds
+
+
+def ml_cli(cfgs, tmp):
+    """``fv3fit-train-torch`` for each model type and for the second
+    dense member (seed 1, an override of the CLI), each in a process of
+    its own, all started together; returns run -> (artifact path,
+    seconds of its process)."""
+    import torch
+    import fv3net_torch
+
+    # TF32 off as in this process (torch leaves it on for cuDNN), so that
+    # each process trains the float32 epoch that ml_trainers trains here
+    code = (CLI_PRELUDE
+            + "import json, sys\n"
+            "import torch\n"
+            "torch.backends.cuda.matmul.allow_tf32 = False\n"
+            "torch.backends.cudnn.allow_tf32 = False\n"
+            "from fv3net_torch.fit import train\n"
+            "sys.exit(train.main(sys.argv[1:]))\n")
+    tree = os.path.dirname(os.path.dirname(fv3net_torch.__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [tree] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    runs = {name: (name, cfgs[name], []) for name in ML_MODELS}
+    runs["dense_b"] = ("dense", cfgs["dense"], ["hyperparameters.seed=1"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    procs, out = {}, {}
+    t0 = time.perf_counter()
+    for run, (name, (training, data), overrides) in runs.items():
+        path = os.path.join(tmp, f"{run}_cli")
+        procs[run] = (name, path, subprocess.Popen(
+            [sys.executable, "-c", code, training, data, path, *overrides,
+             "--device", "cuda"], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env))
+    for run, (name, path, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"fv3fit-train-torch {run} failed "
+              f"({proc.returncode}): {stderr[-2000:]}")
+        line = json.loads(stdout.strip().splitlines()[-1])
+        check(line == {"step": "train", "model_type": name, "output": path},
+              f"fv3fit-train-torch {run} printed {line}")
+        out[run] = (path, seconds)
+    return out
+
+
+def phase_ml_loop(device, ms_dense_chunk):
+    """Phase 29: the ML loop at C48 (see the module's docstring); returns
+    the launches of the wrapped model's chunks."""
+    import contextlib
+    import io as _io
+    import shutil
+    import tempfile
+
+    import torch
+    from fv3net_torch import entry
+    from fv3net_torch.core import zarrio
+    from fv3net_torch.data_transform import vertical_tapering_scale_factors
+    from fv3net_torch.fit import io, models
+    from fv3net_torch.loaders import validate
+    from fv3net_torch.runtime import timing
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.loop import TimeLoop
+    from fv3net_torch.runtime.segmented_run import api
+
+    tmp = tempfile.mkdtemp(prefix="ml_loop_")
+    total = launches()
+    try:
+        # 1. the nudged run writes the training data
+        loop = TimeLoop(get_config(stepper_run_config(tmp, ML_STEPS)))
+        store, _ = nudging_store(tmp, loop)
+        del loop
+        nudged = stepper_run_config(
+            tmp, ML_STEPS,
+            nudging={"restarts_path": store, "timescale_hours": {
+                k: NUDGE_TAU_HOURS for k in ML_NUDGED}},
+            diagnostics=[
+                {"name": "state.zarr", "variables": list(ML_STATE),
+                 "times": {"kind": "every"}},
+                {"name": "nudging.zarr",
+                 "variables": list(ML_TENDENCIES) + list(ML_NUDGED),
+                 "renames": ML_TENDENCIES, "times": {"kind": "every"}}])
+        t0 = time.perf_counter()
+        with StepRecorder() as rec:
+            api.run_segment(get_config(nudged), os.path.join(tmp, "nudged"))
+        rec.gate("the nudged run", ML_STEPS)
+        state_zarr = os.path.join(tmp, "nudged", "state.zarr")
+        nudging_zarr = os.path.join(tmp, "nudged", "nudging.zarr")
+        for path, names_ in ((state_zarr, ML_STATE), (nudging_zarr, tuple(
+                ML_TENDENCIES.values()) + ML_NUDGED)):
+            ds = zarrio.open_zarr(path)
+            check(sorted(ds) == sorted(names_), f"{path}: {sorted(ds)}")
+            for k in names_:
+                check(ds[k].shape[0] == ML_STEPS and bool(
+                    torch.isfinite(torch.as_tensor(ds[k].values)).all()),
+                      f"{path} {k}: shape {ds[k].shape}")
+        log(f"  nudged run of {ML_STEPS} steps (T and q nudged): "
+            f"{time.perf_counter() - t0:.2f} s with its stores, the state "
+            f"{sorted(ML_STATE)} and the nudging tendencies")
+
+        # 2. the data config, validated and loaded
+        cfgs = ml_configs(tmp, state_zarr, nudging_zarr)
+        printed = _io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = validate.main([cfgs["dense"][1], "--open"])
+        check(rc == 0, f"validate-batches-config-torch: "
+              f"{printed.getvalue()}")
+        log("  validate-batches-config-torch --open on the columns' data "
+            f"config: {printed.getvalue().strip()}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches, _ = ml_batches("dense", cfgs, device, torch.float32)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        n_cols = batches[0]["dQ1"].shape[0]
+        check(len(batches) == ML_STEPS and n_cols == int(
+            6 * NPX * NPX * ML_SUBSAMPLE), f"batches: {len(batches)} of "
+            f"{n_cols} columns")
+        log(f"  batch load (open_nudge_to_fine, {ML_STEPS} times, "
+            f"{n_cols} of {6 * NPX * NPX} columns a time, to the card): "
+            f"{t_load:.2f} s")
+
+        # 3. the CLI, a process for each model type
+        cli = ml_cli(cfgs, tmp)
+        log(f"  fv3fit-train-torch --device cuda, {len(cli)} processes "
+            "started together: " + ", ".join(f"{k} done after {v[1]:.1f} s"
+                                             for k, v in cli.items()))
+        seconds = ml_trainers(cfgs, cli, tmp, device)
+        log("  one float32 epoch on the card: " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in seconds.items()))
+
+        # 4. the CLI's two dense models in an ensemble under a taper, run
+        # online
+        wrapped = models.TaperedModel(
+            models.EnsembleModel([io.load(cli["dense"][0]),
+                                  io.load(cli["dense_b"][0])], "median"),
+            {"dQ1": ML_TAPER, "dQ2": ML_TAPER})
+        model_dir = os.path.join(tmp, "wrapped")
+        io.dump(wrapped, model_dir)
+        cfg = segment_config(tmp)
+        cfg["scikit_learn"] = {"model": [model_dir]}
+        area = torch.tensor(entry.make_grid(NPX).area, device=device)
+        expected = production_launches(CHUNK, RADIATION_CALLS_PER_CHUNK)
+        calls, orig = [], models.TaperedModel.predict
+
+        def record(self, X):
+            out = orig(self, X)
+            calls.append((self, X, out))
+            return out
+
+        models.TaperedModel.predict = record
+        try:
+            with ChunkRecorder() as crec:
+                t0 = time.perf_counter()
+                run = api.run_segment(get_config(cfg),
+                                      os.path.join(tmp, "online"))
+                seconds_run = time.perf_counter() - t0
+        finally:
+            models.TaperedModel.predict = orig
+        check(run.fusable() and run._production_features(),
+              "the wrapped model's run did not take the fused production "
+              "path")
+        check(len(crec.chunks) == SEGMENT_CHUNKS,
+              f"{len(crec.chunks)} chunks")
+        total = gate_segment("wrapped model", crec, area, expected)
+        per_chunk = log_segment("wrapped model (tapered ensemble of 2 "
+                                "dense 2 x 128)", timing.phase_report(),
+                                SEGMENT_CHUNKS, seconds_run)
+        check(len(calls) == SEGMENT_CHUNKS * CHUNK, f"{len(calls)} calls of "
+              "the wrapped model in the chunks")
+        model, X, out = calls[-1]
+        direct = model.predict(X)
+        members = [m.predict(X) for m in model.model.models]
+        scale = torch.as_tensor(vertical_tapering_scale_factors(
+            NPZ, **ML_TAPER), dtype=out["dQ1"].data.dtype, device=device)
+        for k in ("dQ1", "dQ2"):
+            check(torch.equal(out[k].data, direct[k].data), f"{k}: the "
+                  "chunk's prediction is not the wrapped model's called "
+                  "directly on the same state")
+            mid = (members[0][k].data + members[1][k].data) * 0.5 * scale
+            check(torch.equal(out[k].data, mid), f"{k}: the chunk's "
+                  "prediction is not the taper of the members' midpoint")
+        log(f"  wrapped model online: {SEGMENT_CHUNKS} chunks of {CHUNK} "
+            f"steps, launches a chunk {crec.chunks[0][3]}; wall per chunk "
+            f"{per_chunk * 1e3:.1f} ms beside phase 15's dense-only "
+            f"{ms_dense_chunk:.1f} ms; its last prediction in the chunk "
+            "equal to the wrapped model's called directly and to the taper "
+            "of its members' midpoint")
+        del run, crec, calls, X, out
+
+        # 5. float64, one chunk of 2 steps, kernels against plain
+        cfg64 = dict(cfg, fused_chunk_steps=2, duration_seconds=2 * DT,
+                     radiation_interval_steps=2, diagnostics=[],
+                     fortran_diagnostics=[])
+        loop_kernels_vs_plain("float64 chunk with the wrapped model", cfg64,
+                              production_launches(2, 1))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
 
 
 def main():
@@ -6260,7 +6719,7 @@ def main():
     del k2_args, tables64
 
     phase("10: block-average kernel K5 against its plain version")
-    wavg_line = phase_wavg(device)
+    wavg_line, wavg_f64_line_ = phase_wavg(device)
 
     phase("11: C384 -> C48 coarsening pipeline")
     counts_pipeline = phase_pipeline(device)
@@ -6277,7 +6736,7 @@ def main():
 
     phase("15: the segmented run (run_segment, append_segment) of the "
         "production configuration")
-    phase_segmented_run(device)
+    _, ms_dense_chunk = phase_segmented_run(device)
 
     phase("16: the RRTMG options (bf16 storage with K4/K3 in bfloat16, "
         "daylight compression, lookup tables, column blocking)")
@@ -6353,13 +6812,22 @@ def main():
           "coarsening on sigma, pressure and blended levels, the fine-res "
           "budget, the coarsen_restarts CLI, surface shards, lat-lon)")
     t28 = time.perf_counter()
-    offline_k5 = phase_offline(device)
+    offline_k5, surface_k5 = phase_offline(device)
     log(f"  phase 28 in {time.perf_counter() - t28:.1f} s")
+
+    phase("29: the ML loop (a nudged run's training data, "
+          "validate-batches-config-torch, fv3fit-train-torch for dense, "
+          "precipitative and convolutional, a tapered ensemble through "
+          "run_segment)")
+    t29 = time.perf_counter()
+    phase_ml_loop(device, ms_dense_chunk)
+    log(f"  phase 29 in {time.perf_counter() - t29:.1f} s")
 
     # each kernel's launches come from the run of the path it lies on
     counts = dict(counts, taumol_lw=counts_mega["taumol_lw"],
                   weighted_block_average=counts_pipeline[
-                      "weighted_block_average"] + offline_k5,
+                      "weighted_block_average"] + offline_k5 - surface_k5,
+                  weighted_block_average_f64=surface_k5,
                   weighted_select_dot_bf16=bf16_launches[
                       "weighted_select_dot"],
                   spec_band_dot_bf16=bf16_launches["spec_band_dot"],
@@ -6415,6 +6883,12 @@ def main():
             "source": "fv3net_torch/csrc/ktable.cu",
             "replaces": "fv3net_tpu/ops/pallas_ktable.py:97",
             **f64_lines["spec_band_dot"]},
+        # K5's float64 instance, its launches from phase 28's surface
+        # shards
+        "weighted_block_average_f64": {
+            "source": "fv3net_torch/csrc/wavg.cu",
+            "replaces": "fv3net_tpu/ops/pallas_kernels.py:25",
+            **wavg_f64_line_},
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": v["source"],
@@ -6431,7 +6905,9 @@ def main():
         for value in k.values():
             check(not isinstance(value, float) or math.isfinite(value),
                   "non-finite number in the kernel line")
-    log(f"  all phases in {time.perf_counter() - t_start:.1f} s")
+    wall = time.perf_counter() - t_start
+    log(f"  all phases in {wall:.1f} s, {SCRIPT_BUDGET_S - wall:.1f} s inside "
+        f"the script's budget of {SCRIPT_BUDGET_S} s")
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

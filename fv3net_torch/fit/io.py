@@ -3,9 +3,11 @@ external/fv3fit/fv3fit/_shared/io.py:17-92): an artifact directory holds
 a ``name`` file naming its model type, and ``load(path)`` dispatches on
 it.  The port reads and writes the reference's artifact formats, so a
 model the reference trained and dumped loads here.  Registered: the
-dense model (``fit/dense.py``) and the pure, hybrid and subdomain
-reservoir models (``fit/reservoir.py``); the reference's other model
-types raise ``NotImplementedError`` naming ROADMAP.md Queue 1 item 9.
+dense model (``fit/dense.py``), ``precipitative``, ``convolutional``,
+the wrappers of ``fit/models.py``, ``constant-output``
+(``fit/testing.py``) and the pure, hybrid and subdomain reservoir
+models (``fit/reservoir.py``); the reference's other model types raise
+``NotImplementedError`` naming ROADMAP.md Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -76,6 +78,13 @@ def load(path: str):
     """The model dumped at ``path``, on the CPU in the dtype it was saved
     in (``.to(device, dtype)`` moves it)."""
     # the registered types register on import
-    from fv3net_torch.fit import dense, reservoir  # noqa: F401
+    from fv3net_torch.fit import (  # noqa: F401
+        convolutional,
+        dense,
+        models,
+        precipitative,
+        reservoir,
+        testing,
+    )
 
     return register.load(path)

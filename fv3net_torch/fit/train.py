@@ -1,15 +1,20 @@
-"""Trainer registry, training config and CLI (port of
-``fv3net_tpu/fit/train.py``; reference: external/fv3fit/fv3fit/
-_shared/training_config.py and fv3fit/train.py:33-192).
+"""Trainer registry, training config and the ``fv3fit-train-torch``
+CLI (port of ``fv3net_tpu/fit/train.py``; reference:
+external/fv3fit/fv3fit/_shared/training_config.py and
+fv3fit/train.py:33-192).
 
 ``@register_training_function(name, HyperparamCls)`` registers
 ``fn(hyperparameters, train_batches, validation_batches) -> model``;
 ``train_main`` resolves, fits and dumps a model with its ``train.yaml``.
-Ported: the ``dense`` trainer (``fit/dense.py``) and the ``reservoir``,
-``hybrid_reservoir`` and ``subdomain_reservoir`` trainers
-(``fit/reservoir.py``); the reference's other trainers and the CLI's
-data loaders are not (ROADMAP.md Queue 1 item 9), so ``main`` raises on
-them.
+Ported: the ``dense`` trainer (``fit/dense.py``), ``precipitative``
+(``fit/precipitative.py``), ``convolutional``
+(``fit/convolutional.py``) and the ``reservoir``, ``hybrid_reservoir``
+and ``subdomain_reservoir`` trainers (``fit/reservoir.py``); the
+reference's other trainers raise ``NotImplementedError`` naming
+ROADMAP.md Queue 1 item 9.  ``main`` reads the data configs as the
+reference does (the loaders' configs, or the legacy ``{kind, path,
+variables}`` dict) and trains on ``--device`` (default ``cuda``: without
+a card it raises).
 """
 from __future__ import annotations
 
@@ -40,7 +45,12 @@ def register_training_function(name: str, hyperparameter_class: Type):
 
 def _registered(name: str) -> Tuple[Callable, Type]:
     # the registered trainers register on import
-    from fv3net_torch.fit import dense, reservoir  # noqa: F401
+    from fv3net_torch.fit import (  # noqa: F401
+        convolutional,
+        dense,
+        precipitative,
+        reservoir,
+    )
 
     if name not in _TRAINING_FUNCTIONS:
         raise NotImplementedError(
@@ -123,27 +133,80 @@ def train_main(config_dict: dict, train_batches, validation_batches,
     return model
 
 
+def batches_on(batches, device, dtype=None):
+    """``batches`` (a sequence of Datasets) with every tensor on
+    ``device`` (and in ``dtype`` if given), lazily."""
+    import torch
+
+    from fv3net_torch.core.quantity import Quantity
+    from fv3net_torch.loaders.sequences import Map
+
+    def move(ds):
+        return ds.map(lambda q: Quantity(
+            torch.as_tensor(q.data, device=device, dtype=dtype), q.dims,
+            q.units, dict(q.attrs)))
+
+    return Map(move, batches)
+
+
+def open_batches(cfg: dict, variables: Sequence[str]):
+    """The batches of a data config: the legacy ``{kind, path,
+    variables}`` dict, or a loader config of ``fit/data.py``'s registry
+    (``FromBatches`` over the loaders' ``BatchesConfig`` /
+    ``BatchesFromMapperConfig``, ``WindowedZarrLoader``,
+    ``SyntheticNoise``; reference train.py:139-141)."""
+    if "kind" in cfg or ("path" in cfg and "variables" in cfg):
+        from fv3net_torch.loaders import batches_from_config
+
+        return batches_from_config(cfg)
+    from fv3net_torch.fit.data import tfdataset_loader_from_dict
+
+    loader = tfdataset_loader_from_dict(cfg)
+    return loader.open_tfdataset(None, variables)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     """CLI: train <training.yaml> <data.yaml> <output> [overrides...]
-    (reference: python -m fv3fit.train).  The data loaders are not
-    ported yet: any data config raises ``NotImplementedError``."""
+    [--device cuda|cpu] (reference: python -m fv3fit.train).  A
+    ``validation`` entry of the data config opens the validation
+    batches."""
     import yaml
 
-    parser = argparse.ArgumentParser("fv3net_torch.fit.train")
+    from fv3net_torch.pipelines import resolve_device
+
+    parser = argparse.ArgumentParser("fv3fit-train-torch")
     parser.add_argument("training_config")
     parser.add_argument("training_data_config")
     parser.add_argument("output_path")
     parser.add_argument("overrides", nargs="*")
+    parser.add_argument("--device", default="cuda",
+                        help="device the batches and the trainer use "
+                             "(default cuda; cpu to train on the CPU)")
     args = parser.parse_args(argv)
+    device = resolve_device(args.device)
     with open(args.training_config) as f:
         config_dict = apply_config_overrides(yaml.safe_load(f),
                                              args.overrides)
     TrainingConfig.from_dict(config_dict)  # validate before the data
-    raise NotImplementedError(
-        f"training data configs ({args.training_data_config}) need the "
-        "loaders, which are not ported to fv3net_torch yet (ROADMAP.md "
-        "Queue 1 item 9); call train_main with batches instead")
+    with open(args.training_data_config) as f:
+        data_config = yaml.safe_load(f)
+
+    hp = config_dict.get("hyperparameters", {})
+    variables = list(hp.get("input_variables", [])) + list(
+        hp.get("output_variables", [])
+    )
+    val_config = data_config.pop("validation", None)
+    train_batches = batches_on(open_batches(data_config, variables), device)
+    val_batches = (batches_on(open_batches(val_config, variables), device)
+                   if val_config else None)
+    train_main(config_dict, train_batches, val_batches, args.output_path)
+    return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    # `python -m fv3net_torch.fit.train` runs this file as __main__, a
+    # second module whose trainer registry stays empty (the trainers
+    # register in fv3net_torch.fit.train): hand over to that one
+    from fv3net_torch.fit.train import main as _canonical_main
+
+    raise SystemExit(_canonical_main())

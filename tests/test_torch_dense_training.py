@@ -183,14 +183,15 @@ def test_schedules_match_optax(name, kwargs):
 
 
 def test_unported_names_raise():
-    """Other optax names raise the port's not-ported error (item 9)."""
+    """Other optax names, and a trainer the port does not have yet,
+    raise the port's not-ported error (item 9)."""
     with pytest.raises(NotImplementedError, match="item 9"):
         tconfig.OptimizerConfig("adagrad").instance
     with pytest.raises(NotImplementedError, match="item 9"):
         tconfig.LearningRateScheduleConfig("warmup_cosine_decay_schedule",
                                            {}).instance
     with pytest.raises(NotImplementedError, match="item 9"):
-        ttrain.get_training_function("convolutional")
+        ttrain.get_training_function("cyclegan")
 
 
 def test_config_copies_match_reference():
@@ -310,9 +311,30 @@ def test_train_main_writes_an_artifact_the_reference_reads(tmp_path,
     for k in NAMES_OUT:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=1e-12, atol=0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttrain.main([str(tmp_path / "model" / "train.yaml"), "data.yaml",
-                     str(tmp_path / "x")])
+    # the CLI trains the same config from a data config (the legacy
+    # {kind, path, variables} dict over a zarr store of the same columns
+    # as one time of a [tile, z, y, x] cube), and its model predicts
+    # what the reference loads from its artifact
+    from fv3net_torch.core import zarrio
+
+    cols = _columns()
+    zarrio.to_zarr(Dataset({k: Quantity(
+        v.reshape(1, 6, 4, 4, NPZ).transpose(0, 1, 4, 2, 3),
+        ("time", "tile", "z", "y", "x")) for k, v in cols.items()}),
+        str(tmp_path / "columns.zarr"))
+    data = tmp_path / "data.yaml"
+    data.write_text(yaml.safe_dump({
+        "kind": "zarr", "path": str(tmp_path / "columns.zarr"),
+        "variables": NAMES_IN + NAMES_OUT}))
+    assert ttrain.main([str(tmp_path / "model" / "train.yaml"), str(data),
+                        str(tmp_path / "cli"), "--device", "cpu"]) == 0
+    cli = tio.load(str(tmp_path / "cli"))
+    want = jfit.load(str(tmp_path / "cli")).predict_arrays(
+        {k: jnp.asarray(x[k]) for k in NAMES_IN})
+    got = cli.predict_arrays({k: torch.tensor(x[k]) for k in NAMES_IN})
+    for k in NAMES_OUT:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-12, atol=0)
 
 
 def test_entries_train_their_models(monkeypatch):
