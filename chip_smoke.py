@@ -78,7 +78,7 @@ Phases (any failure exits nonzero, and no result line is printed):
     float32: slab ocean and sea ice, the "set" SST prescriber, RRTMG every
     4th step and the dense ML stepper around the production dynamics
     (kord 9 without the energy remap, so K1 remaps theta_v with iv=2) --
-    one warm-up, 5 timed chunks and one profiled chunk: ms per chunk,
+    one warm-up, 3 timed chunks and one profiled chunk: ms per chunk,
     SYPD, device busy and idle share, the ranges' device busy (prephysics,
     dynamics, radiation, physics, ml) with the hand kernels in; gates:
     every field finite, the exact launches of K1, K4 and K3 per chunk and
@@ -114,7 +114,7 @@ Phases (any failure exits nonzero, and no result line is printed):
 16. the RRTMG options: the flagship chunk with the reference's
     accelerator radiation settings (bf16 storage, SW daylight
     compression: ``flagship(rrtmg_options=BF16_OPTIONS)``) in turns with
-    the default chunk, one warm-up and 5 timed each, and one profiled:
+    the default chunk, one warm-up and 3 timed each, and one profiled:
     ms per chunk, SYPD, device busy, idle share, the radiation range;
     launches exact per chunk by kernel and by instance (K4/K3 float32 or
     bfloat16); every K4 and K3 call of one bf16 radiation call on phase
@@ -214,7 +214,7 @@ Phases (any failure exits nonzero, and no result line is printed):
     1e-10 (radiation every step: the per-step path has no interval);
 27. the reservoir corrector: ``reservoir``, ``hybrid_reservoir`` (state
     500, 64 column features) and ``subdomain_reservoir`` (2 x 2
-    subdomains a tile, overlap 1, a [60, 6, 48, 48, 64] series) trained
+    subdomains a tile, overlap 1, a [40, 6, 48, 48, 64] series) trained
     on the card and on the CPU, held-out predictions within 1e-4; the
     hybrid and the subdomain model as ``reservoir_corrector`` over 2
     segments of 4 steps, the second warm-started from
@@ -258,7 +258,42 @@ Phases (any failure exits nonzero, and no result line is printed):
     chunk equal to the wrapped model's called directly and to the taper
     of the members' midpoint) and one float64 chunk of 2 steps, kernels
     against plain (1e-8); the batch load's and each epoch's seconds,
-    the wall per chunk beside phase 15's.
+    the wall per chunk beside phase 15's;
+30. the rest of the ML library at C48, on phase 27's cube series and
+    phase 29's stores: a production chunk of the native Zhao-Carr
+    microphysics with the emulator's ``StorageHook`` capturing its
+    inputs and outputs every 4th step; ``fv3fit-train-torch --device
+    cuda`` for ``dense_autoencoder`` (the reference's defaults: latent
+    10, 2 x 64), ``transformed`` (``rnn``, width 256, the
+    log-humidity and log-temperature increments of
+    ``EMULATOR_TRANSFORMS``, q limited at 0), ``graph`` (64 wide, 3
+    passes, on whole-cube samples), ``fmr`` (on 4-step series of 1,024
+    columns), ``cyclegan`` (the default generator and discriminator, the
+    state and the nudging store as its two domains) and
+    ``min_max_novelty_detector``, six processes at once, one epoch each,
+    cuDNN deterministic; meanwhile the Jacobians of phase 29's dense
+    model at its batch's mean, float64, card against CPU (1e-13), and
+    ``input_sensitivity``; a 2-trial grid sweep of the dense trainer
+    through ``run_sweep``, both trials listed by
+    ``tracking-query-torch``; a ``PCATransformer`` (16 components) and
+    the CLI's autoencoder each under a ``subdomain_reservoir`` with
+    ``transformer_path`` (2 x 2, state 500, T and q in and out) trained
+    on the card and the CPU (1e-4), decoded predictions finite, each
+    artifact reloaded bit for bit, ms of a latent increment; the
+    autoencoder-latent model as ``reservoir_corrector`` gated as phase
+    27's models (launches a step, predictions against the host's float64
+    readout); the rnn emulator as ``online_emulator`` (target
+    microphysics) through 2 ``run_segment`` chunks gated as phase 20 and
+    a float64 chunk, kernels against plain (1e-8); an ``out_of_sample``
+    model (phase 29's dense member, the min-max detector, ``taper_ramp``)
+    through 2 ``run_segment`` chunks gated as phase 15, its dQ1 the
+    member's times the taper; each trainer's CLI artifact against the
+    same float32 epoch in this process (1e-4), its float64 epoch on the
+    card against the CPU's (1e-12 of each tensor's scale; the
+    CycleGAN's elements plus what its one Adam step makes of a gradient
+    1e-14 off: lr 1e-14 (1 - |u|)^2 / eps, u its move over lr; the CPU's
+    in a thread started after the float32 epochs were timed) and
+    reloaded bit for bit.
 
 ``--sw-columns PATH`` also saves, in phase 6, ``swrad``'s arguments on
 the 8 columns where the float32 SW heating parts most from float64 on
@@ -477,25 +512,28 @@ def _profiled_us(fn, reps):
 
 
 def device_ms(fns, reps, warmup=3):
-    """Device milliseconds per call of each named function, timed twice in
-    turns (a, b, ..., b, a), the lower of the two; the host's work between
-    the launches (a wrapper's checks, the ctypes call) is not in it.
+    """Device milliseconds per call of each named function, each read
+    once, in turn; the host's work between the launches (a wrapper's
+    checks, the ctypes call) is not in it.
 
     CUDA events around ``reps`` calls that the host queued while a sleep
     kernel held the device, so that the device ran them back to back.  A
     function that waits on the device itself (a copy from pageable host
     memory in a plain version) cannot be queued ahead: its time is the sum
-    of its device activities under ``torch.profiler`` instead.  (A
-    profiler session that launches nothing but ctypes-bound kernels may
-    record none of them, so the kernels are timed by the first way.)"""
+    of its device activities under ``torch.profiler`` instead.  Every
+    function is read once, so that a queued kernel and a profiled plain
+    version are read alike (a profiler session takes seconds of the
+    script's time).  (A profiler session that launches nothing but
+    ctypes-bound kernels may record none of them, so the kernels are
+    timed by the first way.)"""
     import torch
 
     names = list(fns)
     for n in names:
         for _ in range(warmup):
             fns[n]()
-    out = {n: [] for n in names}
-    for n in names + names[::-1]:
+    out = {}
+    for n in names:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -514,11 +552,10 @@ def device_ms(fns, reps, warmup=3):
         if not ahead:
             log(f"  ({n} waits on the device: its device time from the "
                 "profiler)")
-        ms = (start.elapsed_time(end) if ahead
-              else _profiled_us(fns[n], reps) / 1e3) / reps
-        check(ms > 0, f"timing {n}: no device time recorded")
-        out[n].append(ms)
-    return {n: min(v) for n, v in out.items()}
+        out[n] = (start.elapsed_time(end) if ahead
+                  else _profiled_us(fns[n], reps) / 1e3) / reps
+        check(out[n] > 0, f"timing {n}: no device time recorded")
+    return out
 
 
 def nbytes(*tensors):
@@ -686,7 +723,7 @@ def remap_case(device, dtype, F, npz=NPZ, reps=0):
         f"{rtol:.3e}){f32}, column-mass rel err {cons:.3e}; {moved} bytes "
         f"moved" + ("" if not reps else
                     f"; device time kernel {ms['kernel']:.4f} ms, plain "
-                    f"{ms['plain']:.4f} ms (lower of two)"))
+                    f"{ms['plain']:.4f} ms (device_ms)"))
     return err, ms, moved, got.numel()
 
 
@@ -1730,7 +1767,7 @@ def phase_ktable(rec, reps=20):
                 f"max|diff| {err:.3e} (scale {scale:.3e}, rtol {rtol}); "
                 f"embedding_bag max|diff| {lib_err:.3e}; device time kernel "
                 f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
-                f"embedding_bag {ms['library']:.4f} ms (lower of two); "
+                f"embedding_bag {ms['library']:.4f} ms (device_ms); "
                 f"{moved} bytes moved, {flops} flops, bound "
                 f"{bound_ms:.4f} ms ({by}, "
                 f"{100 * bound_ms / ms['kernel']:.1f}% of it)")
@@ -2149,7 +2186,7 @@ K3_YARDSTICK = {"LW band 3 lower": (70, 9, 16, 2, 2, 3),
 
 # the production chunk (entry.production): one warm-up and this many
 # timed chunks, then one under the profiler
-PRODUCTION_TIMED_CHUNKS = 5
+PRODUCTION_TIMED_CHUNKS = 3
 # its kernels against its plain versions, within each field's scale
 # times the CPU chunk tests' bound (tests/test_torch_production.py
 # CHUNK_RTOL): a 2-step float64 chunk with a model that leaves the ML
@@ -3163,9 +3200,9 @@ def driver_inputs(rad_args, lat):
 # _compress_daylight_default)
 BF16_OPTIONS = {"storage_dtype": "bfloat16", "compress_daylight": True}
 # the default and the bf16 chunks in turns (each one's first is its
-# warm-up, then 5 timed)
+# warm-up, then 3 timed)
 OPTIONS_SCHEDULE = ("default", "bf16", "bf16", "default", "default", "bf16",
-                    "bf16", "default", "default", "bf16", "bf16", "default")
+                    "bf16", "default")
 # K4 per radiation call under bf16 storage, by instance: the LW Planck
 # fractions (12 calls) and 1-D minors (1) and the SW band 24 Rayleigh lerp
 # (1) take their two rows alone, as the reference (lw.py _lerp_taken): 14
@@ -4175,7 +4212,8 @@ def phase_emulated_run(device):
     bit for bit; a fresh loop's chunk profiled; one chunk with the seeded
     model in the gscond slot, piggy-backed, whose six tendencies reach
     the zarr diagnostics; one float64 chunk of 2 steps, kernels against
-    plain.  Returns the launches of the appended segments."""
+    plain.  Returns the launches of the appended segments and the wall
+    per chunk of the second (s)."""
     import tempfile
 
     import numpy as np
@@ -4283,7 +4321,7 @@ def phase_emulated_run(device):
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"  emulated run: launches in the {2 * SEGMENT_CHUNKS} chunks of the "
         f"appended segments {total}")
-    return total
+    return total, walls[-1]
 
 
 # -- phase 21: the radiation stepper and the GFS chain -------------------
@@ -4664,7 +4702,7 @@ def phase_sharded_dryrun(device):
 
 
 # -- phase 22: synthband and Held-Suarez ---------------------------------
-SYNTHBAND_TIMED_CHUNKS = 2
+SYNTHBAND_TIMED_CHUNKS = 1
 HELD_SUAREZ_RTOL = 1e-6
 
 
@@ -4780,12 +4818,12 @@ BIAS_INTERVAL_S = 1800.0
 RESERVOIR_STATE = 500  # the reference's default state size
 RESERVOIR_L2 = 1.0  # the readout's ridge (see phase_reservoir)
 COLUMN_SERIES = 200  # steps of the column series
-CUBE_SERIES = 60  # steps of the cube series
+CUBE_SERIES = 40  # steps of the cube series
 RESERVOIR_TRAIN_RTOL = 1e-4  # float32 card training against the CPU's
 RESERVOIR_PREDICT_RTOL = 1e-5  # a prediction against the host's
 RESERVOIR_SYNC_STEPS = 2
 RESERVOIR_STEP_S = 1800.0
-INCREMENT_REPS = 20
+INCREMENT_REPS = 10
 
 
 def per_step_launches():
@@ -5416,7 +5454,7 @@ def phase_reservoir(device, ms_without):
         + ", ".join(f"{k} {median_ms(v):.1f}" for k, v in walls.items())
         + f"; without (phase 25) {ms_without:.1f}; trainers' seconds "
         + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
-    return increment_ms
+    return increment_ms, cube[0], median_ms(walls["subdomain"])
 
 
 def reservoir_segments(label, tmp, model):
@@ -5527,7 +5565,8 @@ def reservoir_segments(label, tmp, model):
         host.state = r.double().cpu()
         want_pred = host.predict_from_state(u.double().cpu())
         if hasattr(host, "divider"):
-            want_t = want_pred.movedim(-1, 1)
+            # T: the first output variable's levels
+            want_t = want_pred.movedim(-1, 1)[:, :got.shape[1]]
         else:
             want_t = unstack_columns(want_pred, (6, NPX, NPX))
         err = rel_err(got, want_t)
@@ -6428,27 +6467,42 @@ def ml_cli(cfgs, tmp):
     dense member (seed 1, an override of the CLI), each in a process of
     its own, all started together; returns run -> (artifact path,
     seconds of its process)."""
+    runs = {name: (name, cfgs[name], []) for name in ML_MODELS}
+    runs["dense_b"] = ("dense", cfgs["dense"], ["hyperparameters.seed=1"])
+    return wait_cli(start_cli(runs, tmp))
+
+
+def start_cli(runs, tmp):
+    """Starts ``fv3fit-train-torch --device cuda`` for each run (name ->
+    (model type, (training yaml, data yaml), overrides)), each in a
+    process of its own, all at once, after emptying this process's CUDA
+    cache, with cuDNN's deterministic algorithms; returns what
+    :func:`wait_cli` takes."""
     import torch
     import fv3net_torch
 
     # TF32 off as in this process (torch leaves it on for cuDNN), so that
-    # each process trains the float32 epoch that ml_trainers trains here
+    # each process trains the float32 epoch the script trains here; the
+    # CycleGAN's epoch amplifies the last bits of cuDNN's weight
+    # gradients, which its default algorithms sum in a varying order (a
+    # CLI artifact 3.1e-3 of scale off the in-process epoch), so the
+    # processes and the script's phase 30 epochs take the deterministic
+    # ones
     code = (CLI_PRELUDE
             + "import json, sys\n"
             "import torch\n"
             "torch.backends.cuda.matmul.allow_tf32 = False\n"
             "torch.backends.cudnn.allow_tf32 = False\n"
+            "torch.backends.cudnn.deterministic = True\n"
             "from fv3net_torch.fit import train\n"
             "sys.exit(train.main(sys.argv[1:]))\n")
     tree = os.path.dirname(os.path.dirname(fv3net_torch.__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [tree] + [p for p in os.environ.get("PYTHONPATH", "").split(
             os.pathsep) if p]))
-    runs = {name: (name, cfgs[name], []) for name in ML_MODELS}
-    runs["dense_b"] = ("dense", cfgs["dense"], ["hyperparameters.seed=1"])
     gc.collect()
     torch.cuda.empty_cache()
-    procs, out = {}, {}
+    procs = {}
     t0 = time.perf_counter()
     for run, (name, (training, data), overrides) in runs.items():
         path = os.path.join(tmp, f"{run}_cli")
@@ -6456,7 +6510,18 @@ def ml_cli(cfgs, tmp):
             [sys.executable, "-c", code, training, data, path, *overrides,
              "--device", "cuda"], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True, env=env))
+    return t0, procs
+
+
+def wait_cli(started, runs=None):
+    """Waits for the processes of :func:`start_cli` (or those of ``runs``);
+    each must exit 0 and print its train line; returns run -> (artifact
+    path, seconds from the start to its end)."""
+    t0, procs = started
+    out = {}
     for run, (name, path, proc) in procs.items():
+        if runs is not None and run not in runs:
+            continue
         stdout, stderr = proc.communicate()
         seconds = time.perf_counter() - t0
         check(proc.returncode == 0, f"fv3fit-train-torch {run} failed "
@@ -6468,9 +6533,11 @@ def ml_cli(cfgs, tmp):
     return out
 
 
-def phase_ml_loop(device, ms_dense_chunk):
+def phase_ml_loop(device, ms_dense_chunk, keep_data=False):
     """Phase 29: the ML loop at C48 (see the module's docstring); returns
-    the launches of the wrapped model's chunks."""
+    the launches of the wrapped model's chunks and, with ``keep_data``,
+    its data for phase 30 (its directory is then the caller's to
+    remove): the stores, the configs and the CLI's artifacts."""
     import contextlib
     import io as _io
     import shutil
@@ -6618,9 +6685,698 @@ def phase_ml_loop(device, ms_dense_chunk):
                      fortran_diagnostics=[])
         loop_kernels_vs_plain("float64 chunk with the wrapped model", cfg64,
                               production_launches(2, 1))
+        data = {"tmp": tmp, "state_zarr": state_zarr,
+                "nudging_zarr": nudging_zarr, "cfgs": cfgs,
+                "dense": cli["dense"][0]}
+    finally:
+        if not keep_data:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return (total, data) if keep_data else total
+
+
+# -- phase 30: the rest of the ML library ---------------------------------
+LATENT_PCA_COMPONENTS = 16
+LATENT_FIT_TIMES = 10  # cube series times the PCA is fit on (138,240 rows)
+LATENT_HELD = 3  # held-out cube fields (increment, increment, read)
+EMULATOR_CAPTURE_EVERY = 4  # model steps between StorageHook captures
+EMULATOR_SUBSAMPLE = 0.04  # of the 13,824 columns a capture
+EMULATOR_FIELDS_IN = ("air_temperature", "specific_humidity",
+                      "cloud_water_mixing_ratio", "pressure")
+# the emulator's tensor transforms: log humidity and temperature, the
+# rnn predicting their log increments, q limited at 0.  The emulation
+# hook reads the outputs under the state's own names, and the trainer
+# packs inputs and targets from one dict, so the log of each state field
+# "to" its "_after" tensor is the slot through which the network's output
+# comes back under that name: in training the "_after" field's log
+# overwrites it, at prediction the increment's backward does.
+EMULATOR_TRANSFORMS = [
+    {"kind": "limit", "field": "specific_humidity", "lower": 0.0},
+] + [spec for f in ("specific_humidity", "air_temperature") for spec in (
+    {"kind": "log", "field": f, "to": f"log_{f}_after"},
+    {"kind": "log", "field": f"{f}_after", "to": f"log_{f}_after"},
+    {"kind": "log", "field": f, "to": f"log_{f}_input"},
+    {"kind": "difference", "to": f"dlog_{f}", "before": f"log_{f}_input",
+     "after": f"log_{f}_after"})]
+EMULATOR_HP = {
+    "input_variables": ["log_specific_humidity_input",
+                        "log_air_temperature_input",
+                        "cloud_water_mixing_ratio", "pressure"],
+    "output_variables": ["dlog_specific_humidity", "dlog_air_temperature"],
+    "data_variables": ["specific_humidity", "specific_humidity_after",
+                       "air_temperature", "air_temperature_after",
+                       "cloud_water_mixing_ratio", "pressure"],
+    "predicted_variables": ["air_temperature", "specific_humidity"],
+    "tensor_transforms": EMULATOR_TRANSFORMS, "architecture": "rnn",
+    "epochs": ML_EPOCHS}
+FMR_COLUMNS = 1024  # columns of the fmr's 4-step series
+# in the order the script trains them (the CycleGAN, whose float64 epoch
+# on the CPU takes longest, last)
+TAIL_MODELS = ("dense_autoencoder", "transformed", "graph", "fmr",
+               "min_max_novelty_detector", "cyclegan")
+TAIL_F64_RTOL = 1e-12  # a float64 epoch, card against CPU
+# the CycleGAN's Adam (fit/cyclegan.py::train_cyclegan: optax's eps) and
+# the gradient difference, card against CPU, whose move through its
+# step the float64 gate allows (see tail_f64)
+ADAM_EPS = 1e-8
+ADAM_GRAD_ATOL = 1e-14
+JACOBIAN_RTOL = 1e-13  # float64 Jacobians, card against CPU
+# the min-max detector of 4 nudged steps scores phase 15's states 15-56
+# on the H100 (PERF.md): a ramp to 100 tapers every column in part
+OOS_TAPER = {"name": "taper_ramp", "ramp_min": 0.0, "ramp_max": 100.0}
+SWEEP_WIDTHS = (64, 128)
+
+
+def tail_configs(tmp, data, store):
+    """The training and data yaml files of phase 30's CLI runs: name ->
+    (training, data) paths; ``data`` is phase 29's, ``store`` the
+    microphysics captures."""
+    import yaml
+
+    def cube(path):
+        return {"data_path": path, "unstacked_dims": ["tile", "z", "y", "x"],
+                "window_size": 1, "batch_size": 1, "n_windows": ML_STEPS,
+                "seed": 0}
+
+    state_vars = {"state_variables": list(ML_NUDGED), "epochs": ML_EPOCHS}
+    columns = {"kind": "zarr", "path": data["state_zarr"],
+               "variables": list(ML_NUDGED), "subsample_ratio": ML_SUBSAMPLE,
+               "shuffle_seed": 0}
+    runs = {
+        "dense_autoencoder": (state_vars, columns),
+        "transformed": (EMULATOR_HP, {
+            "kind": "zarr", "path": store,
+            "variables": EMULATOR_HP["data_variables"],
+            "subsample_ratio": EMULATOR_SUBSAMPLE, "shuffle_seed": 0}),
+        "graph": ({"input_variables": list(ML_NUDGED),
+                   "output_variables": list(ML_TENDENCIES.values()),
+                   "epochs": ML_EPOCHS}, cube(data["nudging_zarr"])),
+        "fmr": (state_vars, {
+            "data_path": data["state_zarr"], "unstacked_dims": ["z"],
+            "window_size": ML_STEPS, "batch_size": FMR_COLUMNS,
+            "n_windows": 1, "seed": 0}),
+        "cyclegan": (state_vars, {"domain_configs": [
+            cube(data["state_zarr"]), cube(data["nudging_zarr"])]}),
+        "min_max_novelty_detector": ({"input_variables": list(ML_NUDGED)},
+                                     None),
+    }
+    out = {}
+    for name, (hp, data_cfg) in runs.items():
+        paths = (os.path.join(tmp, f"{name}.yaml"),
+                 os.path.join(tmp, f"{name}_data.yaml"))
+        with open(paths[0], "w") as f:
+            yaml.safe_dump({"model_type": name, "hyperparameters": hp}, f)
+        if data_cfg is None:  # the dense model's columns of phase 29
+            paths = (paths[0], data["cfgs"]["dense"][1])
+        else:
+            with open(paths[1], "w") as f:
+                yaml.safe_dump(data_cfg, f)
+        out[name] = paths
+    return out
+
+
+def tail_batches(name, cfgs, device, dtype):
+    """The batches the CLI trains ``name`` on (the variables it asks the
+    data config for), on ``device`` in ``dtype``, and the config."""
+    import yaml
+    from fv3net_torch.fit import train
+
+    with open(cfgs[name][0]) as f:
+        raw = yaml.safe_load(f)
+    config = train.TrainingConfig.from_dict(raw)
+    with open(cfgs[name][1]) as f:
+        data = yaml.safe_load(f)
+    batches = train.open_batches(data, train.config_variables(raw))
+    return list(train.batches_on(batches, device, dtype)), config
+
+
+def tail_predict(name, model, batch):
+    """A trained model of phase 30 on one of its batches: the
+    autoencoder's round trip, the fmr's step from the window's first
+    time, the CycleGAN's both directions, the others' ``predict``."""
+    from fv3net_torch.core.dataset import Dataset
+    from fv3net_torch.core.quantity import Quantity
+
+    if name == "cyclegan":
+        a = model.predict(batch[0])
+        b = model.reverse(batch[1])
+        return Dataset(dict({f"ab {k}": a[k] for k in a},
+                            **{f"ba {k}": b[k] for k in b}))
+    if name == "fmr":
+        batch = Dataset({k: Quantity(batch[k].data[:, 0], ("sample", "z"))
+                         for k in model.state_variables})
+    return model.predict(batch)
+
+
+def tail_tensors(model):
+    """path -> tensor of a trained model of phase 30 (``g_ab/down/0/b``)."""
+    from collections.abc import Mapping
+
+    def leaves(tree, path):
+        if isinstance(tree, Mapping):
+            for k in sorted(tree):
+                yield from leaves(tree[k], f"{path}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{path}/{i}")
+        else:
+            yield path, tree
+
+    trees = {"enc": getattr(model, "enc_params", None),
+             "dec": getattr(model, "dec_params", None),
+             "params": getattr(model, "params", None),
+             "g_ab": getattr(model, "g_ab", None),
+             "g_ba": getattr(model, "g_ba", None),
+             "bounds": ([model.minima, model.maxima]
+                        if hasattr(model, "minima") else None)}
+    return dict(x for k, tree in trees.items() if tree is not None
+                for x in leaves(tree, k))
+
+
+def cyclegan_initial(hp, model):
+    """path -> the initial value of each generator tensor of a CycleGAN
+    trained in float64 (``fit/cyclegan.py::train_cyclegan`` draws both
+    generators, ab then ba, from one torch.Generator seeded with
+    ``hp.seed``, on the host)."""
+    import types
+
+    import torch
+    from fv3net_torch.fit import cyclegan
+
+    rng = torch.Generator().manual_seed(hp.seed)
+    C = model.g_ab["out"]["b"].shape[0]
+    g_ab, g_ba = (cyclegan.init_generator(rng, hp.generator, C, model.n,
+                                          dtype=torch.float64)
+                  for _ in range(2))
+    return tail_tensors(types.SimpleNamespace(g_ab=g_ab, g_ba=g_ba))
+
+
+def tail_f64_cpu(name, cfgs):
+    """The float64 epoch of ``name`` on the CPU (the CycleGAN's on its
+    first pair) and its seconds: what :func:`tail_f64` holds the card's
+    against, run in a thread beside the card's float64 work."""
+    import torch
+    from fv3net_torch.fit import train
+
+    cpu, config = tail_batches(name, cfgs, "cpu", torch.float64)
+    if name == "cyclegan":
+        cpu = cpu[:1]
+    fn = train.get_training_function(config.model_type)
+    t0 = time.perf_counter()
+    model = fn(config.hyperparameters, cpu, None)
+    return model, cpu, time.perf_counter() - t0
+
+
+def tail_trainers(cfgs, cli, tmp, device, beside=None):
+    """Each of TAIL_MODELS in this process: one float32 epoch on the card
+    (seconds, synchronized), against which the CLI's artifact, loaded on
+    the card, predicts (ML_CLI_RTOL); then, with the CPU's float64 epochs
+    (:func:`tail_f64_cpu`) in a thread started once those epochs are
+    timed, ``beside()`` (work that reads no clock) and each model's
+    float64 epoch on the card against the CPU's (:func:`tail_f64`).
+    Returns name -> seconds of the float32 epoch."""
+    import torch
+
+    seconds = {}
+    # as the CLI processes (start_cli)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in TAIL_MODELS:
+            seconds[name] = tail_f32(name, cfgs, cli, device)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            cpu_epochs = {name: pool.submit(tail_f64_cpu, name, cfgs)
+                          for name in TAIL_MODELS}
+            if beside is not None:
+                beside()
+            for name in TAIL_MODELS:
+                tail_f64(name, cfgs, tmp, device, cpu_epochs[name].result())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log("  one float32 epoch on the card: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in seconds.items()))
+    return seconds
+
+
+def tail_f32(name, cfgs, cli, device):
+    """One float32 epoch of ``name`` on the card, timed, and the CLI's
+    artifact against it; returns the epoch's seconds."""
+    import torch
+    from fv3net_torch.fit import io, train
+
+    batches, config = tail_batches(name, cfgs, device, torch.float32)
+    fn = train.get_training_function(config.model_type)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = fn(config.hyperparameters, batches, None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(all(bool(torch.isfinite(t).all())
+              for t in tail_tensors(model).values()),
+          f"{name}: non-finite float32 weights")
+    artifact = io.load(cli[name][0]).to(device=device)
+    want = tail_predict(name, model, batches[0])
+    got = tail_predict(name, artifact, batches[0])
+    check(sorted(got) == sorted(want) and all(
+        bool(torch.isfinite(got[k].data).all()) for k in want),
+          f"{name}: the CLI's artifact predicts {sorted(got)}")
+    cli_err = max(rel_err(got[k].data, want[k].data) for k in want)
+    check(cli_err <= ML_CLI_RTOL, f"{name}: the CLI's artifact "
+          f"predicts {cli_err:.3e} of scale off the same epoch trained "
+          f"in this process (bound {ML_CLI_RTOL})")
+    log(f"  {name}: one float32 epoch on the card in {seconds:.2f} s; the "
+        f"CLI's artifact within {cli_err:.3e} of it (bound {ML_CLI_RTOL})")
+    return seconds
+
+
+def tail_f64(name, cfgs, tmp, device, cpu_epoch):
+    """One float64 epoch of ``name`` on the card against ``cpu_epoch``
+    (:func:`tail_f64_cpu`'s): each tensor within TAIL_F64_RTOL of its
+    scale (the CycleGAN's elements plus what Adam's step makes of a
+    gradient ADAM_GRAD_ATOL off, see below); its predictions within
+    TAIL_F64_RTOL; the model dumped, loaded back on the card and
+    predicting the same bit for bit."""
+    import torch
+    from fv3net_torch.fit import io, train
+
+    card, config = tail_batches(name, cfgs, device, torch.float64)
+    if name == "cyclegan":
+        card = card[:1]
+    fn = train.get_training_function(config.model_type)
+    hp = config.hyperparameters
+    t0 = time.perf_counter()
+    got = fn(hp, card, None)
+    t_card = time.perf_counter() - t0
+    want, cpu, t_cpu = cpu_epoch
+    tg, tw = tail_tensors(got), tail_tensors(want)
+    check(sorted(tg) == sorted(tw), f"{name}: the card's float64 model "
+          f"has tensors {sorted(tg)}, the CPU's {sorted(tw)}")
+    # the CycleGAN's epoch is one Adam step from the same initial weights
+    # w0 (one pair, one epoch), which moves each element by lr u, u = g /
+    # (|g| + eps): a difference dg in its gradient moves it by lr dg (1 -
+    # |u|)^2 / eps, up to 1e8 lr dg where |g| << eps.  So each element is
+    # held within TAIL_F64_RTOL of its tensor's scale plus that move for
+    # dg = ADAM_GRAD_ATOL; elements that Adam moved by a whole lr keep no
+    # allowance
+    w0 = {}
+    if name == "cyclegan":
+        check(len(card) == 1 and hp.epochs == 1, "cyclegan: the float64 "
+              "gate assumes one Adam step")
+        w0 = cyclegan_initial(hp, want)
+    errs, whole, dg, n_slow, n_w = {}, {}, (0.0, None, 0.0), 0, 0
+    for k, a in tg.items():
+        d = (a.detach().cpu() - tw[k].detach()).abs()
+        scale = tw[k].abs().max().item() or 1.0
+        whole[k] = d.max().item() / scale
+        if k in w0:
+            u = ((tw[k] - w0[k]).abs() / hp.learning_rate).clamp(max=1.0)
+            gain = hp.learning_rate * (1 - u) ** 2 / ADAM_EPS
+            n_slow += int((u < 0.9).sum())  # |g| < 9 eps
+            n_w += u.numel()
+            # the gradient difference the element's difference implies
+            implied = ((d - TAIL_F64_RTOL * scale).clamp(min=0.0)
+                       / gain.clamp(min=1e-300))
+            i = int(implied.argmax())
+            if implied.flatten()[i].item() > dg[0]:
+                dg = (implied.flatten()[i].item(), k,
+                      u.flatten()[i].item())
+            d = d - gain * ADAM_GRAD_ATOL
+        errs[k] = max(d.max().item(), 0.0) / scale
+    where = max(errs, key=errs.get)
+    adam = ""
+    if w0:
+        worst = max(whole, key=whole.get)
+        adam = (f" beyond Adam's move for a gradient {ADAM_GRAD_ATOL:.0e} "
+                f"off (the gradients parting by up to {dg[0]:.3e} by the "
+                f"weights, in {dg[1]} at u {dg[2]:.4f}; {n_slow} of {n_w} "
+                f"elements at u < 0.9); without that allowance the "
+                f"farthest tensor {worst} {whole[worst]:.3e} of its scale")
+    before = tail_predict(name, got, card[0])
+    on_cpu = tail_predict(name, want, cpu[0])
+    pred = max(rel_err(before[k].data, on_cpu[k].data) for k in before)
+    check(errs[where] <= TAIL_F64_RTOL and pred <= TAIL_F64_RTOL,
+          f"{name}: a float64 epoch on the card parts from the CPU's by "
+          f"{errs[where]:.3e} of scale in {where}{adam}, its predictions "
+          f"by {pred:.3e} (bound {TAIL_F64_RTOL})")
+    path = os.path.join(tmp, f"{name}_f64")
+    io.dump(got, path)
+    back = io.load(path).to(device=device)
+    after = tail_predict(name, back, card[0])
+    check(sorted(before) == sorted(after) and all(
+        torch.equal(before[k].data, after[k].data) for k in before),
+          f"{name}: the loaded artifact predicts otherwise than the "
+          "model before its dump")
+    log(f"  {name}: float64 epoch "
+        f"(card {t_card:.2f} s, CPU {t_cpu:.2f} s), card against CPU "
+        f"within {errs[where]:.3e} of scale ({where}){adam}; its "
+        f"predictions within {pred:.3e} (bound {TAIL_F64_RTOL}); reloaded "
+        "bit for bit")
+    del got, want, card, cpu, back
+
+
+def capture_microphysics(tmp, device):
+    """One production chunk of phase 20's configuration with the native
+    Zhao-Carr microphysics, the emulator's ``StorageHook`` capturing the
+    scheme's inputs and outputs every EMULATOR_CAPTURE_EVERY steps (the
+    training data of the transformed emulator); returns the store."""
+    import datetime
+
+    from fv3net_torch.emulation import StorageHook
+    from fv3net_torch.physics import microphysics as mp
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.segmented_run import api
+
+    store = os.path.join(tmp, "microphysics.zarr")
+    hook = StorageHook(store, output_freq_sec=EMULATOR_CAPTURE_EVERY * DT)
+    clock = [datetime.datetime(2016, 8, 1)]
+    orig = mp.microphysics_step
+
+    def captured(T, q, qc, p, *args):
+        out = orig(T, q, qc, p, *args)
+        fields = dict(zip(EMULATOR_FIELDS_IN, (T, q, qc, p)),
+                      air_temperature_after=out[0],
+                      specific_humidity_after=out[1])
+        hook({k: v.movedim(-1, 1) for k, v in fields.items()}, clock[0])
+        clock[0] += datetime.timedelta(seconds=DT)
+        return out
+
+    mp.microphysics_step = captured
+    try:
+        t0 = time.perf_counter()
+        api.run_segment(get_config(segment_config(tmp, 1)),
+                        os.path.join(tmp, "native"))
+        seconds = time.perf_counter() - t0
+    finally:
+        mp.microphysics_step = orig
+    check(clock[0] == datetime.datetime(2016, 8, 1) + CHUNK * datetime
+          .timedelta(seconds=DT), f"the chunk called the microphysics "
+          f"until {clock[0]}")
+    from fv3net_torch.core import zarrio
+
+    ds = zarrio.open_zarr(store)
+    n = CHUNK // EMULATOR_CAPTURE_EVERY
+    check(sorted(ds) == sorted(EMULATOR_HP["data_variables"]) and all(
+        ds[k].shape == (n, 6, NPZ, NPX, NPX) for k in ds),
+          f"the StorageHook's store: {ds}")
+    log(f"  native Zhao-Carr chunk with the StorageHook: {seconds:.2f} s, "
+        f"{n} captures of {len(ds)} fields")
+    return store
+
+
+def fit_pca(tmp, cube):
+    """A ``PCATransformer`` of LATENT_PCA_COMPONENTS of T and q's 64
+    features, fit on the host on the cube series' first LATENT_FIT_TIMES
+    times, dumped; returns its path."""
+    from fv3net_torch.fit import io
+    from fv3net_torch.fit.transformers import PCATransformer
+
+    t0 = time.perf_counter()
+    pca = PCATransformer.fit([cube[:LATENT_FIT_TIMES].reshape(-1, 2 * NPZ)],
+                             LATENT_PCA_COMPONENTS)
+    path = os.path.join(tmp, "pca")
+    io.dump(pca, path)
+    log(f"  PCA of the cube series' {2 * NPZ} features fit on the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return path
+
+
+def latent_reservoir(device, tmp, cube, label, path):
+    """A ``subdomain_reservoir`` (2 x 2, overlap 1, state RESERVOIR_STATE,
+    float32; T and q in and out) in the latent space of the transformer
+    at ``path``, trained on the card and the CPU on phase 27's cube
+    series: held-out decoded predictions within RESERVOIR_TRAIN_RTOL and
+    finite, the artifact reloaded predicting bit for bit.  Returns the
+    card's model."""
+    import torch
+    from fv3net_torch.core.dataset import Dataset
+    from fv3net_torch.core.quantity import Quantity
+    from fv3net_torch.fit import io
+    from fv3net_torch.fit import reservoir as tres
+
+    names_ = list(ML_NUDGED)
+    train_u, held = cube[:-LATENT_HELD], cube[-LATENT_HELD:]
+    dims = ("time", "tile", "y", "x", "f")
+    hp = tres.SubdomainReservoirHyperparameters(
+        input_variables=names_, output_variables=names_,
+        subdomain_layout=(2, 2), overlap=1, transformer_path=path,
+        reservoir=tres.ReservoirHyperparameters(
+            state_size=RESERVOIR_STATE, l2_regularization=RESERVOIR_L2))
+    got, secs, preds = {}, {}, {}
+    for where, name in ((device, "card"), ("cpu", "cpu")):
+        ds = Dataset({k: Quantity(torch.tensor(v, device=where), dims)
+                      for k, v in (("inputs", train_u[:-1]),
+                                   ("outputs", train_u[1:]))})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tres.train_subdomain_reservoir(hp, [ds])
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        m.reset_state()
+        for x in held[:2]:
+            m.increment(torch.tensor(x, device=where))
+        preds[name] = m.predict_from_state()
+        got[name] = m
+    m = got["card"]
+    err = rel_err(preds["card"], preds["cpu"])
+    check(tuple(preds["card"].shape) == (6, NPX, NPX, 2 * NPZ)
+          and bool(torch.isfinite(preds["card"]).all()),
+          f"{label} latent reservoir: decoded prediction "
+          f"{tuple(preds['card'].shape)} or non-finite")
+    check(m.n_features_out == m.transformer.n_latent_dims,
+          f"{label}: {m.n_features_out} latent features out")
+    check(err <= RESERVOIR_TRAIN_RTOL, f"{label} latent reservoir: card "
+          f"against CPU {err:.3e} > {RESERVOIR_TRAIN_RTOL}")
+    model_dir = os.path.join(tmp, f"{label}_reservoir")
+    io.dump(m, model_dir)
+    back = io.load(model_dir).to(device=device)
+    back.reset_state()
+    for x in held[:2]:
+        back.increment(torch.tensor(x, device=device))
+    check(torch.equal(back.predict_from_state(), preds["card"]),
+          f"{label} latent reservoir: the reloaded artifact predicts "
+          "otherwise")
+    log(f"  {label} latent reservoir ({m.n_features_out} latent features a "
+        f"point): trained card {secs['card']:.2f} s, CPU "
+        f"{secs['cpu']:.2f} s; held-out decoded predictions card against "
+        f"CPU {err:.3e} of scale (bound {RESERVOIR_TRAIN_RTOL}); reloaded "
+        "bit for bit")
+    return m
+
+
+def latent_increments(device, cube, models):
+    """ms of one increment of each latent model (CUDA events, the encode
+    included) at the run's shapes."""
+    import torch
+
+    u = torch.tensor(cube[-1], device=device)
+    out = {k: cuda_ms(lambda: m.increment(u), INCREMENT_REPS)
+           for k, m in models.items()}
+    log("  one latent increment (CUDA events, median of "
+        f"{INCREMENT_REPS}, the encode included): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in out.items()))
+    return out
+
+
+def emulator_online(device, tmp, artifact, ms_phase20=None):
+    """The CLI's rnn ``transformed`` model as ``online_emulator`` (target
+    microphysics) in phase 15's configuration through ``run_segment`` for
+    SEGMENT_CHUNKS chunks, each gated as phase 20 (launches, the
+    production gates, q >= 0); one float64 chunk of 2 steps, kernels
+    against plain (PRODUCTION_CHUNK_RTOL).  Returns the launches and the
+    wall per chunk."""
+    import torch
+    from fv3net_torch import entry
+    from fv3net_torch.runtime import timing
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.segmented_run import api
+
+    cfg = segment_config(tmp)
+    cfg["online_emulator"] = {"url": artifact, "target": "microphysics"}
+    area = torch.tensor(entry.make_grid(NPX).area, device=device)
+    expected = production_launches(CHUNK, RADIATION_CALLS_PER_CHUNK)
+    with ChunkRecorder() as rec:
+        t0 = time.perf_counter()
+        api.run_segment(get_config(cfg), os.path.join(tmp, "emulated"))
+        seconds = time.perf_counter() - t0
+    loop = rec.loops[0]
+    check(loop.fusable() and loop._production_features()
+          and loop._microphysics_emulator is not None
+          and type(loop._microphysics_emulator.model).__name__
+          == "TransformedPredictor", "the rnn emulator's production path "
+          "was not taken")
+    check(len(rec.chunks) == SEGMENT_CHUNKS, f"{len(rec.chunks)} chunks")
+    total = gate_segment("rnn emulator", rec, area, expected)
+    for i, (_, _, out, _) in enumerate(rec.chunks):
+        q_min = out[0].tracers["sphum"].min().item()
+        check(q_min >= 0.0, f"rnn emulator chunk {i}: q down to {q_min}")
+    per_chunk = log_segment("rnn emulator", timing.phase_report(),
+                            SEGMENT_CHUNKS, seconds)
+    log(f"  rnn emulator online: launches a chunk {rec.chunks[0][3]}; wall "
+        f"per chunk {per_chunk * 1e3:.1f} ms"
+        + (f" beside phase 20's {ms_phase20:.1f} ms" if ms_phase20 else ""))
+    del rec, loop
+    cfg64 = dict(cfg, fused_chunk_steps=2, duration_seconds=2 * DT,
+                 radiation_interval_steps=2, diagnostics=[],
+                 fortran_diagnostics=[])
+    loop_kernels_vs_plain("float64 chunk with the rnn emulator", cfg64,
+                          production_launches(2, 1))
+    return total, per_chunk
+
+
+def out_of_sample_online(device, tmp, dense_path, minmax_path):
+    """An ``out_of_sample`` model (phase 29's dense member, the CLI's
+    min-max detector, ``taper_ramp``) through ``scikit_learn.model`` for
+    SEGMENT_CHUNKS production chunks of ``run_segment``: the reference's
+    ``PureMLStepper`` takes it (its novelty outputs land among the
+    surface fields, as there), gated as phase 15; on the last state its
+    dQ1 equal to the dense member's times the taper.  Returns the
+    launches."""
+    import torch
+    from fv3net_torch import entry
+    from fv3net_torch.fit import io
+    from fv3net_torch.fit.novelty import OutOfSampleModel
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.segmented_run import api
+    from fv3net_torch.runtime.steppers.machine_learning import predict
+
+    model = OutOfSampleModel(io.load(dense_path), io.load(minmax_path),
+                             taper_config=OOS_TAPER)
+    model_dir = os.path.join(tmp, "out_of_sample")
+    io.dump(model, model_dir)
+    cfg = segment_config(tmp)
+    cfg["scikit_learn"] = {"model": [model_dir]}
+    area = torch.tensor(entry.make_grid(NPX).area, device=device)
+    with ChunkRecorder() as rec:
+        run = api.run_segment(get_config(cfg), os.path.join(tmp, "oos"))
+    check(run.fusable() and len(rec.chunks) == SEGMENT_CHUNKS,
+          "the out_of_sample model's run did not take the fused path")
+    total = gate_segment("out_of_sample model", rec, area,
+                         production_launches(CHUNK,
+                                             RADIATION_CALLS_PER_CHUNK))
+    taper = run.state.surface.get("taper_values")
+    check(taper is not None and bool(((taper >= 0) & (taper <= 1)).all()),
+          "out_of_sample: no taper values in [0, 1] among the surface "
+          "fields")
+    state = run._derived()
+    wrapped = predict(run._postphysics_stepper.model.models[0], state)
+    base = predict(model.base_model.to(device=device), state)
+    t = wrapped["taper_values"].data
+    score = wrapped["centered_score"].data.double()
+    check(torch.equal(wrapped["dQ1"].data, base["dQ1"].data * t[:, None]),
+          "out_of_sample: dQ1 is not the base model's times the taper")
+    log(f"  out_of_sample model online: {SEGMENT_CHUNKS} chunks, launches a "
+        f"chunk {rec.chunks[0][3]}; on the last state "
+        f"{float((t < 1).double().mean()):.3f} of the columns tapered "
+        f"(taper down to {float(t.min()):.3f}; centered score "
+        f"{float(score.min()):.3g} / {float(score.median()):.3g} / "
+        f"{float(score.max()):.3g}, min / median / max), dQ1 the base's "
+        "times the taper")
+    return total
+
+
+def jacobians_and_sweep(device, tmp, data):
+    """Jacobians of phase 29's dense model at its first batch's mean,
+    float64, on the card against the CPU (JACOBIAN_RTOL of each block's
+    scale), and ``input_sensitivity``'s; a grid sweep of SWEEP_WIDTHS of
+    the dense trainer through ``run_sweep`` on the card, listed by
+    ``tracking-query-torch``."""
+    import contextlib
+    import io as _io
+
+    import torch
+    import yaml
+    from fv3net_torch.fit import io, sweep, tracking
+    from fv3net_torch.fit.input_sensitivity import input_sensitivity
+    from fv3net_torch.fit.jacobian import compute_jacobians
+
+    batches, _ = ml_batches("dense", data["cfgs"], "cpu", torch.float64)
+    names_ = list(ML_NUDGED)
+    base = {k: batches[0][k].data.mean(dim=0) for k in names_}
+    jac = {}
+    for where in (device, "cpu"):
+        m = io.load(data["dense"]).to(device=where, dtype=torch.float64)
+        jac[where] = compute_jacobians(
+            m, {k: v.to(where) for k, v in base.items()})
+    blocks = [(o, i) for o in jac["cpu"] for i in jac["cpu"][o]]
+    worst = max(rel_err(jac[device][o][i], jac["cpu"][o][i])
+                for o, i in blocks)
+    check(worst <= JACOBIAN_RTOL, f"Jacobians: card against CPU {worst:.3e}"
+          f" > {JACOBIAN_RTOL}")
+    sens = input_sensitivity(m, base)
+    check(all(torch.equal(torch.as_tensor(sens.jacobians[o][i]),
+                          jac["cpu"][o][i]) for o, i in blocks),
+          "input_sensitivity's Jacobians are not compute_jacobians'")
+    log(f"  Jacobians of the dense model ({len(blocks)} blocks, e.g. dQ1/T "
+        f"{tuple(jac['cpu']['dQ1']['air_temperature'].shape)}): card "
+        f"against CPU within {worst:.3e} of scale (bound {JACOBIAN_RTOL})")
+
+    with open(data["cfgs"]["dense"][0]) as f:
+        base_cfg = yaml.safe_load(f)
+    train_batches, _ = ml_batches("dense", data["cfgs"], device,
+                                  torch.float32)
+    t0 = time.perf_counter()
+    results = sweep.run_sweep(
+        base_cfg, {"method": "grid", "parameters": {
+            "hyperparameters.width": {"values": list(SWEEP_WIDTHS)}}},
+        train_batches, os.path.join(tmp, "sweep"))
+    seconds = time.perf_counter() - t0
+    check([r.ok for r in results] == [True] * len(SWEEP_WIDTHS),
+          f"sweep: {[(r.ok, r.error) for r in results]}")
+    printed = _io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        tracking.main(["--dir", os.path.join(tmp, "sweep", "tracking")])
+    lines = printed.getvalue().split("\n")[:-1]
+    check([ln.split()[:3] for ln in lines] == [
+        ["sweep", f"trial_{i:03d}", "1"] for i in range(len(SWEEP_WIDTHS))],
+        f"tracking-query-torch listed {lines}")
+    for r, w in zip(results, SWEEP_WIDTHS):
+        m = io.load(r.value)
+        check(m.layers[0].weight.shape[0] == w and m.layers[0].weight
+              .device.type == "cpu", f"sweep trial {r.value}: width "
+              f"{m.layers[0].weight.shape[0]}")
+    log(f"  sweep of {len(SWEEP_WIDTHS)} trials (width {SWEEP_WIDTHS}) on "
+        f"the card in {seconds:.2f} s; tracking-query-torch: "
+        + "; ".join(lines))
+
+
+def phase_ml_tail(device, cube, data, ms_phase20=None):
+    """Phase 30: the rest of the ML library at C48 (see the module's
+    docstring).  ``cube`` is phase 27's series, ``data`` phase 29's (its
+    directory removed here).  Returns the launches of the emulated
+    chunks."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="ml_tail_")
+    try:
+        t0 = time.perf_counter()
+        store = capture_microphysics(tmp, device)
+        cfgs = tail_configs(tmp, data, store)
+        started = start_cli({name: (name, cfgs[name], [])
+                             for name in TAIL_MODELS}, tmp)
+        # the card's work while the CLI processes train
+        jacobians_and_sweep(device, tmp, data)
+        models = {"pca": latent_reservoir(device, tmp, cube, "pca",
+                                          fit_pca(tmp, cube))}
+        cli = wait_cli(started, TAIL_MODELS[:4])
+        models["autoencoder"] = latent_reservoir(
+            device, tmp, cube, "autoencoder", cli["dense_autoencoder"][0])
+        inc_ms = latent_increments(device, cube, models)
+        walls = reservoir_segments("autoencoder-latent", tmp,
+                                   models["autoencoder"])
+        total, per_chunk = emulator_online(device, tmp,
+                                           cli["transformed"][0], ms_phase20)
+        cli.update(wait_cli(started, TAIL_MODELS[4:]))
+        log(f"  fv3fit-train-torch --device cuda, {len(cli)} processes "
+            "started together: " + ", ".join(
+                f"{k} done after {v[1]:.1f} s" for k, v in cli.items()))
+        tail_trainers(cfgs, cli, tmp, device, beside=lambda: (
+            out_of_sample_online(device, tmp, data["dense"],
+                                 cli["min_max_novelty_detector"][0])))
+        log(f"  the autoencoder-latent corrector {median_ms(walls):.1f} ms "
+            f"a step; phase 30's parts in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return total
+        shutil.rmtree(data["tmp"], ignore_errors=True)
+    return total, per_chunk, median_ms(walls), inc_ms
 
 
 def main():
@@ -6766,7 +7522,7 @@ def main():
 
     phase("20: the online microphysics emulator through the segmented run")
     t20 = time.perf_counter()
-    phase_emulated_run(device)
+    _, s_emulated_chunk = phase_emulated_run(device)
     log(f"  phase 20 in {time.perf_counter() - t20:.1f} s")
 
     phase("21: the Python radiation stepper in the per-step loop, and the "
@@ -6805,7 +7561,7 @@ def main():
     phase("27: the reservoir corrector (its trainers on the card, the "
           "hybrid and subdomain models through the segmented run)")
     t27 = time.perf_counter()
-    phase_reservoir(device, ms_without)
+    _, cube_series, _ = phase_reservoir(device, ms_without)
     log(f"  phase 27 in {time.perf_counter() - t27:.1f} s")
 
     phase("28: the offline ops and pipelines at C384 -> C48 (restart "
@@ -6820,8 +7576,18 @@ def main():
           "precipitative and convolutional, a tapered ensemble through "
           "run_segment)")
     t29 = time.perf_counter()
-    phase_ml_loop(device, ms_dense_chunk)
+    _, ml_data = phase_ml_loop(device, ms_dense_chunk, keep_data=True)
     log(f"  phase 29 in {time.perf_counter() - t29:.1f} s")
+
+    phase("30: the rest of the ML library (the latent-space subdomain "
+          "reservoir as corrector, the rnn transformed emulator online, "
+          "fv3fit-train-torch for dense_autoencoder, transformed, graph, "
+          "fmr, cyclegan and min_max_novelty_detector, out-of-sample "
+          "tapering online, Jacobians, a sweep)")
+    t30 = time.perf_counter()
+    phase_ml_tail(device, cube_series, ml_data, s_emulated_chunk * 1e3)
+    del cube_series
+    log(f"  phase 30 in {time.perf_counter() - t30:.1f} s")
 
     # each kernel's launches come from the run of the path it lies on
     counts = dict(counts, taumol_lw=counts_mega["taumol_lw"],

@@ -139,6 +139,14 @@ class DenseModel(nn.Module):
 
     apply_packed = forward  # the reference's name
 
+    def apply_params(self, params: Dict[str, torch.Tensor],
+                     X: torch.Tensor) -> torch.Tensor:
+        """The forward pass with ``params`` (name -> tensor, the names of
+        ``named_parameters``) in place of the module's own: the pure
+        apply (the reference's ``apply_packed(params, X)``) that
+        ``torch.func`` differentiates."""
+        return torch.func.functional_call(self, params, (X,))
+
     @torch.no_grad()
     def predict_arrays(
         self, data: Dict[str, torch.Tensor]

@@ -2,12 +2,10 @@
 external/fv3fit/fv3fit/_shared/io.py:17-92): an artifact directory holds
 a ``name`` file naming its model type, and ``load(path)`` dispatches on
 it.  The port reads and writes the reference's artifact formats, so a
-model the reference trained and dumped loads here.  Registered: the
-dense model (``fit/dense.py``), ``precipitative``, ``convolutional``,
-the wrappers of ``fit/models.py``, ``constant-output``
-(``fit/testing.py``) and the pure, hybrid and subdomain reservoir
-models (``fit/reservoir.py``); the reference's other model types raise
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 9.
+model the reference trained and dumped loads here.  Every model type of
+the reference is registered but ``ocsvm`` and ``sklearn_random_forest``
+(pickles of scikit-learn objects), which raise ``NotImplementedError``
+naming ROADMAP.md Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -79,12 +77,19 @@ def load(path: str):
     in (``.to(device, dtype)`` moves it)."""
     # the registered types register on import
     from fv3net_torch.fit import (  # noqa: F401
+        autoencoder,
         convolutional,
+        cyclegan,
         dense,
+        graph,
         models,
+        novelty,
         precipitative,
+        recurrent,
         reservoir,
         testing,
+        transformed,
+        transformers,
     )
 
     return register.load(path)

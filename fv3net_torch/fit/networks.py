@@ -204,6 +204,42 @@ def _with_leaves(tree, leaves: list):
     return tree
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict/list/tuple in JAX's pytree flatten
+    order (dict keys sorted, sequences in order): the order in which the
+    reference's artifacts number a network's leaves."""
+    if isinstance(tree, Mapping):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(skeleton, leaves):
+    """``skeleton``'s structure with its tensors replaced, in
+    :func:`tree_leaves`' order, by ``leaves``."""
+    it = iter(leaves)
+
+    def fill(node):
+        if isinstance(node, Mapping):
+            filled = {k: fill(node[k]) for k in sorted(node)}
+            return {k: filled[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(fill(v) for v in node)
+        return next(it)
+
+    return fill(skeleton)
+
+
+def tree_map(fn, tree):
+    """``fn`` on each tensor of a nested dict/list/tuple."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
 def _detached(tree):
     if torch.is_tensor(tree):
         return tree.detach()

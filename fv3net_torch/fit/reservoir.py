@@ -18,7 +18,12 @@ recurrent product (the reference's ``jax.lax.scan``), then solve the
 readout's ridge normal equations with ``torch.linalg.solve``, on the
 device the training data lies on (on the CPU one system at a time).  The subdomain model updates all its
 subdomains in one product pair and reads them out in one batched
-einsum.  Its latent space (``transformer_path``) is not ported.
+einsum.  Its latent space (``transformer_path``, an io-registered
+transformer of ``fit/transformers.py`` or ``fit/autoencoder.py``)
+encodes the cube fields before the subdomains are cut and decodes the
+merged predictions; the latents take the reference's promotions (a
+float32 series encoded by float32 components stays float32, by float64
+ones turns float64, and the state with it).
 """
 from __future__ import annotations
 
@@ -312,13 +317,6 @@ def train_hybrid_reservoir_model(hp, train_batches, val=None):
 # subdomain of the cube carries its own reservoir state and readout;
 # W_in and W are shared.
 # ---------------------------------------------------------------------------
-def _transformer_not_ported():
-    from fv3net_torch.runtime.factories import not_ported
-
-    return not_ported("the subdomain reservoir's latent space "
-                      "(transformer_path, fit/transformers.py)", 9)
-
-
 @dataclasses.dataclass
 class SubdomainReservoirHyperparameters:
     """(reference reservoir/train.py ReservoirTrainingConfig subset); a
@@ -333,7 +331,9 @@ class SubdomainReservoirHyperparameters:
         default_factory=ReservoirHyperparameters
     )
     hybrid: bool = False
-    # the latent space: an io-registered transformer (not ported)
+    # optional latent space: path to an io-registered transformer
+    # (PCATransformer / Autoencoder / DoNothingAutoencoder): the ESN runs
+    # on encoded features and predictions are decoded back
     transformer_path: str = ""
 
     def __post_init__(self):
@@ -352,17 +352,38 @@ class SubdomainReservoirModel(_Arrays, Predictor):
                  SubdomainReservoirHyperparameters, n_features_out: int,
                  transformer=None):
         super().__init__(list(input_variables), list(output_variables))
-        if transformer is not None:
-            raise _transformer_not_ported()
         self.divider = divider
         self.W_in = W_in
         self.W = W
-        self.coefficients = coefficients  # [n_sub, feats, out_flat]
-        self.intercept = intercept        # [n_sub, out_flat]
+        # contiguous, as a loaded artifact's are: the readout's einsum
+        # then sums in one order whatever the tensors' history
+        self.coefficients = coefficients.contiguous()  # [n_sub, feats, out]
+        self.intercept = intercept.contiguous()        # [n_sub, out_flat]
         self.hp = hp
-        self.n_features_out = n_features_out
-        self.transformer = None
+        self.n_features_out = n_features_out  # latent features a point
+        self.transformer = transformer
         self.reset_state()
+
+    def to(self, device=None, dtype=None):
+        super().to(device=device, dtype=dtype)
+        if self.transformer is not None:
+            self.transformer = self.transformer.to(device=device)
+        return self
+
+    def _encode(self, field: torch.Tensor) -> torch.Tensor:
+        """Raw cube field [..., nf_raw] -> latent [..., nf_latent]."""
+        if self.transformer is None:
+            return field
+        return self.transformer.encode([field])
+
+    def _decode(self, field: torch.Tensor) -> torch.Tensor:
+        if self.transformer is None:
+            return field
+        parts = self.transformer.decode(field)
+        if isinstance(parts, dict):  # the autoencoder's variables
+            parts = [v if v.ndim == field.ndim else v[..., None]
+                     for v in parts.values()]
+        return torch.cat(parts, dim=-1)
 
     def reset_state(self, batch_shape=None) -> None:
         self.state = torch.zeros(
@@ -371,7 +392,8 @@ class SubdomainReservoirModel(_Arrays, Predictor):
         )
 
     def _flatten_inputs(self, field: torch.Tensor) -> torch.Tensor:
-        subs = self.divider.get_subdomains(field)  # [n_sub, sy+2o, sx+2o, nf]
+        # [n_sub, sy+2o, sx+2o, nf]
+        subs = self.divider.get_subdomains(self._encode(field))
         return self.divider.flatten_subdomain_features(subs)
 
     def increment(self, field: torch.Tensor) -> None:
@@ -382,7 +404,8 @@ class SubdomainReservoirModel(_Arrays, Predictor):
         )
 
     def _readout(self, feats: torch.Tensor) -> torch.Tensor:
-        """[n_sub, f] features -> [6, ny, nx, n_features_out]."""
+        """[n_sub, f] features -> [6, ny, nx, nf]: the merged interior
+        predictions, decoded from the latent space."""
         dt = torch.promote_types(feats.dtype, self.coefficients.dtype)
         flat = (torch.einsum("sf,sfo->so", feats.to(dt),
                              self.coefficients.to(dt)) + self.intercept)
@@ -392,10 +415,10 @@ class SubdomainReservoirModel(_Arrays, Predictor):
             self.divider.n_subdomains, sy - 2 * o, sx - 2 * o,
             self.n_features_out,
         )
-        return self.divider.merge_subdomains(interior)
+        return self._decode(self.divider.merge_subdomains(interior))
 
     def predict_from_state(self, field=None) -> torch.Tensor:
-        """-> [6, ny, nx, n_features_out] merged interior predictions."""
+        """-> [6, ny, nx, nf] merged interior predictions."""
         feats = self.state
         if self.hp.hybrid and field is not None:
             feats = _cat(feats, self._flatten_inputs(field))
@@ -437,18 +460,18 @@ class SubdomainReservoirModel(_Arrays, Predictor):
                     },
                     "rank_extent": list(self.divider.rank_extent),
                     "n_features_out": self.n_features_out,
-                    "has_transformer": False,
+                    "has_transformer": self.transformer is not None,
                 },
                 f,
             )
+        if self.transformer is not None:
+            io.dump(self.transformer, os.path.join(path, "transformer"))
 
     @classmethod
     def load(cls, path: str) -> "SubdomainReservoirModel":
         """The model in ``path``, on the CPU in the saved dtype."""
         with open(os.path.join(path, "metadata.json")) as f:
             meta = json.load(f)
-        if meta.get("has_transformer"):
-            raise _transformer_not_ported()
         hp = SubdomainReservoirHyperparameters(**meta["hyperparameters"])
         z = np.load(os.path.join(path, "weights.npz"))
         divider = CubeXYDivider(
@@ -459,6 +482,8 @@ class SubdomainReservoirModel(_Arrays, Predictor):
             torch.tensor(z["W_in"]), torch.tensor(z["W"]),
             torch.tensor(z["coefficients"]), torch.tensor(z["intercept"]),
             hp, meta["n_features_out"],
+            transformer=(io.load(os.path.join(path, "transformer"))
+                         if meta.get("has_transformer") else None),
         )
 
 
@@ -474,13 +499,17 @@ def train_subdomain_reservoir(hp: SubdomainReservoirHyperparameters,
     train_batches: iterable of Datasets with "inputs" [time, 6, ny, nx, nf]
     and "outputs" [time, 6, ny, nx, nf_out] (next-step targets), whose
     series are concatenated in time under one spin-up, as the
-    reference's.
+    reference's.  With ``transformer_path`` the ESN sees the encoded
+    inputs and the readout fits the encoded targets.
     """
-    if hp.transformer_path:
-        raise _transformer_not_ported()
     batches = list(train_batches)
     u = torch.cat(_series(batches, "inputs"), dim=0)
     y = torch.cat(_series(batches, "outputs"), dim=0)
+    transformer = None
+    if hp.transformer_path:
+        transformer = io.load(hp.transformer_path).to(device=u.device)
+        u = transformer.encode([u])
+        y = transformer.encode([y])
     ny, nx = u.shape[2], u.shape[3]
     nf_out = y.shape[-1]
     divider = CubeXYDivider(hp.subdomain_layout, hp.overlap, (ny, nx))
@@ -518,6 +547,7 @@ def train_subdomain_reservoir(hp: SubdomainReservoirHyperparameters,
         hp.input_variables or ["inputs"],
         hp.output_variables or ["outputs"],
         divider, W_in, W, coef, intercept, hp, nf_out,
+        transformer=transformer,
     )
 
 
@@ -532,8 +562,6 @@ def reservoir_from_jax(model):
     arrays = (t(model.W_in), t(model.W), t(model.coefficients),
               t(model.intercept))
     if hasattr(model, "divider"):
-        if model.transformer is not None:
-            raise _transformer_not_ported()
         d = model.divider
         hp = SubdomainReservoirHyperparameters(
             input_variables=list(model.hp.input_variables),
@@ -542,12 +570,14 @@ def reservoir_from_jax(model):
             overlap=model.hp.overlap,
             reservoir=ReservoirHyperparameters(
                 **dataclasses.asdict(model.hp.reservoir)),
-            hybrid=model.hp.hybrid)
+            hybrid=model.hp.hybrid,
+            transformer_path=model.hp.transformer_path)
         out = SubdomainReservoirModel(
             model.input_variables, model.output_variables,
             CubeXYDivider(tuple(d.subdomain_layout), d.overlap,
                           tuple(d.rank_extent)),
-            *arrays, hp, model.n_features_out)
+            *arrays, hp, model.n_features_out,
+            transformer=_transformer_from_jax(model.transformer))
     else:
         cls = (HybridReservoirComputingModel
                if type(model).__name__.startswith("Hybrid")
@@ -557,3 +587,21 @@ def reservoir_from_jax(model):
                   hybrid=model.hybrid)
     out.state = t(model.state)
     return out
+
+
+def _transformer_from_jax(transformer):
+    """The port's counterpart of a reference-package latent-space
+    transformer (or None)."""
+    if transformer is None:
+        return None
+    from fv3net_torch.fit import transformers
+
+    kind = type(transformer).__name__
+    if kind == "PCATransformer":
+        return transformers.pca_from_jax(transformer)
+    if kind == "DoNothingAutoencoder":
+        return transformers.DoNothingAutoencoder(
+            transformer.original_feature_sizes)
+    from fv3net_torch.fit.autoencoder import autoencoder_from_jax
+
+    return autoencoder_from_jax(transformer)

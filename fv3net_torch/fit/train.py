@@ -6,15 +6,16 @@ fv3fit/train.py:33-192).
 ``@register_training_function(name, HyperparamCls)`` registers
 ``fn(hyperparameters, train_batches, validation_batches) -> model``;
 ``train_main`` resolves, fits and dumps a model with its ``train.yaml``.
-Ported: the ``dense`` trainer (``fit/dense.py``), ``precipitative``
-(``fit/precipitative.py``), ``convolutional``
-(``fit/convolutional.py``) and the ``reservoir``, ``hybrid_reservoir``
-and ``subdomain_reservoir`` trainers (``fit/reservoir.py``); the
-reference's other trainers raise ``NotImplementedError`` naming
-ROADMAP.md Queue 1 item 9.  ``main`` reads the data configs as the
-reference does (the loaders' configs, or the legacy ``{kind, path,
-variables}`` dict) and trains on ``--device`` (default ``cuda``: without
-a card it raises).
+Every trainer of the reference is ported but
+``ocsvm_novelty_detector`` and ``sklearn_random_forest`` (scikit-learn
+solvers), which raise ``NotImplementedError`` naming ROADMAP.md Queue 1
+item 9.  ``main`` reads the data configs as the reference does (the
+loaders' configs, or the legacy ``{kind, path, variables}`` dict),
+asks a loader config for the hyperparameters' ``state_variables`` too
+(which the reference's CLI leaves out, so that its ``fmr``,
+``dense_autoencoder`` and ``cyclegan`` trainers get no variables from
+one: ROADMAP.md Queue 3) and trains on ``--device`` (default ``cuda``:
+without a card it raises).
 """
 from __future__ import annotations
 
@@ -46,10 +47,16 @@ def register_training_function(name: str, hyperparameter_class: Type):
 def _registered(name: str) -> Tuple[Callable, Type]:
     # the registered trainers register on import
     from fv3net_torch.fit import (  # noqa: F401
+        autoencoder,
         convolutional,
+        cyclegan,
         dense,
+        graph,
+        novelty,
         precipitative,
+        recurrent,
         reservoir,
+        transformed,
     )
 
     if name not in _TRAINING_FUNCTIONS:
@@ -134,14 +141,16 @@ def train_main(config_dict: dict, train_batches, validation_batches,
 
 
 def batches_on(batches, device, dtype=None):
-    """``batches`` (a sequence of Datasets) with every tensor on
-    ``device`` (and in ``dtype`` if given), lazily."""
+    """``batches`` (a sequence of Datasets, or of tuples of them) with
+    every tensor on ``device`` (and in ``dtype`` if given), lazily."""
     import torch
 
     from fv3net_torch.core.quantity import Quantity
     from fv3net_torch.loaders.sequences import Map
 
     def move(ds):
+        if isinstance(ds, tuple):
+            return tuple(move(d) for d in ds)
         return ds.map(lambda q: Quantity(
             torch.as_tensor(q.data, device=device, dtype=dtype), q.dims,
             q.units, dict(q.attrs)))
@@ -163,6 +172,15 @@ def open_batches(cfg: dict, variables: Sequence[str]):
 
     loader = tfdataset_loader_from_dict(cfg)
     return loader.open_tfdataset(None, variables)
+
+
+def config_variables(config_dict: dict):
+    """The variables the CLI asks a loader config for: the
+    hyperparameters' input, output and state variables."""
+    hp = config_dict.get("hyperparameters", {})
+    return [v for key in ("input_variables", "output_variables",
+                          "state_variables")
+            for v in hp.get(key, [])]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -191,10 +209,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     with open(args.training_data_config) as f:
         data_config = yaml.safe_load(f)
 
-    hp = config_dict.get("hyperparameters", {})
-    variables = list(hp.get("input_variables", [])) + list(
-        hp.get("output_variables", [])
-    )
+    variables = config_variables(config_dict)
     val_config = data_config.pop("validation", None)
     train_batches = batches_on(open_batches(data_config, variables), device)
     val_batches = (batches_on(open_batches(val_config, variables), device)

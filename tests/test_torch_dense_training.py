@@ -191,7 +191,7 @@ def test_unported_names_raise():
         tconfig.LearningRateScheduleConfig("warmup_cosine_decay_schedule",
                                            {}).instance
     with pytest.raises(NotImplementedError, match="item 9"):
-        ttrain.get_training_function("cyclegan")
+        ttrain.get_training_function("sklearn_random_forest")
 
 
 def test_config_copies_match_reference():

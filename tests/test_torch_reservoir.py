@@ -348,12 +348,6 @@ def test_artifacts_read_both_ways(kind, hybrid, tmp_path):
         <= F32_STEP_RTOL
 
 
-def test_transformer_path_raises_item_9():
-    thp = tres.SubdomainReservoirHyperparameters(transformer_path="x")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tres.train_subdomain_reservoir(thp, [])
-
-
 def test_trainers_registered_and_config_from_dict():
     from fv3net_torch.fit import train
 

@@ -44,6 +44,41 @@ def serial_solves():
         torch.set_num_threads(threads)
 
 
+class Float64Module(object):
+    """A module (numpy or jax.numpy) with its ``float32`` read as
+    float64: a reference module whose ``np``/``jnp`` are replaced by it
+    casts to float64 where it casts to float32."""
+
+    def __init__(self, module, f64):
+        self._module = module
+        self.float32 = f64
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+def handover(trees, dtype=None):
+    """A stand-in for an init function of the port that returns the next
+    of ``trees`` (reference pytrees of arrays) as tensors (in ``dtype``
+    if given) on the device it is asked for, whatever else it is asked:
+    the reference's initial weights."""
+    import torch
+
+    it = iter(trees)
+
+    def convert(node, device):
+        if isinstance(node, dict):
+            return {k: convert(v, device) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(convert(v, device) for v in node)
+        return torch.tensor(np.asarray(node), dtype=dtype, device=device)
+
+    def init(*args, device=None, **kwargs):
+        return convert(next(it), device)
+
+    return init
+
+
 def make_state_numpy(npx: int, npz: int, seed: int = 0, moist: bool = False):
     """A perturbed, moving numpy state on the hybrid coordinate, plus its
     grid and (ak, bk).

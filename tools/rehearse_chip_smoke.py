@@ -1,6 +1,7 @@
 """Rehearse a phase of ``chip_smoke.py`` on the CPU at a small size, with
 no card, before a run on the H100.
 
+    python tools/rehearse_chip_smoke.py 30   # the ML library's rest, C6
     python tools/rehearse_chip_smoke.py 29   # the ML loop, C6, npz=8
     python tools/rehearse_chip_smoke.py 28   # the offline ops, C32 -> C4
 
@@ -10,7 +11,8 @@ kernel where they would on the card, the entry points' default device is
 the CPU, the ``torch.cuda`` calls that need a card do nothing, and the
 CLI processes the phase starts get the same replacements through
 ``chip_smoke.CLI_PRELUDE`` plus ``--device cpu``.  Sizes: ``NPX`` and
-``NPZ`` (phase 29), ``N`` and ``NZ`` (phase 28) in the environment;
+``NPZ`` (phases 29 and 30), ``N`` and ``NZ`` (phase 28) in the
+environment; phase 30 runs phases 27 and 29 first for its data;
 ``KEEP=1`` keeps the phase's temporary directory.  ``UNCLAMPED=1``
 (phase 29) trains the dense models without ``ML_OUTPUT_LIMITS`` and
 prints the largest temperature tendency of each online prediction, in K
@@ -115,10 +117,10 @@ def unclamped():
 
 def main(argv):
     phase = argv[0] if argv else "29"
-    if phase not in ("28", "29"):
-        raise SystemExit(f"no rehearsal of phase {phase} (28 or 29)")
-    prelude = NO_CARD + (KERNELS_29 + CPU_DEFAULTS if phase == "29"
-                         else KERNELS_28)
+    if phase not in ("28", "29", "30"):
+        raise SystemExit(f"no rehearsal of phase {phase} (28, 29 or 30)")
+    prelude = NO_CARD + (KERNELS_28 if phase == "28"
+                         else KERNELS_29 + CPU_DEFAULTS)
     exec(prelude, {})
     cs.DEVICE = "cpu"
     cs.CLI_PRELUDE = ("import sys\nsys.argv += ['--device', 'cpu']\n"
@@ -127,12 +129,21 @@ def main(argv):
         shutil.rmtree = lambda *a, **k: None
     t0 = time.perf_counter()
     device = torch.device("cpu")
-    if phase == "29":
+    if phase in ("29", "30"):
         cs.NPX = int(os.environ.get("NPX", 6))
         cs.NPZ = int(os.environ.get("NPZ", 8))
         if os.environ.get("UNCLAMPED"):
             unclamped()
+    if phase == "29":
         out = cs.phase_ml_loop(device, 0.0)
+    elif phase == "30":
+        # CUDA events need a card: one call, no time
+        cs.cuda_ms = lambda fn, reps, warmup=3: (fn(), 0.0)[1]
+        _, cube, _ = cs.phase_reservoir(device, 0.0)
+        _, data = cs.phase_ml_loop(device, 0.0, keep_data=True)
+        t0 = time.perf_counter()
+        out = cs.phase_ml_tail(device, cube, data)
+        print(f"phase 30 alone: {time.perf_counter() - t0:.1f} s")
     else:
         cs.C384, cs.COARSEN_FACTOR = int(os.environ.get("N", 32)), 8
         cs.OFFLINE_NZ = int(os.environ.get("NZ", 6))
