@@ -78,7 +78,7 @@ Phases (any failure exits nonzero, and no result line is printed):
     float32: slab ocean and sea ice, the "set" SST prescriber, RRTMG every
     4th step and the dense ML stepper around the production dynamics
     (kord 9 without the energy remap, so K1 remaps theta_v with iv=2) --
-    one warm-up, 3 timed chunks and one profiled chunk: ms per chunk,
+    one warm-up, 2 timed chunks and one profiled chunk: ms per chunk,
     SYPD, device busy and idle share, the ranges' device busy (prephysics,
     dynamics, radiation, physics, ml) with the hand kernels in; gates:
     every field finite, the exact launches of K1, K4 and K3 per chunk and
@@ -98,7 +98,8 @@ Phases (any failure exits nonzero, and no result line is printed):
     namelist's dycore, phase 13's quiet dense model loaded from its
     artifact directory, a zarr SST prescriber, zarr diagnostics and a
     Fortran diagnostics file): ``api.create`` and two
-    ``api.append_segment`` calls of 2 chunks each, with each segment's
+    ``api.append_segment`` calls of SEGMENT_CHUNKS chunks each (1), with
+    each segment's
     setup seconds, wall per chunk in ``run_segment``, SYPD and host
     seconds by phase (``timing.phase_report``).  Gates: the production
     path taken; every chunk's launches exact (K1 24, K4 88, K3 46, K2 0)
@@ -106,7 +107,8 @@ Phases (any failure exits nonzero, and no result line is printed):
     interval-average rows against the every rows they cover (1e-6), the
     RESTART's files; segment 1's RESTART read back and segment 2's first
     chunk started from it, bit for bit; the two segments against one
-    segment of 4 chunks, bit for bit; a fresh loop's first chunk (under
+    segment of twice the chunks, bit for bit; a fresh loop's first chunk
+    (under
     the profiler: device busy by range, idle share) against
     ``build_fused_production_chunk`` called directly on its inputs, bit
     for bit; one float64 chunk of 2 steps through the loop, kernels
@@ -114,7 +116,7 @@ Phases (any failure exits nonzero, and no result line is printed):
 16. the RRTMG options: the flagship chunk with the reference's
     accelerator radiation settings (bf16 storage, SW daylight
     compression: ``flagship(rrtmg_options=BF16_OPTIONS)``) in turns with
-    the default chunk, one warm-up and 3 timed each, and one profiled:
+    the default chunk, one warm-up and 2 timed each, and one profiled:
     ms per chunk, SYPD, device busy, idle share, the radiation range;
     launches exact per chunk by kernel and by instance (K4/K3 float32 or
     bfloat16); every K4 and K3 call of one bf16 radiation call on phase
@@ -138,7 +140,7 @@ Phases (any failure exits nonzero, and no result line is printed):
     accelerator radiation settings on the mega route
     (``flagship(lw_taumol="mega", rrtmg_options=BF16_OPTIONS)``: K2's
     bfloat16 instance) in turns with the same settings on the ktable
-    route, one warm-up and 3 timed each, the mega route's chunk profiled
+    route, one warm-up and 2 timed each, the mega route's chunk profiled
     beside phase 16's profiled chunk of the ktable route (the same
     configuration): launches exact by kernel and by instance, ms per
     chunk, SYPD, device busy, the radiation range, idle share; K2's
@@ -151,11 +153,12 @@ Phases (any failure exits nonzero, and no result line is printed):
     configuration with ``fv_core_nml`` (hydrostatic false, n_split 3),
     ``gfs_physics_nml`` (imp_physics 11: GFDL microphysics),
     ``prognostic_ozone`` and ``stratospheric_h2o``, from a moist JW06
-    restart; two ``append_segment`` segments of 2 chunks, each chunk's
+    restart; two ``append_segment`` segments of SEGMENT_CHUNKS chunks,
+    each chunk's
     launches exact (K1 4 a step: w with the winds, o3mr and the GFDL
     species with the tracers, delz as specific volume), phase 12's gates
     (the dry-air budget over all condensates), w and delz finite, delz >
-    0, the GFDL scheme making condensate; 2 x 2 chunks against 1 x 4 bit
+    0, the GFDL scheme making condensate; 2 x 1 chunks against 1 x 2 bit
     for bit; a fresh loop's chunk profiled; the device time and
     activities of the sedimentation loop and the acoustic solve; one
     float64 chunk of 2 steps, kernels against plain, within 1e-8;
@@ -163,7 +166,8 @@ Phases (any failure exits nonzero, and no result line is printed):
     15's configuration with ``online_emulator`` (a dense artifact of the
     exact map q -> 0.99 q, T and cloud water passed through, written with
     the port's ``DenseModel.dump``; target microphysics), two
-    ``append_segment`` segments of 2 chunks, each chunk gated as phase 12
+    ``append_segment`` segments of SEGMENT_CHUNKS chunks, each chunk
+    gated as phase 12
     (K1 24, K4 88, K3 46, K2 0; the dry-air budget) and q >= 0, segment 2
     started from segment 1's RESTART bit for bit, a fresh loop's chunk
     profiled; one chunk with a seeded model in the gscond slot,
@@ -253,8 +257,9 @@ Phases (any failure exits nonzero, and no result line is printed):
     same batches; each trainer's float64 epoch
     on the card against the CPU's (1e-10) and its artifact loaded back
     predicting the same; the two trained dense models in ``ensemble`` under
-    ``tapered_model`` through ``scikit_learn.model`` for 2 production
-    chunks of ``run_segment`` (gated as phase 15; its prediction in the
+    ``tapered_model`` through ``scikit_learn.model`` for SEGMENT_CHUNKS
+    production chunks of ``run_segment`` (gated as phase 15; its
+    prediction in the
     chunk equal to the wrapped model's called directly and to the taper
     of the members' midpoint) and one float64 chunk of 2 steps, kernels
     against plain (1e-8); the batch load's and each epoch's seconds,
@@ -283,17 +288,49 @@ Phases (any failure exits nonzero, and no result line is printed):
     autoencoder-latent model as ``reservoir_corrector`` gated as phase
     27's models (launches a step, predictions against the host's float64
     readout); the rnn emulator as ``online_emulator`` (target
-    microphysics) through 2 ``run_segment`` chunks gated as phase 20 and
+    microphysics) through SEGMENT_CHUNKS ``run_segment`` chunks gated as
+    phase 20 and
     a float64 chunk, kernels against plain (1e-8); an ``out_of_sample``
     model (phase 29's dense member, the min-max detector, ``taper_ramp``)
-    through 2 ``run_segment`` chunks gated as phase 15, its dQ1 the
+    through SEGMENT_CHUNKS ``run_segment`` chunks gated as phase 15, its
+    dQ1 the
     member's times the taper; each trainer's CLI artifact against the
     same float32 epoch in this process (1e-4), its float64 epoch on the
     card against the CPU's (1e-12 of each tensor's scale; the
     CycleGAN's elements plus what its one Adam step makes of a gradient
     1e-14 off: lr 1e-14 (1 - |u|)^2 / eps, u its move over lr; the CPU's
     in a thread started after the float32 epochs were timed) and
-    reloaded bit for bit.
+    reloaded bit for bit;
+31. the scikit-learn models and the time loop's options at C48, on
+    phase 29's stores: first, with nothing else running, a zarr store of
+    C48 fields written and read through the native chunk I/O (its counts
+    above zero, its chunk files' bytes equal to the Python path's), the
+    float64 fits on the card in this process (timed) of
+    ``sklearn_random_forest`` (RF_TREES trees at full depth, T and q in,
+    dQ1 and dQ2 out, RF_SUBSAMPLE of the columns) and
+    ``ocsvm_novelty_detector`` (the first batch: 6,912 columns), and the
+    same two at C48's full size (RF_FULL_TREES trees on every column of
+    the 4 times; one time's 13,824 columns), timed with the card's peak
+    memory; then, untimed and
+    together, ``fv3fit-train-torch --device cuda`` for the two (two
+    processes), the CPU's fits (a thread) and one float64 chunk of 2
+    steps of the run below with this process's fits, kernels against
+    plain (1e-8); each CLI artifact against this process's fit (the
+    forest under the rule a tie cannot change,
+    ``random_forest.match_trees``; the SVM's decision values within
+    SVM_CLI_RTOL) and the CPU's fits against the card's (every tree under
+    the tie rule; the SVM in as many iterations, its decision values
+    within SVM_CARD_CPU_RTOL of their scale); last, timed, an
+    ``out_of_sample`` model of the two artifacts (``taper_ramp``) through
+    ``scikit_learn.model`` for SKLEARN_CHUNKS (2) production chunks of
+    ``run_segment`` over ``surface_data: topography/c48`` with Noah land,
+    a ``PhysicsConfig`` with the thermal top sponge on and no shallow
+    convection, and a ``tensorboard: true`` diagnostics file (read back
+    with ``read_events``), gated as phase 15 (launches K1 24, K4 88, K3
+    46 a chunk); its last prediction inside the chunk equal to the model
+    called directly on the same inputs and to the forest's outputs under
+    the taper, the forest's walk on the card within RF_WALK_RTOL of a
+    plain walk on the host.
 
 ``--sw-columns PATH`` also saves, in phase 6, ``swrad``'s arguments on
 the 8 columns where the float32 SW heating parts most from float64 on
@@ -2186,7 +2223,7 @@ K3_YARDSTICK = {"LW band 3 lower": (70, 9, 16, 2, 2, 3),
 
 # the production chunk (entry.production): one warm-up and this many
 # timed chunks, then one under the profiler
-PRODUCTION_TIMED_CHUNKS = 3
+PRODUCTION_TIMED_CHUNKS = 2
 # its kernels against its plain versions, within each field's scale
 # times the CPU chunk tests' bound (tests/test_torch_production.py
 # CHUNK_RTOL): a 2-step float64 chunk with a model that leaves the ML
@@ -2471,8 +2508,9 @@ def phase_production_land(device):
 
 
 # phase 15: the segmented run (runtime/segmented_run/api.py) at full
-# width: SEGMENT_CHUNKS chunks a segment, two appended segments
-SEGMENT_CHUNKS = 2
+# width: SEGMENT_CHUNKS chunks a segment, two appended segments (one
+# chunk a segment leaves the script's budget room for phase 31)
+SEGMENT_CHUNKS = 1
 SEGMENT_AVERAGE_S = 7200.0  # the interval-average file's window
 SEGMENT_SST_TIMES = 3  # time indices of the seeded SST store
 SEGMENT_EVERY = ("air_temperature", "specific_humidity", "eastward_wind",
@@ -3200,9 +3238,8 @@ def driver_inputs(rad_args, lat):
 # _compress_daylight_default)
 BF16_OPTIONS = {"storage_dtype": "bfloat16", "compress_daylight": True}
 # the default and the bf16 chunks in turns (each one's first is its
-# warm-up, then 3 timed)
-OPTIONS_SCHEDULE = ("default", "bf16", "bf16", "default", "default", "bf16",
-                    "bf16", "default")
+# warm-up, then 2 timed)
+OPTIONS_SCHEDULE = ("default", "bf16", "bf16", "default", "default", "bf16")
 # K4 per radiation call under bf16 storage, by instance: the LW Planck
 # fractions (12 calls) and 1-D minors (1) and the SW band 24 Rayleigh lerp
 # (1) take their two rows alone, as the reference (lw.py _lerp_taken): 14
@@ -3696,9 +3733,8 @@ def phase_dycore_options(device, reps=10):
 # by one bfloat16 ulp at most
 K2_BF16_ULPS = 1
 # the mega and the ktable route under BF16_OPTIONS in turns (each one's
-# first is its warm-up, then 3 timed)
-MEGA_BF16_SCHEDULE = ("ktable", "mega", "mega", "ktable", "ktable", "mega",
-                      "mega", "ktable")
+# first is its warm-up, then 2 timed)
+MEGA_BF16_SCHEDULE = ("ktable", "mega", "mega", "ktable", "ktable", "mega")
 # K4 calls of the LW gas optics under bf16 storage (its 27 of float32, the
 # 13 lerps of two rows taken alone: 12 Planck fractions, the 1-D minors)
 # and K3 calls (2 paths a band, 9 lower and 3 upper bands): K2 takes them
@@ -6779,12 +6815,20 @@ def tail_configs(tmp, data, store):
         "min_max_novelty_detector": ({"input_variables": list(ML_NUDGED)},
                                      None),
     }
+    # one card-only fit of each at C48's full size: the forest on every
+    # column of phase 29's times, the SVM on one time's 13,824 columns
+    full = dict(columns, subsample_ratio=1.0)
+    runs.update({f"{name} full": (dict(hp, n_estimators=RF_FULL_TREES)
+                                  if "n_estimators" in hp else hp, full)
+                 for name, (hp, _) in list(runs.items())})
     out = {}
     for name, (hp, data_cfg) in runs.items():
-        paths = (os.path.join(tmp, f"{name}.yaml"),
-                 os.path.join(tmp, f"{name}_data.yaml"))
+        stem = name.replace(" ", "_")
+        paths = (os.path.join(tmp, f"{stem}.yaml"),
+                 os.path.join(tmp, f"{stem}_data.yaml"))
         with open(paths[0], "w") as f:
-            yaml.safe_dump({"model_type": name, "hyperparameters": hp}, f)
+            yaml.safe_dump({"model_type": name.split()[0],
+                            "hyperparameters": hp}, f)
         if data_cfg is None:  # the dense model's columns of phase 29
             paths = (paths[0], data["cfgs"]["dense"][1])
         else:
@@ -7337,11 +7381,11 @@ def jacobians_and_sweep(device, tmp, data):
         + "; ".join(lines))
 
 
-def phase_ml_tail(device, cube, data, ms_phase20=None):
+def phase_ml_tail(device, cube, data, ms_phase20=None, keep_data=False):
     """Phase 30: the rest of the ML library at C48 (see the module's
     docstring).  ``cube`` is phase 27's series, ``data`` phase 29's (its
-    directory removed here).  Returns the launches of the emulated
-    chunks."""
+    directory removed here unless ``keep_data``).  Returns the launches
+    of the emulated chunks."""
     import shutil
     import tempfile
 
@@ -7375,8 +7419,476 @@ def phase_ml_tail(device, cube, data, ms_phase20=None):
             f"a step; phase 30's parts in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-        shutil.rmtree(data["tmp"], ignore_errors=True)
+        if not keep_data:
+            shutil.rmtree(data["tmp"], ignore_errors=True)
     return total, per_chunk, median_ms(walls), inc_ms
+
+
+# -- phase 31: the scikit-learn models and the time loop's options -------
+SKLEARN_CHUNKS = 2  # production chunks of phase 31's run
+RF_TREES = 10  # at full depth; the CPU's fit of them runs in a thread
+RF_SUBSAMPLE = 0.025  # of the 13,824 columns a time: 345 x 4 times
+# trees of the card-only fit at C48's full size (every column of the 4
+# times), at full depth: 2.6 s a tree on an H100
+RF_FULL_TREES = 3
+SVM_CLI_RTOL = 1e-12  # the CLI's fit against this process's, same card
+# the card's fit against the CPU's, which must take as many pairs: kernel
+# matrices rounded to float32 from two devices' float64 exp; 4.29e-10
+# measured on an H100, the bound 23 times that
+SVM_CARD_CPU_RTOL = 1e-8
+# the forest's walk on the card against a plain walk on the host, the
+# same sums in the same order
+RF_WALK_RTOL = 1e-14
+SKLEARN_TAPER = {"name": "taper_ramp", "ramp_min": 0.0, "ramp_max": 100.0}
+# the PhysicsConfig of the run: the thermal top sponge on, no shallow
+# convection (the reference's switches; its namelist does not set them)
+SPONGE_PHYSICS = {"top_sponge_days": 5.0, "use_shallow_convection": False}
+NATIVE_TIMES = 4  # time indices of the native chunk I/O's store
+
+
+class PatchedPhysics:
+    """While active, the TimeLoop builds its PhysicsConfig with
+    SPONGE_PHYSICS over what the namelist sets."""
+
+    def __enter__(self):
+        import functools
+        from fv3net_torch.runtime import loop
+
+        self.loop, self.orig = loop, loop.PhysicsConfig
+        loop.PhysicsConfig = functools.partial(self.orig, **SPONGE_PHYSICS)
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.PhysicsConfig = self.orig
+
+
+def native_chunk_io(tmp):
+    """A [time, tile, z, y, x] float32 C48 store of NATIVE_TIMES times
+    (a chunk a time and tile) written and read through the native chunk
+    I/O, then each chunk rewritten by the Python path: the native
+    counts above zero, every chunk file's bytes equal, the read equal
+    to what was written.  Returns the seconds of the native write and
+    read."""
+    import numpy as np
+    from fv3net_torch import native
+    from fv3net_torch.core import zarrio
+
+    rng = np.random.RandomState(31)
+    x = rng.rand(NATIVE_TIMES, 6, NPZ, NPX, NPX).astype(np.float32)
+    native.reset_counts()
+    path = os.path.join(tmp, "native.zarr")
+    t0 = time.perf_counter()
+    arr = zarrio.ZarrArray.create(path, shape=x.shape, dtype=x.dtype,
+                                  chunks=(1, 1, NPZ, NPX, NPX),
+                                  dims=("time", "tile", "z", "y", "x"),
+                                  compress=True)
+    arr[:] = x
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = zarrio.ZarrArray(path).read()
+    t_read = time.perf_counter() - t0
+    counts = dict(native.COUNTS)
+    check(counts["writes"] > 0 and counts["reads"] > 0
+          and counts["written_chunks"] == NATIVE_TIMES * 6
+          and counts["read_chunks"] == NATIVE_TIMES * 6,
+          f"native chunk I/O counts {counts}")
+    check(np.array_equal(back, x), "the native read is not what was "
+          "written")
+    py = os.path.join(tmp, "python.zarr")
+    parr = zarrio.ZarrArray.create(py, shape=x.shape, dtype=x.dtype,
+                                   chunks=(1, 1, NPZ, NPX, NPX),
+                                   dims=("time", "tile", "z", "y", "x"),
+                                   compress=True)
+    for t in range(NATIVE_TIMES):
+        for tile in range(6):
+            parr._write_chunk((t, tile, 0, 0, 0), x[t, tile][None, None])
+    files = sorted(f for f in os.listdir(path) if not f.startswith("."))
+    same = all(open(os.path.join(path, f), "rb").read()
+               == open(os.path.join(py, f), "rb").read() for f in files)
+    check(same and len(files) == NATIVE_TIMES * 6, "the native writer's "
+          "chunk files are not the Python path's bytes")
+    log(f"  native chunk I/O: {x.nbytes / 2 ** 20:.1f} MiB in "
+        f"{NATIVE_TIMES * 6} zlib chunks written in {t_write:.3f} s, read "
+        f"in {t_read:.3f} s; counts {counts}; every chunk file the Python "
+        "path's bytes")
+    return t_write, t_read
+
+
+def sklearn_configs(tmp, data):
+    """The training and data yaml files of phase 31's CLI runs."""
+    import yaml
+
+    with open(data["cfgs"]["dense"][1]) as f:
+        columns = yaml.safe_load(f)
+    runs = {
+        "sklearn_random_forest": (
+            {"input_variables": list(ML_NUDGED),
+             "output_variables": ["dQ1", "dQ2"], "n_estimators": RF_TREES,
+             "random_state": 0},
+            dict(columns, subsample_ratio=RF_SUBSAMPLE)),
+        "ocsvm_novelty_detector": (
+            {"input_variables": list(ML_NUDGED)}, None),
+    }
+    # one card-only fit of each at C48's full size: the forest on every
+    # column of phase 29's times, the SVM on one time's 13,824 columns
+    full = dict(columns, subsample_ratio=1.0)
+    runs.update({f"{name} full": (dict(hp, n_estimators=RF_FULL_TREES)
+                                  if "n_estimators" in hp else hp, full)
+                 for name, (hp, _) in list(runs.items())})
+    out = {}
+    for name, (hp, data_cfg) in runs.items():
+        stem = name.replace(" ", "_")
+        paths = (os.path.join(tmp, f"{stem}.yaml"),
+                 os.path.join(tmp, f"{stem}_data.yaml"))
+        with open(paths[0], "w") as f:
+            yaml.safe_dump({"model_type": name.split()[0],
+                            "hyperparameters": hp}, f)
+        if data_cfg is None:  # phase 29's columns
+            paths = (paths[0], data["cfgs"]["dense"][1])
+        else:
+            with open(paths[1], "w") as f:
+                yaml.safe_dump(data_cfg, f)
+        out[name] = paths
+    return out
+
+
+def sklearn_fits(name, cfgs, device):
+    """``name``'s trainer on its CLI's batches on ``device`` in float64
+    (timed, synchronized where on the card); returns (model, seconds,
+    packed inputs of the first batch)."""
+    import torch
+    from fv3net_torch.fit import packer, train
+
+    batches, config = tail_batches(name, cfgs, device, torch.float64)
+    fn = train.get_training_function(config.model_type)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = fn(config.hyperparameters, batches, None)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    names_in = list(config.hyperparameters.input_variables)
+    X = packer.pack(packer.dataset_to_samples(batches[0], names_in),
+                    names_in)[0]
+    return model, seconds, X
+
+
+def forest_inputs(model, cfgs):
+    """The forest's training inputs on the host (all batches) and each
+    tree's bootstrap counts."""
+    import numpy as np
+    import torch
+    from fv3net_torch.fit import packer, random_forest
+
+    batches, config = tail_batches("sklearn_random_forest", cfgs, "cpu",
+                                   torch.float64)
+    names_in = list(config.hyperparameters.input_variables)
+    X = torch.cat([packer.pack(packer.dataset_to_samples(b, names_in),
+                               names_in)[0] for b in batches]).numpy()
+    counts = [random_forest.bootstrap_counts(s, X.shape[0])
+              for s in model.forest.seeds]
+    return X, counts
+
+
+def same_forest(label, got, want, X, counts):
+    """Gate: every tree of ``got`` held to ``want``'s under the tie rule;
+    returns the nodes, the splits on another feature and the swaps."""
+    from fv3net_torch.fit import random_forest
+
+    check(got.forest.seeds == want.forest.seeds, f"{label}: seeds")
+    totals = {"nodes": 0, "other_feature": 0, "swapped": 0}
+    for i, (a, b, c) in enumerate(zip(want.forest.trees, got.forest.trees,
+                                      counts)):
+        res = random_forest.match_trees(a, b, X, c)
+        check(res["ok"] and res["nodes"] == len(a.feature), f"{label}: tree "
+              f"{i} parts at node {res['first_failure']} ({res})")
+        for k in totals:
+            totals[k] += res[k]
+    return totals
+
+
+def svm_gap(got, want, X):
+    """The largest difference of two detectors' decision values at ``X``
+    over their scale, on the CPU in float64."""
+    a = got.decision_function(X).cpu()
+    b = want.decision_function(X).cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def forest_walk_host(forest, X):
+    """The forest's prediction at ``X`` [n, F] by a plain walk of each
+    tree on the host (scikit-learn's rule: left where the float32 value
+    is at most the threshold), float64, the trees summed in order."""
+    import numpy as np
+
+    Xf = np.asarray(X, np.float32).astype(np.float64)
+    rows = np.arange(len(Xf))
+    out = 0.0
+    for t in forest.trees:
+        node = np.zeros(len(Xf), np.int64)
+        while True:
+            inner = t.left_child[node] >= 0
+            if not inner.any():
+                break
+            f = np.where(inner, t.feature[node], 0)
+            left = Xf[rows, f] <= t.threshold[node]
+            node = np.where(inner, np.where(left, t.left_child[node],
+                                            t.right_child[node]), node)
+        out = out + t.values[node]
+    return out / len(forest.trees)
+
+
+def full_size_fits(cfgs, device):
+    """The card-only float64 fits at C48's full size (timed, with the
+    card's peak memory above what was allocated before each); returns
+    the log line."""
+    import torch
+
+    parts = []
+    for name in ("sklearn_random_forest", "ocsvm_novelty_detector"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        model, seconds, X = sklearn_fits(f"{name} full", cfgs, device)
+        peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+        if name == "sklearn_random_forest":
+            depths = [t.depth for t in model.forest.trees]
+            out = model.forest.predict(X)
+            check(bool(torch.isfinite(out).all()), "the full-size forest's "
+                  "prediction is not finite")
+            parts.append(
+                f"the forest ({len(depths)} trees, {model.n_samples} samples, "
+                f"depths {min(depths)}-{max(depths)}, "
+                f"{sum(len(t.feature) for t in model.forest.trees)} nodes) "
+                f"in {seconds:.2f} s, peak {peak:.2f} GiB")
+        else:
+            score = model.decision_function(X)
+            check(bool(torch.isfinite(score).all()) and len(
+                model.svm.support) > 0, "the full-size SVM")
+            parts.append(
+                f"the SVM ({X.shape[0]} samples, {model.svm.n_iter} "
+                f"iterations, {len(model.svm.support)} support vectors) in "
+                f"{seconds:.2f} s, peak {peak:.2f} GiB")
+        del model, X
+    return "; ".join(parts)
+
+
+def phase_sklearn_surface(device, data):
+    """Phase 31 (see the module's docstring): ``data`` is phase 29's (its
+    directory removed here).  Returns the launches of the run's chunks
+    and their wall per chunk."""
+    import glob
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from fv3net_torch import entry
+    from fv3net_torch.fit import io, packer
+    from fv3net_torch.fit.novelty import OutOfSampleModel
+    from fv3net_torch.runtime import timing
+    from fv3net_torch.runtime.config import get_config
+    from fv3net_torch.runtime.diagnostics.tensorboard import read_events
+    from fv3net_torch.runtime.segmented_run import api
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="sklearn_")
+    try:
+        cfgs = sklearn_configs(tmp, data)
+        # timed, with nothing else on the card or the host
+        native_chunk_io(tmp)
+        rf, rf_s, _ = sklearn_fits("sklearn_random_forest", cfgs, device)
+        svm, svm_s, Xs = sklearn_fits("ocsvm_novelty_detector", cfgs, device)
+        depths = [t.depth for t in rf.forest.trees]
+        log(f"  float64 fits on the card: the forest ({RF_TREES} trees, "
+            f"depths {min(depths)}-{max(depths)}, "
+            f"{sum(len(t.feature) for t in rf.forest.trees)} nodes, "
+            f"{rf.n_samples} samples) in {rf_s:.2f} s; the SVM "
+            f"({Xs.shape[0]} samples, {svm.svm.n_iter} iterations, "
+            f"{len(svm.svm.support)} support vectors) in {svm_s:.2f} s")
+        log("  float64 fits on the card at C48's full size: "
+            + full_size_fits(cfgs, device))
+
+        # untimed: the CLI's two processes, the CPU's fits in a thread
+        # and the float64 chunk (kernels against plain) together
+        started = start_cli({name: (name, cfgs[name], []) for name in (
+            "sklearn_random_forest", "ocsvm_novelty_detector")}, tmp)
+        cpu = {}
+
+        def cpu_fits():
+            cpu["rf"] = sklearn_fits("sklearn_random_forest", cfgs, "cpu")
+            cpu["svm"] = sklearn_fits("ocsvm_novelty_detector", cfgs, "cpu")
+
+        thread = threading.Thread(target=cpu_fits)
+        thread.start()
+        own_dir = os.path.join(tmp, "own")
+        io.dump(OutOfSampleModel(rf, svm, taper_config=SKLEARN_TAPER),
+                own_dir)
+        cfg = segment_config(tmp, SKLEARN_CHUNKS)
+        cfg["namelist"] = dict(cfg["namelist"], surface_data=f"topography/"
+                               f"c{NPX}", land_model="noah")
+        cfg["diagnostics"] = [{"name": "tensorboard", "tensorboard": True,
+                               "variables": ["ULWRFtoa", "surface_pressure"],
+                               "times": {"kind": "every"}}]
+        cfg["fortran_diagnostics"] = []
+        # float64, one chunk of 2 steps, kernels against plain (the
+        # in-process fits, which the CLI's artifacts are held equal to)
+        cfg64 = dict(cfg, fused_chunk_steps=2, duration_seconds=2 * DT,
+                     radiation_interval_steps=2, diagnostics=[],
+                     scikit_learn={"model": [own_dir]})
+        with PatchedPhysics():
+            loop_kernels_vs_plain("float64 chunk with the scikit-learn "
+                                  "models over topography/c48", cfg64,
+                                  production_launches(2, 1))
+        cli = wait_cli(started)
+        thread.join()
+        log("  fv3fit-train-torch --device cuda, 2 processes started "
+            "together beside the CPU's fits and the float64 chunk: "
+            + ", ".join(f"{k} done after {v[1]:.1f} s"
+                        for k, v in cli.items()) + " (from their start)")
+        X_rf, counts = forest_inputs(rf, cfgs)
+        cli_rf = io.load(cli["sklearn_random_forest"][0])
+        ties = same_forest("the CLI's forest against this process's",
+                           cli_rf, rf, X_rf, counts)
+        cli_svm = io.load(cli["ocsvm_novelty_detector"][0]).to(device=device)
+        gap = svm_gap(cli_svm, svm, Xs)
+        check(gap <= SVM_CLI_RTOL, f"the CLI's SVM parts from this "
+              f"process's by {gap:.3e} of scale (bound {SVM_CLI_RTOL})")
+        log(f"  the CLI's artifacts (regressor.pkl, model.pkl, read without "
+            f"scikit-learn): the forest under the tie rule "
+            f"({ties['nodes']} nodes; {ties['other_feature']} splits on "
+            f"another feature, {ties['swapped']} swapped), the SVM's "
+            f"decision values within {gap:.3e} of scale (bound "
+            f"{SVM_CLI_RTOL})")
+        cpu_rf, cpu_rf_s, _ = cpu["rf"]
+        cpu_svm, cpu_svm_s, _ = cpu["svm"]
+        ties = same_forest("the card's forest against the CPU's", rf,
+                           cpu_rf, X_rf, counts)
+        gap = svm_gap(svm, cpu_svm, Xs)
+        check(cpu_svm.svm.n_iter == svm.svm.n_iter and gap
+              <= SVM_CARD_CPU_RTOL, f"the card's SVM ({svm.svm.n_iter} "
+              f"iterations) parts from the CPU's ({cpu_svm.svm.n_iter}) by "
+              f"{gap:.3e} of scale (bound {SVM_CARD_CPU_RTOL})")
+        log(f"  float64 fits on the CPU (a thread): the forest in "
+            f"{cpu_rf_s:.2f} s, every tree the card's under the tie rule "
+            f"({ties['nodes']} nodes; {ties['other_feature']} splits on "
+            f"another feature, {ties['swapped']} swapped); the SVM in "
+            f"{cpu_svm_s:.2f} s (as many iterations as the card's, "
+            f"{svm.svm.n_iter}), decision values within {gap:.3e} of scale "
+            f"of the card's (bound {SVM_CARD_CPU_RTOL})")
+        del rf, svm, cpu, cli_svm
+
+        # timed: the out_of_sample model of the CLI's two artifacts
+        # through run_segment, its predictions inside the chunks recorded
+        model = OutOfSampleModel(cli_rf, io.load(
+            cli["ocsvm_novelty_detector"][0]), taper_config=SKLEARN_TAPER)
+        model_dir = os.path.join(tmp, "out_of_sample")
+        io.dump(model, model_dir)
+        cfg["scikit_learn"] = {"model": [model_dir]}
+        area = torch.tensor(entry.make_grid(NPX).area, device=device)
+        rundir = os.path.join(tmp, "run")
+        calls, orig = [], OutOfSampleModel.predict
+
+        def record(self, X):
+            out = orig(self, X)
+            calls.append((self, X, out))
+            return out
+
+        OutOfSampleModel.predict = record
+        try:
+            with PatchedPhysics(), ChunkRecorder() as rec:
+                t0 = time.perf_counter()
+                run = api.run_segment(get_config(cfg), rundir)
+                seconds_run = time.perf_counter() - t0
+        finally:
+            OutOfSampleModel.predict = orig
+        check(run.fusable() and run._production_features()
+              and len(rec.chunks) == SKLEARN_CHUNKS,
+              "the scikit-learn models' run did not take the fused "
+              "production path")
+        phys = run._phys_cfg
+        check(phys.top_sponge_days == SPONGE_PHYSICS["top_sponge_days"]
+              and not phys.use_shallow_convection,
+              f"the run's PhysicsConfig {phys}")
+        total = gate_segment("scikit-learn models", rec, area,
+                             production_launches(CHUNK,
+                                                 RADIATION_CALLS_PER_CHUNK))
+        per_chunk = log_segment("scikit-learn models over topography/c48",
+                                timing.phase_report(), SKLEARN_CHUNKS,
+                                seconds_run)
+        # the last prediction inside the chunk: the model called directly
+        # on the same inputs, the forest's outputs (walked on the card and
+        # on the host) under the taper of the SVM's scores
+        check(len(calls) == SKLEARN_CHUNKS * CHUNK, f"{len(calls)} calls "
+              "of the out_of_sample model in the chunks")
+        oos, X, out = calls[-1]
+        direct = oos.predict(X)
+        base = oos.base_model.predict(X)
+        taper = direct["taper_values"].data
+        Xp = packer.pack(packer.dataset_to_samples(
+            X, oos.base_model.input_variables),
+            oos.base_model.input_variables)[0]
+        walked = oos.base_model.forest.predict(Xp)
+        host = torch.as_tensor(forest_walk_host(oos.base_model.forest,
+                                                Xp.cpu().numpy()))
+        walk_gap = float((walked.cpu() - host).abs().max()
+                         / host.abs().max())
+        check(walk_gap <= RF_WALK_RTOL, f"the forest's walk on the card "
+              f"parts from the host's by {walk_gap:.3e} of scale")
+        for k in ("dQ1", "dQ2"):
+            check(torch.equal(out[k].data, direct[k].data), f"{k}: the "
+                  "chunk's prediction is not the model's called directly "
+                  "on the same state")
+            want = base[k].data * taper.reshape(-1, 1).to(base[k].data)
+            check(torch.equal(out[k].data, want), f"{k}: the chunk's "
+                  "prediction is not the forest's under the taper")
+            check(bool(base[k].data.abs().max() > 0), f"{k}: the forest "
+                  "predicts 0 everywhere")
+        shares = [float((taper == v).double().mean()) for v in (0, 1)]
+        log(f"  its last prediction in the chunk equal to the model called "
+            f"directly and to the forest's outputs under the taper (the "
+            f"walk on the card within {walk_gap:.3e} of scale of a plain "
+            f"walk on the host, bound {RF_WALK_RTOL}); the taper over "
+            f"{taper.numel()} columns: {shares[0]:.3f} at 0, "
+            f"{shares[1]:.3f} at 1, mean {float(taper.double().mean()):.6g}")
+        del calls, X, out, direct, base
+        sfc = run.state.surface
+        phis = run.state.dycore.phis
+        land = float(sfc["land_sea_mask"].mean())
+        check(land > 0 and float(phis.max()) > 1e4 and float(
+            sfc["sgh"].max()) > 0, "topography/c48: no land, mountains "
+              "or subgrid orography in the run's state")
+        tapered = sfc.get("taper_values")
+        check(tapered is not None and bool(((tapered >= 0)
+                                            & (tapered <= 1)).all()),
+              "out_of_sample: no taper values in [0, 1] among the surface "
+              "fields")
+        (events_path,) = glob.glob(os.path.join(rundir, "tensorboard",
+                                                "events.*"))
+        events = read_events(events_path)
+        steps = SKLEARN_CHUNKS  # one observation a chunk
+        check(len(events) == 1 + steps and all(
+            b"ULWRFtoa/mean" in e and b"surface_pressure/mean" in e
+            for e in events[1:]), f"tensorboard: {len(events)} events")
+        images = sum(e.count(b"\x89PNG") for e in events[1:])
+        drawn = ("matplotlib present" if images else "matplotlib absent: "
+                 "the scalars only, as the reference writes them")
+        log(f"  over topography/c48 (land {land:.3f} of the cells, phis up "
+            f"to {float(phis.max()):.0f} m2/s2, sgh up to "
+            f"{float(sfc['sgh'].max()):.0f} m), the top sponge on and no "
+            f"shallow convection: {SKLEARN_CHUNKS} chunks, launches a chunk "
+            f"{rec.chunks[0][3]}; the event file "
+            f"{os.path.basename(events_path)}: {len(events)} records "
+            f"({os.path.getsize(events_path)} B, {images} PNG images, "
+            f"{drawn}) read back, CRCs held; phase "
+            f"31's parts in {time.perf_counter() - t_phase:.1f} s")
+        del run, rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(data["tmp"], ignore_errors=True)
+    return total, per_chunk
 
 
 def main():
@@ -7585,9 +8097,20 @@ def main():
           "fmr, cyclegan and min_max_novelty_detector, out-of-sample "
           "tapering online, Jacobians, a sweep)")
     t30 = time.perf_counter()
-    phase_ml_tail(device, cube_series, ml_data, s_emulated_chunk * 1e3)
+    phase_ml_tail(device, cube_series, ml_data, s_emulated_chunk * 1e3,
+                  keep_data=True)
     del cube_series
     log(f"  phase 30 in {time.perf_counter() - t30:.1f} s")
+
+    phase("31: the scikit-learn models (fv3fit-train-torch for "
+          "sklearn_random_forest and ocsvm_novelty_detector, their fits "
+          "card against CPU, an out_of_sample model of both online) over "
+          "surface_data topography/c48 with Noah land, the top sponge, "
+          "no shallow convection and a tensorboard file; the native "
+          "chunk I/O")
+    t31 = time.perf_counter()
+    phase_sklearn_surface(device, ml_data)
+    log(f"  phase 31 in {time.perf_counter() - t31:.1f} s")
 
     # each kernel's launches come from the run of the path it lies on
     counts = dict(counts, taumol_lw=counts_mega["taumol_lw"],

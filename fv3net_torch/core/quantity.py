@@ -270,3 +270,41 @@ def ones_like(q: Quantity) -> Quantity:
 
 def full_like(q: Quantity, value) -> Quantity:
     return _like(q, value)
+
+
+def where(cond, x, y) -> Quantity:
+    """Dim-aligned three-way where; at least one argument must be a
+    Quantity.  The output's dims are the union of the Quantities' dims in
+    order of appearance (cond, x, y); on tensors when any data is one."""
+    qs = [v for v in (cond, x, y) if isinstance(v, Quantity)]
+    if not qs:
+        raise TypeError("where() requires at least one Quantity argument")
+    out_dims = []
+    for q in qs:
+        for d in q.dims:
+            if d not in out_dims:
+                out_dims.append(d)
+    datas = [v.data if isinstance(v, Quantity) else v for v in (cond, x, y)]
+    tensor = next((d for d in datas if torch.is_tensor(d)), None)
+
+    def expand(v):
+        if not isinstance(v, Quantity):
+            return v
+        src_order = [v.dims.index(d) for d in out_dims if d in v.dims]
+        data = _transpose(v.data, src_order)
+        shape_iter = iter(data.shape)
+        full_shape = [next(shape_iter) if d in v.dims else 1
+                      for d in out_dims]
+        return data.reshape(full_shape)
+
+    c, a, b = (expand(v) for v in (cond, x, y))
+    if tensor is None:
+        return Quantity(np.where(c, a, b), tuple(out_dims))
+    device = tensor.device
+
+    def as_tensor(v):
+        return (v.to(device) if torch.is_tensor(v)
+                else torch.as_tensor(v, device=device))
+
+    return Quantity(torch.where(as_tensor(c).bool(), as_tensor(a),
+                                as_tensor(b)), tuple(out_dims))

@@ -5,16 +5,14 @@ The names the reference exports, resolved on first use (PEP 562), so
 that importing ``fv3net_torch.fit`` (as every ``fit`` submodule and CLI
 process does) loads none of the trainers: ``fv3net_torch.fit.load``
 imports the model types it dispatches to itself.  The modules named here
-register their model types and trainers when they are imported.  The
-reference's ``random_forest`` module is not ported (ROADMAP.md Queue 1
-item 9).
+register their model types and trainers when they are imported.
 """
 import importlib
 
 _MODULES = (
     "autoencoder", "convolutional", "cyclegan", "dense", "graph",
-    "models", "novelty", "precipitative", "recurrent", "reservoir",
-    "testing", "transformed", "transformers",
+    "models", "novelty", "precipitative", "random_forest", "recurrent",
+    "reservoir", "testing", "transformed", "transformers",
 )
 
 # name -> module that defines it

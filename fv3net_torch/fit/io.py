@@ -2,10 +2,11 @@
 external/fv3fit/fv3fit/_shared/io.py:17-92): an artifact directory holds
 a ``name`` file naming its model type, and ``load(path)`` dispatches on
 it.  The port reads and writes the reference's artifact formats, so a
-model the reference trained and dumped loads here.  Every model type of
-the reference is registered but ``ocsvm`` and ``sklearn_random_forest``
-(pickles of scikit-learn objects), which raise ``NotImplementedError``
-naming ROADMAP.md Queue 1 item 9.
+model the reference trained and dumped loads here, and the reverse.
+Every model type of the reference is registered, the scikit-learn
+pickles of ``ocsvm`` and ``sklearn_random_forest`` among them (read and
+written without scikit-learn: ``fit/_sklearn_pickle.py``); an unknown
+name raises the reference's ``ValueError``.
 """
 from __future__ import annotations
 
@@ -51,11 +52,7 @@ class _Register:
         try:
             cls = self._model_types[name]
         except KeyError:
-            raise NotImplementedError(
-                f"model type {name!r} at {path} is not ported to "
-                "fv3net_torch yet (ROADMAP.md Queue 1 item 9; the port "
-                f"loads {', '.join(sorted(self._model_types))})"
-            ) from None
+            raise ValueError(f"unknown model type {name!r} at {path}")
         return cls.load(path)
 
     def dump(self, obj, path: str) -> None:
@@ -85,6 +82,7 @@ def load(path: str):
         models,
         novelty,
         precipitative,
+        random_forest,
         recurrent,
         reservoir,
         testing,

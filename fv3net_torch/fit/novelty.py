@@ -4,11 +4,11 @@ external/fv3fit/fv3fit/_shared/novelty_detector.py:21-60,
 sklearn/_min_max_novelty_detector.py:35-160, _shared/taper_function.py
 and _shared/models.py:340-440 OutOfSampleModel).
 
-The min-max detector, the constant-score stub, the taper functions and
-``OutOfSampleModel`` are ported.  The one-class SVM detector trains with
-scikit-learn and saves its pickle; the port has no scikit-learn on the
-card, so ``ocsvm`` and ``ocsvm_novelty_detector`` raise the port's
-not-ported error (ROADMAP.md Queue 1 item 9).
+The min-max and one-class SVM detectors, the constant-score stub, the
+taper functions and ``OutOfSampleModel`` are ported.  The one-class SVM
+fits and scores without scikit-learn (``fit/one_class_svm.py``) and
+reads and writes the reference's ``model.pkl``
+(``fit/_sklearn_pickle.py``).
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ import torch
 
 from fv3net_torch.core.dataset import Dataset
 from fv3net_torch.core.quantity import Quantity
-from fv3net_torch.fit import io, packer
+from fv3net_torch.fit import _sklearn_pickle as skp
+from fv3net_torch.fit import io, one_class_svm, packer
 from fv3net_torch.fit.convolutional import _info, _info_dict
 from fv3net_torch.fit.predictor import Predictor
 from fv3net_torch.fit.train import register_training_function
@@ -171,23 +172,84 @@ def minmax_from_jax(detector, dtype=None) -> MinMaxNoveltyDetector:
                                 [int(f) for f in detector.info.features]))
 
 
-def _ocsvm_not_ported():
-    from fv3net_torch.runtime.factories import not_ported
+@io.register("ocsvm")
+class OCSVMNoveltyDetector(NoveltyDetector):
+    """The one-class SVM detector (reference _ocsvm_novelty_detector.py:46
+    over ``sklearn.svm.OneClassSVM``): fitted by libsvm's one-class
+    solver on tensors (:mod:`fv3net_torch.fit.one_class_svm`), scored
+    -(K(X, SV) @ dual_coef - rho) in float64 on the support vectors'
+    device (positive out of sample), saved as the reference's
+    ``model.pkl`` without scikit-learn."""
 
-    return not_ported("the one-class SVM novelty detector (ocsvm, "
-                      "sklearn.svm.OneClassSVM)", 9)
+    def __init__(self, input_variables, svm=None, info=None, nu=0.1,
+                 gamma="scale", tol=1e-3, n_samples=0):
+        super().__init__(input_variables)
+        self.svm = svm
+        self.info = info
+        self.nu, self.gamma, self.tol = nu, gamma, tol
+        self.n_samples = n_samples
 
+    def to(self, device=None, dtype=None):
+        # scoring stays float64, as scikit-learn's
+        if device is not None:
+            self.svm.support_vectors = self.svm.support_vectors.to(device)
+            self.svm.dual_coef = self.svm.dual_coef.to(device)
+        return self
 
-class OCSVMNoveltyDetector:
-    """The one-class SVM detector (reference _ocsvm_novelty_detector.py:46):
-    not ported, it raises."""
+    def fit(self, batch: Dataset, gamma="scale", nu: float = 0.1,
+            tol: float = 1e-3):
+        data = packer.dataset_to_samples(batch, self.input_variables)
+        X, self.info = packer.pack(data, self.input_variables)
+        X = X.to(torch.float64)
+        self.nu, self.gamma, self.tol = nu, gamma, tol
+        self.n_samples = X.shape[0]
+        value = None if gamma == "scale" else float(gamma)
+        self.svm = one_class_svm.fit(X, nu=nu, gamma=value, tol=tol)
+        return self
 
-    def __init__(self, *args, **kwargs):
-        raise _ocsvm_not_ported()
+    def decision_function(self, X: torch.Tensor) -> torch.Tensor:
+        return one_class_svm.decision_function(
+            X, self.svm.support_vectors, self.svm.dual_coef, self.svm.rho,
+            self.svm.gamma)
+
+    def _score(self, Xd: Dataset) -> torch.Tensor:
+        data = packer.dataset_to_samples(Xd, self.input_variables)
+        X, _ = packer.pack(data, self.input_variables)
+        # decision_function > 0 means in-sample: flip the sign so that
+        # larger = more novel (the centered-score convention); computed
+        # in float64, returned in the inputs' float dtype
+        score = -self.decision_function(X)
+        dtype = X.dtype if X.is_floating_point() else score.dtype
+        return score.to(device=X.device, dtype=dtype)
+
+    def dump(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        f = self.svm
+        skp.dump(skp.one_class_svm(
+            f.support.cpu().numpy(), f.support_vectors.cpu().numpy(),
+            f.dual_coef.cpu().numpy(), f.rho, f.gamma, self.n_samples,
+            f.n_iter, self.nu, self.gamma, self.tol),
+            os.path.join(path, "model.pkl"))
+        with open(os.path.join(path, "metadata.json"), "w") as fh:
+            json.dump({"input_variables": self.input_variables,
+                       "info": _info_dict(self.info)}, fh)
 
     @classmethod
-    def load(cls, path: str):
-        raise _ocsvm_not_ported()
+    def load(cls, path: str) -> "OCSVMNoveltyDetector":
+        """The detector in ``path``, on the CPU, from the reference's
+        pickle read without scikit-learn."""
+        with open(os.path.join(path, "metadata.json")) as fh:
+            meta = json.load(fh)
+        m = skp.load(os.path.join(path, "model.pkl"))
+        svm = one_class_svm.OneClassSVMFit(
+            torch.as_tensor(np.asarray(m.support_, np.int64)),
+            torch.as_tensor(np.asarray(m.support_vectors_, np.float64)),
+            torch.as_tensor(np.asarray(m._dual_coef_, np.float64)[0]),
+            float(-np.asarray(m._intercept_)[0]), float(m._gamma),
+            int(m.n_iter_))
+        return cls(meta["input_variables"], svm=svm,
+                   info=_info(meta["info"]), nu=m.nu, gamma=m.gamma,
+                   tol=m.tol, n_samples=int(m.shape_fit_[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -214,8 +276,24 @@ def train_min_max_novelty_detector(hyperparameters, train_batches, val=None):
     return det
 
 
+@dataclasses.dataclass
+class OCSVMNoveltyDetectorHyperparameters:
+    input_variables: List[str] = dataclasses.field(default_factory=list)
+    gamma: str = "scale"
+    nu: float = 0.1
+    max_samples: int = 20000
+
+
+@register_training_function(
+    "ocsvm_novelty_detector", OCSVMNoveltyDetectorHyperparameters
+)
 def train_ocsvm_novelty_detector(hyperparameters, train_batches, val=None):
-    raise _ocsvm_not_ported()
+    """Fits on the first batch only, on its device; ``max_samples`` is
+    not applied (as in the reference)."""
+    det = OCSVMNoveltyDetector(hyperparameters.input_variables)
+    batch = list(train_batches)[0]
+    det.fit(batch, gamma=hyperparameters.gamma, nu=hyperparameters.nu)
+    return det
 
 
 # ---------------------------------------------------------------------------

@@ -6,10 +6,9 @@ fv3fit/train.py:33-192).
 ``@register_training_function(name, HyperparamCls)`` registers
 ``fn(hyperparameters, train_batches, validation_batches) -> model``;
 ``train_main`` resolves, fits and dumps a model with its ``train.yaml``.
-Every trainer of the reference is ported but
-``ocsvm_novelty_detector`` and ``sklearn_random_forest`` (scikit-learn
-solvers), which raise ``NotImplementedError`` naming ROADMAP.md Queue 1
-item 9.  ``main`` reads the data configs as the reference does (the
+Every trainer of the reference is ported, ``ocsvm_novelty_detector`` and
+``sklearn_random_forest`` among them (their solvers written on tensors,
+without scikit-learn).  ``main`` reads the data configs as the reference does (the
 loaders' configs, or the legacy ``{kind, path, variables}`` dict),
 asks a loader config for the hyperparameters' ``state_variables`` too
 (which the reference's CLI leaves out, so that its ``fmr``,
@@ -44,7 +43,7 @@ def register_training_function(name: str, hyperparameter_class: Type):
     return decorator
 
 
-def _registered(name: str) -> Tuple[Callable, Type]:
+def _import_trainers() -> None:
     # the registered trainers register on import
     from fv3net_torch.fit import (  # noqa: F401
         autoencoder,
@@ -54,25 +53,26 @@ def _registered(name: str) -> Tuple[Callable, Type]:
         graph,
         novelty,
         precipitative,
+        random_forest,
         recurrent,
         reservoir,
         transformed,
     )
 
-    if name not in _TRAINING_FUNCTIONS:
-        raise NotImplementedError(
-            f"training function {name!r} is not ported to fv3net_torch yet "
-            f"(ROADMAP.md Queue 1 item 9; the port trains "
-            f"{', '.join(sorted(_TRAINING_FUNCTIONS))})")
-    return _TRAINING_FUNCTIONS[name]
-
 
 def get_training_function(name: str) -> Callable:
-    return _registered(name)[0]
+    _import_trainers()
+    return _TRAINING_FUNCTIONS[name][0]
 
 
 def get_hyperparameter_class(name: str) -> Type:
-    return _registered(name)[1]
+    _import_trainers()
+    return _TRAINING_FUNCTIONS[name][1]
+
+
+def training_function_names():
+    _import_trainers()
+    return sorted(_TRAINING_FUNCTIONS)
 
 
 @dataclasses.dataclass

@@ -17,13 +17,16 @@ liquid + ice radiation condensate), stratospheric water
 (``stratospheric_h2o``), linearized ozone photochemistry (an ``o3mr``
 tracer, also handed to the radiation) and the nonhydrostatic state
 (w passes through; delz expands with the layer's virtual temperature).
+The reference's off-by-default switches are here too: the thermal top
+sponge (``top_sponge_days > 0``) after radiation, and
+``use_convection`` / ``use_shallow_convection`` gating the convection
+stages.
 The microphysics emulator hooks (the call_py_fort slots of the
 reference's Fortran physics): ``microphysics_emulator`` replaces
 Zhao-Carr, ``gscond_emulator`` its condensation stage (precpd runs
 natively), and ``emulator_piggy_back`` runs the native scheme beside the
 emulator, advances the state with the native result and reports both
-sources' tendencies.  The reference's off-by-default switches (thermal
-top sponge, turning convection off) are not ported.
+sources' tendencies.
 """
 from __future__ import annotations
 
@@ -80,8 +83,11 @@ class PhysicsConfig:
     microphysics_scheme: str = "zhao_carr"
     gfdl_mp: mp_gfdl.GFDLMPParams = mp_gfdl.GFDLMPParams()
     convection: conv.ConvectionParams = conv.ConvectionParams()
+    use_convection: bool = True
     convection_scheme: str = "betts_miller"  # or "mass_flux"
     mass_flux: cmf.MassFluxParams = cmf.MassFluxParams()
+    # shallow mass-flux cumulus after deep convection (inside its gate)
+    use_shallow_convection: bool = True
     shallow: cmf.MassFluxParams = cmf.SHALLOW_PARAMS
     # orographic gravity-wave drag, active where the caller passes a
     # subgrid-orography field (physics_step's ``sgh``)
@@ -90,6 +96,12 @@ class PhysicsConfig:
     # stratospheric methane-oxidation water source (physics/h2ophys.py);
     # off by default: it adds water mass
     stratospheric_h2o: bool = False
+    # thermal top sponge: Newtonian relaxation of T toward
+    # ``top_sponge_tref`` with a weight ramping linearly from 0 at
+    # ``top_sponge_pa`` to 1 at p=0; off unless top_sponge_days > 0
+    top_sponge_pa: float = 10000.0
+    top_sponge_days: float = 0.0
+    top_sponge_tref: float = 235.0
     # stratospheric eddy damping toward the per-level global mean
     strat_eddy_damp_days: float = 1.0
     strat_eddy_damp_pa: float = 25000.0
@@ -214,6 +226,14 @@ def physics_step(
         )
     T = T + dt * heating
 
+    if cfg.top_sponge_days > 0:
+        # upper-boundary Newtonian relaxation
+        w_sp = torch.clamp(
+            (cfg.top_sponge_pa - pmid) / cfg.top_sponge_pa, 0.0, 1.0
+        )
+        rate = w_sp * (dt / (cfg.top_sponge_days * 86400.0))
+        T = T + rate * (cfg.top_sponge_tref - T)
+
     if cfg.strat_eddy_damp_days > 0:
         # relax toward the per-level global mean (mean-preserving eddy
         # damping of the stratosphere)
@@ -289,23 +309,26 @@ def physics_step(
         wind = wind + dt * dwind
 
     # ---- moist convection -----------------------------------------------
-    if cfg.convection_scheme == "mass_flux":
-        T, q, qc_det, conv_precip, dwind = cmf.mass_flux_convection(
-            T, q, pmid, delp, dt, cfg.mass_flux, wind=wind
-        )
-        qc = qc + qc_det
-        wind = wind + dwind
-    else:
-        T, q, conv_precip = conv.betts_miller(
-            T, q, pmid, delp, dt, cfg.convection
-        )
-    # shallow stage: detrains condensate into qc
-    T, q, qc_det_sh, p_sh, dwind_sh = cmf.mass_flux_convection(
-        T, q, pmid, delp, dt, cfg.shallow, wind=wind
-    )
-    qc = qc + qc_det_sh
-    conv_precip = conv_precip + p_sh
-    wind = wind + dwind_sh
+    conv_precip = torch.zeros_like(t_surface)
+    if cfg.use_convection:
+        if cfg.convection_scheme == "mass_flux":
+            T, q, qc_det, conv_precip, dwind = cmf.mass_flux_convection(
+                T, q, pmid, delp, dt, cfg.mass_flux, wind=wind
+            )
+            qc = qc + qc_det
+            wind = wind + dwind
+        else:
+            T, q, conv_precip = conv.betts_miller(
+                T, q, pmid, delp, dt, cfg.convection
+            )
+        if cfg.use_shallow_convection:
+            # shallow stage: detrains condensate into qc
+            T, q, qc_det_sh, p_sh, dwind_sh = cmf.mass_flux_convection(
+                T, q, pmid, delp, dt, cfg.shallow, wind=wind
+            )
+            qc = qc + qc_det_sh
+            conv_precip = conv_precip + p_sh
+            wind = wind + dwind_sh
 
     # ---- microphysics ---------------------------------------------------
     def emulator_result(emulator):

@@ -210,7 +210,8 @@ class DiagnosticFile:
 class DiagnosticsManager:
     """All configured diagnostic files (reference manager.py:181-200
     get_diagnostic_files).  Fortran diagnostic configs lower to ordinary
-    files (``FortranFileConfig.to_diagnostic_config``)."""
+    files (``FortranFileConfig.to_diagnostic_config``); a ``tensorboard:
+    true`` file is a TensorBoard event log instead of a zarr."""
 
     def __init__(self, configs, initial_time: datetime.datetime,
                  output_dir: str):
@@ -219,11 +220,16 @@ class DiagnosticsManager:
             if hasattr(cfg, "to_diagnostic_config"):
                 cfg = cfg.to_diagnostic_config()
             if getattr(cfg, "tensorboard", False):
-                raise NotImplementedError(
-                    f"diagnostics file {cfg.name!r}: tensorboard output is "
-                    "not ported to fv3net_torch yet (ROADMAP.md Queue 1 "
-                    "item 10)"
+                # tensorboard: true swaps the zarr file for a TensorBoard
+                # event log under <output_dir>/tensorboard
+                from fv3net_torch.runtime.diagnostics.tensorboard import (
+                    TensorBoardSink,
                 )
+
+                self.files.append(TensorBoardSink(
+                    os.path.join(output_dir, "tensorboard"), cfg.variables,
+                    time_container_from_config(cfg.times, initial_time)))
+                continue
             self.files.append(
                 DiagnosticFile(
                     os.path.join(output_dir, cfg.name),

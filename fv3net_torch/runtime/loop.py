@@ -48,7 +48,6 @@ from fv3net_torch.physics import PhysicsConfig
 from fv3net_torch.physics.microphysics_gfdl import GFDL_TRACER_NAMES
 from fv3net_torch.physics.radiation import gases
 from fv3net_torch.runtime import factories, names
-from fv3net_torch.runtime.factories import not_ported
 from fv3net_torch.runtime.config import UserConfig
 from fv3net_torch.runtime.derived_state import (
     DIMS_2D,
@@ -82,11 +81,11 @@ class TimeLoop:
 
     The state starts at rest (``init_state``) over an aquaplanet SST, or
     from ``initial_conditions`` (a ``state.npz`` restart or a
-    reference-layout Fortran RESTART); the sea-ice, bucket and Noah
-    fields start as the reference starts them.  ``postphysics_stepper``
-    and ``prephysics_steppers`` replace the steppers the config builds.
-    Options the port does not run raise ``NotImplementedError`` naming
-    their ROADMAP.md item.
+    reference-layout Fortran RESTART); the namelist's ``surface_data``
+    (a catalog entry) then sets the land mask, SST, sgh and surface
+    geopotential.  The sea-ice, bucket and Noah fields start as the
+    reference starts them.  ``postphysics_stepper`` and
+    ``prephysics_steppers`` replace the steppers the config builds.
     """
 
     def __init__(
@@ -114,9 +113,6 @@ class TimeLoop:
             from fv3net_torch.parallel import sharded
 
             self._mesh = sharded.make_mesh(layout=layout)
-        if nml.surface_data:
-            raise not_ported(
-                f"surface_data {nml.surface_data!r} (the catalog)", 10)
 
         self.grid = make_grid(nml.npx)
         self._g = GridArrays.from_grid(self.grid, dtype=dtype,
@@ -138,6 +134,8 @@ class TimeLoop:
         if config.initial_conditions:
             self._load_initial_conditions(config.initial_conditions,
                                           tuple(dstate.delp.shape))
+        if nml.surface_data:
+            self._apply_surface_data(nml.surface_data)
         d = self.state.dycore
         tracers = dict(d.tracers)
         if nml.prognostic_ozone and "o3mr" not in tracers:
@@ -274,6 +272,27 @@ class TimeLoop:
 
             self._radiation_fn = _build_radiation_fn(
                 self._phys_cfg, self._device, dtype, impl)
+
+    def _apply_surface_data(self, name: str):
+        """The catalog's surface boundary conditions (idealized continents
+        or a registered zarr): the land mask, TSFC (also the SST) and sgh
+        on the surface, the surface geopotential on the dycore state."""
+        from fv3net_torch import catalog
+
+        sfc_ds = catalog.get(name)
+
+        def t(key):
+            return torch.as_tensor(np.asarray(sfc_ds[key].data),
+                                   dtype=self._dtype, device=self._device)
+
+        for key in (names.MASK, names.TSFC, "sgh"):
+            if key in sfc_ds:
+                self.state.surface[key] = t(key)
+        if names.TSFC in sfc_ds:
+            self.state.surface[names.SST] = t(names.TSFC)
+        if "surface_geopotential" in sfc_ds:
+            self.state.dycore = dataclasses.replace(
+                self.state.dycore, phis=t("surface_geopotential"))
 
     # -- state placement --------------------------------------------------
     @property

@@ -8,11 +8,14 @@ the segmented run's, which ``run_segment`` resets at its start.  The
 clocks are host clocks: on the card, a phase that queues device work
 returns before the device has done it, and the next phase that copies
 to the host waits for it.  ``profile_trace`` records a
-``torch.profiler`` trace of the device.
+``torch.profiler`` trace of the device; ``log_times`` logs a timer's
+table as JSON.
 """
 from __future__ import annotations
 
 import contextlib
+import json
+import logging
 import os
 import time
 from typing import Dict
@@ -59,6 +62,8 @@ class Timer:
         self._active.clear()
 
 
+logger = logging.getLogger("profiles")
+
 # the segmented run's phase clocks and byte counters: run_segment resets
 # them at its start; the loop, the diagnostics writers and the restart
 # writer add to them.  perf_counter pairs at chunk granularity cost
@@ -87,6 +92,21 @@ def phase_report() -> Dict:
     for k, v in counters.items():
         rep[k] = v
     return rep
+
+
+def log_times(timer: Timer, label: str = "cumulative_timings") -> Dict:
+    """JSON timing report (the loop.py:439-455 analog; min/max/mean
+    degenerate to the single-host value without an MPI communicator)."""
+    report = {
+        name: {
+            "total_seconds": total,
+            "hits": timer.hits[name],
+            "mean_seconds": total / max(timer.hits[name], 1),
+        }
+        for name, total in timer.times.items()
+    }
+    logger.info(json.dumps({label: report}))
+    return report
 
 
 @contextlib.contextmanager

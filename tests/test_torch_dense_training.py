@@ -2,7 +2,9 @@
 against ``fv3net_tpu.fit``, float64: ``train_dense_model`` on the
 reference's initial weights (handed over by replacing the port's
 ``init_mlp_params``) for each optimizer, loss and penalty configuration;
-the optax update rules and schedules one by one; the output limits
+the optax update rules and schedules one by one (ten float64 updates of
+each rule added later: rmsprop centered and bias-corrected, adagrad,
+adamax, nadam, radam, amsgrad, adabelief, yogi); the output limits
 through ``dump``/``load`` both ways; ``train_main``'s artifact read by
 the reference; and the entries' trained models."""
 import jax
@@ -160,6 +162,45 @@ def test_update_rules_match_optax(name, kwargs):
 
 
 @pytest.mark.parametrize("name,kwargs", [
+    ("rmsprop", {"learning_rate": 1e-2, "centered": True}),
+    ("rmsprop", {"learning_rate": 1e-2, "centered": True,
+                 "bias_correction": True, "momentum": 0.5,
+                 "nesterov": True}),
+    ("rmsprop", {"learning_rate": 1e-2, "bias_correction": True,
+                 "eps_in_sqrt": False}),
+    ("adagrad", {"learning_rate": 1e-2}),
+    ("adamax", {"learning_rate": 1e-2}),
+    ("nadam", {"learning_rate": 1e-2}),
+    ("radam", {"learning_rate": 1e-2}),
+    ("amsgrad", {"learning_rate": 1e-2}),
+    ("adabelief", {"learning_rate": 1e-2}),
+    ("yogi", {"learning_rate": 1e-2}),
+])
+def test_more_update_rules_match_optax(name, kwargs):
+    """Ten updates of each further optax rule the port writes, float64,
+    on the same gradients, with optax's defaults; within 1e-13 of each
+    tensor's scale (radam's b2**t is the one power optax takes in its
+    own precision: 3e-15 apart)."""
+    rng = np.random.RandomState(2)
+    p0 = [rng.randn(4, 3), rng.randn(3)]
+    grads = [[rng.randn(4, 3), rng.randn(3)] for _ in range(10)]
+    tx = getattr(optax, name)(**kwargs)
+    jp = [jnp.asarray(p) for p in p0]
+    state = tx.init(jp)
+    port = tconfig.OptimizerConfig(name, kwargs).instance
+    tp = [torch.tensor(p) for p in p0]
+    for g in grads:
+        upd, state = tx.update([jnp.asarray(x) for x in g], state, jp)
+        jp = optax.apply_updates(jp, upd)
+        port.step(tp, [torch.tensor(x) for x in g])
+    for a, b in zip(tp, jp):
+        b = np.asarray(b)
+        assert b.dtype == np.float64
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-13 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("name,kwargs", [
     ("constant_schedule", {"value": 3e-3}),
     ("exponential_decay", {"init_value": 3e-3, "transition_steps": 2,
                            "decay_rate": 0.5}),
@@ -170,11 +211,23 @@ def test_update_rules_match_optax(name, kwargs):
                                "alpha": 0.1}),
     ("piecewise_constant_schedule", {
         "init_value": 3e-3, "boundaries_and_scales": {3: 0.5, 6: 0.1}}),
+    ("linear_schedule", {"init_value": 1e-3, "end_value": 1e-2,
+                         "transition_steps": 6, "transition_begin": 2}),
+    ("polynomial_schedule", {"init_value": 1e-2, "end_value": 1e-4,
+                             "power": 2.0, "transition_steps": 7}),
+    ("warmup_cosine_decay_schedule", {
+        "init_value": 0.0, "peak_value": 1e-2, "warmup_steps": 3,
+        "decay_steps": 8, "end_value": 1e-4}),
+    ("warmup_exponential_decay_schedule", {
+        "init_value": 1e-4, "peak_value": 1e-2, "warmup_steps": 3,
+        "transition_steps": 2, "decay_rate": 0.5, "end_value": 2e-3}),
+    ("cosine_onecycle_schedule", {"transition_steps": 8,
+                                  "peak_value": 1e-2}),
 ])
 def test_schedules_match_optax(name, kwargs):
     """The port's schedules give optax's rate at every update count (its
-    exponential decay computes in float32, as optax's int32 count makes
-    it)."""
+    exponential decay and its polynomial and warm-up schedules compute in
+    float32, as optax's int32 count makes them)."""
     want = getattr(optax, name)(**kwargs)
     got = tconfig.LearningRateScheduleConfig(name, kwargs).instance
     for count in range(10):
@@ -183,15 +236,17 @@ def test_schedules_match_optax(name, kwargs):
 
 
 def test_unported_names_raise():
-    """Other optax names, and a trainer the port does not have yet,
-    raise the port's not-ported error (item 9)."""
+    """optax names the port does not write still raise the port's
+    not-ported error (item 9); the trainer registry now has every
+    trainer of the reference, the random forest among them."""
+    from fv3net_tpu.fit import train as jtrain
+
     with pytest.raises(NotImplementedError, match="item 9"):
-        tconfig.OptimizerConfig("adagrad").instance
+        tconfig.OptimizerConfig("lamb").instance
     with pytest.raises(NotImplementedError, match="item 9"):
-        tconfig.LearningRateScheduleConfig("warmup_cosine_decay_schedule",
-                                           {}).instance
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttrain.get_training_function("sklearn_random_forest")
+        tconfig.LearningRateScheduleConfig("sgdr_schedule", {}).instance
+    assert (ttrain.get_training_function("sklearn_random_forest").__name__
+            == jtrain.get_training_function("sklearn_random_forest").__name__)
 
 
 def test_config_copies_match_reference():

@@ -329,6 +329,10 @@ def test_minmax_detector_and_out_of_sample_model(tmp_path):
 
 
 def test_constant_output_novelty_and_ocsvm_raise(tmp_path):
+    """The constant-output detector under the taper both ways, and the
+    reference's one-class SVM inside its out_of_sample model read and
+    scored by the port (the name is the one this test had when the SVM
+    raised)."""
     from fv3net_tpu.fit import io as jio
     from fv3net_tpu.fit import novelty as jnov
 
@@ -348,10 +352,21 @@ def test_constant_output_novelty_and_ocsvm_raise(tmp_path):
                                       np.asarray(want[k].data))
     assert isinstance(jio.load(str(tmp_path / "t")).novelty_detector,
                       jnov.ConstantOutputNoveltyDetector)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tnov.OCSVMNoveltyDetector(["a"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tnov.train_ocsvm_novelty_detector(None, [])
+    # the one-class SVM under the taper: the reference's scikit-learn
+    # detector, dumped inside its out_of_sample model, read by the port
+    jsvm = jnov.OCSVMNoveltyDetector(["air_temperature"])
+    jsvm.fit(jds)
+    jio.dump(jnov.OutOfSampleModel(jdense, jsvm, cutoff=0.0),
+             str(tmp_path / "svm"))
+    back = io.load(str(tmp_path / "svm"))
+    assert isinstance(back.novelty_detector, tnov.OCSVMNoveltyDetector)
+    got = back.predict(tds)
+    want = jnov.OutOfSampleModel(jdense, jsvm, cutoff=0.0).predict(jds)
+    score = np.asarray(want["centered_score"].data)
+    np.testing.assert_allclose(got["centered_score"].data.numpy(), score,
+                               rtol=0, atol=1e-12 * np.abs(score).max())
+    np.testing.assert_array_equal(got["taper_values"].data.numpy(),
+                                  np.asarray(want["taper_values"].data))
 
 
 # ---------------------------------------------------------------------------
@@ -640,26 +655,26 @@ def test_sweep_runs_trials_and_tracks_them(tmp_path, capsys):
 
 
 def test_registries_raise_only_for_the_scikit_learn_models(tmp_path):
-    """Every model type and trainer of the reference is registered in the
-    port but ocsvm, ocsvm_novelty_detector and sklearn_random_forest,
-    which raise the not-ported error naming item 9."""
+    """The registries equal the reference's: every model type and
+    trainer of the reference is registered in the port (the scikit-learn
+    ones too), and an unknown model type raises the reference's
+    ValueError (the name is the one this test had when the scikit-learn
+    models raised)."""
     import fv3net_tpu.fit  # noqa: F401  (registers everything)
     from fv3net_torch.fit import train as ttrain
     from fv3net_tpu.fit import io as jio
     from fv3net_tpu.fit import train as jtrain
 
-    ttrain.get_training_function("dense")  # the port's trainers register
-    (tmp_path / "name").write_text("ocsvm")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    assert ttrain.training_function_names() == jtrain.training_function_names()
+    (tmp_path / "name").write_text("not_a_model")
+    with pytest.raises(ValueError, match="unknown model type"):
         io.load(str(tmp_path))  # the port's model types register
-    assert set(jio.register._model_types) - set(
-        io.register._model_types) == {"ocsvm", "sklearn_random_forest"}
-    assert set(jtrain._TRAINING_FUNCTIONS) - set(
-        ttrain._TRAINING_FUNCTIONS) == {"ocsvm_novelty_detector",
-                                        "sklearn_random_forest"}
+    with pytest.raises(ValueError, match="unknown model type"):
+        jio.load(str(tmp_path))
+    assert set(jio.register._model_types) == set(io.register._model_types)
     for name in ("ocsvm_novelty_detector", "sklearn_random_forest"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            ttrain.get_training_function(name)
+        assert (ttrain.get_hyperparameter_class(name).__name__
+                == jtrain.get_hyperparameter_class(name).__name__)
     assert ttrain.config_variables({"hyperparameters": {
         "input_variables": ["a"], "state_variables": ["b", "c"]}}) == [
             "a", "b", "c"]

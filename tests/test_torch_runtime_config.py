@@ -15,7 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import dry_emulator_model, make_state_numpy, rel_diff
+from torch_port_util import (
+    dry_emulator_model,
+    event_summary,
+    make_state_numpy,
+    rel_diff,
+)
 
 from fv3net_torch.core import convenience, netcdfio, zarrio
 from fv3net_torch.core.dataset import Dataset
@@ -314,11 +319,52 @@ def test_diagnostics_stores_match_reference(tmp_path):
     assert tuple(got.chunks) == (3, 6, NPX, 4)
 
 
-def test_tensorboard_file_raises():
-    cfg = config.get_config({"diagnostics": [
-        {"name": "tb", "variables": ["a"], "tensorboard": True}]})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        DiagnosticsManager(cfg.diagnostics, T0, "unused")
+def test_tensorboard_file_raises(tmp_path):
+    """A ``tensorboard: true`` file is an event log under
+    <rundir>/tensorboard, as the reference's manager makes it: the same
+    steps, scalar means (float64 means, stored as float32) and PNG
+    bytes, read back by the reference's ``read_events`` (the name is the
+    one this test had when the option raised)."""
+    import glob
+
+    from fv3net_tpu.core.quantity import Quantity as JQuantity
+    from fv3net_tpu.runtime import config as jconfig
+    from fv3net_tpu.runtime.diagnostics import tensorboard as jtb
+    from fv3net_tpu.runtime.diagnostics.manager import (
+        DiagnosticsManager as JManager)
+
+    from fv3net_torch.runtime.diagnostics import tensorboard as ttb
+
+    raw = {"diagnostics": [{"name": "tb", "variables": ["a", "b"],
+                            "tensorboard": True}]}
+    cfg = config.get_config(raw)
+    port = DiagnosticsManager(cfg.diagnostics, T0, str(tmp_path / "t"))
+    ref = JManager(jconfig.get_config(raw).diagnostics, T0,
+                   str(tmp_path / "j"))
+    rng = np.random.RandomState(0)
+    for step in range(3):
+        a = rng.rand(6, 4, 4)
+        b = rng.rand(6, 3, 4, 4)
+        t = T0 + datetime.timedelta(seconds=900 * step)
+        port.observe(t, {"a": Quantity(torch.tensor(a), ("tile", "y", "x")),
+                         "b": Quantity(torch.tensor(b),
+                                       ("tile", "z", "y", "x"))})
+        ref.observe(t, {"a": JQuantity(jnp.asarray(a), ("tile", "y", "x")),
+                        "b": JQuantity(jnp.asarray(b),
+                                       ("tile", "z", "y", "x"))})
+    port.close()
+    ref.close()
+    (got,) = glob.glob(str(tmp_path / "t" / "tensorboard" / "events.*"))
+    (want,) = glob.glob(str(tmp_path / "j" / "tensorboard" / "events.*"))
+    got_ev, want_ev = jtb.read_events(got), ttb.read_events(want)
+    assert len(got_ev) == len(want_ev) == 4  # the version record + 3 steps
+    for g, w in zip(got_ev[1:], want_ev[1:]):
+        # the same tags, steps, scalar bytes and image bytes; wall times
+        # differ (the clock)
+        assert event_summary(g) == event_summary(w)
+        assert any(image is not None for _, _, image in
+                   event_summary(g)[1])
+
 
 
 def test_scalar_log_and_global_means_match_reference(caplog):
@@ -520,8 +566,10 @@ def test_dense_model_artifacts_load_in_either_package(tmp_path):
     for k in names_out:
         assert rel_diff(out[k].numpy(), np.asarray(want[k])) <= 1e-12, k
     (tmp_path / "port" / "name").write_text("random_forest")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="unknown model type"):
         io.load(str(tmp_path / "port"))
+    with pytest.raises(ValueError, match="unknown model type"):
+        jfit.load(str(tmp_path / "port"))
 
 
 # ------------------------------------------------------------ prescriber

@@ -451,7 +451,7 @@ def _stepper_stores(top, tmp_path):
     ({"microphysics": "gfdl"}, {}),
     ({"prognostic_ozone": True}, {}),
     ({"radiation": "synthband"}, {}),
-    ({"surface_data": "topography/c48"}, {}),
+    ({"surface_data": "topography/c6"}, {}),
     ({}, {"nudging": {"restarts_path": "x",
                       "timescale_hours": {"air_temperature": 3}},
           "scikit_learn": None}),
@@ -465,7 +465,8 @@ def _stepper_stores(top, tmp_path):
 ])
 def test_unported_options_raise(inputs, namelist, top, tmp_path):
     """Each option the port does not run raises when the loop is built.
-    The options this test once held to a raise build a loop: the three
+    The options this test once held to a raise build a loop: the
+    catalog's ``surface_data`` sets the surface and phis; the three
     namelist options (the nonhydrostatic core, GFDL microphysics,
     prognostic ozone) set up their fields (tests/test_torch_namelist_run.py
     holds them against the reference); the synthband radiation, the
@@ -498,6 +499,23 @@ def test_unported_options_raise(inputs, namelist, top, tmp_path):
     cfg = _config(inputs, namelist=namelist, **top)
     ported = {"hydrostatic": "w", "microphysics": "graupel",
               "prognostic_ozone": "o3mr"}
+    if "surface_data" in namelist:
+        # the catalog's continents set the mask, TSFC = SST, sgh and phis
+        # (tests/test_torch_runtime_tail.py runs a loop over them against
+        # the reference's)
+        from fv3net_torch import catalog
+
+        loop = _tloop(cfg)
+        want = catalog.get(namelist["surface_data"])
+        sfc = loop.state.surface
+        for key, name in ((names.MASK, "land_sea_mask"), ("sgh", "sgh"),
+                          (names.TSFC, "surface_temperature"),
+                          (names.SST, "surface_temperature")):
+            np.testing.assert_array_equal(sfc[key].cpu().numpy(),
+                                          want[name].data)
+        np.testing.assert_array_equal(loop.state.dycore.phis.cpu().numpy(),
+                                      want["surface_geopotential"].data)
+        return
     if namelist.get("radiation") == "synthband":
         loop = _tloop(cfg)
         assert loop._phys_cfg.radiation_scheme == "synthband"

@@ -558,3 +558,44 @@ def column_reservoir_worker(out_dir, threads):
 
 def nudging_worker(out_dir, threads):
     return stepper_worker(out_dir, threads, "nudging")
+
+
+def _fields(payload: bytes):
+    """(field number, value) pairs of a protobuf message: varints as
+    ints, fixed64/fixed32 and length-delimited fields as bytes."""
+    out, i = [], 0
+    while i < len(payload):
+        key, i = _varint(payload, i)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            value, i = _varint(payload, i)
+        elif wire == 1:
+            value, i = payload[i:i + 8], i + 8
+        elif wire == 5:
+            value, i = payload[i:i + 4], i + 4
+        else:
+            n, i = _varint(payload, i)
+            value, i = payload[i:i + n], i + n
+        out.append((field, value))
+    return out
+
+
+def _varint(b: bytes, i: int):
+    value, shift = 0, 0
+    while True:
+        value |= (b[i] & 0x7F) << shift
+        i += 1
+        if not b[i - 1] & 0x80:
+            return value, i
+        shift += 7
+
+
+def event_summary(event: bytes):
+    """An Event's step and its summary values as (tag, simple_value
+    bytes, image bytes or None)."""
+    fields = dict(_fields(event))
+    values = []
+    for field, value in _fields(fields.get(5, b"")):
+        v = dict(_fields(value))
+        values.append((v[1].decode(), v.get(2), v.get(4)))
+    return fields.get(2), values

@@ -1,6 +1,7 @@
 """Rehearse a phase of ``chip_smoke.py`` on the CPU at a small size, with
 no card, before a run on the H100.
 
+    python tools/rehearse_chip_smoke.py 31   # the scikit-learn models, C6
     python tools/rehearse_chip_smoke.py 30   # the ML library's rest, C6
     python tools/rehearse_chip_smoke.py 29   # the ML loop, C6, npz=8
     python tools/rehearse_chip_smoke.py 28   # the offline ops, C32 -> C4
@@ -12,7 +13,8 @@ the CPU, the ``torch.cuda`` calls that need a card do nothing, and the
 CLI processes the phase starts get the same replacements through
 ``chip_smoke.CLI_PRELUDE`` plus ``--device cpu``.  Sizes: ``NPX`` and
 ``NPZ`` (phases 29 and 30), ``N`` and ``NZ`` (phase 28) in the
-environment; phase 30 runs phases 27 and 29 first for its data;
+environment; phase 30 runs phases 27 and 29 first for its data, phase
+31 phase 29;
 ``KEEP=1`` keeps the phase's temporary directory.  ``UNCLAMPED=1``
 (phase 29) trains the dense models without ``ML_OUTPUT_LIMITS`` and
 prints the largest temperature tendency of each online prediction, in K
@@ -117,8 +119,8 @@ def unclamped():
 
 def main(argv):
     phase = argv[0] if argv else "29"
-    if phase not in ("28", "29", "30"):
-        raise SystemExit(f"no rehearsal of phase {phase} (28, 29 or 30)")
+    if phase not in ("28", "29", "30", "31"):
+        raise SystemExit(f"no rehearsal of phase {phase} (28 to 31)")
     prelude = NO_CARD + (KERNELS_28 if phase == "28"
                          else KERNELS_29 + CPU_DEFAULTS)
     exec(prelude, {})
@@ -129,7 +131,7 @@ def main(argv):
         shutil.rmtree = lambda *a, **k: None
     t0 = time.perf_counter()
     device = torch.device("cpu")
-    if phase in ("29", "30"):
+    if phase in ("29", "30", "31"):
         cs.NPX = int(os.environ.get("NPX", 6))
         cs.NPZ = int(os.environ.get("NPZ", 8))
         if os.environ.get("UNCLAMPED"):
@@ -144,6 +146,11 @@ def main(argv):
         t0 = time.perf_counter()
         out = cs.phase_ml_tail(device, cube, data)
         print(f"phase 30 alone: {time.perf_counter() - t0:.1f} s")
+    elif phase == "31":
+        _, data = cs.phase_ml_loop(device, 0.0, keep_data=True)
+        t0 = time.perf_counter()
+        out = cs.phase_sklearn_surface(device, data)
+        print(f"phase 31 alone: {time.perf_counter() - t0:.1f} s")
     else:
         cs.C384, cs.COARSEN_FACTOR = int(os.environ.get("N", 32)), 8
         cs.OFFLINE_NZ = int(os.environ.get("NZ", 6))
