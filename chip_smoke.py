@@ -332,6 +332,22 @@ Phases (any failure exits nonzero, and no result line is printed):
     the taper, the forest's walk on the card within RF_WALK_RTOL of a
     plain walk on the host.
 
+32. the run and model diagnostics at C48 on the stores earlier phases
+    kept, each CLI called as its console script calls it, on the card,
+    with its seconds and peak device memory: ``prognostic-run-diags-torch
+    compute`` on phase 29's nudged run with ``--verification`` its online
+    run, then ``metrics``; ``offline-diags-torch`` with phase 29's dense
+    CLI artifact on its nudged stores (the nudging tendencies as dQ1 and
+    dQ2); the emulation diagnostics of phase 20's piggy-backed store,
+    with the drift of phase 29's nudged state; the reservoir diagnostics
+    of phase 27's hybrid model on its column series.  The CLIs' float32
+    outputs finite exactly where the float64 run's are; the same
+    computations in float64 on the card against the CPU within 1e-10 of
+    each output's scale, histogram counts equal (``compute_all``, the
+    metrics, ``evaluate_cube``'s diagnostics, snapshot, transect and
+    scalars, the emulation skill and drift); the reservoir's float32
+    rollout card against CPU within 1e-4; no hand kernel launched.
+
 ``--sw-columns PATH`` also saves, in phase 6, ``swrad``'s arguments on
 the 8 columns where the float32 SW heating parts most from float64 on
 the state after the ktable route's 3rd chunk (the input of
@@ -4239,7 +4255,7 @@ def emulated_config(tmp, chunks=SEGMENT_CHUNKS, model="dry", **online):
     return cfg
 
 
-def phase_emulated_run(device):
+def phase_emulated_run(device, keep_data=False):
     """The emulated production run at C48: phase 15's configuration with
     ``online_emulator`` (the dry map, target microphysics) through
     ``api.create`` and two ``api.append_segment`` calls of SEGMENT_CHUNKS
@@ -4249,7 +4265,9 @@ def phase_emulated_run(device):
     model in the gscond slot, piggy-backed, whose six tendencies reach
     the zarr diagnostics; one float64 chunk of 2 steps, kernels against
     plain.  Returns the launches of the appended segments and the wall
-    per chunk of the second (s)."""
+    per chunk of the second (s); with ``keep_data`` also phase 32's data
+    (its directory is then the caller's to remove): the piggy-backed
+    store."""
     import tempfile
 
     import numpy as np
@@ -4351,13 +4369,16 @@ def phase_emulated_run(device):
         log(f"  emulated run: wall per chunk in run_segment "
             + ", ".join(f"{w * 1e3:.1f} ms ({CHUNK * DT / w / 365.0:.3f} "
                         "SYPD)" for w in walls))
+        data = {"tmp": tmp,
+                "piggy_zarr": os.path.join(tmp, "piggy", "piggy.zarr")}
     finally:
         import shutil
 
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not keep_data:
+            shutil.rmtree(tmp, ignore_errors=True)
     log(f"  emulated run: launches in the {2 * SEGMENT_CHUNKS} chunks of the "
         f"appended segments {total}")
-    return total, walls[-1]
+    return (total, walls[-1], data) if keep_data else (total, walls[-1])
 
 
 # -- phase 21: the radiation stepper and the GFS chain -------------------
@@ -5388,7 +5409,9 @@ def phase_reservoir(device, ms_without):
     under ``diagnostic_only`` the prediction a diagnostic and no state
     update.  Readings: the trainers' seconds, ms of one increment at
     13,824 columns (pure, hybrid) and at 24 subdomains, ms a step with
-    the corrector against ``ms_without``."""
+    the corrector against ``ms_without``.  Returns those, the cube
+    series, the subdomain corrector's ms a step and, for phase 32, the
+    card's hybrid model with its column series."""
     import shutil
     import tempfile
 
@@ -5490,7 +5513,8 @@ def phase_reservoir(device, ms_without):
         + ", ".join(f"{k} {median_ms(v):.1f}" for k, v in walls.items())
         + f"; without (phase 25) {ms_without:.1f}; trainers' seconds "
         + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
-    return increment_ms, cube[0], median_ms(walls["subdomain"])
+    return (increment_ms, cube[0], median_ms(walls["subdomain"]),
+            {"hybrid": models["hybrid"], "column": column})
 
 
 def reservoir_segments(label, tmp, model):
@@ -7675,10 +7699,10 @@ def full_size_fits(cfgs, device):
     return "; ".join(parts)
 
 
-def phase_sklearn_surface(device, data):
+def phase_sklearn_surface(device, data, keep_data=False):
     """Phase 31 (see the module's docstring): ``data`` is phase 29's (its
-    directory removed here).  Returns the launches of the run's chunks
-    and their wall per chunk."""
+    directory removed here unless ``keep_data``).  Returns the launches
+    of the run's chunks and their wall per chunk."""
     import glob
     import shutil
     import tempfile
@@ -7887,8 +7911,383 @@ def phase_sklearn_surface(device, data):
         del run, rec
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-        shutil.rmtree(data["tmp"], ignore_errors=True)
+        if not keep_data:
+            shutil.rmtree(data["tmp"], ignore_errors=True)
     return total, per_chunk
+
+
+# -- phase 32: the run and model diagnostics ------------------------------
+DIAG_RTOL = 1e-10  # float64 diagnostics, card against CPU, of scale
+DIAG_DRIFT_HOURS = (0.25, 0.5)  # drift horizons inside the 4 nudged steps
+DIAG_RESERVOIR_SYNC = 10  # spin-up steps of the 200-step column series
+DIAG_RESERVOIR_RTOL = 1e-4  # the float32 rollout, card against CPU
+CLI_DEVICE = "cuda"  # the diagnostics CLIs' --device
+
+
+def diag_cli(label, entry, argv):
+    """One diagnostics CLI called as its console script calls it, what it
+    prints kept off the script's output; returns (seconds, peak device
+    MiB)."""
+    import contextlib
+    import io as _io
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_io.StringIO()):
+        rc = entry(argv + ["--device", CLI_DEVICE])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"{label}: exit code {rc}")
+    return seconds, torch.cuda.max_memory_allocated() / 2**20
+
+
+def float64_dataset(ds):
+    """A zarr store's Dataset with every variable in float64 (host)."""
+    from fv3net_torch.core.dataset import Dataset
+
+    return Dataset({k: q.with_data(q.values.astype("float64"))
+                    for k, q in ds.items()}, dict(ds.coords), ds.attrs)
+
+
+def hold_diags(label, got, want, rtol=DIAG_RTOL):
+    """The card's diagnostics against the CPU's on the same inputs: the
+    same names and dims; histogram outputs (their names hold "hist")
+    equal; the others NaN and infinite at the same places and within
+    ``rtol`` of their scale.  Returns (outputs, histogram values held,
+    largest error of scale)."""
+    import torch
+
+    check(sorted(got) == sorted(want), f"{label}: outputs "
+          f"{sorted(set(got) ^ set(want))} on one device only")
+    counted, worst = 0, 0.0
+    for k, w in want.items():
+        g = torch.as_tensor(got[k].data).cpu()
+        w = torch.as_tensor(w.data).cpu()
+        check(got[k].dims == want[k].dims and g.shape == w.shape,
+              f"{label} {k}: dims {got[k].dims} against {want[k].dims}")
+        if "hist" in k:
+            check(torch.equal(g, w), f"{label} {k}: histogram counts part")
+            counted += w.numel()
+            continue
+        special = ~torch.isfinite(w)
+        check(torch.equal(~torch.isfinite(g), special) and torch.equal(
+            g[special].nan_to_num(), w[special].nan_to_num()),
+              f"{label} {k}: NaN or infinities at other places")
+        fin = ~special
+        if fin.any():
+            scale = w[fin].double().abs().max().item()
+            err = (g[fin].double() - w[fin].double()).abs().max().item()
+            err = err / scale if scale > 0 else (0.0 if err == 0 else
+                                                 math.inf)
+            check(err <= rtol, f"{label} {k}: card against CPU {err:.3e} "
+                  f"of scale > {rtol}")
+            worst = max(worst, err)
+    return len(want), counted, worst
+
+
+def finite_as(label, stored, ref):
+    """The CLI's float32 outputs: each of ``ref``'s (the float64 run on
+    the CPU) present, finite exactly where ``ref``'s is."""
+    import torch
+
+    check(sorted(stored) == sorted(ref), f"{label}: outputs "
+          f"{sorted(set(stored) ^ set(ref))} in one of the runs only")
+    for k, q in ref.items():
+        f32 = torch.isfinite(torch.as_tensor(stored[k].values))
+        f64 = torch.isfinite(torch.as_tensor(q.data).cpu())
+        check(torch.equal(f32, f64), f"{label} {k}: finite at "
+              f"{int(f32.sum())} values, the float64 run at {int(f64.sum())}")
+    return len(ref)
+
+
+def scalars_held(label, got, want, scales, rtol=DIAG_RTOL):
+    """Scalar metrics, card against CPU, within ``rtol`` of their scale
+    (``scales[name]``, else the metric's own size)."""
+    check(sorted(got) == sorted(want), f"{label}: metrics "
+          f"{sorted(set(got) ^ set(want))} on one device only")
+    worst = 0.0
+    for k, w in want.items():
+        scale = scales.get(k, abs(w))
+        if math.isnan(w):
+            check(math.isnan(got[k]), f"{label} {k}: {got[k]} against NaN")
+            continue
+        err = abs(got[k] - w) / scale if scale > 0 else abs(got[k] - w)
+        check(err <= rtol, f"{label} {k}: {got[k]} against {w}")
+        worst = max(worst, err)
+    return worst
+
+
+def diag_prognostic(device, tmp, ml):
+    """prognostic-run-diags-torch compute (phase 29's nudged run against
+    its online run) and metrics on the card; float64, card against CPU."""
+    import json as _json
+
+    import torch
+    from fv3net_torch.core import zarrio
+    from fv3net_torch.diagnostics import cli
+    from fv3net_torch.diagnostics.prognostic.compute import compute_all
+    from fv3net_torch.diagnostics.prognostic.metrics import compute_metrics
+
+    run = ml["state_zarr"]
+    verification = os.path.join(ml["tmp"], "online",
+                                "state_after_timestep.zarr")
+    out = os.path.join(tmp, "prognostic_diags.zarr")
+    s_compute, mib_compute = diag_cli(
+        "prognostic-run-diags-torch compute", cli.main,
+        ["compute", run, out, "--verification", verification])
+    metrics_json = os.path.join(tmp, "prognostic_metrics.json")
+    s_metrics, mib_metrics = diag_cli(
+        "prognostic-run-diags-torch metrics", cli.main,
+        ["metrics", out, metrics_json])
+    run64 = float64_dataset(cli._load_run(run))
+    verif64 = float64_dataset(cli._load_run(verification))
+    grid = cli._grid_for(run64)
+    t0 = time.perf_counter()
+    card = compute_all(run64, grid, verif64, device=device)
+    torch.cuda.synchronize()
+    s_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = compute_all(run64, grid, verif64, device="cpu")
+    s_cpu = time.perf_counter() - t0
+    n, counted, worst = hold_diags("prognostic float64", card, cpu)
+    shared = sorted(set(run64) & set(verif64))
+    check(counted > 0 and any(k.endswith("_pressure_level_zonal_bias")
+                              for k in cpu),
+          f"prognostic: no histogram or verification diagnostics "
+          f"{sorted(cpu)}")
+    finite_as("prognostic-run-diags-torch compute (float32)",
+              zarrio.open_zarr(out),
+              {k: q for k, q in cpu.items() if q.ndim > 0})
+    m_card, m_cpu = compute_metrics(card), compute_metrics(cpu)
+    scales = {}
+    for k, q in cpu.items():
+        for metric, suffix in (("rmse_of_", "_rms_global"),
+                               ("mean_bias_of_", "_mean_bias_global"),
+                               ("drift_of_", "_spatial_mean_global")):
+            if k.endswith(suffix):
+                scales[metric + k[: -len(suffix)]] = float(
+                    torch.as_tensor(q.data).abs().nan_to_num().max())
+    worst_m = scalars_held("prognostic metrics float64",
+                           {k: v["value"] for k, v in m_card.items()},
+                           {k: v["value"] for k, v in m_cpu.items()}, scales)
+    with open(metrics_json) as f:
+        stored = _json.load(f)
+    check(sorted(stored) == sorted(m_cpu) and m_cpu and all(
+        math.isfinite(v["value"]) == math.isfinite(m_cpu[k]["value"])
+        for k, v in stored.items()), f"metrics: {sorted(stored)}")
+    log(f"  prognostic-run-diags-torch compute (phase 29's nudged run, "
+        f"--verification its online run; shared {shared}): {s_compute:.2f} "
+        f"s, peak {mib_compute:.1f} MiB; metrics {s_metrics:.2f} s, peak "
+        f"{mib_metrics:.1f} MiB; {n} outputs, finite where the float64 "
+        f"run is; float64 card {s_card:.2f} s against CPU {s_cpu:.2f} s: "
+        f"largest {worst:.3e} of scale (bound {DIAG_RTOL}), {counted} "
+        f"histogram values equal; {len(m_cpu)} metrics within "
+        f"{worst_m:.3e}")
+    return {"compute": s_compute, "metrics": s_metrics}
+
+
+def diag_offline(device, tmp, ml):
+    """offline-diags-torch with phase 29's dense CLI artifact on its
+    nudged stores (T, q, delp and the nudging tendencies as dQ1, dQ2) on
+    the card; evaluate_cube in float64, card against CPU."""
+    import json as _json
+
+    import torch
+    import yaml
+    from fv3net_torch.core import zarrio
+    from fv3net_torch.core.dataset import Dataset
+    from fv3net_torch.diagnostics.offline import _sample, compute
+    from fv3net_torch.diagnostics.transform import grid_on, on_device
+    from fv3net_torch.fit import io
+
+    state = zarrio.open_zarr(ml["state_zarr"])
+    nudging = zarrio.open_zarr(ml["nudging_zarr"])
+    fields = {k: state[k] for k in ML_STATE[:3]}
+    fields.update({k[:3]: nudging[v] for k, v in ML_TENDENCIES.items()})
+    data_zarr = os.path.join(tmp, "offline_data.zarr")
+    zarrio.to_zarr(Dataset(fields, dict(state.coords)), data_zarr)
+    config = os.path.join(tmp, "offline_data.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump({"path": data_zarr, "grid": f"c{NPX}"}, f)
+    out = os.path.join(tmp, "offline")
+    seconds, mib = diag_cli("offline-diags-torch", compute.main,
+                               [ml["dense"], config, out])
+    written = sorted(os.listdir(out))
+    for name in (compute.DIAGS_ZARR_NAME, compute.TRANSECT_ZARR_NAME,
+                 compute.METRICS_JSON_NAME, compute.METADATA_JSON_NAME):
+        check(name in written, f"offline-diags-torch: no {name} in {written}")
+
+    data64 = float64_dataset(compute._load_cube_from_config(
+        {"path": data_zarr}))
+    grid = compute._grid_dict(f"c{NPX}")
+    results = {}
+    for where in (device, "cpu"):
+        model = _sample.model_on(io.load(ml["dense"]), where, torch.float64)
+        t0 = time.perf_counter()
+        results[str(where)] = compute.evaluate_cube(
+            model, on_device(data64, where), grid_on(grid, where))
+        torch.cuda.synchronize()
+        results[f"{where} s"] = time.perf_counter() - t0
+    card, cpu = results[str(device)], results["cpu"]
+    n, _, worst = hold_diags("offline float64", card["diagnostics"],
+                             cpu["diagnostics"])
+    hold_diags("offline float64 snapshot", card["snapshot"], cpu["snapshot"])
+    hold_diags("offline float64 transect", dict(card["transect"].items()),
+               dict(cpu["transect"].items()))
+    scales = {k: float(torch.as_tensor(q.data).abs().max())
+              for k, q in cpu["diagnostics"].items()}
+    worst_s = scalars_held("offline scalar metrics float64",
+                           card["scalar_metrics"], cpu["scalar_metrics"],
+                           scales)
+    stored = zarrio.open_zarr(os.path.join(out, compute.DIAGS_ZARR_NAME))
+    ref = {k: q for k, q in cpu["diagnostics"].items() if q.ndim > 0}
+    ref.update(cpu["snapshot"])
+    finite_as("offline-diags-torch (float32)", stored, ref)
+    with open(os.path.join(out, compute.METRICS_JSON_NAME)) as f:
+        metrics = _json.load(f)
+    parted = sorted(set(metrics) ^ set(cpu["scalar_metrics"]))
+    check(not parted, f"offline scalar metrics {parted} in one run only")
+    log(f"  offline-diags-torch (phase 29's dense CLI artifact, its nudged "
+        f"stores, {len(written)} files: {written}): {seconds:.2f} s, peak "
+        f"{mib:.1f} MiB; float64 evaluate_cube card "
+        f"{results[f'{device} s']:.2f} s against CPU {results['cpu s']:.2f} "
+        f"s: {n} diagnostics, snapshot and transect within {worst:.3e} of "
+        f"scale, {len(metrics)} scalar metrics within {worst_s:.3e} "
+        f"(bound {DIAG_RTOL})")
+    return seconds
+
+
+def diag_emulation(device, tmp, emulated, ml):
+    """The emulation diagnostics of phase 20's piggy-backed store, with
+    the drift of phase 29's nudged state (a row a step; a fused chunk
+    writes one a chunk), on the card; float64 skill and drift, card
+    against CPU."""
+    import json as _json
+
+    import torch
+    from fv3net_torch.core import zarrio
+    from fv3net_torch.diagnostics import emulation
+    from fv3net_torch.diagnostics.transform import on_device
+
+    out = os.path.join(tmp, "emulation.json")
+    seconds, mib = diag_cli(
+        "emulation diagnostics", emulation.main,
+        [emulated["piggy_zarr"], "--state-zarr", ml["state_zarr"],
+         "--dt-seconds", str(DT), "--output", out])
+    with open(out) as f:
+        stored = _json.load(f)
+    piggy = float64_dataset(zarrio.open_zarr(emulated["piggy_zarr"]))
+    state = float64_dataset(zarrio.open_zarr(ml["state_zarr"]))
+    got = {}
+    for where in (device, "cpu"):
+        p, s = on_device(piggy, where), on_device(state, where)
+        got[str(where)] = dict(emulation.emulation_skill(p, stage="gscond"),
+                               **emulation.compute_drift(
+                                   s, DT, horizons_hours=DIAG_DRIFT_HOURS))
+    card, cpu = got[str(device)], got["cpu"]
+    # a drift divides a difference of two means by its horizon in days
+    scales = {k: abs(state[k.split("/")[1]].values).max() * 24.0
+              / min(DIAG_DRIFT_HOURS) for k in cpu if k.startswith("drift/")}
+    scales.update({k: math.sqrt(cpu[k.replace("bias/", "mse/")])
+                   for k in cpu if k.startswith("bias/")})
+    worst = scalars_held("emulation float64", card, cpu, scales)
+    check(len(cpu) == 9 + 2 * len(DIAG_DRIFT_HOURS),
+          f"emulation float64: {sorted(cpu)}")
+    # the CLI's float32 metrics (skill is NaN where the physics'
+    # tendency does not vary, as in the reference)
+    check(len(stored) == 9 and all(
+        math.isfinite(v) == math.isfinite(cpu[k]) for k, v in stored.items()),
+          f"emulation diagnostics: {stored}")
+    log(f"  emulation diagnostics (phase 20's piggy-backed gscond store, "
+        f"phase 29's nudged state): {seconds:.2f} s, peak {mib:.1f} "
+        f"MiB, {len(stored)} metrics; float64 skill and drift at "
+        f"{DIAG_DRIFT_HOURS} h card against CPU within {worst:.3e} "
+        f"(bound {DIAG_RTOL}); skill of q "
+        f"{cpu['skill/gscond/specific_humidity']:.4g}, mse of q "
+        f"{cpu['mse/gscond/specific_humidity']:.4g} (1/s)^2")
+    return seconds
+
+
+def diag_reservoir(device, tmp, reservoir):
+    """The reservoir diagnostics of phase 27's hybrid model on its column
+    series (its paired T targets) on the card: the CLI, then the
+    rollout, card against CPU (float32, as the reference casts it)."""
+    import json as _json
+
+    import torch
+    from fv3net_torch.core import zarrio
+    from fv3net_torch.core.dataset import Dataset
+    from fv3net_torch.core.quantity import Quantity
+    from fv3net_torch.diagnostics import reservoir as rdiag
+    from fv3net_torch.fit import io
+
+    u, y = reservoir["column"]
+    model_dir = os.path.join(tmp, "hybrid")
+    io.dump(reservoir["hybrid"], model_dir)
+    val = os.path.join(tmp, "column_series.zarr")
+    zarrio.to_zarr(Dataset({"inputs": Quantity(u, ("time", "feature")),
+                            "outputs": Quantity(y, ("time", "level"))}), val)
+    out = os.path.join(tmp, "reservoir_diags")
+    seconds, mib = diag_cli(
+        "reservoir diagnostics", rdiag.main,
+        [model_dir, out, val, str(DIAG_RESERVOIR_SYNC), "--target-name",
+         "outputs"])
+    with open(os.path.join(out, "metrics.json")) as f:
+        metrics = _json.load(f)
+    check(metrics["n_validation_steps"] == len(u) - DIAG_RESERVOIR_SYNC
+          and all(math.isfinite(v) for v in metrics.values()),
+          f"reservoir diagnostics: {metrics}")
+    preds = {}
+    for where, model in ((device, reservoir["hybrid"]),
+                         ("cpu", io.load(model_dir))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, t = rdiag.validation_prediction(model, u, DIAG_RESERVOIR_SYNC, y)
+        torch.cuda.synchronize()
+        preds[str(where)] = (p, time.perf_counter() - t0)
+    (card, s_card), (cpu, s_cpu) = preds[str(device)], preds["cpu"]
+    err = rel_err(card, cpu)
+    check(bool(torch.isfinite(card).all()) and err <= DIAG_RESERVOIR_RTOL,
+          f"reservoir rollout: card against CPU {err:.3e} > "
+          f"{DIAG_RESERVOIR_RTOL} or non-finite")
+    log(f"  reservoir diagnostics (phase 27's hybrid model, {len(u)} steps "
+        f"of {u.shape[-1]} features, {DIAG_RESERVOIR_SYNC} to spin up): "
+        f"{seconds:.2f} s, peak {mib:.1f} MiB, r2 {metrics['r2']:.4f}; the "
+        f"float32 rollout card {s_card:.3f} s against CPU {s_cpu:.3f} s, "
+        f"{err:.3e} of scale apart (bound {DIAG_RESERVOIR_RTOL})")
+    return seconds
+
+
+def phase_diagnostics(device, ml, emulated, reservoir):
+    """Phase 32 (see the module's docstring): ``ml`` is phase 29's data,
+    ``emulated`` phase 20's, ``reservoir`` phase 27's (their directories
+    removed here).  No hand kernel is launched.  Returns the CLIs'
+    seconds."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="diagnostics_")
+    try:
+        reset_counts()
+        seconds = diag_prognostic(device, tmp, ml)
+        seconds["offline"] = diag_offline(device, tmp, ml)
+        seconds["emulation"] = diag_emulation(device, tmp, emulated, ml)
+        seconds["reservoir"] = diag_reservoir(device, tmp, reservoir)
+        counts = read_counts()
+        check(not any(counts.values()), f"the diagnostics launched hand "
+              f"kernels: {counts}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(ml["tmp"], ignore_errors=True)
+        shutil.rmtree(emulated["tmp"], ignore_errors=True)
+    log("  the diagnostics CLIs' seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in seconds.items()))
+    return seconds
 
 
 def main():
@@ -8034,7 +8433,8 @@ def main():
 
     phase("20: the online microphysics emulator through the segmented run")
     t20 = time.perf_counter()
-    _, s_emulated_chunk = phase_emulated_run(device)
+    _, s_emulated_chunk, emulated_data = phase_emulated_run(device,
+                                                            keep_data=True)
     log(f"  phase 20 in {time.perf_counter() - t20:.1f} s")
 
     phase("21: the Python radiation stepper in the per-step loop, and the "
@@ -8073,7 +8473,7 @@ def main():
     phase("27: the reservoir corrector (its trainers on the card, the "
           "hybrid and subdomain models through the segmented run)")
     t27 = time.perf_counter()
-    _, cube_series, _ = phase_reservoir(device, ms_without)
+    _, cube_series, _, reservoir_data = phase_reservoir(device, ms_without)
     log(f"  phase 27 in {time.perf_counter() - t27:.1f} s")
 
     phase("28: the offline ops and pipelines at C384 -> C48 (restart "
@@ -8109,8 +8509,16 @@ def main():
           "no shallow convection and a tensorboard file; the native "
           "chunk I/O")
     t31 = time.perf_counter()
-    phase_sklearn_surface(device, ml_data)
+    phase_sklearn_surface(device, ml_data, keep_data=True)
     log(f"  phase 31 in {time.perf_counter() - t31:.1f} s")
+
+    phase("32: the run and model diagnostics (prognostic-run-diags-torch "
+          "compute and metrics, offline-diags-torch, the emulation and "
+          "reservoir diagnostics) on the stores of phases 20, 27 and 29")
+    t32 = time.perf_counter()
+    phase_diagnostics(device, ml_data, emulated_data, reservoir_data)
+    del reservoir_data
+    log(f"  phase 32 in {time.perf_counter() - t32:.1f} s")
 
     # each kernel's launches come from the run of the path it lies on
     counts = dict(counts, taumol_lw=counts_mega["taumol_lw"],

@@ -151,7 +151,12 @@ class CubeToLatLon:
 def interpolate_unstructured(field, source_coords, target_coords):
     """Nearest-neighbor interpolation between unstructured coordinate sets
     (reference external/vcm/vcm/interpolate.py:251-298, a KDTree there):
-    one pairwise-distance product and an argmin.
+    the squared distances of every pair, summed coordinate by coordinate
+    in elementwise ops, and an argmin.  A source point equidistant with
+    another (a cell and its mirror image about the target's meridian)
+    stays tied on every device, and the first of them wins (the
+    ``|s|^2 - 2 s.t`` product form would break such ties by the matmul
+    library's rounding, which differs between the card and the CPU).
 
     Args:
         field: ``[..., *spatial]`` data.
@@ -163,14 +168,12 @@ def interpolate_unstructured(field, source_coords, target_coords):
     Returns:
         ``[..., *target_shape]`` nearest-source values.
     """
-    src = torch.stack([torch.as_tensor(np.ravel(np.asarray(c)),
-                                       device=field.device)
-                       for c in source_coords], dim=-1)
-    tgt = torch.stack([torch.as_tensor(np.ravel(np.asarray(c)),
-                                       device=field.device)
-                       for c in target_coords], dim=-1)
-    # ||s - t||^2 = |s|^2 - 2 s.t + |t|^2 ; |t|^2 is constant over the argmin
-    d2 = (src * src).sum(-1)[:, None] - 2.0 * (src @ tgt.T)
+    d2 = None
+    for s, t in zip(source_coords, target_coords):
+        s = torch.as_tensor(np.ravel(np.asarray(s)), device=field.device)
+        t = torch.as_tensor(np.ravel(np.asarray(t)), device=field.device)
+        d = s[:, None] - t[None, :]
+        d2 = d * d if d2 is None else d2 + d * d
     idx = torch.argmin(d2, dim=0)
     src_ndim = np.ndim(np.asarray(source_coords[0]))
     lead = field.shape[: field.ndim - src_ndim]

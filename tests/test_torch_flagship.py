@@ -281,7 +281,23 @@ def test_port_imports_neither_jax_nor_reference():
         "             'runtime.masking', 'runtime.logs', 'runtime.fv3logs',\n"
         "             'runtime.diagnostics.tensorboard',\n"
         "             'fit._sklearn_pickle', 'fit.one_class_svm',\n"
-        "             'fit.random_forest', 'fit.novelty'):\n"
+        "             'fit.random_forest', 'fit.novelty',\n"
+        "             'diagnostics', 'diagnostics.registry',\n"
+        "             'diagnostics.transform', 'diagnostics.cli',\n"
+        "             'diagnostics.computed', 'diagnostics.emulation',\n"
+        "             'diagnostics.reservoir', 'diagnostics.movies',\n"
+        "             'diagnostics.prognostic.compute',\n"
+        "             'diagnostics.prognostic.metrics',\n"
+        "             'diagnostics.prognostic.iterm',\n"
+        "             'diagnostics.prognostic.apps.log_viewer',\n"
+        "             'diagnostics.offline', 'diagnostics.offline._sample',\n"
+        "             'diagnostics.offline.compute',\n"
+        "             'diagnostics.offline.compute_diagnostics',\n"
+        "             'diagnostics.offline.derived',\n"
+        "             'diagnostics.offline.select',\n"
+        "             'diagnostics.offline.views', 'report',\n"
+        "             'report.create_report', 'viz', 'viz.plot_cube',\n"
+        "             'viz.helpers'):\n"
         "    assert 'fv3net_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )

@@ -1,6 +1,7 @@
 """Rehearse a phase of ``chip_smoke.py`` on the CPU at a small size, with
 no card, before a run on the H100.
 
+    python tools/rehearse_chip_smoke.py 32   # the diagnostics, C6
     python tools/rehearse_chip_smoke.py 31   # the scikit-learn models, C6
     python tools/rehearse_chip_smoke.py 30   # the ML library's rest, C6
     python tools/rehearse_chip_smoke.py 29   # the ML loop, C6, npz=8
@@ -14,7 +15,8 @@ CLI processes the phase starts get the same replacements through
 ``chip_smoke.CLI_PRELUDE`` plus ``--device cpu``.  Sizes: ``NPX`` and
 ``NPZ`` (phases 29 and 30), ``N`` and ``NZ`` (phase 28) in the
 environment; phase 30 runs phases 27 and 29 first for its data, phase
-31 phase 29;
+31 phase 29, phase 32 phases 20, 27 and 29 (its CLIs called with
+``--device cpu``);
 ``KEEP=1`` keeps the phase's temporary directory.  ``UNCLAMPED=1``
 (phase 29) trains the dense models without ``ML_OUTPUT_LIMITS`` and
 prints the largest temperature tendency of each online prediction, in K
@@ -119,8 +121,8 @@ def unclamped():
 
 def main(argv):
     phase = argv[0] if argv else "29"
-    if phase not in ("28", "29", "30", "31"):
-        raise SystemExit(f"no rehearsal of phase {phase} (28 to 31)")
+    if phase not in ("28", "29", "30", "31", "32"):
+        raise SystemExit(f"no rehearsal of phase {phase} (28 to 32)")
     prelude = NO_CARD + (KERNELS_28 if phase == "28"
                          else KERNELS_29 + CPU_DEFAULTS)
     exec(prelude, {})
@@ -131,7 +133,7 @@ def main(argv):
         shutil.rmtree = lambda *a, **k: None
     t0 = time.perf_counter()
     device = torch.device("cpu")
-    if phase in ("29", "30", "31"):
+    if phase in ("29", "30", "31", "32"):
         cs.NPX = int(os.environ.get("NPX", 6))
         cs.NPZ = int(os.environ.get("NPZ", 8))
         if os.environ.get("UNCLAMPED"):
@@ -141,7 +143,7 @@ def main(argv):
     elif phase == "30":
         # CUDA events need a card: one call, no time
         cs.cuda_ms = lambda fn, reps, warmup=3: (fn(), 0.0)[1]
-        _, cube, _ = cs.phase_reservoir(device, 0.0)
+        _, cube, _, _ = cs.phase_reservoir(device, 0.0)
         _, data = cs.phase_ml_loop(device, 0.0, keep_data=True)
         t0 = time.perf_counter()
         out = cs.phase_ml_tail(device, cube, data)
@@ -151,6 +153,19 @@ def main(argv):
         t0 = time.perf_counter()
         out = cs.phase_sklearn_surface(device, data)
         print(f"phase 31 alone: {time.perf_counter() - t0:.1f} s")
+    elif phase == "32":
+        # CUDA events and the profiler need a card: one call, no time
+        cs.cuda_ms = lambda fn, reps, warmup=3: (fn(), 0.0)[1]
+        cs.profile_chunk = lambda label, run: (run(), {
+            "wall_ms": 1.0, "device_ms": 0.0, "activities": 0,
+            "ranges": {}, "kernels": {}})[1]
+        cs.CLI_DEVICE = "cpu"
+        _, _, emulated = cs.phase_emulated_run(device, keep_data=True)
+        _, _, _, reservoir = cs.phase_reservoir(device, 0.0)
+        _, data = cs.phase_ml_loop(device, 0.0, keep_data=True)
+        t0 = time.perf_counter()
+        out = cs.phase_diagnostics(device, data, emulated, reservoir)
+        print(f"phase 32 alone: {time.perf_counter() - t0:.1f} s")
     else:
         cs.C384, cs.COARSEN_FACTOR = int(os.environ.get("N", 32)), 8
         cs.OFFLINE_NZ = int(os.environ.get("NZ", 6))
