@@ -68,11 +68,15 @@ Phases (any failure exits nonzero, and no result line is printed):
     [474, 384, 384] with [384, 384] weights, factor 8, and at
     [6, 12, 12], factor 2, with the times of K5, of the plain version and
     of ``avg_pool2d(x * w) / avg_pool2d(w)`` (the library-call yardstick,
-    never used by the port);
+    never used by the port), each value within its rtol, NaN where a
+    block's weights are all 0; a group of three variables in one launch,
+    each equal to its single launch bit for bit; the float64 instance at
+    a surface shard's variable, and a shard's variables in one launch
+    (the surface path's ``path_ms``);
 11. the coarsening pipeline: a seeded C384 diagnostics zarr (a
     [time, tile, y, x] and a [time, tile, z=79, y, x] variable) through
     ``coarsen_diagnostics(..., 8)`` on the card: shapes, one K5 launch
-    per variable and time, every value against the plain block average,
+    per weight shape and time, every value against the plain block average,
     area-weighted global means kept;
 12. production main path: ``entry.production()`` -- C48, npz=32,
     float32: slab ocean and sea ice, the "set" SST prescriber, RRTMG every
@@ -231,8 +235,10 @@ Phases (any failure exits nonzero, and no result line is printed):
     ``coarsen_state_on_sigma``, ``_on_pressure`` and ``_blended`` and
     ``compute_budget`` (each timed twice), ``coarsen_sfc_data_complex``
     (blocks without snow: K5 over all-zero weights), their exact K5
-    launches, each K5 call against its plain version on its own
-    arguments (NaN at the same places, 128 roundings of 2^-24 of scale),
+    launches (one a group of variables that share a weight), each K5
+    call against its plain version on its own arguments, variable by
+    variable (NaN at the same places, 128 roundings of 2^-24 of scale;
+    a variable of a group equal to its single launch, bit for bit),
     the whole calls against their plain runs by NaN and finiteness, the
     coarse column mass against the fine; float64 sigma, pressure and
     budget calls on 8 levels, kernels against plain within 1e-12; the
@@ -360,11 +366,11 @@ device; the host's work between launches is in neither).
 
     python3 chip_smoke.py --kernel-times [--tree DIR]
 
-instead builds K1-K4 of DIR's ``fv3net_torch`` (default: the one
+instead builds K1-K5 of DIR's ``fv3net_torch`` (default: the one
 beside this script), logs the registers, stack, shared and local memory
 of K3's and K2's instances (``cuobjdump``), and times them on one
 yardstick, device time beside the CUDA events of one call with the
-wrapper's host work in, with a digest of K3's and K2's outputs, so that
+wrapper's host work in, with a digest of K3's, K2's and K5's outputs, so that
 two trees (a change and its parent) compare call by call; see
 :func:`kernel_times`.
 
@@ -386,8 +392,8 @@ and K3's float64 instances at the float64 GFS chain's shapes, their
 launches from phase 21's GFS call (``path_ms``: the call's 44 and 23
 calls); ``weighted_block_average_f64`` is K5's float64 instance at the
 surface shards' shape of phase 28 (float64 areas), its launches from
-that phase's ``coarsen_surface`` (``path_ms``: those launches' calls),
-its bound at 8 bytes a value.  The script imports nothing of jax or of
+that phase's ``coarsen_surface`` (``path_ms``: its launches, one a
+shard for the shard's variables), its bound at 8 bytes a value.  The script imports nothing of jax or of
 ``fv3net_tpu``.
 """
 import concurrent.futures
@@ -2023,7 +2029,7 @@ def phase_wavg(device, reps=20):
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from fv3net_torch.ops import coarsen
+    from fv3net_torch.ops import coarsen, coarsen_cuda
 
     rng = np.random.RandomState(0)
     line = {}
@@ -2054,6 +2060,15 @@ def phase_wavg(device, reps=20):
         rel = ((got - want).abs() / want.abs()).max().item()
         check(rel <= WAVG_RTOL, f"K5 {shape} factor {factor}: max relative "
               f"|kernel-plain| {rel} > {WAVG_RTOL}")
+        # a block of zero weights: NaN (0 / 0) where plain gives it
+        w0 = w.clone()
+        w0.view(-1, *w0.shape[-2:])[0, :factor, :factor] = 0.0
+        check(per_value(f"K5 {shape} zero-weight block",
+                        coarsen.weighted_block_average(x, w0, factor),
+                        coarsen.weighted_block_average_plain(x, w0, factor),
+                        WAVG_RTOL)[1] > 0, f"K5 {shape}: no NaN where the "
+              "weights of a block are all 0")
+        del w0
 
         def library():  # the pooling form: means of x*w over means of w
             planes = (1, -1) + x.shape[-2:]  # avg_pool2d takes [N, C, y, x]
@@ -2089,7 +2104,50 @@ def phase_wavg(device, reps=20):
     log(f"  K5, the pipeline's two calls of a time index: "
         f"{path['path_ms']:.4f} ms of device time against a bound of "
         f"{path['path_bound_ms']:.4f} ms")
+    # a group of three variables under one area plane a tile (two of the
+    # levels' shape, one of a single level): each equal, bit for bit, to
+    # its single launch and within WAVG_RTOL of plain
+    w = torch.tensor(rng.rand(6, 1, C384, C384), dtype=torch.float32,
+                     device=device)
+    xs = [torch.tensor(rng.rand(*s), dtype=torch.float32, device=device)
+          for s in ((6, NZ_DIAG, C384, C384), (6, NZ_DIAG, C384, C384),
+                    (6, 1, C384, C384))]
+    before = read_counts()["weighted_block_average"]
+    outs = coarsen.weighted_block_average_many(xs, w, COARSEN_FACTOR)
+    torch.cuda.synchronize()
+    check(read_counts()["weighted_block_average"] == before + 1,
+          "K5: a group of 3 did not go in one launch")
+    for x, got in zip(xs, outs):
+        check(torch_bits_equal(got, coarsen.weighted_block_average(
+            x, w, COARSEN_FACTOR)), f"K5 group: x {tuple(x.shape)} is not "
+            "its single launch's output, bit for bit")
+        per_value(f"K5 group x {tuple(x.shape)}", got,
+                  coarsen.weighted_block_average_plain(
+                      x, w, COARSEN_FACTOR), WAVG_RTOL)
+    del xs, outs, w
+    log(f"  K5 group of 3 variables under one weight: one launch, each "
+        f"output its single launch's bit for bit, within {WAVG_RTOL} of "
+        f"plain; instances launched so far "
+        f"{dict(coarsen_cuda.WAVG_INSTANCES)}")
     return dict(line, **path), wavg_f64_line(device, reps)
+
+
+def per_value(label, got, want, rtol):
+    """NaN at the same places as ``want`` and every other value within
+    ``rtol`` of its own; returns (the largest relative difference, the
+    NaN count)."""
+    import torch
+
+    nan = torch.isnan(want)
+    check(got.shape == want.shape and torch.equal(torch.isnan(got), nan),
+          f"{label}: NaN where the plain version has none, or the other "
+          "way round")
+    fin = ~nan
+    rel = ((got[fin] - want[fin]).abs() / want[fin].abs()).max().item() \
+        if fin.any() else 0.0
+    check(rel <= rtol, f"{label}: max relative |kernel-plain| {rel} > "
+          f"{rtol}")
+    return rel, int(nan.sum())
 
 
 def wavg_f64_line(device, reps):
@@ -2134,19 +2192,36 @@ def wavg_f64_line(device, reps):
     }, reps)
     moved = nbytes(x, w, got)
     bound_ms, by = bound(moved, 3 * x.numel(), "float64")
-    calls = 6 * SURFACE_SUBTILES ** 2 * len(SURFACE_VARS)
+    # the surface pipeline's launch: a shard's variables in one group
+    xs = [x] + [torch.tensor(1.0 + rng.rand(*x.shape), dtype=torch.float64,
+                             device=device)
+                for _ in SURFACE_VARS[1:]]
+    outs = coarsen.weighted_block_average_many(xs, w, factor)
+    for xv, o in zip(xs, outs):
+        check(torch_bits_equal(o, coarsen.weighted_block_average(
+            xv, w, factor)), "K5 float64 group: not the single launches' "
+            "outputs, bit for bit")
+        per_value("K5 float64 group", o, coarsen.weighted_block_average_plain(
+            xv, w, factor), WAVG_F64_RTOL)
+    group_ms = device_ms({"group": lambda: coarsen.weighted_block_average_many(
+        xs, w, factor)}, reps)["group"]
+    group_bound, _ = bound(nbytes(*xs, w, *outs), 3 * x.numel() * len(xs),
+                           "float64")
+    shards = 6 * SURFACE_SUBTILES ** 2
     log(f"  K5 float64 x {tuple(x.shape)}, w {tuple(w.shape)}, factor "
         f"{factor} (a surface shard's variable): max relative |diff| "
         f"{rel:.3e} (rtol {WAVG_F64_RTOL}); avg_pool2d form max relative "
         f"|diff| {lib_rel:.3e}; device time kernel {dev['kernel']:.4f} ms, "
         f"plain {dev['plain']:.4f} ms, avg_pool2d form "
         f"{dev['library']:.4f} ms; {moved} bytes moved, bound "
-        f"{bound_ms:.4f} ms ({by}); the surface pipeline's {calls} calls "
-        f"{calls * dev['kernel']:.3f} ms")
+        f"{bound_ms:.4f} ms ({by}); a shard's {len(xs)} variables in one "
+        f"launch {group_ms:.4f} ms (bound {group_bound:.5f} ms), each "
+        f"equal to its single launch bit for bit; the surface pipeline's "
+        f"{shards} launches {shards * group_ms:.4f} ms")
     return {"max_abs_err": err, "ms": dev["kernel"],
             "plain_ms": dev["plain"], "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": dev["library"], "path_ms": calls * dev["kernel"],
-            "path_bound_ms": calls * bound_ms}
+            "library_ms": dev["library"], "path_ms": shards * group_ms,
+            "path_bound_ms": shards * group_bound}
 
 
 def phase_pipeline(device):
@@ -2188,9 +2263,10 @@ def phase_pipeline(device):
         t_run = time.perf_counter() - t0
         counts = read_counts()
         out = zarrio.open_zarr(dst)
-    check(counts == launches(weighted_block_average=len(ds) * nt),
+    check(counts == launches(weighted_block_average=2 * nt),
           f"pipeline: launches {counts}, expected one K5 launch per "
-          f"variable and time ({len(ds) * nt})")
+          f"weight shape ([tile, y, x] and [tile, z, y, x]) and time "
+          f"({2 * nt})")
     check(sorted(out) == sorted(ds), f"pipeline wrote {sorted(out)}")
     area = torch.tensor(make_grid(n).area, dtype=torch.float64, device=device)
     area_c = coarsen.block_sum(area, COARSEN_FACTOR)
@@ -3060,7 +3136,10 @@ def kernel_times(device, reps=30):
     as LW band 3 upper, the largest table (``K3_YARDSTICK``), in float32
     and float64; K2 through ``taumol_cuda.taumol_lw_cuda`` on the arguments
     that the tree's own RRTMG driver makes from seeded columns
-    (:func:`k2_call`), float32 and float64, and its launch alone.  Each is
+    (:func:`k2_call`), float32 and float64, and its launch alone; K5 on
+    :func:`k5_yardstick`'s calls (float32 at the diagnostics' shape, a
+    surface shard's float64 variable alone and its variables together).
+    Each is
     timed three ways: CUDA events around one wrapper call with the host's
     work in (:func:`interleaved_ms`, how PRs 1-3 timed the kernels),
     device time (:func:`device_ms`), and the host's microseconds per call
@@ -3141,6 +3220,8 @@ def kernel_times(device, reps=30):
                    digest=digest(*got))
         three_ways(f"K2 {dname} launch", k2_launch(args), n)
         del args, got, want
+    for name, case in k5_yardstick(device).items():
+        three_ways(name, case["fn"], digest=digest(*case["out"]))
     for npz in (NPZ, KM_DEEP):
         args = remap_inputs(device, torch.float32, 3, npz)
         got = remap_cuda.remap_apply_cuda(*args)
@@ -3152,6 +3233,53 @@ def kernel_times(device, reps=30):
             f"({err / scale:.3e} of scale {scale:.3e}); against the exact "
             f"application: kernel {err_k:.3e} ({err_k / scale:.3e}), plain "
             f"{err_p:.3e} ({err_p / scale:.3e})")
+    return out
+
+
+def k5_yardstick(device):
+    """K5's calls of the yardstick, each checked against plain value by
+    value: float32 at x [6, NZ_DIAG, C384, C384] under an area plane a
+    tile; float64 at a surface shard's variable; a surface shard's
+    variables (a tree with ``weighted_block_average_many`` launches them
+    as one group, an older tree one by one).  Returns name -> {"fn", "out"}."""
+    import numpy as np
+    import torch
+    from fv3net_torch.ops import coarsen
+
+    rng = np.random.RandomState(0)
+    f = COARSEN_FACTOR
+    m = C384 // SURFACE_SUBTILES
+    x32 = torch.tensor(rng.rand(6, NZ_DIAG, C384, C384), dtype=torch.float32,
+                       device=device)
+    w32 = torch.tensor(rng.rand(6, 1, C384, C384), dtype=torch.float32,
+                       device=device)
+    w64 = torch.tensor(1.0 + rng.rand(m, m), dtype=torch.float64,
+                       device=device)
+    xs = [torch.tensor(1.0 + rng.rand(SURFACE_TIMES, m, m),
+                       dtype=torch.float64, device=device)
+          for _ in SURFACE_VARS]
+    if hasattr(coarsen, "weighted_block_average_many"):
+        def shard():
+            return coarsen.weighted_block_average_many(xs, w64, f)
+    else:
+        def shard():
+            return [coarsen.weighted_block_average(x, w64, f) for x in xs]
+    cases = {
+        "K5 float32": ((lambda: coarsen.weighted_block_average(x32, w32, f)),
+                       [(x32, w32)], WAVG_RTOL),
+        "K5 float64": ((lambda: coarsen.weighted_block_average(xs[0], w64,
+                                                               f)),
+                       [(xs[0], w64)], WAVG_F64_RTOL),
+        f"K5 float64 surface shard ({len(xs)} variables)": (
+            shard, [(x, w64) for x in xs], WAVG_F64_RTOL)}
+    out = {}
+    for name, (fn, args, rtol) in cases.items():
+        got = fn()
+        got = got if isinstance(got, list) else [got]
+        for g, (x, w) in zip(got, args):
+            per_value(name, g, coarsen.weighted_block_average_plain(x, w, f),
+                      rtol)
+        out[name] = {"fn": fn, "out": got}
     return out
 
 
@@ -5681,14 +5809,15 @@ RESTART_COARSENINGS = {"sigma": "coarsen_state_on_sigma",
 CLI_PRELUDE = ""
 
 
-def offline_launches(method, n_tracers):
+def offline_launches(method):
     """K5 launches of one restart coarsening, counted from
-    ``pipelines/coarsen_restarts.py``: on sigma delp, pt, each tracer, the
-    3 wind components and phis; on pressure the same plus the coarse delp
-    of the regrid (``ops/regridz.py::regrid_to_area_weighted_pressure``);
-    the blend both and the coarse delp of its weights."""
-    sigma = 6 + n_tracers
-    pressure = 7 + n_tracers
+    ``pipelines/coarsen_restarts.py``: on sigma delp, phis and one group
+    of pt, the tracers and the 3 wind components (their weights are one
+    tensor); on pressure the same plus the coarse delp of the regrid
+    (``ops/regridz.py::regrid_to_area_weighted_pressure``); the blend
+    both and the coarse delp of its weights.  (Before the grouped launch:
+    6 + n_tracers, 7 + n_tracers and 14 + 2 n_tracers.)"""
+    sigma, pressure = 3, 4
     return {"sigma": sigma, "pressure": pressure,
             "blended": sigma + pressure + 1}[method]
 
@@ -5698,59 +5827,80 @@ BUDGET_LAUNCHES = 5  # compute_budget: the coarse delp, 4 fields' averages
 
 class PlainK5:
     """Inside the block, K5's dispatcher runs its plain version
-    (``impl="torch"``) wherever the offline modules call it."""
+    (``impl="torch"``) wherever the offline modules call it (a single
+    variable is a group of one)."""
 
     def __enter__(self):
-        import functools
-
         from fv3net_torch.ops import coarsen
 
-        self.orig = coarsen.weighted_block_average
-        coarsen.weighted_block_average = functools.partial(self.orig,
-                                                           impl="torch")
+        self.orig = orig = coarsen.weighted_block_average_many
+        coarsen.weighted_block_average_many = (
+            lambda xs, w, factor, impl=None: orig(xs, w, factor,
+                                                  impl="torch"))
 
     def __exit__(self, *exc):
         from fv3net_torch.ops import coarsen
 
-        coarsen.weighted_block_average = self.orig
+        coarsen.weighted_block_average_many = self.orig
 
 
 class CheckedK5:
     """Inside the block each K5 launch is followed by its plain version on
-    the same arguments, which must give NaN at the same places and the
-    other values within ``rtol`` of the output's scale; counts the calls,
-    the NaN values and the calls with weights of x's full shape, and
-    keeps the worst error."""
+    the same arguments, variable by variable, which must give NaN at the
+    same places and the other values within ``rtol`` of the output's
+    scale; a variable of a group of several is also launched alone, and
+    must give the same bits.  Counts the launches, the variables, those
+    launched in groups, the NaN values and the variables with weights of
+    x's full shape, and keeps the worst error."""
 
     def __init__(self, rtol):
         self.rtol = rtol
-        self.calls = self.nans = self.full_rank = 0
+        self.calls = self.variables = self.grouped = 0
+        self.nans = self.full_rank = 0
         self.worst = 0.0
 
     def __enter__(self):
         from fv3net_torch.ops import coarsen, coarsen_cuda
 
-        self.orig = coarsen_cuda.weighted_block_average_cuda
+        self.orig = coarsen_cuda.weighted_block_average_many_cuda
 
-        def checked(x, w, factor):
-            got = self.orig(x, w, factor)
-            want = coarsen.weighted_block_average_plain(x, w, factor)
-            err, nans = nan_and_scale(
-                f"K5 call {self.calls} (x {tuple(x.shape)}, w "
-                f"{tuple(w.shape)}, {x.dtype})", got, want, self.rtol)
+        def checked(xs, w, factor):
+            outs = self.orig(xs, w, factor)
+            for k, (x, got) in enumerate(zip(xs, outs)):
+                want = coarsen.weighted_block_average_plain(x, w, factor)
+                err, nans = nan_and_scale(
+                    f"K5 call {self.calls} variable {k} (x "
+                    f"{tuple(x.shape)}, w {tuple(w.shape)}, {x.dtype})",
+                    got, want, self.rtol)
+                if len(xs) > 1:
+                    alone = self.orig([x], w, factor)[0]
+                    check(torch_bits_equal(alone, got),
+                          f"K5 call {self.calls} variable {k}: the group's "
+                          "output is not the single launch's, bit for bit")
+                    self.grouped += 1
+                self.variables += 1
+                self.nans += nans
+                self.full_rank += tuple(w.shape) == tuple(x.shape)
+                self.worst = max(self.worst, err)
             self.calls += 1
-            self.nans += nans
-            self.full_rank += tuple(w.shape) == tuple(x.shape)
-            self.worst = max(self.worst, err)
-            return got
+            return outs
 
-        coarsen_cuda.weighted_block_average_cuda = checked
+        coarsen_cuda.weighted_block_average_many_cuda = checked
         return self
 
     def __exit__(self, *exc):
         from fv3net_torch.ops import coarsen_cuda
 
-        coarsen_cuda.weighted_block_average_cuda = self.orig
+        coarsen_cuda.weighted_block_average_many_cuda = self.orig
+
+
+def torch_bits_equal(a, b):
+    """Whether two float tensors hold the same bits (NaN included)."""
+    import torch
+
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
 
 
 CUBE_GRIDS = {}
@@ -5865,7 +6015,7 @@ def offline_restarts(state, area):
             seconds.append(time.perf_counter() - t0)
         counts = read_counts()
         want_counts = launches(weighted_block_average=offline_launches(
-            method, nt))
+            method))
         check(counts == want_counts, f"{method} coarsening: launches "
               f"{counts}, expected {want_counts}")
         launched += counts["weighted_block_average"]
@@ -5873,6 +6023,10 @@ def offline_restarts(state, area):
             fn(state, area, COARSEN_FACTOR)
         check(calls.calls == want_counts["weighted_block_average"],
               f"{method}: {calls.calls} K5 calls checked")
+        check(calls.grouped == nt + 4 if method != "blended"
+              else calls.grouped == 2 * (nt + 4),
+              f"{method}: {calls.grouped} variables in groups, expected pt, "
+              f"{nt} tracers and 3 winds a coarsening")
         with PlainK5():
             want = fn(state, area, COARSEN_FACTOR)
         got_f, want_f = offline_fields(out), offline_fields(want)
@@ -5894,8 +6048,10 @@ def offline_restarts(state, area):
             f"{counts['weighted_block_average']} (expected "
             f"{want_counts['weighted_block_average']}); each K5 call "
             f"against plain on its arguments at most {calls.worst:.3e} of "
-            f"scale (bound {F32_SUM_RTOL:.2e}; {calls.full_rank} calls with "
-            f"weights of x's full shape, {calls.nans} NaN values); the "
+            f"scale (bound {F32_SUM_RTOL:.2e}; {calls.variables} variables, "
+            f"{calls.grouped} of them in groups and each equal bit for bit "
+            f"to its single launch, {calls.full_rank} with weights of x's "
+            f"full shape, {calls.nans} NaN values); the "
             f"whole plain run: NaN at the same {sum(nans.values())} places, "
             f"finite elsewhere, at most {errs[worst]:.3e} of scale apart "
             f"({worst}); column mass Σ delp·area within {mass:.3e} of the "
@@ -6009,12 +6165,19 @@ def offline_sfc_data(device, area):
     seconds = time.perf_counter() - t0
     n = read_counts()["weighted_block_average"]
     # the fields that ``coarsen_sfc_data_complex`` averages with K5 (the
-    # categories slmsk, vtype and stype take block modes)
-    area_fields = [k for k in fields if k not in ("slmsk", "vtype", "stype")
-                   and cr.SFC_DATA_COARSENING_METHOD.get(k, "area") in (
-                       "area", "area_sncovr", "area_fice")]
-    check(n == len(area_fields), f"coarsen_sfc_data_complex: {n} K5 "
-          f"launches, expected {len(area_fields)} ({area_fields})")
+    # categories slmsk, vtype and stype take block modes): those weighted
+    # by the area alone in one launch a weight shape, the snow- and
+    # ice-weighted ones in one each (before the grouped launch: one a
+    # field, 4)
+    method = {k: cr.SFC_DATA_COARSENING_METHOD.get(k, "area")
+              for k in fields if k not in ("slmsk", "vtype", "stype")}
+    by_area = {fields[k].ndim for k, m in method.items() if m == "area"}
+    own = [k for k, m in method.items() if m in ("area_sncovr",
+                                                  "area_fice")]
+    check(n == len(by_area) + len(own), f"coarsen_sfc_data_complex: {n} "
+          f"K5 launches, expected {len(by_area) + len(own)} (a launch for "
+          f"the area-weighted fields of each of {len(by_area)} shapes, one "
+          f"each for {own})")
     with CheckedK5(F32_SUM_RTOL) as calls:
         cr.coarsen_sfc_data_complex(fields, area, COARSEN_FACTOR)
     check(calls.nans > 0, "coarsen_sfc_data_complex: no K5 call met a "
@@ -6048,7 +6211,7 @@ def offline_float64(device):
         reset_counts()
         got = offline_fields(fn(state, area, COARSEN_FACTOR))
         check(read_counts() == launches(
-            weighted_block_average=offline_launches(method, nt)),
+            weighted_block_average=offline_launches(method)),
             f"float64 {method}: launches {read_counts()}")
         with PlainK5():
             want = offline_fields(fn(state, area, COARSEN_FACTOR))
@@ -6134,10 +6297,11 @@ def offline_cli(device, state, tmp):
     cli_line, child = json.loads(lines[-2]), json.loads(lines[-1])
     check(cli_line["resolution"] == n // COARSEN_FACTOR and child["rc"] == 0,
           f"coarsen_restarts CLI printed {lines[-2:]}")
-    want = offline_launches("blended", len(state.tracers)) + n_surface
+    want = offline_launches("blended") + 1
     check(child["launches"] == want, f"coarsen_restarts CLI: "
           f"{child['launches']} K5 launches, expected {want} (the blend of "
-          f"{len(state.tracers)} tracers and {n_surface} surface fields)")
+          f"{len(state.tracers)} tracers, and one for the {n_surface} "
+          "surface fields)")
     out, time_c = load_fortran_restarts(dst)
     check(time_c == datetime.datetime(2016, 8, 1, 3),
           f"coarsen_restarts CLI: time {time_c}")
@@ -6209,7 +6373,7 @@ def write_surface_shards(root, seed=5):
 def offline_surface(device, tmp):
     """coarsen_surface on C384 subtile shards through the runner's
     threads: every item ok on its first attempt, one K5 launch (its
-    float64 instance: float64 areas) per variable and shard, the files
+    float64 instance: float64 areas) per shard for its variables, the files
     equal to the block averages in float64 rounded to float32; returns
     (launches, seconds)."""
     import numpy as np
@@ -6233,10 +6397,9 @@ def offline_surface(device, tmp):
           == [(t, True, 1) for t in range(1, 7)],
           f"coarsen_surface: items {[(r.key, r.ok, r.attempts, r.error) for r in results]}"
           " (each must be ok on its first attempt)")
-    check(counts == launches(weighted_block_average=shards
-                             * len(SURFACE_VARS)),
-          f"coarsen_surface: launches {counts}, expected "
-          f"{shards * len(SURFACE_VARS)} (a variable a shard)")
+    check(counts == launches(weighted_block_average=shards),
+          f"coarsen_surface: launches {counts}, expected {shards} (one a "
+          f"shard for its {len(SURFACE_VARS)} variables)")
     nc = C384 // COARSEN_FACTOR
     worst = 0.0
     for v in SURFACE_VARS:
@@ -8296,7 +8459,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--kernel-times", action="store_true",
-        help="build K1-K4 and time them on one yardstick (see "
+        help="build K1-K5 and time them on one yardstick (see "
              "kernel_times) instead of the smoke run")
     parser.add_argument(
         "--sw-columns", metavar="PATH",
@@ -8333,14 +8496,14 @@ def main():
         log(f"[{time.perf_counter() - t_start:.1f} s] phase {text}")
 
     if opts.kernel_times:
-        from fv3net_torch.ops import ktable_cuda, remap_cuda
+        from fv3net_torch.ops import coarsen_cuda, ktable_cuda, remap_cuda
         from fv3net_torch.physics.radiation.rrtmg import taumol_cuda
 
         log(f"kernel times of {tree}")
-        for m in (remap_cuda, ktable_cuda, taumol_cuda):
+        for m in (remap_cuda, ktable_cuda, taumol_cuda, coarsen_cuda):
             path = m.build().path
             log(f"  built {path.name}")
-            if m is not remap_cuda:
+            if m in (ktable_cuda, taumol_cuda):
                 for name, res in resource_usage(path):
                     log(f"  resources of {name}: {res}")
         log_plans()

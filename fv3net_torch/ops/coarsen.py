@@ -9,11 +9,13 @@ functions batch over (tile, z, time, ...) leading axes.
 on CUDA tensors it runs the fused kernel K5
 (:mod:`fv3net_torch.ops.coarsen_cuda`), on CPU tensors its plain version
 :func:`weighted_block_average_plain`; ``impl`` "cuda" or "torch" forces
-one.  On a CUDA tensor the kernel launches or raises; there is no
-fallback.
+one.  :func:`weighted_block_average_many` takes several variables that
+share a weight, in one launch.  On a CUDA tensor the kernel launches or
+raises; there is no fallback.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -108,19 +110,39 @@ def weighted_block_average_plain(x, weights, factor: int):
     return num / den
 
 
-def weighted_block_average(x, weights, factor: int,
-                           impl: Optional[str] = None):
-    """Area/mass-weighted block average: K5 on CUDA tensors, else the
-    plain version (see :func:`weighted_block_average_plain`)."""
+def weighted_block_average_many_plain(xs, weights, factor: int):
+    """The plain version of :func:`weighted_block_average_many`: each
+    variable's :func:`weighted_block_average_plain`."""
+    return [weighted_block_average_plain(x, weights, factor) for x in xs]
+
+
+def weighted_block_average_many(xs, weights, factor: int,
+                                impl: Optional[str] = None):
+    """Area/mass-weighted block averages of several variables that share
+    one weight tensor and one (y, x) shape (their leading shapes may
+    differ): K5 on CUDA tensors, the whole group in one launch, else the
+    plain version.  Returns a list in the order of ``xs``."""
     if impl not in (None, "cuda", "torch"):
         raise ValueError(f"coarsening impl must be None, 'cuda' or 'torch'; "
                          f"got {impl!r}")
-    if impl == "torch" or (impl is None and not x.is_cuda):
-        return weighted_block_average_plain(x, weights, factor)
-    dtype = torch.result_type(x, weights)
-    return coarsen_cuda.weighted_block_average_cuda(
-        x.to(dtype).contiguous(), weights.to(dtype).contiguous(), factor
-    )
+    xs = list(xs)
+    if not xs:
+        return []
+    if impl == "torch" or (impl is None and not xs[0].is_cuda):
+        return weighted_block_average_many_plain(xs, weights, factor)
+    dtype = functools.reduce(torch.promote_types, [x.dtype for x in xs],
+                             weights.dtype)
+    return coarsen_cuda.weighted_block_average_many_cuda(
+        [x.to(dtype).contiguous() for x in xs],
+        weights.to(dtype).contiguous(), factor)
+
+
+def weighted_block_average(x, weights, factor: int,
+                           impl: Optional[str] = None):
+    """Area/mass-weighted block average: K5 on CUDA tensors, else the
+    plain version (see :func:`weighted_block_average_plain`); a group of
+    one of :func:`weighted_block_average_many`."""
+    return weighted_block_average_many([x], weights, factor, impl)[0]
 
 
 def _axis_block_sum(x, factor: int, axis: int):

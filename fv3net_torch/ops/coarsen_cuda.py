@@ -4,19 +4,24 @@ K5 replaces the TPU kernel ``fv3net_tpu/ops/pallas_kernels.py::
 _wavg_kernel``; its plain PyTorch version is
 :func:`fv3net_torch.ops.coarsen.weighted_block_average_plain`, whose
 dispatcher calls this wrapper on CUDA tensors.
+:func:`weighted_block_average_many_cuda` averages a group of variables
+that share one weight tensor in one launch (up to ``MAX_GROUP`` of them;
+a single variable is a group of one).
 
 Build: :func:`fv3net_torch.ops.cuda_build.build` compiles the source at
 first use.  There is no fallback: a missing compiler, a failed build or a
 failed launch raises.  ``WAVG_LAUNCHES`` counts the launches of this
-process, from any thread (the surface pipeline launches from a pool).
+process, from any thread (the surface pipeline launches from a pool), and
+``WAVG_INSTANCES`` the launches by instance (``instance_name``).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
 import threading
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -24,12 +29,22 @@ from fv3net_torch.ops import cuda_build
 from fv3net_torch.ops.cuda_build import check_tensor
 
 SOURCE = "wavg.cu"
-MAX_FACTOR = 1024  # fine columns a block holds in shared memory
+MAX_FACTOR = 1024  # the generic instance's fine columns in shared memory
+MAX_GROUP = 64  # variables of one launch (kMaxVars)
 
 WAVG_LAUNCHES = 0
+WAVG_INSTANCES: collections.Counter = collections.Counter()
 _COUNT_LOCK = threading.Lock()
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def instance_name(code: int) -> str:
+    """The instance the library reports: 0 the generic one, else
+    ``factor * 10 + V`` (V fine columns a load: 16 bytes, or 1)."""
+    if code == 0:
+        return "generic"
+    return f"f{code // 10}x{code % 10}"
 
 
 def build() -> cuda_build.BuildInfo:
@@ -41,11 +56,14 @@ def build() -> cuda_build.BuildInfo:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build().path))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p64 = ctypes.POINTER(i64)
     for sfx in _SUFFIX.values():
-        fn = getattr(lib, f"fv3_wavg_{sfx}")
-        fn.argtypes = [ptr] * 3 + [i64, i32, i32, i32, i64, i64, ptr]
+        fn = getattr(lib, f"fv3_wavg_group_{sfx}")
+        fn.argtypes = [ptr, ptr, p64, p64, p64, i32, ptr, i32, i32, i32,
+                       ctypes.POINTER(i32), ptr]
         fn.restype = ctypes.c_int
     return lib
+
 
 
 def weight_batches(lead: Tuple[int, ...],
@@ -71,46 +89,79 @@ def weight_batches(lead: Tuple[int, ...],
     return math.prod(lead[hi + 1:]), math.prod(lead[lo:hi + 1])
 
 
-def weighted_block_average_cuda(x: torch.Tensor, w: torch.Tensor,
-                                factor: int) -> torch.Tensor:
-    """K5: ``sum(x * w) / sum(w)`` over factor x factor blocks of the last
-    two axes.
+def group_args(members: Sequence[tuple]):
+    """The group's ctypes arguments from its members, each (x, out,
+    batches, w_div, w_mod): the x and output pointers and each variable's
+    (B, w_div, w_mod), as arrays."""
+    n = len(members)
+    ptr, i64 = ctypes.c_void_p * n, ctypes.c_longlong * n
+    x, out, B, div, mod = zip(*members)
+    return (ptr(*[t.data_ptr() for t in x]), ptr(*[t.data_ptr() for t in out]),
+            i64(*B), i64(*div), i64(*mod))
 
-    x [..., ny, nx] and w [..., ny, nx] of one dtype (float32 or float64),
-    contiguous on one CUDA device; w's leading axes broadcast to x's and
-    are read in place.  ny and nx must be multiples of ``factor``.
-    Returns [..., ny // factor, nx // factor]."""
+
+def weighted_block_average_many_cuda(xs: Sequence[torch.Tensor],
+                                     w: torch.Tensor,
+                                     factor: int) -> List[torch.Tensor]:
+    """K5 on a group of variables: ``sum(x * w) / sum(w)`` over factor x
+    factor blocks of the last two axes of each x, in one launch per
+    ``MAX_GROUP`` variables.
+
+    Each x [..., ny, nx] is contiguous, of w's dtype (float32 or float64)
+    and on its CUDA device, with its own leading shape; w [..., ny, nx] is
+    shared, its leading axes broadcast to each x's and are read in place.
+    ny and nx must be multiples of ``factor``.  Returns the averages
+    [..., ny // factor, nx // factor], in the order of ``xs``; each equals,
+    bit for bit, that variable's average launched alone."""
     global WAVG_LAUNCHES
     kernel = "weighted_block_average"
-    if x.dtype not in _SUFFIX:
+    if w.dtype not in _SUFFIX:
         raise TypeError(f"{kernel} kernel takes float32 or float64, got "
-                        f"{x.dtype}")
-    if x.ndim < 2 or w.ndim < 2:
+                        f"{w.dtype}")
+    if w.ndim < 2:
         raise ValueError(f"{kernel} kernel: x and w need at least 2 axes")
-    lead, (ny, nx) = tuple(x.shape[:-2]), x.shape[-2:]
+    ny, nx = w.shape[-2:]
     if not 1 <= factor <= MAX_FACTOR:
         raise ValueError(f"{kernel} kernel: factor {factor} outside "
                          f"[1, {MAX_FACTOR}]")
     if ny % factor or nx % factor:
         raise ValueError(f"spatial shape ({ny},{nx}) not divisible by "
                          f"factor {factor}")
-    batches = weight_batches(lead, tuple(w.shape[:-2]))
-    if batches is None:  # no (div, mod) form: one weight plane per batch
-        w = w.expand(lead + (ny, nx)).contiguous()
-        batches = (1, math.prod(lead))
-    check_tensor(kernel, "x", x, x.shape, x.dtype, x.device)
-    check_tensor(kernel, "w", w, tuple(w.shape[:-2]) + (ny, nx), x.dtype,
-                 x.device)
-    out = torch.empty(lead + (ny // factor, nx // factor), dtype=x.dtype,
-                      device=x.device)
-    fn = getattr(_library(), f"fv3_wavg_{_SUFFIX[x.dtype]}")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                 math.prod(lead), ny, nx, factor, batches[0], batches[1],
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
-    with _COUNT_LOCK:
-        WAVG_LAUNCHES += 1
-    return out
+    check_tensor(kernel, "w", w, w.shape, w.dtype, w.device)
+    lead_w = tuple(w.shape[:-2])
+    # (variables, their weights): the shared weight in groups of
+    # MAX_GROUP; a variable whose weight has no (div, mod) form alone,
+    # with one weight plane per batch
+    shared, groups, outs = [], [], []
+    for k, x in enumerate(xs):
+        if x.ndim < 2:
+            raise ValueError(f"{kernel} kernel: x and w need at least 2 "
+                             "axes")
+        lead = tuple(x.shape[:-2])
+        check_tensor(kernel, f"x[{k}]", x, lead + (ny, nx), w.dtype,
+                     w.device)
+        out = torch.empty(lead + (ny // factor, nx // factor),
+                          dtype=w.dtype, device=w.device)
+        outs.append(out)
+        batches = weight_batches(lead, lead_w)
+        if batches is None:
+            groups.append(([(x, out, math.prod(lead), 1, math.prod(lead))],
+                           w.expand(x.shape).contiguous()))
+        else:
+            shared.append((x, out, math.prod(lead)) + batches)
+    groups[:0] = [(shared[i:i + MAX_GROUP], w)
+                  for i in range(0, len(shared), MAX_GROUP)]
+    fn = getattr(_library(), f"fv3_wavg_group_{_SUFFIX[w.dtype]}")
+    chosen = ctypes.c_int(-1)
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        for members, gw in groups:
+            err = fn(*group_args(members), len(members), gw.data_ptr(), ny,
+                     nx, factor, ctypes.byref(chosen), stream)
+            if err != 0:
+                raise RuntimeError(f"{kernel} kernel launch failed: "
+                                   f"cudaError {err}")
+            with _COUNT_LOCK:
+                WAVG_LAUNCHES += 1
+                WAVG_INSTANCES[instance_name(chosen.value)] += 1
+    return outs

@@ -274,21 +274,29 @@ def column_draws(draw: Callable, fold: int, lead: tuple, nz: int):
 
 
 # -------------------------------------------------------------- launch
-def _free_port() -> int:
-    import socket
+def _check_group(world_size: int, token: str):
+    """Raises unless this rank's process group is the one its launch made:
+    ``world_size`` ranks, every one of them holding ``token``."""
+    if dist.get_world_size() != world_size:
+        raise RuntimeError(
+            f"rank {dist.get_rank()} is in a group of "
+            f"{dist.get_world_size()} ranks, not its launch's {world_size}")
+    tokens = [None] * world_size
+    dist.all_gather_object(tokens, token)
+    if any(t != token for t in tokens):
+        raise RuntimeError(
+            f"rank {dist.get_rank()} is not in its own group: its launch's "
+            f"token {token!r}, the group's {tokens}")
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
-
-def _rank_main(rank: int, world_size: int, port: int, backend: str,
-               fn: Callable, args: tuple, out_dir: str):
+def _rank_main(rank: int, world_size: int, store: str, token: str,
+               backend: str, fn: Callable, args: tuple, out_dir: str):
     import pickle
 
-    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+    dist.init_process_group(backend, init_method=f"file://{store}",
                             world_size=world_size, rank=rank)
     try:
+        _check_group(world_size, token)
         result = fn(*args)
         with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
             pickle.dump(result, f)
@@ -301,10 +309,18 @@ def _rank_main(rank: int, world_size: int, port: int, backend: str,
 def launch(fn: Callable, world_size: int, args: tuple = (),
            backend: str = "gloo") -> list:
     """Run ``fn(*args)`` in ``world_size`` new processes that form one
-    process group (``backend`` over ``tcp://localhost``); returns each rank's
-    result, in rank order.  ``fn`` must be importable by name (a module
-    level function).  Raises if any rank fails."""
+    process group (``backend``); returns each rank's result, in rank order.
+    ``fn`` must be importable by name (a module level function).  Raises
+    if any rank fails.
+
+    The group meets through a file store in the launch's own temporary
+    directory, so that no other launch can join it (a TCP port picked in
+    the parent and released could be taken, or picked by another launch,
+    before rank 0 bound it), and every rank checks that its group holds
+    ``world_size`` ranks with the token this launch made."""
+    import os
     import pickle
+    import secrets
     import tempfile
 
     import torch.multiprocessing as mp
@@ -312,7 +328,8 @@ def launch(fn: Callable, world_size: int, args: tuple = (),
     with tempfile.TemporaryDirectory(prefix="fv3net_ranks_") as out:
         mp.start_processes(
             _rank_main,
-            args=(world_size, _free_port(), backend, fn, args, out),
+            args=(world_size, os.path.join(out, "store"),
+                  secrets.token_hex(16), backend, fn, args, out),
             nprocs=world_size, join=True, start_method="spawn")
         results = []
         for r in range(world_size):

@@ -7,7 +7,8 @@ Every [.., tile, (z,) y, x] variable is coarsened to the training
 resolution by area-weighted block averages, one time index at a time, on
 ``device`` (the card unless the caller asks for the CPU): the fused
 kernel K5 there, its plain version on the CPU
-(:func:`fv3net_torch.ops.coarsen.weighted_block_average`).
+(:func:`fv3net_torch.ops.coarsen.weighted_block_average_many`, one launch
+for the variables of a weight shape).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 from fv3net_torch.core import zarrio
 from fv3net_torch.grid.geometry import make_grid
-from fv3net_torch.ops.coarsen import weighted_block_average
+from fv3net_torch.ops.coarsen import weighted_block_average_many
 
 
 def coarsen_diagnostics(
@@ -40,18 +41,22 @@ def coarsen_diagnostics(
     group = None
     n_time = src[names[0]].shape[0] if "time" in src[names[0]].dims else 1
     for t in range(n_time):
-        fields = {}
+        fields = dict.fromkeys(names)
+        by_weight = {}  # the variables of a weight shape: one launch
         for name in names:
             q = src[name]
             arr = torch.as_tensor(
                 q.values[t] if "time" in q.dims else q.values,
                 dtype=torch.float32, device=device,
             )
+            by_weight.setdefault(arr.ndim == 3, []).append((name, arr))
+        for surface, members in by_weight.items():
             # weights broadcast under the leading (z) axes
-            w = area if arr.ndim == 3 else area[:, None]
-            fields[name] = weighted_block_average(
-                arr, w, coarsening_factor
-            ).cpu().numpy()
+            w = area if surface else area[:, None]
+            coarse = weighted_block_average_many(
+                [arr for _, arr in members], w, coarsening_factor)
+            for (name, _), c in zip(members, coarse):
+                fields[name] = c.cpu().numpy()
         if group is None:
             group = zarrio.ZarrGroup.create(output_zarr)
             for name, arr in fields.items():

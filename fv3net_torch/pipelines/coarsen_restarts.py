@@ -35,17 +35,13 @@ def coarsen_state_on_sigma(
     area4 = area[:, None]  # broadcast over z
     delp_c = _c.weighted_block_average(state.delp, area4, factor)
     mass = state.delp * area4
-    pt_c = _c.weighted_block_average(state.pt, mass, factor)
-    tracers_c = {
-        k: _c.weighted_block_average(v, mass, factor)
-        for k, v in state.tracers.items()
-    }
-    wind_c = torch.stack(
-        [
-            _c.weighted_block_average(state.wind[c], mass, factor)
-            for c in range(3)
-        ]
-    )
+    # pt, the tracers and the winds share the mass weights: one launch
+    names = list(state.tracers)
+    pt_c, *rest = _c.weighted_block_average_many(
+        [state.pt] + [state.tracers[k] for k in names]
+        + [state.wind[c] for c in range(3)], mass, factor)
+    tracers_c = dict(zip(names, rest[:len(names)]))
+    wind_c = torch.stack(rest[len(names):])
     phis_c = _c.weighted_block_average(state.phis, area, factor)
     return DycoreState(
         delp=delp_c, pt=pt_c, wind=wind_c, tracers=tracers_c, phis=phis_c
@@ -80,14 +76,15 @@ def coarsen_state_on_pressure(
     # masked area-weighted block average on the coarse pressure coordinate
     w = zmid(masked_w).contiguous()  # [tile, z, y, x]
 
-    def avg(name):
-        return _c.weighted_block_average(zmid(regridded.pop(name)), w,
-                                         factor)
-
+    # pt, the tracers and the winds share the masked weights: one launch
+    names = (["pt"] + [f"tracer_{k}" for k in state.tracers]
+             + [f"wind_{c}" for c in range(3)])
+    pt_c, *rest = _c.weighted_block_average_many(
+        [zmid(regridded.pop(name)) for name in names], w, factor)
+    nt = len(state.tracers)
+    tracers_c = dict(zip(state.tracers, rest[:nt]))
+    wind_c = torch.stack(rest[nt:])
     delp_c = _c.weighted_block_average(state.delp, area[:, None], factor)
-    pt_c = avg("pt")
-    tracers_c = {k: avg(f"tracer_{k}") for k in state.tracers}
-    wind_c = torch.stack([avg(f"wind_{c}") for c in range(3)])
     phis_c = _c.weighted_block_average(state.phis, area, factor)
     return DycoreState(
         delp=delp_c, pt=pt_c, wind=wind_c, tracers=tracers_c, phis=phis_c
@@ -102,11 +99,10 @@ def impose_hydrostatic_balance(T, q, delp, toa_pressure: float = TOA_PRESSURE):
 
 def coarsen_surface_simple(fields: Dict[str, torch.Tensor], area,
                            factor: int):
-    """Area-weighted coarsening of continuous surface fields."""
-    return {
-        k: _c.weighted_block_average(v, area, factor)
-        for k, v in fields.items()
-    }
+    """Area-weighted coarsening of continuous surface fields (one
+    launch)."""
+    return dict(zip(fields, _c.weighted_block_average_many(
+        list(fields.values()), area, factor)))
 
 
 def coarsen_surface_complex(
@@ -124,10 +120,8 @@ def coarsen_surface_complex(
         dominant = _c.block_upsample(cat_c["slmsk"], factor)
         match = (categorical["slmsk"] == dominant).to(area.dtype)
         w = area * match
-        cont_c = {
-            k: _c.weighted_block_average(v, w, factor)
-            for k, v in continuous.items()
-        }
+        cont_c = dict(zip(continuous, _c.weighted_block_average_many(
+            list(continuous.values()), w, factor)))
     else:
         cont_c = coarsen_surface_simple(continuous, area, factor)
     return {**cont_c, **cat_c}
@@ -273,6 +267,9 @@ def coarsen_sfc_data_complex(
     sncovr = ds.get("sncovr")
     fice = ds.get("fice")
 
+    # the fields averaged with the area alone, by the weight's shape: one
+    # launch each, after the loop (their slots in ``out`` keep its order)
+    by_area: Dict[int, list] = {}
     for name, v in ds.items():
         if name in out:
             continue
@@ -284,7 +281,8 @@ def coarsen_sfc_data_complex(
             mask = dom_sfc
             w = area
         if method == "area":
-            out[name] = _c.weighted_block_average(v, w, factor)
+            out[name] = None
+            by_area.setdefault(v.ndim, []).append(name)
         elif method == "area_dominant":
             out[name] = _masked_avg(v, w, mask, factor)
         elif method == "area_vfrac_dominant_vtype" and have_veg:
@@ -320,7 +318,12 @@ def coarsen_sfc_data_complex(
                 sea_ice, other
             )
         else:  # missing auxiliary input: fall back to area weighting
-            out[name] = _c.weighted_block_average(v, w, factor)
+            out[name] = None
+            by_area.setdefault(v.ndim, []).append(name)
+    for ndim, names in by_area.items():
+        w = area[:, None] if ndim == 4 else area
+        out.update(zip(names, _c.weighted_block_average_many(
+            [ds[k] for k in names], w, factor)))
 
     return _apply_surface_chgres_corrections(out)
 
@@ -389,10 +392,8 @@ def coarsen_restart_dir(src: str, dst: str, factor: int,
     area = torch.as_tensor(grid.area, dtype=dycore.delp.dtype,
                            device=device)
     dycore_c = fn(dycore, area, factor)
-    surface_c = {
-        k: _c.weighted_block_average(v.to(device), area, factor)
-        for k, v in state.surface.items()
-    }
+    surface_c = dict(zip(state.surface, _c.weighted_block_average_many(
+        [v.to(device) for v in state.surface.values()], area, factor)))
     grid_c = make_grid(n // factor)
     save_fortran_restarts(
         ModelState(dycore=dycore_c, surface=surface_c),

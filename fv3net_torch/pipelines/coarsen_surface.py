@@ -79,16 +79,18 @@ def coarsen_shard(
     area = torch.as_tensor(
         _native(netcdfio.open_netcdf(grid_path)[AREA].data), device=device)
     out_vars = {}
+    names = [name for name, q in ds.items() if _xy_dims(q) is not None]
+    # the shard's variables share its area: one launch
+    coarse = coarsen.weighted_block_average_many(
+        [torch.as_tensor(_native(ds[name].data), device=device)
+         for name in names], area, factor)
     for name, q in ds.items():
-        if _xy_dims(q) is None:
+        if name in names:
+            c = coarse[names.index(name)]
+            out_vars[name] = Quantity(c.cpu().numpy(), q.dims, q.units,
+                                      dict(q.attrs))
+        else:
             out_vars[name] = q
-            continue
-        coarse = coarsen.weighted_block_average(
-            torch.as_tensor(_native(q.data), device=device), area, factor
-        )
-        out_vars[name] = Quantity(
-            coarse.cpu().numpy(), q.dims, q.units, dict(q.attrs)
-        )
     coords = {}
     for cname, cvals in ds.coords.items():
         arr = np.asarray(cvals)

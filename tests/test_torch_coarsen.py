@@ -374,3 +374,38 @@ def test_wavg_kernel_matches_plain_on_card(dtype):
         assert err <= rtol, (shape, factor, err)
     with pytest.raises(ValueError, match="divisible"):
         tc.weighted_block_average(x, w, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wavg_group_equals_single_launches_on_card(dtype):
+    """K5's grouped launch on the card: three variables of other leading
+    shapes under one per-tile weight with a block of zero weights, one
+    launch; each output equal, bit for bit, to the variable launched
+    alone (and so to its launch from a copy one value past a 16-byte
+    boundary, the one-value instance), within the tolerance of the plain
+    version, NaN where it gives NaN."""
+    dev = _cuda()
+    rtol = F32_RTOL if dtype == torch.float32 else F64_RTOL
+    rng = np.random.RandomState(1)
+    w = torch.tensor(rng.rand(6, 1, 48, 48) + 0.1, dtype=dtype, device=dev)
+    w[2, 0, :8, 8:16] = 0.0
+    xs = [torch.tensor(rng.rand(*s), dtype=dtype, device=dev)
+          for s in ((6, 7, 48, 48), (6, 1, 48, 48), (3, 6, 2, 48, 48))]
+    before = coarsen_cuda.WAVG_LAUNCHES
+    outs = tc.weighted_block_average_many(xs, w, 8)
+    torch.cuda.synchronize()
+    assert coarsen_cuda.WAVG_LAUNCHES == before + 1
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    for x, got in zip(xs, outs):
+        alone = tc.weighted_block_average(x, w, 8)
+        buf = torch.empty(x.numel() + 4, dtype=dtype, device=dev)
+        shifted = buf[1:1 + x.numel()].view(x.shape)
+        shifted.copy_(x)
+        for other in (alone, tc.weighted_block_average(shifted, w, 8)):
+            assert torch.equal(other.view(ints), got.view(ints))
+        want = tc.weighted_block_average(x, w, 8, impl="torch")
+        nan = torch.isnan(want)
+        assert nan.any() and torch.equal(torch.isnan(got), nan)
+        err = ((got - want).abs()[~nan] / want.abs()[~nan]).max().item()
+        assert err <= rtol, err

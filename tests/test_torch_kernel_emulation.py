@@ -38,6 +38,7 @@ from torch_port_util import column_state
 EMULATION = r"""
 #pragma once
 #include <barrier>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <memory>
@@ -49,6 +50,7 @@ EMULATION = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
+#define __grid_constant__
 
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
 inline thread_local dim3 threadIdx, blockIdx;
@@ -119,6 +121,9 @@ template <class T> T __shfl_sync(unsigned, T v, int src) {
 }
 template <class T> T __shfl_up_sync(unsigned m, T v, int d) {
   return __shfl_sync(m, v, emu_lane >= d ? emu_lane - d : emu_lane);
+}
+template <class T> T __shfl_xor_sync(unsigned m, T v, int o) {
+  return __shfl_sync(m, v, emu_lane ^ o);
 }
 
 // Runs fn on every thread of every block, block after block; a thread that
@@ -526,8 +531,8 @@ def test_taumol_bf16_kernel_source_matches_plain(emulated):
 # (x shape, w shape, factor, zero block): the restart coarsening's mass
 # weights of x's full shape, an area plane per tile shared by the levels,
 # weights with a block all 0 (a coarse level below the fine surface), and
-# a row wider than the kernel's chunk of 1024 fine columns, so that one
-# coarse row's sums come from two blocks
+# a row wider than a block's 1024 fine columns (256 threads of 16-byte
+# loads), so that one coarse row's sums come from two blocks
 K5_EMULATION_CASES = [((6, 3, 8, 8), (6, 3, 8, 8), 2, False),
                       ((6, 3, 8, 8), (6, 1, 8, 8), 4, False),
                       ((6, 2, 8, 8), (6, 2, 8, 8), 2, True),
@@ -537,12 +542,11 @@ K5_EMULATION_CASES = [((6, 3, 8, 8), (6, 3, 8, 8), 2, False),
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("case", range(len(K5_EMULATION_CASES)))
 def test_wavg_kernel_source_matches_plain(emulated, case, dtype):
-    """K5 (``csrc/wavg.cu``: a block per batch, coarse row and chunk of
-    fine columns, the column sums in shared memory) against
+    """K5 (``csrc/wavg.cu``, one variable: a group of one) against
     ``weighted_block_average_plain``: within 2e-6 (float32) and 1e-13
     (float64) of each value, NaN (0 / 0) where a block's weights are all
     0, as the plain version gives it."""
-    from fv3net_torch.ops import coarsen, coarsen_cuda
+    from fv3net_torch.ops import coarsen
 
     shape, w_shape, factor, zero_block = K5_EMULATION_CASES[case]
     tdt = TORCH_DTYPE[dtype]
@@ -551,21 +555,112 @@ def test_wavg_kernel_source_matches_plain(emulated, case, dtype):
     w = torch.tensor(rng.random(w_shape) + 0.1, dtype=tdt)
     if zero_block:
         w[1, 1, :factor, factor:2 * factor] = 0.0
-    div, mod = coarsen_cuda.weight_batches(shape[:-2], w_shape[:-2])
-    fn = getattr(emulated("wavg.cu"), "fv3_wavg_"
-                 + coarsen_cuda._SUFFIX[tdt])
-    fn.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-    ny, nx = shape[-2:]
-    got = torch.full(shape[:-2] + (ny // factor, nx // factor),
-                     float("nan"), dtype=tdt)
-    assert fn(x.data_ptr(), w.data_ptr(), got.data_ptr(),
-              int(np.prod(shape[:-2])), ny, nx, factor, div, mod,
-              None) == 0
+    got = _wavg_group(emulated("wavg.cu"), [x], w, factor)[0][0]
     want = coarsen.weighted_block_average_plain(x, w, factor)
     nan = torch.isnan(want)
     assert nan.any() == zero_block
     assert torch.equal(torch.isnan(got), nan)
     rtol = {"float32": 2e-6, "float64": 1e-13}[dtype]
     assert ((got - want).abs()[~nan] <= rtol * want.abs()[~nan]).all()
+
+
+# (x shapes, w shape, factor, zero block, offset): each templated factor,
+# the generic factor 3, nx = 6 (not a multiple of a float32 16-byte load),
+# an x that starts one value past a 16-byte boundary, an area plane shared
+# by 5 levels whose batches come in chunks (the emulation reports 2 SMs),
+# and a group of three variables of other leading shapes with a block of
+# zero weights, with 16-byte loads and without
+K5_GROUP_CASES = [([(3, 16, 16)], (3, 16, 16), 2, False, False),
+                  ([(3, 16, 16)], (16, 16), 4, False, False),
+                  ([(2, 3, 16, 16)], (2, 1, 16, 16), 8, False, False),
+                  ([(2, 12, 18)], (2, 12, 18), 3, False, False),
+                  ([(2, 8, 6)], (2, 8, 6), 2, False, False),
+                  ([(2, 8, 16)], (2, 8, 16), 4, False, True),
+                  ([(3, 5, 16, 16)], (3, 1, 16, 16), 8, False, False),
+                  ([(2, 3, 16, 16), (2, 1, 16, 16), (4, 2, 5, 16, 16)],
+                   (2, 1, 16, 16), 8, True, False),
+                  ([(2, 3, 16, 16), (2, 1, 16, 16), (4, 2, 5, 16, 16)],
+                   (2, 1, 16, 16), 8, True, True)]
+
+
+def _offset_copy(x, offset):
+    """x's values in a new tensor that starts ``offset`` values past the
+    start of its storage (16-byte aligned at offset 0)."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype)
+    assert buf.data_ptr() % 16 == 0
+    out = buf[offset:offset + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _wavg_group(lib, xs, w, factor):
+    """One launch of ``fv3_wavg_group_<dtype>`` on the emulated build;
+    returns (outputs, the instance it chose)."""
+    from fv3net_torch.ops import coarsen_cuda
+
+    fn = getattr(lib, "fv3_wavg_group_" + coarsen_cuda._SUFFIX[w.dtype])
+    i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    fn.argtypes = [ptr, ptr] + [ctypes.POINTER(i64)] * 3 + [
+        i32, ptr, i32, i32, i32, ctypes.POINTER(i32), ptr]
+    ny, nx = w.shape[-2:]
+    outs = [torch.full(x.shape[:-2] + (ny // factor, nx // factor),
+                       float("nan"), dtype=w.dtype) for x in xs]
+    members = [(x, o, int(np.prod(x.shape[:-2])))
+               + coarsen_cuda.weight_batches(x.shape[:-2], w.shape[:-2])
+               for x, o in zip(xs, outs)]
+    chosen = ctypes.c_int(-1)
+    assert fn(*coarsen_cuda.group_args(members), len(xs), w.data_ptr(),
+              ny, nx, factor, ctypes.byref(chosen), None) == 0
+    return outs, chosen.value
+
+
+def _bits(x):
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", range(len(K5_GROUP_CASES)))
+def test_wavg_group_kernel_source_matches_plain(emulated, case, dtype):
+    """K5's instances (``csrc/wavg.cu``: the factor as a template
+    parameter, 16-byte or one-value loads, the cells reduced with
+    shuffles, the weights kept in registers over a chunk of the batches
+    that share them; the generic instance for other factors) and its
+    grouped launch against ``weighted_block_average_plain``: within 2e-6
+    (float32) and 1e-13 (float64) of each value, NaN exactly where the
+    plain version gives it; the instance the shapes and alignment pick;
+    each variable of a group equal bit for bit to it launched alone, and
+    the 16-byte and the one-value instances equal bit for bit."""
+    from fv3net_torch.ops import coarsen
+
+    shapes, w_shape, factor, zero_block, offset = K5_GROUP_CASES[case]
+    tdt = TORCH_DTYPE[dtype]
+    lib = emulated("wavg.cu")
+    rng = np.random.default_rng(100 + case)
+    xs = [torch.tensor(rng.standard_normal(s) + 3.0, dtype=tdt)
+          for s in shapes]
+    w = torch.tensor(rng.random(w_shape) + 0.1, dtype=tdt)
+    if zero_block:
+        w[1, 0, :factor, factor:2 * factor] = 0.0
+    if offset:
+        xs[0] = _offset_copy(xs[0], 1)
+    nx = w_shape[-1]
+    vec = 16 // xs[0].element_size()
+    want_instance = 0 if factor not in (2, 4, 8) else factor * 10 + (
+        vec if nx % vec == 0 and not offset else 1)
+    got, instance = _wavg_group(lib, xs, w, factor)
+    assert instance == want_instance
+    rtol = {"float32": 2e-6, "float64": 1e-13}[dtype]
+    for x, g in zip(xs, got):
+        want = coarsen.weighted_block_average_plain(x, w, factor)
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(g), nan)
+        assert ((g - want).abs()[~nan] <= rtol * want.abs()[~nan]).all()
+        alone, _ = _wavg_group(lib, [x], w, factor)
+        assert torch.equal(_bits(alone[0]), _bits(g))
+        if factor in (2, 4, 8):  # the other load width, the same bits
+            other, inst = _wavg_group(
+                lib, [_offset_copy(x, 0 if offset else 1)], w, factor)
+            if nx % vec == 0:
+                assert {inst % 10, instance % 10} == {1, vec}
+            assert torch.equal(_bits(other[0]), _bits(g))
+    assert torch.isnan(got[0]).any() == zero_block

@@ -386,6 +386,35 @@ def sharded_worker(out_dir, threads):
     return out
 
 
+def group_probe(tag, hold=0.0):
+    """Run by each rank of a small launch: what this rank sees of its
+    process group, its size, its rank and every member's ``tag`` and
+    process id; the group is then held ``hold`` seconds, so that launches
+    started together overlap."""
+    import os
+    import time
+
+    import torch.distributed as dist
+
+    members = [None] * dist.get_world_size()
+    dist.all_gather_object(members, (tag, os.getpid()))
+    time.sleep(hold)
+    dist.barrier()
+    return {"world": dist.get_world_size(), "rank": dist.get_rank(),
+            "members": members}
+
+
+def foreign_token_worker():
+    """Run by each rank of a launch: checks its group against a token of
+    its own, which no other rank holds, as a rank that met another
+    launch's ranks would see them."""
+    import torch.distributed as dist
+
+    from fv3net_torch.parallel import sharded
+
+    sharded._check_group(dist.get_world_size(), f"token{dist.get_rank()}")
+
+
 #: the rank whose step raises in ``sharded_failing_worker``
 FAILING_RANK = 2
 

@@ -68,16 +68,17 @@ KERNELS_28 = """
 from fv3net_torch.ops import coarsen, coarsen_cuda
 
 
-def fake_wavg(x, w, f):
+def fake_wavg_many(xs, w, f):
     with coarsen_cuda._COUNT_LOCK:
         coarsen_cuda.WAVG_LAUNCHES += 1
-    return coarsen.weighted_block_average_plain(x, w, f)
+    return coarsen.weighted_block_average_many_plain(xs, w, f)
 
 
-coarsen_cuda.weighted_block_average_cuda = fake_wavg
-_wavg = coarsen.weighted_block_average
-coarsen.weighted_block_average = lambda x, w, f, impl=None: _wavg(
-    x, w, f, impl="cuda" if impl is None else impl)
+coarsen_cuda.weighted_block_average_many_cuda = fake_wavg_many
+_wavg_many = coarsen.weighted_block_average_many
+coarsen.weighted_block_average_many = (
+    lambda xs, w, f, impl=None: _wavg_many(
+        xs, w, f, impl="cuda" if impl is None else impl))
 """
 
 NO_CARD = """
