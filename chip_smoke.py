@@ -354,6 +354,32 @@ Phases (any failure exits nonzero, and no result line is printed):
     scalars, the emulation skill and drift); the reservoir's float32
     rollout card against CPU within 1e-4; no hand kernel launched.
 
+33. the rest of the reference's entry points on the card (C48, npz=32,
+    float32, seeded), with the phase's seconds beside the card's name and
+    power limit: the ``fv3gfs.wrapper``-shaped surface
+    (``fv3net_torch.wrapper``) initialized with the production namelist,
+    4 staged steps (``step_dynamics``, ``step_radiation``,
+    ``step_post_radiation_physics``, ``apply_physics``) with a
+    ``set_state_mass_conserving`` round trip and a 1% moistening between
+    steps 2 and 3 (K1 exactly 12; finite; the round trip leaves the air
+    mass within 4 float32 ulps, the moistening the dry air mass within
+    8), and 2 float64 staged steps, kernels against plain, within 1e-8 of
+    each field's scale (phases 13 and 15's bound); ``scream-run-torch write-rundir`` and ``run`` through
+    ``main([...])`` at ``ne30pg2_ne30pg2`` (C60), ATM_NCPL 96, 4 steps,
+    with a dense model on ``T_mid`` and ``qv`` trained on the card
+    (``steps_completed`` 4, K1 exactly 12, qv >= 0 after every corrected
+    step up to the roundoff of q + dt (-q / dt)); ``EndToEnd`` of a
+    ``TrainingJob`` (the reference test's dense 1 x 32) and a
+    ``PrognosticJob`` of 2 production chunks (K1 24, K4 88, K3 46 a
+    chunk, gated as phase 15), then ``DiagnosticsJob`` (where matplotlib
+    is missing, its ``ImportError`` naming matplotlib is asserted after
+    the compute); the ``run-simulation`` template through
+    ``run_workflow`` as subprocesses on the card (create-run,
+    run-all-segments of one segment of one chunk, post-process) beside
+    the parts above, then its post-processed state store regridded to
+    lat-lon (``cubed-to-latlon``'s function): every task rc 0 with its
+    seconds, RESTART and the lat-lon store present and finite.
+
 ``--sw-columns PATH`` also saves, in phase 6, ``swrad``'s arguments on
 the 8 columns where the float32 SW heating parts most from float64 on
 the state after the ktable route's 3rd chunk (the input of
@@ -8453,6 +8479,424 @@ def phase_diagnostics(device, ml, emulated, reservoir):
     return seconds
 
 
+# -- phase 33: the wrapper, the SCREAM run and the local workflows --------
+WRAPPER_STEPS = 4
+WRAPPER_SET_AFTER = 2  # the set_state round trip between steps 2 and 3
+WRAPPER_F64_STEPS = 2
+# float64 staged steps, kernels against plain: the bound of phases 13 and
+# 15's float64 chunks (the winds, from rest, part by ~2e-10 of their scale
+# after 2 steps: K1's roundoff grown by the kord-9 extremum tests)
+WRAPPER_F64_RTOL = PRODUCTION_CHUNK_RTOL
+WRAPPER_FIELDS = ("air_temperature", "specific_humidity", "eastward_wind",
+                  "northward_wind", "pressure_thickness_of_atmospheric_layer")
+SCREAM_CONFIG = {"CASE_NAME": "smoke", "RESOLUTION": "ne30pg2_ne30pg2",
+                 "ATM_NCPL": 96, "npz": 32,
+                 "RUNTIME": {"STOP_OPTION": "nsteps", "STOP_N": 4}}
+SCREAM_STEPS = SCREAM_CONFIG["RUNTIME"]["STOP_N"]
+CHAIN_CHUNKS = 2  # production chunks of the PrognosticJob
+WORKFLOW_DEVICE = "cuda"  # the templates' device parameter
+
+
+def wrapper_namelist(steps=WRAPPER_STEPS):
+    """The production namelist (phase 15's: C48, npz=32, RRTMG, slab
+    ocean, sea ice) as a run config for ``wrapper.initialize``."""
+    return {"namelist": {"npx": NPX, "npz": NPZ, "radiation": "rrtmg",
+                         "slab_ocean": True, "sea_ice": True},
+            "duration_seconds": steps * DT}
+
+
+def staged_steps(wrapper, n, between=None):
+    """``n`` staged steps through the wrapper's module surface;
+    ``between(wrapper)`` after step WRAPPER_SET_AFTER."""
+    for i in range(n):
+        wrapper.step_dynamics()
+        wrapper.step_radiation()
+        wrapper.step_post_radiation_physics()
+        wrapper.apply_physics()
+        if between is not None and i + 1 == WRAPPER_SET_AFTER:
+            between(wrapper)
+
+
+def wrapper_masses(wrapper, area):
+    """(total, dry) air mass of the wrapper's state, in float64."""
+    st = wrapper.get_state(["pressure_thickness_of_atmospheric_layer",
+                            "specific_humidity"])
+    delp = st["pressure_thickness_of_atmospheric_layer"].data.double()
+    q = st["specific_humidity"].data.double()
+    total = (delp.sum(dim=1) * area).sum().item()
+    dry = ((delp * (1.0 - q)).sum(dim=1) * area).sum().item()
+    return total, dry
+
+
+def wrapper_staged(device, area):
+    """Phase 33 part 1: 4 float32 staged steps (K1 12, finite, the
+    set_state round trip and a 1% moistening between steps 2 and 3), then
+    2 float64 staged steps with the plain remap and with K1."""
+    import torch
+    from fv3net_torch import wrapper
+
+    masses = {}
+
+    def round_trip(w):
+        before = wrapper_masses(w, area)
+        q = w.get_state(["specific_humidity"])["specific_humidity"]
+        w.set_state_mass_conserving({"specific_humidity": q})
+        after = wrapper_masses(w, area)
+        q = w.get_state(["specific_humidity"])["specific_humidity"]
+        w.set_state_mass_conserving({"specific_humidity": q.with_data(
+            q.data * 1.01)})
+        masses.update(before=before, after=after,
+                      moist=wrapper_masses(w, area))
+
+    wrapper.initialize(wrapper_namelist(), device=device)
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged_steps(wrapper, WRAPPER_STEPS, round_trip)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        check(counts == launches(remap_apply=WRAPPER_STEPS * REMAPS_PER_STEP),
+              f"wrapper: launches {counts} in {WRAPPER_STEPS} staged steps")
+        check(wrapper.get_step_count() == WRAPPER_STEPS,
+              f"wrapper: step count {wrapper.get_step_count()}")
+        state = wrapper.get_state(list(WRAPPER_FIELDS))
+        for name, q in state.items():
+            check(torch.isfinite(q.data).all().item(),
+                  f"wrapper: non-finite {name}")
+        for name in ("PRATEsfc", "ULWRFtoa", "cos_zenith_angle"):
+            q = wrapper.get_diagnostic_by_name(name)
+            check(torch.isfinite(q.data).all().item(),
+                  f"wrapper: non-finite diagnostic {name}")
+    finally:
+        wrapper.cleanup()
+    (m0, d0), (m1, _), (_, d2) = (masses["before"], masses["after"],
+                                  masses["moist"])
+    eps = torch.finfo(torch.float32).eps
+    check(abs(m1 - m0) / m0 <= 4 * eps, f"wrapper: the set_state round "
+          f"trip moved the air mass by {(m1 - m0) / m0:.3e}")
+    check(abs(d2 - d0) / d0 <= 8 * eps, f"wrapper: the 1% moistening moved "
+          f"the dry air mass by {(d2 - d0) / d0:.3e}")
+    log(f"  wrapper: {WRAPPER_STEPS} staged float32 steps in "
+        f"{seconds * 1e3:.1f} ms, launches {counts}; the set_state round "
+        f"trip moved the air mass by {(m1 - m0) / m0:.3e}, the 1% "
+        f"moistening the dry air mass by {(d2 - d0) / d0:.3e} (bounds "
+        f"{4 * eps:.2e}, {8 * eps:.2e})")
+
+    runs = {}
+    for label, impl in (("plain", "torch"), ("kernels", None)):
+        wrapper.initialize(wrapper_namelist(WRAPPER_F64_STEPS),
+                           dtype=torch.float64, device=device)
+        try:
+            wrapper._model().loop._impl = impl
+            reset_counts()
+            staged_steps(wrapper, WRAPPER_F64_STEPS)
+            runs[label] = ({k: v.data.clone() for k, v in wrapper.get_state(
+                list(WRAPPER_FIELDS)).items()}, read_counts())
+        finally:
+            wrapper.cleanup()
+    check(runs["plain"][1] == launches(), f"wrapper float64 plain: "
+          f"launches {runs['plain'][1]}")
+    check(runs["kernels"][1] == launches(
+        remap_apply=WRAPPER_F64_STEPS * REMAPS_PER_STEP),
+        f"wrapper float64: launches {runs['kernels'][1]}")
+    errs = {}
+    for name, want in runs["plain"][0].items():
+        got = runs["kernels"][0][name]
+        errs[name] = ((got - want).abs().max() / want.abs().max()).item()
+        check(errs[name] <= WRAPPER_F64_RTOL, f"wrapper float64 {name}: "
+              f"kernels against plain {errs[name]:.3e} > {WRAPPER_F64_RTOL}")
+    log(f"  wrapper: {WRAPPER_F64_STEPS} float64 staged steps, kernels "
+        f"against plain, of each field's scale (bound {WRAPPER_F64_RTOL}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return counts["remap_apply"]
+
+
+def scream_model(device, tmp):
+    """A dense model on SCREAM-named columns (T_mid and qv in, dQ1 and dQ2
+    out, the dQ2 drying), trained on the card from seeded columns and
+    dumped in the reference's artifact format."""
+    import numpy as np
+    import torch
+    from fv3net_torch.core.dataset import Dataset
+    from fv3net_torch.core.quantity import Quantity
+    from fv3net_torch.fit import io
+    from fv3net_torch.fit.dense import DenseHyperparameters, train_dense_model
+
+    rng = np.random.RandomState(0)
+    n, nz, dims = 256, SCREAM_CONFIG["npz"], ("sample", "z")
+    columns = {"T_mid": 200 + 100 * rng.rand(n, nz),
+               "qv": 2e-2 * rng.rand(n, nz) ** 3,
+               "dQ1": 1e-5 * rng.randn(n, nz),
+               "dQ2": -2e-6 * rng.rand(n, nz)}
+    batch = Dataset({k: Quantity(torch.tensor(v, dtype=torch.float32,
+                                              device=device), dims)
+                     for k, v in columns.items()})
+    model = train_dense_model(DenseHyperparameters(
+        input_variables=["T_mid", "qv"], output_variables=["dQ1", "dQ2"],
+        hidden_layers=1, width=16, epochs=2), [batch])
+    check(all(torch.isfinite(p).all().item() for p in model.parameters())
+          and next(model.parameters()).device.type == device.type,
+          "scream model: not trained on the card, or non-finite")
+    path = os.path.join(tmp, "scream_model")
+    io.dump(model, path)
+    return path
+
+
+def scream_run(device, tmp):
+    """Phase 33 part 2: ``scream-run-torch write-rundir`` and ``run``
+    through ``main([...])``, every corrected step's humidity recorded."""
+    import contextlib
+    import io as text_io
+
+    import torch
+    import yaml
+    from fv3net_torch.runtime import loop as loop_mod
+    from fv3net_torch.scream_run import cli
+
+    cfg = dict(SCREAM_CONFIG, machine_learning={
+        "models": [scream_model(device, tmp)]})
+    path = os.path.join(tmp, "scream.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    rundir = os.path.join(tmp, "scream_rundir")
+    check(cli.main(["write-rundir", path, rundir]) == 0, "write-rundir")
+    with open(os.path.join(rundir, "run_case.sh")) as f:
+        check("scream-run-torch run" in f.read(), "run_case.sh does not "
+              "name scream-run-torch")
+    steps = []
+    original = loop_mod.TimeLoop._step_postphysics
+
+    def recorded(loop):
+        q0 = loop.state.dycore.tracers["sphum"].clone()
+        out = original(loop)
+        q1 = loop.state.dycore.tracers["sphum"]
+        steps.append((q0.abs().max().item(), q1.min().item(),
+                      (q1 < q0).sum().item(), torch.finfo(q1.dtype).eps,
+                      tuple(q1.shape)))
+        return out
+
+    loop_mod.TimeLoop._step_postphysics = recorded
+    printed = text_io.StringIO()
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(["run", os.path.join(rundir, "scream_config.yaml"),
+                           rundir, "--device", CLI_DEVICE])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        loop_mod.TimeLoop._step_postphysics = original
+    check(rc == 0, f"scream-run-torch run returned {rc}")
+    result = json.loads(printed.getvalue().splitlines()[-1])
+    check(result == {"case": "smoke", "steps_completed": SCREAM_STEPS},
+          f"scream-run-torch run printed {result}")
+    check(counts == launches(remap_apply=SCREAM_STEPS * REMAPS_PER_STEP),
+          f"scream run: launches {counts}")
+    check(len(steps) == SCREAM_STEPS, f"scream run: {len(steps)} corrected "
+          "steps")
+    npx = cli.ScreamConfig.from_dict(SCREAM_CONFIG).npx  # neN -> C(2N)
+    for i, (q_max, q_min, dried, eps, shape) in enumerate(steps):
+        check(shape == (6, SCREAM_CONFIG["npz"], npx, npx),
+              f"scream step {i}: shape {shape}")
+        check(q_min >= -4 * eps * q_max, f"scream step {i}: qv down to "
+              f"{q_min:.3e} after the correction")
+    log(f"  scream run ({SCREAM_CONFIG['RESOLUTION']} -> C{npx}, npz "
+        f"{SCREAM_CONFIG['npz']}): "
+        f"{SCREAM_STEPS} steps in {seconds:.2f} s, launches {counts}; qv "
+        "after each correction: min " + ", ".join(
+            f"{s[1]:.2e} ({s[2]} values dried)" for s in steps)
+        + f" (floor -4 eps max qv = {-4 * steps[0][3] * steps[0][0]:.2e})")
+    return counts["remap_apply"]
+
+
+def chain_batch(device):
+    """The reference end-to-end test's training batch (seed 0, 256
+    samples) at NPZ levels, on the card."""
+    import numpy as np
+    import torch
+    from fv3net_torch.core.dataset import Dataset
+    from fv3net_torch.core.quantity import Quantity
+
+    rng = np.random.RandomState(0)
+    n, dims = 256, ("sample", "z")
+    columns = {"air_temperature": 250 + 40 * rng.rand(n, NPZ),
+               "specific_humidity": 0.01 * rng.rand(n, NPZ),
+               "dQ1": 1e-6 * rng.randn(n, NPZ),
+               "dQ2": 1e-9 * rng.randn(n, NPZ)}
+    return Dataset({k: Quantity(torch.tensor(v, dtype=torch.float32,
+                                             device=device), dims)
+                    for k, v in columns.items()})
+
+
+def job_chain(device, tmp):
+    """Phase 33 part 3: ``EndToEnd([TrainingJob, PrognosticJob])`` with
+    the chunks recorded and gated as phase 15, then ``DiagnosticsJob``.
+    Returns the chunks' launches summed."""
+    import torch
+    from fv3net_torch import entry
+    from fv3net_torch.workflows import (DiagnosticsJob, EndToEnd,
+                                        PrognosticJob, TrainingJob)
+
+    ws = os.path.join(tmp, "workspace")
+    cfg = segment_config(tmp, CHAIN_CHUNKS)
+    cfg["scikit_learn"] = {"model": [os.path.join(ws, "model")]}
+    # the file the diagnostics CLI reads (the reference test's)
+    cfg["diagnostics"].append({
+        "name": "diags.zarr", "times": {"kind": "every"},
+        "variables": ["PRATEsfc", "ULWRFtoa", "dQ1_machine_learning",
+                      "air_temperature", "surface_pressure"]})
+    train = {"model_type": "dense", "hyperparameters": {
+        "input_variables": ["air_temperature", "specific_humidity"],
+        "output_variables": ["dQ1", "dQ2"], "hidden_layers": 1,
+        "width": 32, "epochs": 2}}
+    area = torch.tensor(entry.make_grid(NPX).area, device=device)
+    expected = production_launches(CHUNK, RADIATION_CALLS_PER_CHUNK)
+    t0 = time.perf_counter()
+    with ChunkRecorder() as rec:
+        outputs = EndToEnd([
+            TrainingJob("train-dq", train, "model",
+                        train_batches=[chain_batch(device)],
+                        device=str(device)),
+            PrognosticJob("run1", cfg, device=str(device))], ws).run()
+    seconds = time.perf_counter() - t0
+    check(len(rec.chunks) == CHAIN_CHUNKS, f"chain: {len(rec.chunks)} "
+          "chunks")
+    check(rec.loops[0].fusable() and rec.loops[0]._production_features(),
+          "chain: the production path was not taken")
+    total = gate_segment("chain", rec, area, expected)
+    seg = os.path.join(outputs[1], "artifacts",
+                       sorted(os.listdir(os.path.join(outputs[1],
+                                                      "artifacts")))[0])
+    gate_stores("chain", seg, CHAIN_CHUNKS)
+    log(f"  chain: TrainingJob and PrognosticJob ({CHAIN_CHUNKS} chunks) in "
+        f"{seconds:.2f} s, launches {total}")
+
+    job = DiagnosticsJob("run1", device=str(device))
+    t0 = time.perf_counter()
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        try:
+            job.run(ws, run_url=outputs[1])
+        except ImportError as raised:
+            check("matplotlib" in str(raised), "DiagnosticsJob raised an "
+                  f"ImportError that does not name matplotlib: {raised}")
+            check(os.path.isdir(os.path.join(ws, "run1_diags.zarr")),
+                  "DiagnosticsJob: no diagnostics computed before the "
+                  "report")
+            log(f"  DiagnosticsJob: compute done, then the report raised "
+                f"ImportError naming matplotlib ({raised}), as on a "
+                f"machine without it ({time.perf_counter() - t0:.2f} s)")
+        else:
+            raise SmokeFailure(f"DiagnosticsJob ran without matplotlib "
+                               f"({e})")
+    else:
+        report = job.run(ws, run_url=outputs[1])
+        check(os.path.exists(os.path.join(report, "index.html")),
+              "DiagnosticsJob: no report")
+        log(f"  DiagnosticsJob: the whole job ran "
+            f"({time.perf_counter() - t0:.2f} s)")
+    return total
+
+
+def template_run(device, tmp, tree):
+    """Phase 33 part 4: the ``run-simulation`` template (create-run,
+    run-all-segments, post-process) as subprocesses on WORKFLOW_DEVICE,
+    while parts 1-3 run in this process; then its post-processed state
+    store regridded to lat-lon on ``device`` (the function the
+    ``cubed-to-latlon`` template calls, in this process: a fourth process
+    would add its ~12 s of start-up to the phase)."""
+    import numpy as np
+    import torch
+    import yaml
+    from fv3net_torch.core import zarrio
+    from fv3net_torch.post_process import regrid_zarr_to_latlon
+    from fv3net_torch.runtime import checkpoint
+    from fv3net_torch.workflows.templates import (WorkflowTemplate,
+                                                  run_workflow)
+
+    # the template is the reference's generic (non-ML) runner: phase 15's
+    # configuration without the dense model and the SST prescriber
+    cfg = segment_config(tmp, 1)
+    del cfg["scikit_learn"], cfg["prephysics"]
+    path = os.path.join(tmp, "run-simulation.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    url = os.path.join(tmp, "simulation")
+    env = {"PYTHONPATH": tree + os.pathsep + os.environ.get("PYTHONPATH",
+                                                            "")}
+    torch.cuda.empty_cache()  # the children share the card (phase 28)
+    tasks = run_workflow(WorkflowTemplate.load("run-simulation"), {
+        "config": path, "output-url": url, "segment-count": "1",
+        "device": WORKFLOW_DEVICE}, workdir=tree, env=env)
+    check(list(tasks) == ["create-run", "run-all-segments", "post-process"],
+          f"run-simulation tasks {list(tasks)}")
+    store = os.path.join(url, "post_processed", "state_after_timestep.zarr")
+    latlon = os.path.join(tmp, "state_after_timestep.latlon.zarr")
+    t0 = time.perf_counter()
+    regrid_zarr_to_latlon(store, latlon, nlat=90, nlon=180, device=device)
+    regrid_s = time.perf_counter() - t0
+    for name, r in tasks.items():
+        check(r.returncode == 0, f"task {name}: rc {r.returncode}")
+    segs = sorted(os.listdir(os.path.join(url, "artifacts")))
+    check(len(segs) == 1, f"run-simulation: segments {segs}")
+    state, _ = checkpoint.load_state(os.path.join(url, "artifacts", segs[0],
+                                                  "RESTART"))
+    for name, x in checkpoint._state_arrays(state).items():
+        check(torch.isfinite(x).all().item(), f"RESTART: non-finite {name}")
+    out = zarrio.open_zarr(latlon)
+    check(sorted(out) == sorted(SEGMENT_EVERY), f"lat-lon store: "
+          f"{sorted(out)}")
+    for name in out:
+        v = out[name].values
+        check(v.shape[-2:] == (90, 180) and np.isfinite(v).all(),
+              f"lat-lon {name}: shape {v.shape}, finite "
+              f"{np.isfinite(v).all()}")
+    log("  templates as subprocesses: " + ", ".join(
+        f"{name} {r.seconds:.2f} s (rc {r.returncode})"
+        for name, r in tasks.items()) + f"; RESTART finite; the lat-lon "
+        f"store of {len(out)} variables finite ({regrid_s:.2f} s)")
+
+
+def phase_entry_points(device, tree, smi):
+    """Phase 33 (see the module's docstring).  Returns the phase's
+    launches by kernel (its in-process parts; the subprocesses' are not
+    counted here)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from fv3net_torch import entry
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="entry_points_")
+    try:
+        area = torch.tensor(entry.make_grid(NPX).area, dtype=torch.float64,
+                            device=device)
+        # the templates' processes (each ~15 s of it importing torch) run
+        # beside the in-process parts, none of which is timed for a gate
+        templates_dir = os.path.join(tmp, "templates")
+        os.makedirs(templates_dir)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            templates = pool.submit(template_run, device, templates_dir,
+                                    tree)
+            k1 = wrapper_staged(device, area)
+            k1 += scream_run(device, tmp)
+            total = job_chain(device, tmp)
+            total["remap_apply"] += k1
+            templates.result()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 33 in {time.perf_counter() - t0:.1f} s on {smi}; "
+        f"launches {total}")
+    return total
+
+
 def main():
     import argparse
 
@@ -8683,7 +9127,13 @@ def main():
     del reservoir_data
     log(f"  phase 32 in {time.perf_counter() - t32:.1f} s")
 
+    phase("33: the fv3gfs.wrapper-shaped staged step, scream-run-torch at "
+          "ne30pg2, the EndToEnd job chain and the run-simulation template "
+          "as subprocesses")
+    entry_launches = phase_entry_points(device, tree, smi)
+
     # each kernel's launches come from the run of the path it lies on
+    counts = {k: v + entry_launches[k] for k, v in counts.items()}
     counts = dict(counts, taumol_lw=counts_mega["taumol_lw"],
                   weighted_block_average=counts_pipeline[
                       "weighted_block_average"] + offline_k5 - surface_k5,

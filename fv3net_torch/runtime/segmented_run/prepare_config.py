@@ -1,16 +1,21 @@
 """User-facing config preparation: base presets + overlays (a copy of
-``fv3net_tpu/runtime/segmented_run/prepare_config.py`` without its
-``prepare-config`` CLI).
+``fv3net_tpu/runtime/segmented_run/prepare_config.py``; its
+``prepare-config`` CLI is the console script ``prepare-config-torch``).
 
 reference: workflows/prognostic_c48_run/runtime/segmented_run/
 prepare_config.py:51-155 — ``HighLevelConfig`` composes versioned base
 configs (fv3kube base_yamls) with user overlays and lowers them to the
-runtime config; ``get_config`` routes a ``base_version`` dict here.
+runtime config; ``get_config`` routes a ``base_version`` dict here, and
+the ``prepare-config`` CLI prints the lowered yaml.
 """
 from __future__ import annotations
 
+import argparse
 import copy
+import sys
 from typing import Any, Dict, Mapping
+
+import yaml
 
 # versioned base presets (the fv3kube base_yamls analog,
 # reference external/fv3kube/fv3kube/config.py)
@@ -93,3 +98,18 @@ def prepare_config(user: Mapping) -> Dict[str, Any]:
 
     get_config(merged)
     return merged
+
+
+def main(argv=None) -> int:
+    """``prepare-config`` CLI (reference setup.py:36)."""
+    parser = argparse.ArgumentParser("prepare-config")
+    parser.add_argument("user_config")
+    args = parser.parse_args(argv)
+    with open(args.user_config) as f:
+        user = yaml.safe_load(f)
+    yaml.safe_dump(prepare_config(user), sys.stdout)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

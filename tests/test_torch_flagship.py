@@ -232,6 +232,11 @@ def test_port_imports_neither_jax_nor_reference():
         "import fv3net_torch.runtime.steppers.reservoir\n"
         "import fv3net_torch.runtime.steppers.nudging\n"
         "import fv3net_torch.fit.reservoir\n"
+        "import fv3net_torch.wrapper, fv3net_torch.scream_run.cli\n"
+        "import fv3net_torch.workflows.templates, fv3net_torch.synth\n"
+        "import fv3net_torch.artifacts.cli, fv3net_torch.core.filesystem\n"
+        "import fv3net_torch.core.testing\n"
+        "import fv3net_torch.physics.radiation.rrtmg.validate\n"
         "for m in pkgutil.walk_packages(fv3net_torch.__path__, 'fv3net_torch.'):\n"
         "    __import__(m.name)\n"
         "bad = sorted(k for k in sys.modules\n"
@@ -297,7 +302,15 @@ def test_port_imports_neither_jax_nor_reference():
         "             'diagnostics.offline.select',\n"
         "             'diagnostics.offline.views', 'report',\n"
         "             'report.create_report', 'viz', 'viz.plot_cube',\n"
-        "             'viz.helpers'):\n"
+        "             'viz.helpers', 'wrapper', 'scream_run',\n"
+        "             'scream_run.cli', 'scream_run.config', 'scream_run.ml',\n"
+        "             'scream_run.scream_names', 'workflows',\n"
+        "             'workflows.end_to_end', 'workflows.templates',\n"
+        "             'synth', 'synth.core', 'synth.cdl', 'synth.generators',\n"
+        "             'artifacts', 'artifacts.cli', 'artifacts.metadata',\n"
+        "             'artifacts.resolve_url', 'core.filesystem',\n"
+        "             'core.testing', 'physics.radiation.rrtmg.validate',\n"
+        "             'runtime.segmented_run.prepare_config'):\n"
         "    assert 'fv3net_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )

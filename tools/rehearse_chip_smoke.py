@@ -1,6 +1,7 @@
 """Rehearse a phase of ``chip_smoke.py`` on the CPU at a small size, with
 no card, before a run on the H100.
 
+    python tools/rehearse_chip_smoke.py 33   # the entry points, C6
     python tools/rehearse_chip_smoke.py 32   # the diagnostics, C6
     python tools/rehearse_chip_smoke.py 31   # the scikit-learn models, C6
     python tools/rehearse_chip_smoke.py 30   # the ML library's rest, C6
@@ -16,7 +17,8 @@ CLI processes the phase starts get the same replacements through
 ``NPZ`` (phases 29 and 30), ``N`` and ``NZ`` (phase 28) in the
 environment; phase 30 runs phases 27 and 29 first for its data, phase
 31 phase 29, phase 32 phases 20, 27 and 29 (its CLIs called with
-``--device cpu``);
+``--device cpu``); phase 33 runs the SCREAM case at ne3pg2 (C6) on
+``NPZ`` levels and its templates' subprocesses with ``device`` cpu;
 ``KEEP=1`` keeps the phase's temporary directory.  ``UNCLAMPED=1``
 (phase 29) trains the dense models without ``ML_OUTPUT_LIMITS`` and
 prints the largest temperature tendency of each online prediction, in K
@@ -122,8 +124,8 @@ def unclamped():
 
 def main(argv):
     phase = argv[0] if argv else "29"
-    if phase not in ("28", "29", "30", "31", "32"):
-        raise SystemExit(f"no rehearsal of phase {phase} (28 to 32)")
+    if phase not in ("28", "29", "30", "31", "32", "33"):
+        raise SystemExit(f"no rehearsal of phase {phase} (28 to 33)")
     prelude = NO_CARD + (KERNELS_28 if phase == "28"
                          else KERNELS_29 + CPU_DEFAULTS)
     exec(prelude, {})
@@ -134,7 +136,7 @@ def main(argv):
         shutil.rmtree = lambda *a, **k: None
     t0 = time.perf_counter()
     device = torch.device("cpu")
-    if phase in ("29", "30", "31", "32"):
+    if phase in ("29", "30", "31", "32", "33"):
         cs.NPX = int(os.environ.get("NPX", 6))
         cs.NPZ = int(os.environ.get("NPZ", 8))
         if os.environ.get("UNCLAMPED"):
@@ -167,6 +169,13 @@ def main(argv):
         t0 = time.perf_counter()
         out = cs.phase_diagnostics(device, data, emulated, reservoir)
         print(f"phase 32 alone: {time.perf_counter() - t0:.1f} s")
+    elif phase == "33":
+        cs.CLI_DEVICE = cs.WORKFLOW_DEVICE = "cpu"
+        cs.SCREAM_CONFIG = dict(cs.SCREAM_CONFIG,
+                                RESOLUTION=f"ne{cs.NPX // 2}pg2_ne{cs.NPX // 2}pg2",
+                                npz=cs.NPZ)
+        out = cs.phase_entry_points(device, cs.os.path.dirname(
+            cs.os.path.abspath(cs.__file__)), "CPU rehearsal")
     else:
         cs.C384, cs.COARSEN_FACTOR = int(os.environ.get("N", 32)), 8
         cs.OFFLINE_NZ = int(os.environ.get("NZ", 6))
