@@ -82,7 +82,7 @@ Phases (any failure exits nonzero, and no result line is printed):
     float32: slab ocean and sea ice, the "set" SST prescriber, RRTMG every
     4th step and the dense ML stepper around the production dynamics
     (kord 9 without the energy remap, so K1 remaps theta_v with iv=2) --
-    one warm-up, 2 timed chunks and one profiled chunk: ms per chunk,
+    one warm-up, a timed chunk and one profiled chunk: ms per chunk,
     SYPD, device busy and idle share, the ranges' device busy (prephysics,
     dynamics, radiation, physics, ml) with the hand kernels in; gates:
     every field finite, the exact launches of K1, K4 and K3 per chunk and
@@ -120,7 +120,7 @@ Phases (any failure exits nonzero, and no result line is printed):
 16. the RRTMG options: the flagship chunk with the reference's
     accelerator radiation settings (bf16 storage, SW daylight
     compression: ``flagship(rrtmg_options=BF16_OPTIONS)``) in turns with
-    the default chunk, one warm-up and 2 timed each, and one profiled:
+    the default chunk, one warm-up and one timed each, and one profiled:
     ms per chunk, SYPD, device busy, idle share, the radiation range;
     launches exact per chunk by kernel and by instance (K4/K3 float32 or
     bfloat16); every K4 and K3 call of one bf16 radiation call on phase
@@ -144,7 +144,7 @@ Phases (any failure exits nonzero, and no result line is printed):
     accelerator radiation settings on the mega route
     (``flagship(lw_taumol="mega", rrtmg_options=BF16_OPTIONS)``: K2's
     bfloat16 instance) in turns with the same settings on the ktable
-    route, one warm-up and 2 timed each, the mega route's chunk profiled
+    route, one warm-up and one timed each, the mega route's chunk profiled
     beside phase 16's profiled chunk of the ktable route (the same
     configuration): launches exact by kernel and by instance, ms per
     chunk, SYPD, device busy, the radiation range, idle share; K2's
@@ -280,7 +280,8 @@ Phases (any failure exits nonzero, and no result line is printed):
     ``EMULATOR_TRANSFORMS``, q limited at 0), ``graph`` (64 wide, 3
     passes, on whole-cube samples), ``fmr`` (on 4-step series of 1,024
     columns), ``cyclegan`` (the default generator and discriminator, the
-    state and the nudging store as its two domains) and
+    state and the nudging store as its two domains, CYCLEGAN_WINDOWS
+    times of each) and
     ``min_max_novelty_detector``, six processes at once, one epoch each,
     cuDNN deterministic; meanwhile the Jacobians of phase 29's dense
     model at its batch's mean, float64, card against CPU (1e-13), and
@@ -379,6 +380,26 @@ Phases (any failure exits nonzero, and no result line is printed):
     the parts above, then its post-processed state store regridded to
     lat-lon (``cubed-to-latlon``'s function): every task rc 0 with its
     seconds, RESTART and the lat-lon store present and finite.
+
+34. the optax tail: the flagship dense model (2 x 128, 64 features in
+    and out, the entries' 256 samples, one epoch of 8 batches of 32)
+    through ``fit.train``'s "dense" trainer with each of the 17 rules
+    the trainer can take of the 18 optax resolved last (optax's
+    defaults, learning_rate 1e-3 where it has none; ``lars`` nesterov,
+    ``adafactor`` momentum and weight_decay_rate, ``lbfgs`` without its
+    line search) and with each of the 5 schedules as the rate of sgd or
+    adam: float32 on the card finite, of the entries' shapes; float64 on
+    the card within 1e-10 of scale of the CPU's from the same initial
+    weights (``noisy_sgd``'s noise drawn on the card and handed to the
+    CPU); the schedules' rates by count equal on both; ``polyak_sgd`` and
+    ``lbfgs`` with its line search raise TypeError through the trainer,
+    as the reference's do; then both with ``value``/``grad``/``value_fn``
+    for 10 float64 iterations on the full-batch loss (lbfgs's zoom line
+    search; polyak's ``sps`` and ``sps+``), card against CPU within 1e-10
+    and lbfgs's loss not rising; ``noisy_sgd``'s noise on the card over
+    the model's 33,088 values a step, 3 steps: mean and variance within
+    5 standard errors of 0 and eta / (1 + t)^gamma; ms a float32 epoch
+    by rule (host clock); no hand kernel launched.
 
 ``--sw-columns PATH`` also saves, in phase 6, ``swrad``'s arguments on
 the 8 columns where the float32 SW heating parts most from float64 on
@@ -2341,7 +2362,7 @@ K3_YARDSTICK = {"LW band 3 lower": (70, 9, 16, 2, 2, 3),
 
 # the production chunk (entry.production): one warm-up and this many
 # timed chunks, then one under the profiler
-PRODUCTION_TIMED_CHUNKS = 2
+PRODUCTION_TIMED_CHUNKS = 1
 # its kernels against its plain versions, within each field's scale
 # times the CPU chunk tests' bound (tests/test_torch_production.py
 # CHUNK_RTOL): a 2-step float64 chunk with a model that leaves the ML
@@ -3408,8 +3429,8 @@ def driver_inputs(rad_args, lat):
 # _compress_daylight_default)
 BF16_OPTIONS = {"storage_dtype": "bfloat16", "compress_daylight": True}
 # the default and the bf16 chunks in turns (each one's first is its
-# warm-up, then 2 timed)
-OPTIONS_SCHEDULE = ("default", "bf16", "bf16", "default", "default", "bf16")
+# warm-up, then 1 timed)
+OPTIONS_SCHEDULE = ("default", "bf16", "bf16", "default")
 # K4 per radiation call under bf16 storage, by instance: the LW Planck
 # fractions (12 calls) and 1-D minors (1) and the SW band 24 Rayleigh lerp
 # (1) take their two rows alone, as the reference (lw.py _lerp_taken): 14
@@ -3903,8 +3924,8 @@ def phase_dycore_options(device, reps=10):
 # by one bfloat16 ulp at most
 K2_BF16_ULPS = 1
 # the mega and the ktable route under BF16_OPTIONS in turns (each one's
-# first is its warm-up, then 2 timed)
-MEGA_BF16_SCHEDULE = ("ktable", "mega", "mega", "ktable", "ktable", "mega")
+# first is its warm-up, then 1 timed)
+MEGA_BF16_SCHEDULE = ("ktable", "mega", "mega", "ktable")
 # K4 calls of the LW gas optics under bf16 storage (its 27 of float32, the
 # 13 lerps of two rows taken alone: 12 Planck fractions, the 1-D minors)
 # and K3 calls (2 paths a band, 9 lower and 3 upper bands): K2 takes them
@@ -6983,6 +7004,9 @@ FMR_COLUMNS = 1024  # columns of the fmr's 4-step series
 TAIL_MODELS = ("dense_autoencoder", "transformed", "graph", "fmr",
                "min_max_novelty_detector", "cyclegan")
 TAIL_F64_RTOL = 1e-12  # a float64 epoch, card against CPU
+# times of each domain in the CycleGAN's epoch, its batches (the float64
+# gate takes the first pair only)
+CYCLEGAN_WINDOWS = 2
 # the CycleGAN's Adam (fit/cyclegan.py::train_cyclegan: optax's eps) and
 # the gradient difference, card against CPU, whose move through its
 # step the float64 gate allows (see tail_f64)
@@ -7001,9 +7025,9 @@ def tail_configs(tmp, data, store):
     microphysics captures."""
     import yaml
 
-    def cube(path):
+    def cube(path, windows=ML_STEPS):
         return {"data_path": path, "unstacked_dims": ["tile", "z", "y", "x"],
-                "window_size": 1, "batch_size": 1, "n_windows": ML_STEPS,
+                "window_size": 1, "batch_size": 1, "n_windows": windows,
                 "seed": 0}
 
     state_vars = {"state_variables": list(ML_NUDGED), "epochs": ML_EPOCHS}
@@ -7024,7 +7048,8 @@ def tail_configs(tmp, data, store):
             "window_size": ML_STEPS, "batch_size": FMR_COLUMNS,
             "n_windows": 1, "seed": 0}),
         "cyclegan": (state_vars, {"domain_configs": [
-            cube(data["state_zarr"]), cube(data["nudging_zarr"])]}),
+            cube(data["state_zarr"], CYCLEGAN_WINDOWS),
+            cube(data["nudging_zarr"], CYCLEGAN_WINDOWS)]}),
         "min_max_novelty_detector": ({"input_variables": list(ML_NUDGED)},
                                      None),
     }
@@ -8897,6 +8922,314 @@ def phase_entry_points(device, tree, smi):
     return total
 
 
+# -- phase 34: the optax tail ---------------------------------------------
+# optax 0.2.6's rules beyond adam and its ten kin, through the trainer,
+# with optax's defaults (learning_rate 1e-3 where it has none) and the
+# kwargs that switch a branch; the 18th, polyak_sgd, needs the loss, which
+# the trainer does not pass, and runs on the full-batch loss below
+OPTAX_TAIL_RULES = {
+    "adadelta": {}, "adafactor": {"momentum": 0.9, "weight_decay_rate": 1e-3},
+    "adamaxw": {}, "adan": {}, "fromage": {}, "lamb": {},
+    "lars": {"nesterov": True}, "lbfgs": {"linesearch": None},
+    "nadamw": {}, "noisy_sgd": {"key": 0}, "novograd": {},
+    "optimistic_adam": {}, "optimistic_adam_v2": {},
+    "optimistic_gradient_descent": {}, "rprop": {}, "sign_sgd": {},
+    "sm3": {}}
+NO_DEFAULT_RATE = ("adadelta", "adafactor", "lbfgs")
+# each schedule as the rate of sgd or adam, over the epoch's 8 updates
+OPTAX_TAIL_SCHEDULES = {
+    "join_schedules": ("sgd", None),
+    "linear_onecycle_schedule": ("adam", {"transition_steps": 8,
+                                          "peak_value": 3e-3}),
+    "piecewise_interpolate_schedule": ("sgd", {
+        "interpolate_type": "cosine", "init_value": 1e-2,
+        "boundaries_and_scales": {2: 3.0, 6: 0.1}}),
+    "sgdr_schedule": ("adam", {"cosine_kwargs": [
+        {"init_value": 0.0, "peak_value": 1e-3, "warmup_steps": 1,
+         "decay_steps": 4}] * 2}),
+    "warmup_constant_schedule": ("sgd", {"init_value": 0.0,
+                                         "peak_value": 1e-2,
+                                         "warmup_steps": 4}),
+}
+OPTAX_TAIL_BATCH = 32  # 8 updates in the epoch of 256 samples
+OPTAX_TAIL_ITERATIONS = 10  # lbfgs / polyak_sgd on the full-batch loss
+NOISE_SIGMAS = 5  # noisy_sgd's sample mean and variance, in standard errors
+NOISE_STEPS = 3
+
+
+def _join_kwargs():
+    from fv3net_torch.fit import schedules
+
+    return {"schedules": [
+        schedules.linear_schedule(0.0, 1e-2, 3),
+        schedules.exponential_decay(1e-2, 2, 0.5),
+        schedules.cosine_decay_schedule(3e-3, 4)], "boundaries": [3, 6]}
+
+
+def tail_train(device, dtype, optimizer_config):
+    """One epoch of the flagship dense model (2 x 128, 256 samples,
+    batch OPTAX_TAIL_BATCH) through ``fit.train``'s "dense" trainer, as
+    fv3fit-train-torch calls it; (its leaves, host seconds)."""
+    import torch
+    from fv3net_torch import entry
+    from fv3net_torch.fit import train
+
+    hp = train.get_hyperparameter_class("dense")(
+        input_variables=["air_temperature", "specific_humidity"],
+        output_variables=["dQ1", "dQ2"], hidden_layers=2, width=128,
+        epochs=1, batch_size=OPTAX_TAIL_BATCH, seed=0,
+        optimizer_config=optimizer_config)
+    batch = entry.entry_batch(NPZ, dtype, device, 0)
+    if str(device) != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = train.get_training_function("dense")(hp, [batch])
+    if str(device) != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return [p.detach() for p in model.parameters()], seconds
+
+
+def worst_of_scale(got, want):
+    return max(((a.cpu() - b.cpu()).abs().max() / b.abs().max()).item()
+               for a, b in zip(got, want))
+
+
+def tail_gates(label, optimizer_config, device, shapes, before_cpu=None):
+    """float32 on the card: finite leaves of the entries' shapes; float64
+    on the card against the CPU from the same initial weights: within
+    TRAIN_F64_RTOL of scale (``before_cpu()`` called between the two).
+    (ms of the float32 epoch, the float64 gap)."""
+    import torch
+
+    leaves, seconds = tail_train(device, torch.float32, optimizer_config)
+    check([tuple(p.shape) for p in leaves] == shapes,
+          f"{label}: leaves {[tuple(p.shape) for p in leaves]}")
+    check(all(torch.isfinite(p).all().item() for p in leaves),
+          f"{label} float32: non-finite weights")
+    card, _ = tail_train(device, torch.float64, optimizer_config)
+    if before_cpu is not None:
+        before_cpu()
+    cpu, _ = tail_train("cpu", torch.float64, optimizer_config)
+    worst = worst_of_scale(card, cpu)
+    check(worst <= TRAIN_F64_RTOL, f"{label} float64: card against CPU "
+          f"{worst:.3e} > {TRAIN_F64_RTOL}")
+    return seconds * 1e3, worst
+
+
+class _Replayed:
+    """noisy_sgd's noise drawn on the card, kept, and handed to the CPU's
+    run of the same training once ``replay()`` is called (the generators
+    of two devices differ)."""
+
+    def __init__(self):
+        from fv3net_torch.fit import optimizers
+
+        self.cls, self.draws = optimizers.OPTIMIZERS["noisy_sgd"], {}
+        self.own, self.replaying = self.cls.noise, False
+
+    def replay(self):
+        self.replaying = True
+
+    def __enter__(self):
+        own, draws = self.own, self.draws
+
+        def noise(rule, p):
+            kept = draws.setdefault(p.dtype, [])
+            if self.replaying:
+                return kept.pop(0).to(p.device)
+            kept.append(own(rule, p).cpu())
+            return kept[-1].to(p.device)
+
+        self.cls.noise = noise
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.noise = self.own
+
+
+class _RecordedRates:
+    """The rates a schedule gives the trainer's rule, by count."""
+
+    def __init__(self, name):
+        from fv3net_torch.fit import schedules
+
+        self.name, self.registry = name, schedules.SCHEDULES
+        self.factory, self.rates = self.registry[name], []
+
+    def __enter__(self):
+        def factory(**kwargs):
+            schedule = self.factory(**kwargs)
+
+            def recorded(count):
+                self.rates.append((count, schedule(count)))
+                return self.rates[-1][1]
+
+            return recorded
+
+        self.registry[self.name] = factory
+        return self
+
+    def __exit__(self, *exc):
+        self.registry[self.name] = self.factory
+
+
+def tail_problem(device, dtype):
+    """The flagship dense model's full-batch mean-square loss on the
+    entries' 256 samples, standardized on the host in float64: the
+    initial leaves (the trainer's He-normal draws, seed 0) and the loss
+    of a list of leaves."""
+    import torch
+    from fv3net_torch import entry
+    from fv3net_torch.fit import dense
+
+    batch = entry.entry_batch(NPZ, torch.float64, "cpu", 0)
+    x = torch.cat([batch["air_temperature"].data,
+                   batch["specific_humidity"].data], dim=1).numpy()
+    y = torch.cat([batch["dQ1"].data, batch["dQ2"].data], dim=1).numpy()
+    x = torch.tensor((x - x.mean(0)) / x.std(0), dtype=dtype, device=device)
+    y = torch.tensor((y - y.mean(0)) / y.std(0), dtype=dtype, device=device)
+    params = dense.init_mlp_params(torch.Generator().manual_seed(0),
+                                   [2 * NPZ, 128, 128, 2 * NPZ], dtype,
+                                   device)
+    leaves = [p[k] for p in params for k in ("w", "b")]
+
+    def value_fn(ls):
+        layers = [{"w": ls[i], "b": ls[i + 1]} for i in range(0, len(ls), 2)]
+        return torch.mean((dense.mlp_apply(layers, x) - y) ** 2)
+
+    return leaves, value_fn
+
+
+def value_and_grad(value_fn, leaves):
+    import torch
+
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        value = value_fn(leaves)
+        grads = torch.autograd.grad(value, leaves)
+    return value.detach(), list(grads)
+
+
+def tail_solve(device, name, kwargs):
+    """OPTAX_TAIL_ITERATIONS float64 iterations of a rule that takes the
+    loss (``value``, ``grad``, ``value_fn``); (leaves, losses)."""
+    import torch
+    from fv3net_torch.fit.config import OptimizerConfig
+
+    leaves, value_fn = tail_problem(device, torch.float64)
+    rule = OptimizerConfig(name, kwargs).instance
+    losses = []
+    for _ in range(OPTAX_TAIL_ITERATIONS):
+        value, grads = value_and_grad(value_fn, leaves)
+        rule.step(leaves, grads, value=value, grad=grads, value_fn=value_fn)
+        losses.append(float(value))
+    return leaves, losses
+
+
+def noise_statistics(device):
+    """noisy_sgd's added noise on the card, (update - sgd's update) / -lr
+    over the model's 33,088 values a step: its mean within NOISE_SIGMAS
+    standard errors of 0 and its variance within NOISE_SIGMAS of eta /
+    (1 + t)^gamma.  The worst of each, in standard errors."""
+    import torch
+    from fv3net_torch.fit.config import OptimizerConfig
+
+    leaves, value_fn = tail_problem(device, torch.float64)
+    lr, eta, gamma = 1e-2, 0.01, 0.55  # optax's eta and gamma
+    rule = OptimizerConfig("noisy_sgd", {"learning_rate": lr,
+                                         "seed": 1}).instance
+    worst_mean = worst_var = 0.0
+    for t in range(NOISE_STEPS):
+        _, grads = value_and_grad(value_fn, leaves)
+        before = [p.clone() for p in leaves]
+        rule.step(leaves, grads)
+        noise = torch.cat([((p - b) + lr * g).reshape(-1) / -lr
+                           for p, b, g in zip(leaves, before, grads)])
+        n, var = noise.numel(), eta / (1 + t) ** gamma
+        check(n == 33088, f"noisy_sgd: {n} values a step, expected 33,088")
+        mean_se = abs(noise.mean().item()) / math.sqrt(var / n)
+        var_se = abs(noise.var().item() - var) / (var * math.sqrt(2 / (n - 1)))
+        check(mean_se <= NOISE_SIGMAS and var_se <= NOISE_SIGMAS,
+              f"noisy_sgd step {t}: mean {mean_se:.2f}, variance "
+              f"{var_se:.2f} standard errors off (bound {NOISE_SIGMAS})")
+        worst_mean, worst_var = max(worst_mean, mean_se), max(worst_var,
+                                                              var_se)
+    return worst_mean, worst_var
+
+
+def phase_optax_tail(device, smi=""):
+    """Phase 34 (see the module's docstring).  Returns ms of a float32
+    epoch by rule and schedule."""
+    import torch
+
+    t0 = time.perf_counter()
+    shapes = [(128, 2 * NPZ), (128,), (128, 128), (128,), (2 * NPZ, 128),
+              (2 * NPZ,)]
+    times, gaps = {}, {}
+    for name, kwargs in OPTAX_TAIL_RULES.items():
+        kwargs = dict(kwargs)
+        if name not in NO_DEFAULT_RATE:
+            kwargs.setdefault("learning_rate", 1e-3)
+        if name == "noisy_sgd":
+            with _Replayed() as rec:
+                times[name], gaps[name] = tail_gates(
+                    name, {"name": name, "kwargs": kwargs}, device, shapes,
+                    rec.replay)
+        else:
+            times[name], gaps[name] = tail_gates(
+                name, {"name": name, "kwargs": kwargs}, device, shapes)
+    for name, (rule, kwargs) in OPTAX_TAIL_SCHEDULES.items():
+        runs = []
+        for where in (device, "cpu"):
+            with _RecordedRates(name) as rec:
+                tail_train(where, torch.float64, {
+                    "name": rule, "learning_rate_schedule": {
+                        "name": name, "kwargs": kwargs or _join_kwargs()}})
+            runs.append(rec.rates)
+        check(runs[0] == runs[1] and [c for c, _ in runs[0]] == list(
+            range(256 // OPTAX_TAIL_BATCH)), f"{name}: rates {runs}")
+        label = f"{rule} under {name}"
+        times[label], gaps[label] = tail_gates(label, {
+            "name": rule, "learning_rate_schedule": {
+                "name": name, "kwargs": kwargs or _join_kwargs()}},
+            device, shapes)
+    # the configurations the reference's trainer refuses: its update
+    # passes no loss
+    for name in ("polyak_sgd", "lbfgs"):
+        try:
+            tail_train(device, torch.float32, {"name": name})
+        except TypeError:
+            continue
+        raise SmokeFailure(f"{name} through the trainer did not raise "
+                           "TypeError")
+    solved = {}
+    for name, kwargs in (("lbfgs", {}), ("polyak_sgd", {}),
+                         ("polyak_sgd", {"variant": "sps+", "f_min": 1.5})):
+        label = f"{name} {kwargs}"
+        card, losses = tail_solve(device, name, kwargs)
+        cpu, cpu_losses = tail_solve("cpu", name, kwargs)
+        gaps[label] = worst_of_scale(card, cpu)
+        check(gaps[label] <= TRAIN_F64_RTOL, f"{label} float64: card "
+              f"against CPU {gaps[label]:.3e} > {TRAIN_F64_RTOL}")
+        if name == "lbfgs":
+            check(all(b <= a for a, b in zip(losses, losses[1:])),
+                  f"lbfgs: the loss rose: {losses}")
+        solved[label] = (losses[0], losses[-1])
+    mean_se, var_se = noise_statistics(device)
+    log("  float64 card against CPU, of scale: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in gaps.items()))
+    log("  full-batch loss over the iterations: " + ", ".join(
+        f"{k} {a:.4g} -> {b:.4g}" for k, (a, b) in solved.items()))
+    log(f"  noisy_sgd's noise over {NOISE_STEPS} steps: mean within "
+        f"{mean_se:.2f}, variance within {var_se:.2f} standard errors")
+    log(f"  ms a float32 epoch (host clock, {256 // OPTAX_TAIL_BATCH} "
+        f"updates) on {smi}: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in times.items()))
+    log(f"  phase 34 in {time.perf_counter() - t0:.1f} s")
+    return times
+
+
 def main():
     import argparse
 
@@ -9131,6 +9464,10 @@ def main():
           "ne30pg2, the EndToEnd job chain and the run-simulation template "
           "as subprocesses")
     entry_launches = phase_entry_points(device, tree, smi)
+
+    phase("34: the optax tail (the 18 rules and 5 schedules left, through "
+          "the dense trainer and on the flagship's full-batch loss)")
+    phase_optax_tail(device, smi)
 
     # each kernel's launches come from the run of the path it lies on
     counts = {k: v + entry_launches[k] for k, v in counts.items()}

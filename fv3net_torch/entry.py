@@ -47,17 +47,13 @@ PRODUCTION_DYCORE = DycoreConfig(
 )
 
 
-def train_entry_model(npz: int, dtype=torch.float32, device="cuda",
-                      seed: int = 0, hidden=(128, 128), n: int = 256,
-                      dq_scale=(1e-5, 1e-8)) -> DenseModel:
-    """The reference entries' dQ1/dQ2 dense model, trained as they train
-    it (``__graft_entry__.py:47-79``, ``:313-348``): ``n`` numpy samples
-    from ``np.random.RandomState(seed)`` (T, q and tendencies of the
-    scales ``dq_scale``), ``hidden`` layers of one width, one epoch of
-    :func:`~fv3net_torch.fit.dense.train_dense_model` on ``device`` in
-    ``dtype``.  The initial weights are the port's He-normal draws
-    seeded with ``seed``: the reference's distribution, not its
-    numbers, so the trained model is not the reference's either."""
+def entry_batch(npz: int, dtype=torch.float32, device="cuda",
+                seed: int = 0, n: int = 256,
+                dq_scale=(1e-5, 1e-8)) -> Dataset:
+    """The reference entries' training samples (``__graft_entry__.py:
+    47-79``): ``n`` numpy samples from ``np.random.RandomState(seed)``
+    (T, q and tendencies of the scales ``dq_scale``) on ``device`` in
+    ``dtype``."""
     rng = np.random.RandomState(seed)
     columns = {
         "air_temperature": 260 + 30 * rng.rand(n, npz),
@@ -65,17 +61,30 @@ def train_entry_model(npz: int, dtype=torch.float32, device="cuda",
         "dQ1": dq_scale[0] * rng.randn(n, npz),
         "dQ2": dq_scale[1] * rng.randn(n, npz),
     }
-    batch = Dataset({
+    return Dataset({
         k: Quantity(torch.tensor(v, dtype=dtype, device=device),
                     ("sample", "z"))
         for k, v in columns.items()
     })
+
+
+def train_entry_model(npz: int, dtype=torch.float32, device="cuda",
+                      seed: int = 0, hidden=(128, 128), n: int = 256,
+                      dq_scale=(1e-5, 1e-8)) -> DenseModel:
+    """The reference entries' dQ1/dQ2 dense model, trained as they train
+    it (``__graft_entry__.py:47-79``, ``:313-348``): the samples of
+    :func:`entry_batch`, ``hidden`` layers of one width, one epoch of
+    :func:`~fv3net_torch.fit.dense.train_dense_model` on ``device`` in
+    ``dtype``.  The initial weights are the port's He-normal draws
+    seeded with ``seed``: the reference's distribution, not its
+    numbers, so the trained model is not the reference's either."""
     hp = DenseHyperparameters(
         input_variables=["air_temperature", "specific_humidity"],
         output_variables=["dQ1", "dQ2"],
         hidden_layers=len(hidden), width=hidden[0], epochs=1, seed=seed,
     )
-    return train_dense_model(hp, [batch])
+    return train_dense_model(
+        hp, [entry_batch(npz, dtype, device, seed, n, dq_scale)])
 
 
 def flagship(npx: int = 48, npz: int = 32, radiation: str = "rrtmg",

@@ -20,15 +20,6 @@ from typing import List
 from fv3net_torch.runtime.config import UserConfig
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """The error of an option the port does not run, naming its item of
-    ROADMAP.md's Queue 1."""
-    return NotImplementedError(
-        f"{what} is not ported to fv3net_torch yet (ROADMAP.md Queue 1 "
-        f"item {item})"
-    )
-
-
 def _getter(mapper, config: UserConfig, timestep: float):
     """Dataset getter with an index-keyed fallback: mappers keyed by
     %Y%m%d.%H%M%S labels resolve by time; integer-keyed zarr stores

@@ -236,15 +236,26 @@ def test_schedules_match_optax(name, kwargs):
 
 
 def test_unported_names_raise():
-    """optax names the port does not write still raise the port's
-    not-ported error (item 9); the trainer registry now has every
-    trainer of the reference, the random forest among them."""
+    """The names the port wrote last build (``lamb``, ``sgdr_schedule``);
+    a name optax lacks raises the reference's ValueError with its
+    message in both packages; the trainer registry has every trainer of
+    the reference, the random forest among them."""
+    from fv3net_tpu.fit import config as jconfig
     from fv3net_tpu.fit import train as jtrain
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tconfig.OptimizerConfig("lamb").instance
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tconfig.LearningRateScheduleConfig("sgdr_schedule", {}).instance
+    tconfig.OptimizerConfig("lamb", {"learning_rate": 1e-3}).instance
+    cosine = {"init_value": 0.0, "peak_value": 1e-2, "warmup_steps": 2,
+              "decay_steps": 5}
+    assert tconfig.LearningRateScheduleConfig(
+        "sgdr_schedule", {"cosine_kwargs": [cosine] * 2}).instance(3) > 0
+    for cls, name in (("OptimizerConfig", "Lambda"),
+                      ("LearningRateScheduleConfig", "sgdr")):
+        messages = []
+        for config in (tconfig, jconfig):
+            with pytest.raises(ValueError) as err:
+                getattr(config, cls)(name=name).instance
+            messages.append(str(err.value))
+        assert messages[0] == messages[1], messages
     assert (ttrain.get_training_function("sklearn_random_forest").__name__
             == jtrain.get_training_function("sklearn_random_forest").__name__)
 

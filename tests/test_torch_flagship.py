@@ -237,6 +237,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import fv3net_torch.artifacts.cli, fv3net_torch.core.filesystem\n"
         "import fv3net_torch.core.testing\n"
         "import fv3net_torch.physics.radiation.rrtmg.validate\n"
+        "import fv3net_torch.fit.optimizers, fv3net_torch.fit.schedules\n"
+        "import fv3net_torch.fit.linesearch\n"
         "for m in pkgutil.walk_packages(fv3net_torch.__path__, 'fv3net_torch.'):\n"
         "    __import__(m.name)\n"
         "bad = sorted(k for k in sys.modules\n"

@@ -1,6 +1,7 @@
 """Rehearse a phase of ``chip_smoke.py`` on the CPU at a small size, with
 no card, before a run on the H100.
 
+    python tools/rehearse_chip_smoke.py 34   # the optax tail, full width
     python tools/rehearse_chip_smoke.py 33   # the entry points, C6
     python tools/rehearse_chip_smoke.py 32   # the diagnostics, C6
     python tools/rehearse_chip_smoke.py 31   # the scikit-learn models, C6
@@ -19,6 +20,8 @@ environment; phase 30 runs phases 27 and 29 first for its data, phase
 31 phase 29, phase 32 phases 20, 27 and 29 (its CLIs called with
 ``--device cpu``); phase 33 runs the SCREAM case at ne3pg2 (C6) on
 ``NPZ`` levels and its templates' subprocesses with ``device`` cpu;
+phase 34 runs at the card's full width, the CPU standing in for the card
+(its float64 gates then compare the CPU with itself);
 ``KEEP=1`` keeps the phase's temporary directory.  ``UNCLAMPED=1``
 (phase 29) trains the dense models without ``ML_OUTPUT_LIMITS`` and
 prints the largest temperature tendency of each online prediction, in K
@@ -124,8 +127,8 @@ def unclamped():
 
 def main(argv):
     phase = argv[0] if argv else "29"
-    if phase not in ("28", "29", "30", "31", "32", "33"):
-        raise SystemExit(f"no rehearsal of phase {phase} (28 to 33)")
+    if phase not in ("28", "29", "30", "31", "32", "33", "34"):
+        raise SystemExit(f"no rehearsal of phase {phase} (28 to 34)")
     prelude = NO_CARD + (KERNELS_28 if phase == "28"
                          else KERNELS_29 + CPU_DEFAULTS)
     exec(prelude, {})
@@ -169,6 +172,8 @@ def main(argv):
         t0 = time.perf_counter()
         out = cs.phase_diagnostics(device, data, emulated, reservoir)
         print(f"phase 32 alone: {time.perf_counter() - t0:.1f} s")
+    elif phase == "34":
+        out = cs.phase_optax_tail(device, "CPU rehearsal")
     elif phase == "33":
         cs.CLI_DEVICE = cs.WORKFLOW_DEVICE = "cpu"
         cs.SCREAM_CONFIG = dict(cs.SCREAM_CONFIG,
